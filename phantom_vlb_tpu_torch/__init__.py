@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of :mod:`phantom_vlb_tpu` for NVIDIA Hopper (H100).
+
+The JAX package stays the reference; this package mirrors its module paths
+(``models/mistral.py`` here is the counterpart of
+``phantom_vlb_tpu/models/mistral.py``) and imports nothing from it. It covers
+the frozen-baseline serving forward: cached video tokens + text ids ->
+32-layer Mistral-7B -> HRF head -> predictions, masked MSE and streaming
+Pearson. Attention runs through a hand-written CUDA flash-attention forward
+(``csrc/flash_fwd.cu``) on the card, and through its plain PyTorch version
+on CPU tensors.
+
+Entry points default to ``device="cuda"`` and raise when no card is present;
+pass ``device="cpu"`` to run on the CPU.
+"""
+
+__version__ = "0.1.0"

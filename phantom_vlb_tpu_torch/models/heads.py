@@ -1,0 +1,45 @@
+"""Brain readout head: LN -> HRF pooling -> LN -> dropout -> ridge, in f32.
+
+Counterpart of ``phantom_vlb_tpu/models/heads.py``. The head runs in f32
+whatever the backbone's dtype. Dropout is the identity in eval mode, the
+only mode this serving path uses.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+__all__ = ["BrainReadoutHead", "RidgeHead"]
+
+LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+class RidgeHead(nn.Module):
+    """Linear map to parcels with an L2 weight penalty."""
+
+    def __init__(self, hidden_size: int, num_target: int, l2_lambda: float = 0.001):
+        super().__init__()
+        self.l2_lambda = l2_lambda
+        self.linear = nn.Linear(hidden_size, num_target, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor):
+        w = self.linear.weight
+        return self.linear(x), self.l2_lambda * w.float().square().sum()
+
+
+class BrainReadoutHead(nn.Module):
+    def __init__(self, hidden_size: int, num_target: int, l2_lambda: float = 0.001,
+                 dropout_rate: float = 0.1):
+        super().__init__()
+        self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS, dtype=torch.float32)
+        self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS, dtype=torch.float32)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.ridge = RidgeHead(hidden_size, num_target, l2_lambda)
+
+    def forward(self, hidden_states: torch.Tensor, weight_mask: torch.Tensor):
+        """(B, S, E) hidden states, (B, S) HRF weights -> (preds (B, P), l2)."""
+        h = self.layer_norm1(hidden_states.float())
+        pooled = torch.einsum("bse,bs->be", h, weight_mask.float())
+        pooled = self.dropout(self.layer_norm2(pooled))
+        return self.ridge(pooled)

@@ -1,0 +1,64 @@
+"""Port: what the card's machine lacks is never imported, and entry points
+raise rather than fall back when there is no card."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from phantom_vlb_tpu_torch.cli.predict import predict_batches
+from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.models import videollama2 as tv
+from phantom_vlb_tpu_torch.models.convert import init_params
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu")
+
+# Blocks the modules (a None entry in sys.modules makes their import fail),
+# then imports every module of the port and chip_smoke without running it.
+_CHILD = f"""
+import importlib, pkgutil, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import phantom_vlb_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_h5py_yaml_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    modules = len(list((ROOT / "phantom_vlb_tpu_torch").rglob("*.py"))) - 1
+    assert int(proc.stdout.split()[-1]) == modules      # every module was imported
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tv.VLBConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    model = tv.VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        predict_batches(model, [])
+    assert resolve_device("cpu") == torch.device("cpu")
