@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
 Phases, each printed with its wall time; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernel of the path with ``nvcc``;
-3. each kernel against its plain PyTorch version at the serving shapes, plus
-   a ragged length;
+2. build every CUDA source of the paths with ``nvcc``, one process each,
+   all at once (registers and spills per kernel);
+3. each kernel against its plain PyTorch version at the paths' shapes:
+   flash forward and backward at the serving / training shapes, a ragged
+   length and S = 4608 (where the reference takes its split backward); the
+   three LoRA dropout kernels at M = 6144, K = 4096 and 14336,
+   in bits mode and in hash mode (mask read back exactly through dx, keep
+   rate, seed determinism);
 4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
    from a seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
    launch count read around that run alone;
-6. one more batch through the same model under ``torch.profiler``: device
-   time by kernel and by group (flash kernel, GEMMs, the rest) and the
-   device's idle share over the batch;
-7. a narrow model (same geometry, 2 layers) on the card against the same
-   weights in f32 on the CPU;
-8. kernel, plain and library timings with CUDA events, and the bound;
-9. peak host RSS (peak device memory is printed in phases 5 and 8).
+6. one more served batch under ``torch.profiler``: device time by kernel
+   and by group, and the device's idle share;
+7. the full-width LoRA model (r 16, alpha 32, fused u8 dropout 0.1, remat
+   per layer): 3 steps of ``train_batches`` at batch 3, launch counts
+   against what the code implies, gradients reaching layer 0's adapters;
+8. one more LoRA step under ``torch.profiler``;
+9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
+10. narrow models (same geometry, 2 layers, 256 wide) on the card against
+    the same weights in f32 on the CPU: served predictions, and the LoRA
+    loss and adapter gradients of one step;
+11. timings: each kernel's device time (``torch.profiler``), its wrapper's
+    (device and CUDA events), its plain version's and a library yardstick's,
+    beside the bound;
+12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON record. Without a card it exits 1 and prints no result.
@@ -43,30 +55,86 @@ from torch.profiler import ProfilerActivity, profile
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.models.convert import init_params
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig
-from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB
+from phantom_vlb_tpu_torch.models.videollama2 import (
+    VLBConfig,
+    VideoLLaMA2VLB,
+    trainable_parameters,
+)
+from phantom_vlb_tpu_torch.ops._build import build_all
 from phantom_vlb_tpu_torch.ops.flash_attention import (
+    FLASH_BWD,
     FLASH_FWD,
     attention_packed,
+    attention_packed_bwd,
+    attention_packed_bwd_plain,
     attention_packed_plain,
 )
+from phantom_vlb_tpu_torch.ops.lora_fused import (
+    LORA_DA,
+    LORA_DX,
+    LORA_FWD,
+    dropout_threshold,
+    fused_dropout_bwd,
+    fused_dropout_bwd_plain,
+    fused_dropout_matmul,
+    fused_dropout_matmul_plain,
+    hash_bytes,
+)
+from phantom_vlb_tpu_torch.train.loop import train_batches
+from phantom_vlb_tpu_torch.train.optim import AdamWCosine
+from phantom_vlb_tpu_torch.train.step import loss_fn
 
 SEED = 0
 BATCH = 5                 # configs/experiment/vlb_friends_baseline.yaml
+LORA_BATCH = 3            # configs/experiment/vlb_friends_lora.yaml:14
 N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
+LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
+KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd": FLASH_BWD,
+           "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA}
+REPLACES = {
+    "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
+    "flash_bwd": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:284"),
+    "lora_fwd": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:62"),
+    "lora_dx": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:92"),
+    "lora_da": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:111"),
+}
 # bf16 kernel vs f32 plain on the same bf16 inputs (q pre-scaled in bf16 on
-# both sides): out is bf16 (2^-8 relative rounding at |out| <= ~1, plus bf16
-# P in the PV product); lse sums f32 scores that differ only in order.
+# both sides): out is bf16 (2^-8 relative at |out| <= ~1, plus bf16 P in the
+# PV product); lse sums f32 scores that differ only in order.
 OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# Flash backward vs its plain version, max|err| / max|ref| of dq, dk, dv:
+# bf16 outputs (2^-9) and bf16 p and ds, whose roundings may flip where the
+# kernel's exp2 and the plain exp differ by an ulp.
+BWD_REL_TOL = 2e-2
+# LoRA kernels vs plain, max|err| / max|ref|: mid and dx are bf16 (one
+# rounding after f32 sums in another order), dA is f32 (order only).
+MID_REL_TOL, DX_REL_TOL, DA_REL_TOL = 1e-2, 1e-2, 1e-3
+KEEP_RATE_TOL = 1e-3
 # Narrow bf16 model on the card vs the same weights in f32 on the CPU: two
 # layers of bf16 activations (2^-8 relative each) ahead of an f32 head whose
 # predictions have unit scale.
 PRED_TOL = 1e-1
+# The same for one LoRA step, as |err| / |ref| of the loss and max|err| /
+# max|ref| over all adapter gradients: bf16 activations and gradients
+# through two layers, and the dropout scale 1/keep rounded to bf16 on the
+# card (1.109375) but not in f32 (1.113043).
+LORA_LOSS_TOL, LORA_GRAD_TOL = 1e-3, 5e-2
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+
+
+def host_rss_gb() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize() / 1e9
+
+
+def peak_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9   # KiB on Linux
 
 
 @contextlib.contextmanager
@@ -74,9 +142,9 @@ def phase(name: str):
     print(f"[{name}] ...", flush=True)
     t0 = time.perf_counter()
     yield
-    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    print(f"[{name}] ok in {time.perf_counter() - t0:.2f} s (peak host RSS so far {rss_gb:.2f} GB)",
-          flush=True)
+    peak_gb = peak_rss_gb()
+    print(f"[{name}] ok in {time.perf_counter() - t0:.2f} s (host RSS now {host_rss_gb():.2f} GB, "
+          f"peak so far {peak_gb:.2f} GB)", flush=True)
 
 
 def card_name_and_power() -> str:
@@ -87,11 +155,33 @@ def card_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernel() -> None:
-    FLASH_FWD.load()
-    report = [ln.strip() for ln in FLASH_FWD.build_log.splitlines()
-              if "registers" in ln or "spill" in ln]
-    print(f"  {FLASH_FWD.source.name}: " + " | ".join(report or ["cached"]))
+def build_kernels() -> None:
+    sources = sorted({k.source for k in KERNELS.values()})
+    build_all(sources)
+    for kernel in KERNELS.values():
+        kernel.load()
+    for source in sources:
+        log = next(k.build_log for k in KERNELS.values() if k.source == source)
+        report = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        print(f"  {source.name}: " + " | ".join(report or ["cached"]))
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.float() - want.float()).abs().max().item()
 
 
 def attention_inputs(b: int, s: int, gen: torch.Generator, dev):
@@ -104,23 +194,87 @@ def attention_inputs(b: int, s: int, gen: torch.Generator, dev):
     return q, k, v, kv_mask
 
 
-def check_flash(b: int, s: int, gen, dev) -> float:
-    """Kernel vs plain (f32) on one input; returns out's max abs error."""
+def check_flash(b: int, s: int, gen, dev) -> tuple[float, float]:
+    """Forward and backward kernels vs plain (f32) on one input; returns the
+    forward's out max abs error and the backward's over dq, dk, dv."""
     q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
     out, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
+    do = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    grads = attention_packed_bwd(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask)
     torch.cuda.synchronize()
     # The kernel pre-scales q in bf16; give the plain version that same q.
     q_s = q * torch.tensor(D ** -0.5, dtype=torch.bfloat16, device=dev)
     out_ref, lse_ref = attention_packed_plain(
         q_s.float(), k.float(), v.float(), HQ, HKV, sm_scale=1.0, kv_mask=kv_mask
     )
-    out_err = (out.float() - out_ref).abs().max().item()
-    lse_err = (lse - lse_ref).abs().max().item()
+    out_err, lse_err = abs_err(out, out_ref), abs_err(lse, lse_ref)
     print(f"  flash_fwd B={b} S={s}: out max|err| {out_err:.3e} (tol {OUT_TOL}), "
           f"lse max|err| {lse_err:.3e} (tol {LSE_TOL})")
     if not (out_err <= OUT_TOL and lse_err <= LSE_TOL):
         raise AssertionError(f"flash_fwd disagrees with its plain version at B={b} S={s}")
-    return out_err
+    del out_ref, lse_ref
+    refs = attention_packed_bwd_plain(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask)
+    rels = [rel_err(g, r) for g, r in zip(grads, refs)]
+    bwd_err = max(abs_err(g, r) for g, r in zip(grads, refs))
+    print(f"  flash_bwd B={b} S={s}: max|err|/max|ref| dq {rels[0]:.3e}, dk {rels[1]:.3e}, "
+          f"dv {rels[2]:.3e} (tol {BWD_REL_TOL}); max|err| {bwd_err:.3e}")
+    if not max(rels) <= BWD_REL_TOL:
+        raise AssertionError(f"flash_bwd disagrees with its plain version at B={b} S={s}")
+    return out_err, bwd_err
+
+
+def lora_inputs(k: int, gen, dev):
+    x = torch.randn(LORA_M, k, generator=gen, device=dev, dtype=torch.bfloat16)
+    a = (k ** -0.5 * torch.randn(k, LORA_R, generator=gen, device=dev)).to(torch.bfloat16)
+    dmid = torch.randn(LORA_M, LORA_R, generator=gen, device=dev, dtype=torch.bfloat16)
+    return x, a, dmid
+
+
+def check_lora(k: int, gen, dev) -> dict[str, float]:
+    """The three kernels vs plain at (6144, k), r 16, p 0.1, in bits mode and
+    in hash mode; returns each kernel's max abs error (bits mode)."""
+    thr, keep = dropout_threshold(LORA_P)
+    x, a, dmid = lora_inputs(k, gen, dev)
+    bits = torch.randint(0, 256, x.shape, generator=gen, device=dev, dtype=torch.uint8)
+    errs = {}
+    for mode, b, seed in (("bits", bits, 0), ("hash", None, 1234)):
+        mid = fused_dropout_matmul(x, a, seed, LORA_P, bits=b)
+        dx, da = fused_dropout_bwd(x, a, dmid, seed, LORA_P, bits=b)
+        torch.cuda.synchronize()
+        mid_ref = fused_dropout_matmul_plain(x, a, seed, thr, b)
+        dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, seed, thr, b)
+        rels = (rel_err(mid, mid_ref), rel_err(dx, dx_ref), rel_err(da, da_ref))
+        same_drops = bool(torch.equal(dx == 0, dx_ref == 0))
+        print(f"  lora K={k} {mode}: max|err|/max|ref| fwd {rels[0]:.3e} (tol {MID_REL_TOL}), "
+              f"dx {rels[1]:.3e} (tol {DX_REL_TOL}), dA {rels[2]:.3e} (tol {DA_REL_TOL}); "
+              f"dx zeros where plain's are: {same_drops}")
+        if not (rels[0] <= MID_REL_TOL and rels[1] <= DX_REL_TOL and rels[2] <= DA_REL_TOL and same_drops):
+            raise AssertionError(f"LoRA kernels disagree with their plain versions ({mode}, K={k})")
+        if mode == "bits":
+            errs = {"lora_fwd": abs_err(mid, mid_ref), "lora_dx": abs_err(dx, dx_ref),
+                    "lora_da": abs_err(da, da_ref)}
+        del mid_ref, dx_ref, da_ref
+    # The hash mask read back exactly: dmid = e0 rows and A = e0 columns make
+    # dmid @ A^T all ones, so dx = mask / keep.
+    e_a = torch.zeros_like(a)
+    e_a[:, 0] = 1
+    e_d = torch.zeros_like(dmid)
+    e_d[:, 0] = 1
+    masks = {}
+    for seed in (1234, 1234, 99):
+        dx, _ = fused_dropout_bwd(x, e_a, e_d, seed, LORA_P, need_da=False)
+        masks.setdefault(seed, []).append(dx != 0)
+    plain = hash_bytes(1234, LORA_M, k, dev) >= thr
+    mismatches = int((masks[1234][0] != plain).sum())
+    rate = masks[1234][0].float().mean().item()
+    same = bool(torch.equal(masks[1234][0], masks[1234][1]))
+    differ = (masks[1234][0] != masks[99][0]).float().mean().item()
+    print(f"  lora K={k} hash mask via dx: {mismatches} mismatches with the plain hash, keep rate "
+          f"{rate:.6f} (want {keep:.6f} +- {KEEP_RATE_TOL}), same seed same mask {same}, "
+          f"another seed differs in {differ:.4f} of elements")
+    if mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same or differ < 0.1:
+        raise AssertionError(f"LoRA hash mask is not exact, at its rate or deterministic (K={k})")
+    return errs
 
 
 def check_predictions(res: dict, rows: int, num_target: int) -> None:
@@ -132,17 +286,21 @@ def check_predictions(res: dict, rows: int, num_target: int) -> None:
 
 
 def kernel_group(name: str) -> str:
-    if "flash_fwd" in name:
-        return "flash_fwd"
+    for group in ("flash_fwd", "flash_bwd"):
+        if group in name:
+            return group
+    if "lora_" in name:
+        return "lora"
     return "gemm" if any(m in name.lower() for m in GEMM_MARKERS) else "other"
 
 
-def profile_batch(model, batch, dev) -> None:
-    """Trace one batch of a warm model: device time by kernel and by group."""
+def traced(fn, label: str) -> None:
+    """Trace ``fn()`` on a warm model: device time by kernel and by group,
+    and the idle share of its wall time."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict_batches(model, [batch], dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -152,26 +310,112 @@ def profile_batch(model, batch, dev) -> None:
     for name, ms, _ in by_kernel:
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
     busy_ms = sum(groups.values())
-    print(f"  traced batch wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+    print(f"  traced {label} wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           + (f"{1.0 - busy_ms / wall_ms:.4f}" if busy_ms else "not measured (no device events)"))
-    for name, ms, count in by_kernel[:12]:
-        print(f"  {ms:10.3f} ms  x{count:<5d} {name[:110]}")
+    for name, ms, count in by_kernel[:14]:
+        print(f"  {ms:10.3f} ms  x{count:<5d} ({ms / count:.4f} ms each) {name[:100]}")
     for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
 
 
-def narrow_reference_check(gen, dev) -> None:
-    """A 2-layer, 256-wide model at the serving geometry: card (bf16, kernel)
-    against the same weights in f32 on the CPU (plain attention)."""
-    mistral = MistralConfig.tiny(
-        vocab_size=32000, hidden_size=256, intermediate_size=512,
-        num_attention_heads=2, num_key_value_heads=1, head_dim=D, dtype=torch.bfloat16,
+def lora_train_config(mistral: MistralConfig | None = None, **overrides) -> VLBConfig:
+    """The reference's LoRA recipe with the fused u8 dropout the bench runs."""
+    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True)
+    mistral = MistralConfig.full(lora=lora, remat=True) if mistral is None else mistral
+    return VLBConfig.full(use_lora=True, mistral=mistral, **overrides)
+
+
+def expected_train_launches(layers: int, steps: int) -> dict[str, int]:
+    """What one LoRA step launches with remat per layer: every layer's forward
+    runs twice (the pass and its replay in the backward), so 2 flash forwards
+    and 2 x 7 LoRA forwards; one flash backward; 7 dA; and 7 dx except for
+    layer 0's q, k and v, whose input (the normed embeddings) needs no
+    gradient."""
+    return {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
+            "lora_fwd": 14 * layers * steps, "lora_dx": (7 * layers - 3) * steps,
+            "lora_da": 7 * layers * steps}
+
+
+def grad_of(model, name: str) -> torch.Tensor:
+    return dict(model.named_parameters())[name].grad
+
+
+def train_lora_full(gen, dev) -> dict[str, int]:
+    cfg = lora_train_config()
+    model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
+    optimizer = AdamWCosine(trainable_parameters(model))
+    n_train = sum(p.numel() for p in optimizer.params)
+    print(f"  {cfg.mistral.num_hidden_layers} layers, {n_train / 1e6:.3f} M trainable "
+          f"({len(optimizer.params)} tensors), batch {LORA_BATCH}")
+    batches = synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev)
+    seeds = torch.Generator().manual_seed(SEED)
+    q_a, q_b = (f"model.layers.0.self_attn.q_proj.lora_{x}" for x in "ab")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runs = []
+    for step in range(N_BATCHES):
+        runs.append(train_batches(model, [batches[step]], device=dev, generator=seeds,
+                                  optimizer=optimizer))
+        ga, gb = grad_of(model, q_a), grad_of(model, q_b)
+        print(f"  step {step + 1}: |grad| layer 0 q_proj lora_a {ga.norm().item():.4e}, "
+              f"lora_b {gb.norm().item():.4e}")
+        if step == 0 and not (gb.abs().max() > 0 and torch.isfinite(gb).all() and ga.abs().max() == 0):
+            raise AssertionError("step 1: layer 0's lora_b needs a non-zero gradient, lora_a exactly 0")
+        if step == 1 and not (ga.abs().max() > 0 and torch.isfinite(ga).all()):
+            raise AssertionError("step 2: layer 0's lora_a needs a non-zero finite gradient")
+    launches = read_launches()
+    step_ms = [float(r["step_ms"][0]) for r in runs]
+    loss = [float(r["brain_loss"][0]) for r in runs]
+    norm = [float(r["grad_norm"][0]) for r in runs]
+    print(f"  step ms {[round(x, 3) for x in step_ms]}, brain_loss {[round(x, 5) for x in loss]}, "
+          f"grad norm {[round(x, 5) for x in norm]}, launches {launches}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not np.isfinite(loss + norm).all():
+        raise AssertionError("non-finite LoRA training loss or gradient norm")
+    expected = expected_train_launches(cfg.mistral.num_hidden_layers, N_BATCHES)
+    if launches != expected:
+        raise AssertionError(f"LoRA training launched {launches}, want {expected}")
+    print(f"  clips/s at batch {LORA_BATCH} (steps 2-3): "
+          f"{[round(LORA_BATCH / (x / 1e3), 3) for x in step_ms[1:]]}")
+    with phase("8 profile one LoRA step"):
+        traced(lambda: train_batches(model, [batches[-1]], device=dev, generator=seeds,
+                                     optimizer=optimizer), "LoRA train step")
+    return launches
+
+
+def train_baseline_full(gen, dev) -> None:
+    cfg = VLBConfig.full()
+    model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
+    batches = synthetic_batches(cfg, N_BATCHES, BATCH, np.random.default_rng(SEED), gen, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = train_batches(model, batches, device=dev, generator=torch.Generator().manual_seed(SEED))
+    launches = read_launches()
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"  {n_train} trainable (head only), step ms {[round(float(x), 3) for x in res['step_ms']]}, "
+          f"brain_loss {[round(float(x), 5) for x in res['brain_loss']]}, launches {launches}")
+    want = {n: (cfg.mistral.num_hidden_layers * N_BATCHES if n == "flash_fwd" else 0) for n in KERNELS}
+    if launches != want or not np.isfinite(res["brain_loss"]).all():
+        raise AssertionError(f"baseline training: launches {launches} (want {want}), "
+                             f"loss {res['brain_loss']}")
+
+
+def narrow_mistral(dtype, lora=None) -> MistralConfig:
+    return MistralConfig.tiny(
+        vocab_size=32000, hidden_size=256, intermediate_size=512, num_attention_heads=2,
+        num_key_value_heads=1, head_dim=D, dtype=dtype, lora=lora, remat=lora is not None,
     )
-    cfg = VLBConfig.full(mistral=mistral)
+
+
+def narrow_reference_check(gen, dev) -> None:
+    """A 2-layer, 256-wide model at the serving geometry: card (bf16, kernels)
+    against the same weights in f32 on the CPU (plain versions)."""
+    cfg = VLBConfig.full(mistral=narrow_mistral(torch.bfloat16))
     sd = init_params(cfg, dev, gen)
     batches = synthetic_batches(cfg, 1, 2, np.random.default_rng(SEED), gen, dev)
     card = predict_batches(VideoLLaMA2VLB.from_state_dict(cfg, sd), batches, dev)
-    cfg32 = dataclasses.replace(cfg, mistral=dataclasses.replace(mistral, dtype=torch.float32))
+    cfg32 = dataclasses.replace(cfg, mistral=narrow_mistral(torch.float32))
     cpu_model = VideoLLaMA2VLB.from_state_dict(cfg32, sd, device="cpu")
     cpu_batches = [{k: torch.as_tensor(v).cpu() for k, v in bt.items()} for bt in batches]
     ref = predict_batches(cpu_model, cpu_batches, "cpu")
@@ -181,6 +425,39 @@ def narrow_reference_check(gen, dev) -> None:
     print(f"  narrow model: preds max|card - cpu f32| {err:.3e} (tol {PRED_TOL}), max|pred| {scale:.3f}")
     if not err <= PRED_TOL:
         raise AssertionError("narrow model on the card disagrees with its f32 CPU reference")
+
+
+def narrow_lora_check(gen, dev) -> None:
+    """One LoRA step's loss and adapter gradients of the narrow model (fused
+    hash dropout at p 0.1, which the CPU's plain version reproduces bit for
+    bit; head dropout off, whose mask comes from a device generator)."""
+    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True)
+    cfg = lora_train_config(narrow_mistral(torch.bfloat16, lora), dropout_rate=0.0)
+    sd = init_params(cfg, dev, gen)
+    for key in sd:
+        if key.endswith("lora_b"):       # non-zero, so lora_a's gradient is too
+            sd[key] = 0.05 * torch.randn(sd[key].shape, generator=gen, device=dev)
+    batch = synthetic_batches(cfg, 1, 1, np.random.default_rng(SEED), gen, dev)[0]
+    results = []
+    for device, mcfg in ((dev, cfg), ("cpu", dataclasses.replace(cfg, mistral=narrow_mistral(torch.float32, lora)))):
+        model = VideoLLaMA2VLB.from_state_dict(mcfg, sd, device=device)
+        trainable_parameters(model)
+        model.train()
+        loss = loss_fn(model, {k: torch.as_tensor(v).to(device) for k, v in batch.items()}, seed=77)[0]
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if "lora_" in n}
+        results.append((loss.item(), grads))
+        del model
+    (loss_c, g_c), (loss_r, g_r) = results
+    loss_rel = abs(loss_c - loss_r) / abs(loss_r)
+    flat_c = torch.cat([g_c[n].flatten() for n in sorted(g_r)])
+    flat_r = torch.cat([g_r[n].flatten() for n in sorted(g_r)])
+    grad_rel = rel_err(flat_c, flat_r)
+    print(f"  narrow LoRA step: loss card {loss_c:.6f} cpu f32 {loss_r:.6f} (|err|/|ref| {loss_rel:.3e}, "
+          f"tol {LORA_LOSS_TOL}); adapter grads max|err|/max|ref| {grad_rel:.3e} (tol {LORA_GRAD_TOL}) "
+          f"over {len(g_r)} tensors, max|ref| {flat_r.abs().max().item():.4e}")
+    if not (loss_rel <= LORA_LOSS_TOL and grad_rel <= LORA_GRAD_TOL and flat_c.abs().max() > 0):
+        raise AssertionError("narrow LoRA step on the card disagrees with its f32 CPU reference")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -195,26 +472,137 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_flash(gen, dev) -> dict:
-    b, s = BATCH, REFERENCE_GEOMETRY.feature_len
-    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
-    ms = cuda_ms(lambda: attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask), 20)
-    plain_ms = cuda_ms(lambda: attention_packed_plain(q, k, v, HQ, HKV, kv_mask=kv_mask), 3, 1)
-    # Library yardstick, timed only: the same causal + kv-padding attention.
-    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2) for t in (q, k, v))
-    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None] & (kv_mask > 0)[:, None, None, :]
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep, enable_gqa=True), 10
-    )
-    flops = 4 * b * HQ * D * s * (s + 1) // 2      # causal QK^T + PV
-    # q, k, v and the bias row read once; out and lse written once.
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4
+def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> tuple[float, float]:
+    """Device time per call from ``torch.profiler``: of the kernels whose
+    name holds ``kernel``, and of every kernel the call launches. A session
+    that recorded none of them (the tracer does drop sessions now and then)
+    is measured again, and after ``tries`` such sessions this raises."""
+    for _ in range(warmup):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = sum(e.device_time_total for e in events if kernel in e.key)
+        if named > 0:
+            return named / 1e3 / iters, sum(e.device_time_total for e in events) / 1e3 / iters
+    raise RuntimeError(f"torch.profiler recorded no device time for {kernel or 'the call'} in {tries} sessions")
+
+
+def timed(kernel_fn, kernel: str, plain_fn, library_fn, iters: int) -> dict:
+    """The kernel's own device time, the device time of everything its
+    wrapper, the plain version and the library call launch, and the
+    wrapper's CUDA-event time per call (which includes host gaps)."""
+    ms, wrapper_ms = device_ms(kernel_fn, iters, kernel)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "wrapper_event_ms": cuda_ms(kernel_fn, iters),
+            "plain_ms": device_ms(plain_fn, 2, warmup=1)[1],
+            "library_ms": device_ms(library_fn, iters)[1]}
+
+
+def report(name: str, shape: str, rec: dict, flops: float, nbytes: float) -> None:
+    rec.update(bound(flops, nbytes))
+    print(f"  {name} {shape}: kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f} ms on the device, "
+          f"{rec['wrapper_event_ms']:.4f} ms by CUDA events), plain {rec['plain_ms']:.4f} ms, library "
+          f"{rec['library_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{nbytes / rec['ms'] / 1e6:.1f} GB/s achieved")
+
+
+def bound(flops: float, nbytes: float) -> dict:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f"  flash_fwd B={b} S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms; {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms, "
-          f"{nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s achieved")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def time_flash(gen, dev) -> dict[str, dict]:
+    """Flash forward at the serving shape, backward at the training shape;
+    the library is SDPA with the same causal + padding mask (timed only)."""
+    out = {}
+    s = REFERENCE_GEOMETRY.feature_len
+
+    def keep_mask(kv_mask):
+        n = kv_mask.shape[1]
+        return torch.ones(n, n, dtype=torch.bool, device=dev).tril()[None, None] & (kv_mask > 0)[:, None, None, :]
+
+    b = BATCH
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2) for t in (q, k, v))
+    keep = keep_mask(kv_mask)
+    out["flash_fwd"] = timed(
+        lambda: attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask), "flash_fwd_kernel",
+        lambda: attention_packed_plain(q, k, v, HQ, HKV, kv_mask=kv_mask),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep, enable_gqa=True), 10)
+    # q, k, v and the bias row read once; out and lse written once.
+    report("flash_fwd", f"B={b} S={s}", out["flash_fwd"], 4 * b * HQ * D * s * (s + 1) // 2,
+           (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4)
+    del q, k, v, q4, k4, v4, keep
+
+    b = LORA_BATCH
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
+    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep_mask(kv_mask), enable_gqa=True)
+    do4 = do.view(b, s, -1, D).transpose(1, 2)
+    out["flash_bwd"] = timed(
+        lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask), "flash_bwd_kernel",
+        lambda: attention_packed_bwd_plain(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask),
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 10)
+    # Five products over the causal half. q, o, do read and dq written (Hq
+    # wide); k, v read and dk, dv written (Hkv wide); lse and bias read.
+    report("flash_bwd", f"B={b} S={s}", out["flash_bwd"], 10 * b * HQ * D * s * (s + 1) // 2,
+           4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4)
+    del q, k, v, o, lse, do, q4, k4, v4, o4, do4
+    # The same kernel where the reference takes its split backward
+    # (_dq_kernel + _dkv_kernel, skv > 4096): printed, not in the JSON line.
+    b, s = 1, 4608
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
+    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep_mask(kv_mask), enable_gqa=True)
+    do4 = do.view(b, s, -1, D).transpose(1, 2)
+    long = timed(
+        lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask), "flash_bwd_kernel",
+        lambda: attention_packed_bwd_plain(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask),
+        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 5)
+    report("flash_bwd", f"B={b} S={s}", long, 10 * b * HQ * D * s * (s + 1) // 2,
+           4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4)
+    return out
+
+
+def time_lora(gen, dev) -> dict[str, dict]:
+    """The three kernels (hash mode) at M = 6144, K = 4096 and 14336; the
+    library is the unfused torch sequence on a precomputed mask (timed
+    only). The JSON carries K = 4096, the input width of 6 of a layer's 7
+    sites."""
+    thr, _ = dropout_threshold(LORA_P)
+    out = {}
+    m, r = LORA_M, LORA_R
+    for k in LORA_KS:
+        x, a, dmid = lora_inputs(k, gen, dev)
+        scale = torch.tensor(1.0 / (1.0 - thr / 256.0), dtype=torch.bfloat16, device=dev)
+        mask_scale = (hash_bytes(7, m, k, dev) >= thr).to(torch.bfloat16) * scale
+        cases = {
+            "lora_fwd": (lambda: fused_dropout_matmul(x, a, 7, LORA_P), "lora_fwd_kernel",
+                         lambda: fused_dropout_matmul_plain(x, a, 7, thr),
+                         lambda: (x * mask_scale) @ a, (m * k + k * r + m * r) * 2),
+            "lora_dx": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, need_da=False), "lora_dx_kernel",
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr),
+                        lambda: (dmid @ a.T) * mask_scale, (m * r + k * r + m * k) * 2),
+            "lora_da": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, need_dx=False), "lora_da_kernel",
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr),
+                        lambda: (x * mask_scale).T @ dmid, (m * k + m * r) * 2 + k * r * 4),
+        }
+        for name, (kernel_fn, kernel, plain_fn, library_fn, nbytes) in cases.items():
+            rec = timed(kernel_fn, kernel, plain_fn, library_fn, 20)
+            report(name, f"M={m} K={k}", rec, 2 * m * k * r, nbytes)
+            if k == LORA_KS[0]:
+                out[name] = rec
+        del x, a, dmid, mask_scale
+    return out
 
 
 def main() -> int:
@@ -231,11 +619,23 @@ def main() -> int:
     with phase("1 card"):
         card = card_name_and_power()
         print(card)
-    with phase("2 build kernel"):
-        build_kernel()
+    with phase("2 build kernels"):
+        build_kernels()
     with phase("3 kernels vs plain"):
-        max_abs_err = check_flash(BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
+        max_abs_err = {}
+        max_abs_err["flash_fwd"], max_abs_err["flash_bwd"] = check_flash(
+            LORA_BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
+        fwd_err, _ = check_flash(BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
+        max_abs_err["flash_fwd"] = max(max_abs_err["flash_fwd"], fwd_err)
         check_flash(2, 1000, gen, dev)                 # S not a multiple of 64
+        # Past skv 4096 the reference switches to its split backward
+        # (_dq_kernel + _dkv_kernel, flash_attention.py:583); one kernel here.
+        check_flash(1, 4608, gen, dev)
+        torch.cuda.empty_cache()
+        for k in LORA_KS:
+            for name, err in check_lora(k, gen, dev).items():
+                max_abs_err[name] = max(max_abs_err.get(name, 0.0), err)
+        torch.cuda.empty_cache()
     with phase("4 full-width model"):
         cfg = VLBConfig.full()
         model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
@@ -247,42 +647,51 @@ def main() -> int:
         batches = synthetic_batches(cfg, N_BATCHES, BATCH, np.random.default_rng(SEED), gen, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        FLASH_FWD.launches = 0
+        reset_launches()
         res = predict_batches(model, batches, dev)
-        launches = {FLASH_FWD.symbol: FLASH_FWD.launches}
+        serve_launches = read_launches()
         check_predictions(res, N_BATCHES * BATCH, cfg.num_target)
         print(f"  batch ms {[round(float(x), 3) for x in res['batch_ms']]}, "
               f"brain_loss {[round(float(x), 5) for x in res['brain_loss']]}, "
-              f"corr avg {float(np.nanmean(res['val_corr_roi'])):.5f}, launches {launches}, "
+              f"corr avg {float(np.nanmean(res['val_corr_roi'])):.5f}, launches {serve_launches}, "
               f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        expected = cfg.mistral.num_hidden_layers * N_BATCHES
-        if launches["flash_fwd_launch"] != expected:
-            raise AssertionError(f"flash_fwd launched {launches} times, want {expected}")
-    with phase("6 profile one batch"):
-        profile_batch(model, batches[-1], dev)
+        want = {n: (cfg.mistral.num_hidden_layers * N_BATCHES if n == "flash_fwd" else 0) for n in KERNELS}
+        if serve_launches != want:
+            raise AssertionError(f"serving launched {serve_launches}, want {want}")
+    with phase("6 profile one served batch"):
+        traced(lambda: predict_batches(model, [batches[-1]], dev), "served batch")
         del model, batches
-    with phase("7 narrow model vs f32 CPU"):
+        torch.cuda.empty_cache()
+    with phase("7 LoRA train at full width"):
+        launches = train_lora_full(gen, dev)
+        torch.cuda.empty_cache()
+    with phase("9 frozen-baseline train at full width"):
+        train_baseline_full(gen, dev)
+        torch.cuda.empty_cache()
+    with phase("10 narrow models vs f32 CPU"):
         narrow_reference_check(gen, dev)
-    with phase("8 timing"):
+        narrow_lora_check(gen, dev)
+    with phase("11 timing"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        timing = time_flash(gen, dev)
+        timing = {**time_flash(gen, dev), **time_lora(gen, dev)}
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    with phase("9 host"):
-        rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    with phase("12 host"):
+        rss_gb = peak_rss_gb()
         print(f"  peak host RSS {rss_gb:.2f} GB (limit {HOST_RSS_LIMIT_GB}), "
               f"total wall {time.perf_counter() - t_start:.1f} s")
         if rss_gb > HOST_RSS_LIMIT_GB:
             raise AssertionError("peak host RSS over its limit")
 
-    record = {
-        "name": "flash_fwd", "route": "cuda",
-        "source": "phantom_vlb_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "phantom_vlb_tpu/ops/flash_attention.py:93",
-        "launches": launches["flash_fwd_launch"], "max_abs_err": max_abs_err, **timing,
-    }
+    records = [
+        {"name": name, "route": "cuda", "source": f"phantom_vlb_tpu_torch/csrc/{REPLACES[name][0]}",
+         "replaces": REPLACES[name][1], "launches": launches[name],
+         "max_abs_err": max_abs_err[name],
+         **{key: timing[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for name in KERNELS
+    ]
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

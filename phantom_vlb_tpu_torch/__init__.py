@@ -3,11 +3,13 @@
 The JAX package stays the reference; this package mirrors its module paths
 (``models/mistral.py`` here is the counterpart of
 ``phantom_vlb_tpu/models/mistral.py``) and imports nothing from it. It covers
-the frozen-baseline serving forward: cached video tokens + text ids ->
+the frozen-baseline serving forward (cached video tokens + text ids ->
 32-layer Mistral-7B -> HRF head -> predictions, masked MSE and streaming
-Pearson. Attention runs through a hand-written CUDA flash-attention forward
-(``csrc/flash_fwd.cu``) on the card, and through its plain PyTorch version
-on CPU tensors.
+Pearson) and the training step in both regimes (the head alone, or head +
+LoRA adapters; AdamW on the cosine schedule with clipping). Attention and
+the fused adapter-dropout matmul run through hand-written CUDA kernels
+(``csrc/``) on the card, and through their plain PyTorch versions on CPU
+tensors.
 
 Entry points default to ``device="cuda"`` and raise when no card is present;
 pass ``device="cpu"`` to run on the CPU.

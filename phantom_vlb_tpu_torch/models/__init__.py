@@ -1,1 +1,1 @@
-"""Mistral decoder, brain readout head, the VLB composition and weight conversion."""
+"""Mistral decoder, LoRA adapters, brain readout head, the VLB composition and weight conversion."""

@@ -8,14 +8,16 @@ form, grouped (``sub_{g}``, leading axis L/G, layer ``j*G + g``) or not
 writes them:
 
 - Dense ``kernel`` (in, out) -> ``nn.Linear`` ``weight`` (out, in);
+- LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out) -> as they are (the port
+  stores them in the reference's orientation);
 - ``embed_tokens/embedding``, RMSNorm ``weight`` -> as they are;
 - Flax LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
 - ``vision_tower`` and ``mm_projector`` are set aside for the vision slice;
-- anything else raises, LoRA ``lora_a``/``lora_b`` included.
+- anything else raises.
 
 :func:`init_params` makes a random full-width state dict on the device, in
-the backbone's dtype (bf16 at full width) with the head in f32, from an
-explicit generator, without a host copy of the backbone.
+the backbone's dtype (bf16 at full width) with the head and any adapters in
+f32, from an explicit generator, without a host copy of the backbone.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.models.lora import is_lora_path
 from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB
 
 __all__ = ["from_flax_params", "init_params", "DEFERRED_SUBTREES"]
@@ -61,16 +64,15 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple[tuple, object]
 
 
 def _unconsumed(path: tuple) -> ValueError:
-    name = "/".join(path)
-    if path[-1] in ("lora_a", "lora_b"):
-        return ValueError(f"{name}: LoRA adapters come with the LoRA slice of the port")
-    return ValueError(f"unconsumed Flax parameter {name}")
+    return ValueError(f"unconsumed Flax parameter {'/'.join(path)}")
 
 
 def _layer_leaf(path: tuple, within: tuple) -> tuple[str, bool]:
     """Path inside one decoder layer -> (key suffix, transpose)."""
     if len(within) == 3 and within[:2] in _DENSE and within[2] == "kernel":
         return f"{within[0]}.{within[1]}.weight", True
+    if len(within) == 3 and within[:2] in _DENSE and within[2] in ("lora_a", "lora_b"):
+        return f"{within[0]}.{within[1]}.{within[2]}", False
     if len(within) == 2 and within[0] in _NORMS and within[1] == "weight":
         return f"{within[0]}.weight", False
     raise _unconsumed(path)
@@ -118,8 +120,9 @@ def init_params(
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """Random state dict made on ``device``: N(0, INIT_STD) projections and
-    embeddings in ``cfg.mistral.dtype``, unit norms, and an f32 head whose
-    ridge weight is N(0, 1/hidden)."""
+    embeddings in ``cfg.mistral.dtype``, unit norms, an f32 head whose
+    ridge weight is N(0, 1/hidden), and f32 adapters as the reference
+    initialises them (``lora_a`` he-uniform over its fan-in, ``lora_b`` 0)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -133,6 +136,13 @@ def init_params(
                 sd[key] = t.mul_(1.0 / math.sqrt(meta.shape[1]))
             elif key.endswith(".weight"):
                 sd[key] = torch.ones(meta.shape, device=device)
+            else:
+                sd[key] = torch.zeros(meta.shape, device=device)
+        elif is_lora_path(key):
+            if key.endswith("lora_a"):
+                bound = math.sqrt(6.0 / meta.shape[0])
+                t = torch.rand(meta.shape, generator=generator, device=device)
+                sd[key] = t.mul_(2.0 * bound).sub_(bound)
             else:
                 sd[key] = torch.zeros(meta.shape, device=device)
         elif key.endswith("norm.weight"):

@@ -1,8 +1,9 @@
 """Brain readout head: LN -> HRF pooling -> LN -> dropout -> ridge, in f32.
 
 Counterpart of ``phantom_vlb_tpu/models/heads.py``. The head runs in f32
-whatever the backbone's dtype. Dropout is the identity in eval mode, the
-only mode this serving path uses.
+whatever the backbone's dtype. Dropout is live in train mode, with its mask
+drawn from the seed the caller passes (the VLB model passes one derived
+from the step's seed), and the identity otherwise.
 """
 
 from __future__ import annotations
@@ -34,12 +35,18 @@ class BrainReadoutHead(nn.Module):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS, dtype=torch.float32)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS, dtype=torch.float32)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.ridge = RidgeHead(hidden_size, num_target, l2_lambda)
 
-    def forward(self, hidden_states: torch.Tensor, weight_mask: torch.Tensor):
+    def forward(self, hidden_states: torch.Tensor, weight_mask: torch.Tensor,
+                seed: int | None = None):
         """(B, S, E) hidden states, (B, S) HRF weights -> (preds (B, P), l2)."""
         h = self.layer_norm1(hidden_states.float())
         pooled = torch.einsum("bse,bs->be", h, weight_mask.float())
-        pooled = self.dropout(self.layer_norm2(pooled))
+        pooled = self.layer_norm2(pooled)
+        p = self.dropout_rate
+        if self.training and p > 0 and seed is not None:
+            gen = torch.Generator(device=pooled.device).manual_seed(seed)
+            keep = torch.rand(pooled.shape, generator=gen, device=pooled.device) < 1.0 - p
+            pooled = torch.where(keep, pooled / (1.0 - p), 0.0)
         return self.ridge(pooled)

@@ -4,12 +4,23 @@ Counterpart of ``phantom_vlb_tpu/models/mistral.py``: RMSNorm in HF order
 (:94-113), split-half RoPE on the packed layout (:116-183), GQA attention on
 the packed branch (:265-281) through :func:`attention_packed`, the SwiGLU MLP
 (:326-340), the pre-norm decoder layer (:343) and the stack (:396-513).
-The layers are an unrolled ``nn.ModuleList``: the reference's scan, remat
-and layer grouping are XLA compile devices with no counterpart here.
+The layers are an unrolled ``nn.ModuleList``; the reference's scan and layer
+grouping are XLA compile devices with no counterpart here.
+
+With ``MistralConfig.lora`` every projection is a :class:`LoRALinear`
+(``_proj``/``_call_proj`` :206-232), and ``shared_dropout`` gives q/k/v and
+gate/up one adapter-input mask each (:234-245). ``remat`` wraps each layer
+in ``torch.utils.checkpoint`` (non-reentrant) when gradients are recorded:
+the counterpart of ``remat_policy='nothing'`` (:185-203, :418-455), which
+keeps only each layer's input and replays the layer in the backward. The
+replay must draw the same dropout masks, so every mask comes from a seed
+derived before the layer runs (step seed -> layer -> site), never from a
+generator's state.
 
 Parameters are stored in the compute dtype (``MistralConfig.dtype``); the
 reference keeps f32 parameters and casts them to that dtype at each use,
-which rounds them the same way.
+which rounds them the same way. LoRA adapters stay f32 and are cast at use,
+as there.
 """
 
 from __future__ import annotations
@@ -19,7 +30,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig, LoRALinear, adapter_dropout, site_seed
 from phantom_vlb_tpu_torch.ops.flash_attention import attention_packed
 
 __all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed"]
@@ -37,6 +50,10 @@ class MistralConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 1e6
     dtype: torch.dtype = torch.bfloat16
+    # Per-layer activation checkpointing while gradients are recorded.
+    remat: bool = True
+    # LoRA on every projection (the reference's targets); None disables.
+    lora: LoRAConfig | None = None
 
     @staticmethod
     def full(**overrides) -> "MistralConfig":
@@ -49,7 +66,7 @@ class MistralConfig:
         base = dict(
             vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
-            num_key_value_heads=2, head_dim=16, dtype=torch.float32,
+            num_key_value_heads=2, head_dim=16, dtype=torch.float32, remat=False,
         )
         base.update(overrides)
         return MistralConfig(**base)
@@ -86,34 +103,67 @@ def apply_rope_packed(x: torch.Tensor, rope, num_heads: int) -> torch.Tensor:
     return out.reshape(b, s, hd)
 
 
+# Dropout sites of a layer: one seed each (the shared ones with shared_dropout).
+SITES = {name: i for i, name in enumerate(
+    ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+     "attn_input", "mlp_input"))}
+
+
+def _proj(cfg: MistralConfig, in_features: int, out_features: int) -> nn.Module:
+    if cfg.lora is not None:
+        return LoRALinear(in_features, out_features, cfg.lora, cfg.dtype)
+    return nn.Linear(in_features, out_features, bias=False)
+
+
+def _call_proj(module: nn.Module, name: str, x, seed, adapter_x=None):
+    """A projection, with its site's seed when it carries adapters."""
+    if isinstance(module, LoRALinear):
+        return module(x, None if seed is None else site_seed(seed, SITES[name]), adapter_x)
+    return module(x)
+
+
+def _shared_adapter_input(cfg: MistralConfig, training: bool, x, seed, site: str):
+    """One dropout mask for every adapter reading ``x`` (shared_dropout)."""
+    lora = cfg.lora
+    if lora is None or not lora.shared_dropout or not lora.dropout or not training or seed is None:
+        return None
+    return adapter_dropout(x, lora, site_seed(seed, SITES[site]))
+
+
 class MistralAttention(nn.Module):
     def __init__(self, cfg: MistralConfig):
         super().__init__()
         self.cfg = cfg
         h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        self.q_proj = nn.Linear(cfg.hidden_size, h * d, bias=False)
-        self.k_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=False)
-        self.v_proj = nn.Linear(cfg.hidden_size, hkv * d, bias=False)
-        self.o_proj = nn.Linear(h * d, cfg.hidden_size, bias=False)
+        self.q_proj = _proj(cfg, cfg.hidden_size, h * d)
+        self.k_proj = _proj(cfg, cfg.hidden_size, hkv * d)
+        self.v_proj = _proj(cfg, cfg.hidden_size, hkv * d)
+        self.o_proj = _proj(cfg, h * d, cfg.hidden_size)
 
-    def forward(self, x, rope, kv_mask=None):
+    def forward(self, x, rope, kv_mask=None, seed=None):
         cfg = self.cfg
         h, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        q = apply_rope_packed(self.q_proj(x), rope, h)
-        k = apply_rope_packed(self.k_proj(x), rope, hkv)
-        out, _ = attention_packed(q, k, self.v_proj(x), h, hkv, kv_mask=kv_mask)
-        return self.o_proj(out)
+        xa = _shared_adapter_input(cfg, self.training, x, seed, "attn_input")
+        q = apply_rope_packed(_call_proj(self.q_proj, "q_proj", x, seed, xa), rope, h)
+        k = apply_rope_packed(_call_proj(self.k_proj, "k_proj", x, seed, xa), rope, hkv)
+        v = _call_proj(self.v_proj, "v_proj", x, seed, xa)
+        out, _ = attention_packed(q, k, v, h, hkv, kv_mask=kv_mask)
+        return _call_proj(self.o_proj, "o_proj", out, seed)
 
 
 class MistralMLP(nn.Module):
     def __init__(self, cfg: MistralConfig):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.cfg = cfg
+        self.gate_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, seed=None):
+        xa = _shared_adapter_input(self.cfg, self.training, x, seed, "mlp_input")
+        gate = _call_proj(self.gate_proj, "gate_proj", x, seed, xa)
+        up = _call_proj(self.up_proj, "up_proj", x, seed, xa)
+        return _call_proj(self.down_proj, "down_proj", F.silu(gate) * up, seed)
 
 
 class MistralDecoderLayer(nn.Module):
@@ -124,9 +174,10 @@ class MistralDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = MistralMLP(cfg)
 
-    def forward(self, x, rope, kv_mask=None):
-        h = x + self.self_attn(self.input_layernorm(x), rope, kv_mask)
-        return h + self.mlp(self.post_attention_layernorm(h))
+    def forward(self, x, rope, kv_mask=None, seed=None):
+        """``seed``: this layer's dropout seed (None: no adapter dropout)."""
+        h = x + self.self_attn(self.input_layernorm(x), rope, kv_mask, seed)
+        return h + self.mlp(self.post_attention_layernorm(h), seed)
 
 
 class MistralModel(nn.Module):
@@ -144,14 +195,24 @@ class MistralModel(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
 
-    def forward(self, inputs_embeds: torch.Tensor, kv_mask: torch.Tensor | None = None):
-        """(B, S, E) embeddings + (B, S) kv mask -> post-final-norm (B, S, E)."""
+    def forward(self, inputs_embeds: torch.Tensor, kv_mask: torch.Tensor | None = None,
+                seed: int | None = None):
+        """(B, S, E) embeddings + (B, S) kv mask -> post-final-norm (B, S, E).
+
+        ``seed``: the step's dropout seed; layer i draws from
+        ``site_seed(seed, i)``. None (or eval mode) means no adapter dropout.
+        """
         cfg = self.cfg
         s = inputs_embeds.shape[1]
         # (1, S) identity positions: the tables broadcast over the batch.
         positions = torch.arange(s, device=inputs_embeds.device)[None]
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         x = inputs_embeds.to(cfg.dtype)
-        for layer in self.layers:
-            x = layer(x, rope, kv_mask)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            layer_seed = None if seed is None else site_seed(seed, i)
+            if remat:
+                x = checkpoint(layer, x, rope, kv_mask, layer_seed, use_reentrant=False)
+            else:
+                x = layer(x, rope, kv_mask, layer_seed)
         return self.norm(x)

@@ -1,4 +1,4 @@
-"""VideoLLaMA2-VLB over cached video tokens: the serving forward.
+"""VideoLLaMA2-VLB over cached video tokens: the forward, served or trained.
 
 Counterpart of ``phantom_vlb_tpu/models/videollama2.py`` on its rank-3 path
 (precomputed video tokens, :183-186)::
@@ -7,6 +7,14 @@ Counterpart of ``phantom_vlb_tpu/models/videollama2.py`` on its rank-3 path
     -> embed -> splice the (B, V, E) video tokens in at the sentinel
     -> (B, Lt - 1 + V, E) -> Mistral decoder -> post-norm hidden states
     -> HRF weight mask + brain readout head -> (preds (B, P), l2 penalty)
+
+Training follows the reference's two regimes (:176-199, :237-242): the text
+embeddings and the cached video tokens are always cut from the graph; in
+the frozen-baseline regime (``freeze_backbone``) the whole backbone runs
+without recording gradients, so only the head trains; with LoRA the
+adapters train too. :func:`trainable_predicate` names what trains. In train
+mode the head's dropout and the adapters' dropout are live, with masks from
+the step seed passed to :meth:`VideoLLaMA2VLB.forward`.
 
 Raw frames (rank-5 ``video``) need the CLIP + STC vision towers, which are
 not ported yet.
@@ -22,10 +30,12 @@ from torch import nn
 from phantom_vlb_tpu_torch.core.geometry import VIDEO_TOKEN_ID, VLBGeometry
 from phantom_vlb_tpu_torch.data.synthetic import TEST_GEOMETRY
 from phantom_vlb_tpu_torch.models.heads import BrainReadoutHead
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig, is_lora_path, site_seed
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, MistralModel
 from phantom_vlb_tpu_torch.ops.weight_mask import build_weight_mask
 
-__all__ = ["VLBConfig", "VideoLLaMA2VLB", "splice_multimodal"]
+__all__ = ["VLBConfig", "VideoLLaMA2VLB", "splice_multimodal", "trainable_predicate",
+           "trainable_parameters"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,22 +45,45 @@ class VLBConfig:
     num_target: int = 1000
     l2_lambda: float = 0.001
     dropout_rate: float = 0.1
+    freeze_backbone: bool = True    # baseline regime: only the head trains
 
     @staticmethod
-    def full(**overrides) -> "VLBConfig":
-        """The production VideoLLaMA2-7B geometry, bf16 backbone."""
-        cfg = VLBConfig(**overrides)
+    def full(use_lora: bool = False, **overrides) -> "VLBConfig":
+        """The production VideoLLaMA2-7B geometry, bf16 backbone; with
+        ``use_lora`` the reference's adapters (r 16, alpha 32, dropout 0.1)."""
+        base = dict(mistral=MistralConfig(lora=LoRAConfig() if use_lora else None),
+                    freeze_backbone=not use_lora)
+        base.update(overrides)
+        cfg = VLBConfig(**base)
         cfg.geometry.validate()
         return cfg
 
     @staticmethod
-    def tiny(**overrides) -> "VLBConfig":
-        """The reference's ``VLBConfig.tiny``: TEST_GEOMETRY, 64-token sequences."""
+    def tiny(use_lora: bool = False, **overrides) -> "VLBConfig":
+        """The reference's ``VLBConfig.tiny``: TEST_GEOMETRY, 64-token
+        sequences; with ``use_lora`` rank-4 adapters without dropout."""
         g = TEST_GEOMETRY
-        base = dict(mistral=MistralConfig.tiny(vocab_size=1000), geometry=g,
-                    num_target=g.num_parcels)
+        lora = LoRAConfig(rank=4, alpha=8.0, dropout=0.0) if use_lora else None
+        base = dict(mistral=MistralConfig.tiny(vocab_size=1000, lora=lora), geometry=g,
+                    num_target=g.num_parcels, freeze_backbone=not use_lora)
         base.update(overrides)
         return VLBConfig(**base)
+
+
+def trainable_predicate(name: str) -> bool:
+    """Trainable = head parameters + LoRA adapters (the reference regimes)."""
+    return name.startswith("head.") or is_lora_path(name)
+
+
+def trainable_parameters(model: nn.Module) -> list[nn.Parameter]:
+    """Set ``requires_grad`` on exactly the tensors :func:`trainable_predicate`
+    selects; returns them."""
+    out = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(trainable_predicate(name))
+        if p.requires_grad:
+            out.append(p)
+    return out
 
 
 def splice_multimodal(
@@ -96,20 +129,32 @@ class VideoLLaMA2VLB(nn.Module):
         """A frozen eval-mode model holding ``state_dict``'s tensors.
 
         The module is built on the meta device and the tensors are assigned,
-        not copied: backbone tensors already in ``cfg.mistral.dtype`` and head
-        tensors already in f32, on ``device``, are used as they are.
+        not copied: backbone tensors already in ``cfg.mistral.dtype`` and
+        head and adapter tensors already in f32, on ``device``, are used as
+        they are. A trainer sets ``requires_grad`` on what
+        :func:`trainable_predicate` selects.
         """
         with torch.device("meta"):
             model = cls(cfg)
         sd = {
-            k: t.to(device=device, dtype=torch.float32 if k.startswith("head.") else cfg.mistral.dtype)
+            k: t.to(device=device, dtype=torch.float32 if trainable_predicate(k) else cfg.mistral.dtype)
             for k, t in state_dict.items()
         }
         model.load_state_dict(sd, strict=True, assign=True)
         return model.eval().requires_grad_(False)
 
-    def backbone(self, language: torch.Tensor, video: torch.Tensor):
-        """Returns (post-norm hidden (B, S, E), valid mask (B, S))."""
+    def backbone(self, language: torch.Tensor, video: torch.Tensor, seed: int | None = None):
+        """Returns (post-norm hidden (B, S, E), valid mask (B, S)).
+
+        The embeddings and video tokens enter cut from the graph; with
+        ``freeze_backbone`` no gradient is recorded below the head at all.
+        """
+        if self.cfg.freeze_backbone:
+            with torch.no_grad():
+                return self._backbone(language, video, seed)
+        return self._backbone(language, video, seed)
+
+    def _backbone(self, language, video, seed):
         cfg = self.cfg.mistral
         if video.dim() != 3:
             raise NotImplementedError(
@@ -119,12 +164,19 @@ class VideoLLaMA2VLB(nn.Module):
             )
         ids = language.long()
         safe_ids = torch.where(ids == VIDEO_TOKEN_ID, 0, ids).clamp(0, cfg.vocab_size - 1)
-        text_embeds = self.model.embed(safe_ids)
-        embeds, valid = splice_multimodal(text_embeds, ids, video.to(cfg.dtype))
-        return self.model(embeds, kv_mask=valid), valid
+        text_embeds = self.model.embed(safe_ids).detach()
+        embeds, valid = splice_multimodal(text_embeds, ids, video.detach().to(cfg.dtype))
+        return self.model(embeds, kv_mask=valid, seed=seed), valid
 
-    def forward(self, language, video, padvals, vis_weights, lang_weights):
-        """-> (predictions (B, num_target) f32, l2 penalty)."""
-        hidden, _ = self.backbone(language, video)
+    def forward(self, language, video, padvals, vis_weights, lang_weights, seed: int | None = None):
+        """-> (predictions (B, num_target) f32, l2 penalty).
+
+        ``seed``: the step's dropout seed, which train mode needs; the
+        backbone and the head each derive their own from it.
+        """
+        if self.training and seed is None:
+            raise ValueError("train mode draws its dropout masks from a seed: pass the step's seed")
+        layers = self.cfg.mistral.num_hidden_layers
+        hidden, _ = self.backbone(language, video, seed)
         weight_mask = build_weight_mask(padvals, vis_weights, lang_weights, self.cfg.geometry)
-        return self.head(hidden, weight_mask)
+        return self.head(hidden, weight_mask, None if seed is None else site_seed(seed, layers))

@@ -1,1 +1,1 @@
-"""Attention, weight-mask ops and the CUDA kernels' wrappers."""
+"""Attention, the fused LoRA dropout matmul, weight-mask ops and the CUDA kernels' wrappers."""

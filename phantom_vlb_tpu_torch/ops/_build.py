@@ -1,13 +1,14 @@
-"""Build a CUDA source into a plain-C shared library and load it with ctypes.
+"""Build CUDA sources into plain-C shared libraries and load them with ctypes.
 
 Each ``csrc/*.cu`` file exports ``extern "C"`` launchers that take raw
 pointers, sizes and a stream, and return ``cudaGetLastError()``. ``nvcc``
-compiles one such file in seconds (no PyTorch headers are included). The
+compiles one such file in seconds (no PyTorch headers are included). A
 library is built at first use into ``build/phantom_vlb_tpu_torch/`` beside
 the package (listed in ``.gitignore``), under a name that carries a hash of
 the source and flags, so an edited source is rebuilt and an unchanged one is
-not. Nothing here runs at import time: this module imports on machines
-without ``nvcc`` or a card.
+not. :func:`build_all` starts one ``nvcc`` process per source, all at once,
+and waits for them. Nothing here runs at import time: this module imports on
+machines without ``nvcc`` or a card.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CudaKernel", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "BUILD_DIR", "NVCC_FLAGS", "build_all"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "phantom_vlb_tpu_torch"
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# nvcc's report per source (``-Xptxas -v``: registers, shared memory and
+# spills per kernel); empty when the library was already built.
+BUILD_LOGS: dict[Path, str] = {}
 
 
 def _nvcc() -> str:
@@ -38,26 +42,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _build(source: Path) -> tuple[Path, str]:
-    """Compile ``source`` unless a library of the same hash exists.
-
-    Returns the library path and nvcc's report (``-Xptxas -v``: registers,
-    shared memory and spills per kernel; empty when the library was cached).
-    """
+def _library(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    return lib, proc.stdout + proc.stderr
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(sources) -> dict[Path, Path]:
+    """Compile every source whose library is missing, one ``nvcc`` process
+    each, all started before any is waited for. Returns source -> library."""
+    libs = {Path(s): _library(Path(s)) for s in sources}
+    running = []
+    for source, lib in libs.items():
+        if lib.exists():
+            BUILD_LOGS.setdefault(source, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running.append((source, lib, tmp, proc))
+    failed = []
+    for source, lib, tmp, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+        BUILD_LOGS[source] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 class CudaKernel:
@@ -73,12 +89,15 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
-        self.build_log = ""
         self._fn = None
+
+    @property
+    def build_log(self) -> str:
+        return BUILD_LOGS.get(self.source, "")
 
     def load(self):
         if self._fn is None:
-            path, self.build_log = _build(self.source)
+            path = build_all([self.source])[self.source]
             fn = getattr(ctypes.CDLL(str(path)), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -1,11 +1,16 @@
-"""Causal GQA flash attention, packed (B, S, H*D) layout: the forward pass.
+"""Causal GQA flash attention, packed (B, S, H*D) layout: forward and backward.
 
 Counterpart of ``phantom_vlb_tpu/ops/flash_attention.py``
-(``attention_packed`` :766, ``_fwd_impl`` :412, ``_fwd_kernel`` :93). On a
-CUDA tensor :func:`attention_packed` launches the hand-written kernel of
-``csrc/flash_fwd.cu``; on a CPU tensor it runs :func:`attention_packed_plain`,
-the plain PyTorch version of the same function. There is no fallback: a CUDA
-tensor the kernel does not take raises.
+(``attention_packed`` :766, ``_fwd_impl`` :412, ``_fwd_kernel`` :93;
+``_flash_packed_bwd`` :754, ``_bwd_impl`` :490, ``_dq_dkv_kernel`` :284). On
+CUDA tensors :func:`attention_packed` is a ``torch.autograd.Function``: its
+forward launches ``csrc/flash_fwd.cu`` and saves (q, k, v, kv bias, out,
+lse); its backward launches ``csrc/flash_bwd.cu``. On CPU tensors it runs
+:func:`attention_packed_plain`, the plain PyTorch version of the forward,
+and autograd differentiates that. :func:`attention_packed_bwd_plain` is the
+plain version of the backward kernel's own arithmetic, which the card holds
+the kernel against. There is no fallback: a CUDA tensor the kernels do not
+take raises.
 
 Numerics carried over from the reference:
 
@@ -15,7 +20,13 @@ Numerics carried over from the reference:
   sums to -inf, and a query row whose keys are all masked averages them
   uniformly;
 - ``l == 0`` is guarded, and ``lse = m + log(max(l, 1e-30))``;
-- P is cast to v's dtype before the PV product, whose sums are f32.
+- P is cast to v's dtype before the PV product, whose sums are f32;
+- backward: ``p = exp(s - lse)`` from the saved lse (so a row whose keys are
+  all masked gets the p its rounded lse implies, 1 per key, not the 1/n its
+  forward used), ``di = rowsum(f32(o) * f32(do))`` per head, bf16 p and ds
+  as product operands with f32 sums, ``dk = ds^T @ q_scaled`` with no extra
+  factor, ``dq`` times ``sm_scale`` once at the end, and GQA dk/dv summed
+  over the group in f32 before their one cast.
 
 The statistics come back as (B, H, S) f32; the reference's (B, H, 8, S)
 layout is TPU lane padding and has no counterpart here.
@@ -30,15 +41,23 @@ import torch
 
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
-__all__ = ["MASK_VALUE", "attention_packed", "attention_packed_plain", "kv_bias", "FLASH_FWD"]
+__all__ = [
+    "MASK_VALUE", "attention_packed", "attention_packed_plain", "attention_packed_bwd",
+    "attention_packed_bwd_plain", "kv_bias", "FLASH_FWD", "FLASH_BWD",
+]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIM = 128  # the only head width the kernel is built for
+HEAD_DIM = 128  # the only head width the kernels are built for
 
 FLASH_FWD = CudaKernel(
     "flash_fwd.cu",
     "flash_fwd_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+)
+FLASH_BWD = CudaKernel(
+    "flash_bwd.cu",
+    "flash_bwd_launch",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
 
 
@@ -54,6 +73,36 @@ def _default_scale(q: torch.Tensor, num_heads: int, sm_scale: float | None) -> f
     return 1.0 / math.sqrt(q.shape[-1] // num_heads) if sm_scale is None else sm_scale
 
 
+def _scale_in_dtype(q: torch.Tensor, num_heads: int, sm_scale: float | None) -> float:
+    """sm_scale rounded to q's dtype: ``q * it`` rounds the exact product
+    once, as the reference's ``q * asarray(sm_scale, q.dtype)`` does."""
+    return float(torch.tensor(_default_scale(q, num_heads, sm_scale), dtype=q.dtype))
+
+
+def _heads(x: torch.Tensor, num_kv_heads: int, group: int) -> torch.Tensor:
+    """(B, S, Hkv*G*D) -> (B, Hkv, G, S, D): q head h = kv head * G + g."""
+    b, s, width = x.shape
+    d = width // (num_kv_heads * group)
+    return x.reshape(b, s, num_kv_heads, group, d).permute(0, 2, 3, 1, 4)
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, G, S, D) -> (B, S, Hkv*G*D)."""
+    b, hkv, g, s, d = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g * d)
+
+
+def _masked_scores(qg, kh, kv_mask):
+    """f32 scores (B, Hkv, G, S, S) + bias row + causal MASK_VALUE, in that order."""
+    s = qg.shape[-2]
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kh.float())
+    bias = kv_bias(kv_mask)
+    if bias is not None:
+        scores = scores + bias[:, None, None, None, :]
+    causal = torch.ones(s, s, dtype=torch.bool, device=qg.device).triu(1)
+    return scores + torch.where(causal, MASK_VALUE, 0.0)
+
+
 def attention_packed_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -64,34 +113,63 @@ def attention_packed_plain(
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: (out (B, S, Hq*D), lse (B, Hq, S) f32).
+    """Plain PyTorch version of the forward: (out (B, S, Hq*D), lse (B, Hq, S) f32).
 
     Materialises the (B, Hq, S, S) f32 scores, so it is for the CPU and for
     holding the kernel to account on the card, not for speed.
     """
     b, s, _ = q.shape
-    d = q.shape[-1] // num_heads
     group = num_heads // num_kv_heads
-    scale = _default_scale(q, num_heads, sm_scale)
-    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
-    # (B, S, Hkv, G, D) -> (B, Hkv, G, S, D): q head h = kv head * G + g.
-    qg = qs.reshape(b, s, num_kv_heads, group, d).permute(0, 2, 3, 1, 4).float()
-    kh = k.reshape(b, s, num_kv_heads, d).permute(0, 2, 1, 3).float()
-    vh = v.reshape(b, s, num_kv_heads, d).permute(0, 2, 1, 3)
-    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, kh)
-    bias = kv_bias(kv_mask)
-    if bias is not None:
-        scores = scores + bias[:, None, None, None, :]
-    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
-    scores = scores + torch.where(causal, MASK_VALUE, 0.0)
+    qs = q * _scale_in_dtype(q, num_heads, sm_scale)
+    scores = _masked_scores(_heads(qs, num_kv_heads, group), _heads(k, num_kv_heads, 1)[:, :, 0],
+                            kv_mask)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
+    vh = _heads(v, num_kv_heads, 1)[:, :, 0]
     pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vh.float())
     out = pv * torch.where(l == 0.0, 1.0, 1.0 / l)
     lse = (m + torch.log(l.clamp_min(1e-30))).reshape(b, num_heads, s)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, num_heads * d).to(q.dtype)
-    return out, lse
+    return _packed(out).to(q.dtype), lse
+
+
+def attention_packed_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    num_kv_heads: int,
+    *,
+    sm_scale: float | None = None,
+    kv_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: (dq, dk, dv) in q's, k's, v's dtypes.
+
+    The arithmetic of ``_dq_dkv_kernel`` (reference :284-355) written out:
+    p from the saved lse, di from out and do, bf16 p and ds as product
+    operands, f32 sums, GQA dk/dv summed over the group before the cast.
+    """
+    b, s, _ = q.shape
+    group = num_heads // num_kv_heads
+    scale = _default_scale(q, num_heads, sm_scale)
+    qg = _heads(q * _scale_in_dtype(q, num_heads, sm_scale), num_kv_heads, group)
+    kh = _heads(k, num_kv_heads, 1)[:, :, 0]
+    vh = _heads(v, num_kv_heads, 1)[:, :, 0]
+    dog = _heads(do, num_kv_heads, group).float()
+    og = _heads(out, num_kv_heads, group).float()
+    scores = _masked_scores(qg, kh, kv_mask)
+    p = torch.exp(scores - lse.reshape(b, num_kv_heads, group, s)[..., None])
+    di = (og * dog).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dog)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vh.float())
+    ds = (p * (dp - di)).to(q.dtype).float()
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg.float())
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kh.float()) * scale
+    return (_packed(dq).to(q.dtype), _packed(dk[:, :, None]).to(k.dtype),
+            _packed(dv[:, :, None]).to(v.dtype))
 
 
 def _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask):
@@ -109,6 +187,62 @@ def _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask):
         raise ValueError(f"kv_mask must be ({b}, {s}) on {q.device}; got {tuple(kv_mask.shape)} on {kv_mask.device}")
 
 
+def _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale):
+    b, s, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):  # the launcher uses the current device
+        FLASH_FWD.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            out.data_ptr(), lse.data_ptr(),
+            b, s, num_heads, num_kv_heads, _scale_in_dtype(q, num_heads, sm_scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_scale):
+    b, s, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q {tuple(q.shape)} {q.dtype}; got {tuple(do.shape)} {do.dtype}")
+    do = do.contiguous()
+    qs = q * _scale_in_dtype(q, num_heads, sm_scale)
+    di = (out.float() * do.float()).view(b, s, num_heads, HEAD_DIM).sum(-1).transpose(1, 2).contiguous()
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        FLASH_BWD.launch(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, num_heads, num_kv_heads,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    # d(s)/d(q_unscaled) carries sm_scale once (reference :221-224).
+    return (dq_acc * _default_scale(q, num_heads, sm_scale)).to(q.dtype), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """CUDA path: flash_fwd.cu forward, flash_bwd.cu backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale):
+        bias = kv_bias(kv_mask)
+        out, lse = _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.heads = (num_heads, num_kv_heads, sm_scale)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, bias, out, lse, dout, *ctx.heads)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention_packed(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -121,8 +255,10 @@ def attention_packed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal GQA attention: (out (B, S, Hq*D) in q's dtype, lse (B, Hq, S) f32).
 
-    CUDA tensors go through ``csrc/flash_fwd.cu`` (bf16, D = 128, contiguous;
-    anything else raises); CPU tensors through :func:`attention_packed_plain`.
+    CUDA tensors go through ``csrc/flash_fwd.cu`` and, under autograd,
+    ``csrc/flash_bwd.cu`` (bf16, D = 128, contiguous; anything else raises);
+    CPU tensors through :func:`attention_packed_plain`. lse is not
+    differentiable.
     """
     if q.device.type == "cpu":
         return attention_packed_plain(
@@ -131,18 +267,34 @@ def attention_packed(
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
-    b, s, _ = q.shape
-    # The reference multiplies q by sm_scale cast to q's dtype.
-    scale = float(torch.tensor(_default_scale(q, num_heads, sm_scale), dtype=q.dtype))
-    bias = kv_bias(kv_mask)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):  # the launcher uses the current device
-        FLASH_FWD.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, s, num_heads, num_kv_heads, scale,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    return out, lse
+    return _FlashAttention.apply(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale)
+
+
+def attention_packed_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    num_kv_heads: int,
+    *,
+    sm_scale: float | None = None,
+    kv_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention_packed` from its saved (out, lse).
+
+    CUDA tensors go through ``csrc/flash_bwd.cu`` (what the autograd path
+    launches); CPU tensors through :func:`attention_packed_bwd_plain`.
+    """
+    if q.device.type == "cpu":
+        return attention_packed_bwd_plain(q, k, v, out, lse, do, num_heads, num_kv_heads,
+                                          sm_scale=sm_scale, kv_mask=kv_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
+    if out.shape != q.shape or lse.shape != (q.shape[0], num_heads, q.shape[1]):
+        raise ValueError(f"out {tuple(out.shape)} / lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    return _flash_bwd_cuda(q, k, v, kv_bias(kv_mask), out.contiguous(), lse.contiguous(), do,
+                           num_heads, num_kv_heads, sm_scale)

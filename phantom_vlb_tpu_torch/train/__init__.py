@@ -1,1 +1,1 @@
-"""Eval step and streaming metrics."""
+"""Train and eval steps, the optimizer, the train loop and streaming metrics."""

@@ -13,6 +13,7 @@ from phantom_vlb_tpu.models.convert import stack_layer_params
 from phantom_vlb_tpu_torch.core.geometry import VIDEO_TOKEN_ID
 from phantom_vlb_tpu_torch.models import videollama2 as tv
 from phantom_vlb_tpu_torch.models.convert import from_flax_params, init_params
+from phantom_vlb_tpu_torch.models.lora import lora_merge
 
 LAYERS = 4
 
@@ -72,8 +73,6 @@ def test_vision_subtrees_are_set_aside(flax_tree):
 @pytest.mark.parametrize(
     "where,leaf",
     [
-        (("model", "layers_1", "self_attn", "q_proj"), "lora_a"),
-        (("model", "layers_1", "mlp", "down_proj"), "lora_b"),
         (("model", "layers_1", "self_attn"), "rotary"),
         (("head",), "extra"),
         (("model",), "lm_head"),
@@ -85,8 +84,85 @@ def test_unknown_key_raises(flax_tree, where, leaf):
     for k in where:
         node = node[k]
     node[leaf] = np.zeros((2, 2), np.float32)
-    with pytest.raises(ValueError, match="LoRA slice" if leaf.startswith("lora") else "unconsumed"):
+    with pytest.raises(ValueError, match="unconsumed"):
         from_flax_params(tree)
+
+
+@pytest.fixture(scope="module")
+def lora_pair():
+    """A 4-layer tiny LoRA VLB: (JAX config, seeded unrolled Flax params, a batch)."""
+    cfg = jv.VLBConfig.tiny(use_lora=True)
+    cfg = dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, num_hidden_layers=LAYERS))
+    rng = np.random.default_rng(1)
+    g = cfg.geometry
+    lang = rng.integers(3, 1000, (2, g.max_lang_tokens)).astype(np.int32)
+    lang[:, 5] = VIDEO_TOKEN_ID
+    lang[1, -7:] = 0                                 # right padding
+    batch = (lang, rng.standard_normal((2, g.num_vis_tokens, 64)).astype(np.float32),
+             np.array([[7, 4, 10], [0, 4, 12]], np.int32),
+             rng.uniform(0, 0.3, (2, g.num_ds_frames)).astype(np.float32),
+             rng.uniform(0, 0.3, (2, g.onsets_width)).astype(np.float32))
+    shapes = jax.eval_shape(jv.VideoLLaMA2VLB(cfg).init, jax.random.key(0), *batch)["params"]
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name in ("weight", "scale"):
+            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name == "lora_b":
+            return (0.2 * rng.standard_normal(s.shape)).astype(np.float32)
+        return (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])).astype(np.float32)
+
+    return cfg, jax.tree_util.tree_map_with_path(leaf, shapes), batch
+
+
+@pytest.mark.parametrize("form", ["unrolled", "layers_scan", "layers_scan_group_2"])
+def test_lora_leaves_convert_and_reproduce_the_jax_forward(lora_pair, form):
+    """LoRA ``lora_a`` (in, r) / ``lora_b`` (r, out) load as they are from
+    either tree form, and the port's LoRA model then matches the JAX LoRA
+    forward (eval mode, f32; 1e-4 as the serving parity test)."""
+    cfg, params, batch = lora_pair
+    tree, jcfg = params, cfg
+    if form != "unrolled":
+        group = 2 if form.endswith("2") else 1
+        tree = dict(params, model=stack_layer_params(params["model"], LAYERS, group=group))
+        jcfg = dataclasses.replace(cfg, mistral=dataclasses.replace(
+            cfg.mistral, scan_layers=True, scan_group=group))
+    sd = from_flax_params(tree)
+    lora_keys = [k for k in sd if k.endswith((".lora_a", ".lora_b"))]
+    assert len(lora_keys) == 2 * 7 * LAYERS
+    a = params["model"]["layers_3"]["mlp"]["down_proj"]["lora_a"]
+    np.testing.assert_array_equal(sd["model.layers.3.mlp.down_proj.lora_a"].numpy(), a)
+    port_cfg = tv.VLBConfig.tiny(use_lora=True, mistral=tv.MistralConfig.tiny(
+        vocab_size=1000, num_hidden_layers=LAYERS, lora=tv.LoRAConfig(rank=4, alpha=8.0, dropout=0.0)))
+    model = tv.VideoLLaMA2VLB.from_state_dict(port_cfg, sd)
+    assert model.model.layers[3].mlp.down_proj.lora_a.dtype == torch.float32
+    pred_j, l2_j = jv.VideoLLaMA2VLB(jcfg).apply({"params": tree}, *batch)
+    with torch.no_grad():
+        pred_t, l2_t = model(*(torch.from_numpy(x) for x in batch))
+    np.testing.assert_allclose(pred_t.numpy(), np.asarray(pred_j), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(l2_t.item(), float(l2_j), rtol=1e-6)
+
+
+def test_lora_merge_matches_jax(lora_pair):
+    """Adapters folded into the base weights as the reference folds them;
+    the merged plain model gives the LoRA model's forward."""
+    from phantom_vlb_tpu.models.lora import lora_merge as j_merge
+
+    cfg, params, batch = lora_pair
+    scaling = cfg.mistral.lora.scaling
+    merged = lora_merge(from_flax_params(params), scaling)
+    want = from_flax_params(j_merge(params, scaling))
+    assert merged.keys() == want.keys() and not any("lora_" in k for k in merged)
+    for k in want:
+        torch.testing.assert_close(merged[k], want[k], atol=1e-6, rtol=1e-6)
+    plain_cfg = tv.VLBConfig.tiny(mistral=tv.MistralConfig.tiny(vocab_size=1000, num_hidden_layers=LAYERS))
+    lora_cfg = tv.VLBConfig.tiny(use_lora=True, mistral=tv.MistralConfig.tiny(
+        vocab_size=1000, num_hidden_layers=LAYERS, lora=tv.LoRAConfig(rank=4, alpha=8.0, dropout=0.0)))
+    args = [torch.from_numpy(x) for x in batch]
+    with torch.no_grad():
+        pred_m, _ = tv.VideoLLaMA2VLB.from_state_dict(plain_cfg, merged)(*args)
+        pred_l, _ = tv.VideoLLaMA2VLB.from_state_dict(lora_cfg, from_flax_params(params))(*args)
+    torch.testing.assert_close(pred_m, pred_l, atol=1e-4, rtol=0)
 
 
 def test_init_params_dtypes_and_shapes():

@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel (marker ``gpu``).
+"""Card-only tests of the port's CUDA kernels (marker ``gpu``).
 
 They skip without a CUDA card; whether one exists is decided inside the
 fixture, never at import. On the card (which has no JAX, so the JAX test
@@ -11,9 +11,22 @@ import pytest
 import torch
 
 from phantom_vlb_tpu_torch.ops.flash_attention import (
+    FLASH_BWD,
     FLASH_FWD,
     attention_packed,
+    attention_packed_bwd,
+    attention_packed_bwd_plain,
     attention_packed_plain,
+)
+from phantom_vlb_tpu_torch.ops.lora_fused import (
+    LORA_DA,
+    LORA_DX,
+    LORA_FWD,
+    fused_dropout_bwd,
+    fused_dropout_bwd_plain,
+    fused_dropout_matmul,
+    fused_dropout_matmul_plain,
+    hash_bytes,
 )
 
 pytestmark = pytest.mark.gpu
@@ -21,6 +34,13 @@ pytestmark = pytest.mark.gpu
 D = 128
 # bf16 out (2^-8 relative at |out| <= ~1, bf16 P in PV); f32 lse, order only.
 OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# Backward, as max|err| / max|ref| of dq, dk, dv: bf16 outputs (2^-9), and
+# bf16 p and ds whose roundings may flip where exp2 and exp differ by an ulp.
+BWD_REL_TOL = 2e-2
+# LoRA kernels vs plain, as max|err| / max|ref|: bf16 mid and dx (one
+# rounding after f32 sums in another order); dA is f32 (order only).
+MID_REL_TOL, DX_REL_TOL, DA_REL_TOL = 1e-2, 1e-2, 1e-3
+P, THR = 0.1, 26
 
 
 @pytest.fixture
@@ -86,3 +106,113 @@ def test_flash_fwd_raises_on_what_it_does_not_take(cuda):
         attention_packed(q, k, v, 8, 4)                               # head dim 64
     with pytest.raises(ValueError):
         attention_packed(q, k.cpu(), v, 4, 2)                         # mixed devices
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,valid",
+    [
+        (1, 64, 4, 1, None),            # one tile, group 4
+        (2, 200, 8, 4, [200, 150]),     # ragged S, group 2, right padding
+        (2, 1000, 32, 8, [1000, 613]),  # training heads, ragged S
+        (3, 129, 4, 4, [129, 1, 64]),   # group 1, one valid key
+        (2, 256, 16, 4, [0, 256]),      # a row with every key masked
+        (1, 4608, 8, 2, [4000]),        # past the reference's fused-backward limit
+    ],
+)
+def test_flash_bwd_matches_plain(cuda, b, s, hq, hkv, valid):
+    q, k, v, mask = _inputs(cuda, b, s, hq, hkv, valid)
+    out, lse = attention_packed(q, k, v, hq, hkv, kv_mask=mask)
+    do = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda, dtype=torch.bfloat16)
+    got = attention_packed_bwd(q, k, v, out, lse, do, hq, hkv, kv_mask=mask)
+    torch.cuda.synchronize()
+    want = attention_packed_bwd_plain(q, k, v, out, lse, do, hq, hkv, kv_mask=mask)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) <= BWD_REL_TOL
+
+
+def test_gradients_flow_through_the_kernels(cuda):
+    q, k, v, mask = _inputs(cuda, 2, 300, 8, 2, [300, 211])
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out, lse = attention_packed(q, k, v, 8, 2, kv_mask=mask)
+    do = torch.randn_like(out)
+    before = FLASH_BWD.launches
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    assert FLASH_BWD.launches == before + 1
+    want = attention_packed_bwd(q.detach(), k.detach(), v.detach(), out.detach(), lse, do, 8, 2,
+                                kv_mask=mask)
+    # The same kernel twice; dq's atomic sums may round differently.
+    for g, w in zip((dq, dk, dv), want):
+        assert g.abs().max() > 0 and _rel(g, w) <= BWD_REL_TOL
+
+
+def _lora_inputs(dev, m, k, r, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev, dtype=torch.bfloat16)
+    a = (0.05 * torch.randn(k, r, generator=g, device=dev)).to(torch.bfloat16)
+    dmid = torch.randn(m, r, generator=g, device=dev, dtype=torch.bfloat16)
+    bits = torch.randint(0, 256, (m, k), generator=g, device=dev, dtype=torch.uint8)
+    return x, a, dmid, bits
+
+
+@pytest.mark.parametrize("m,k,r", [(256, 512, 16), (200, 192, 32), (96, 4096, 16), (64, 256, 128)])
+@pytest.mark.parametrize("mode", ["bits", "hash"])
+def test_lora_kernels_match_plain(cuda, m, k, r, mode):
+    x, a, dmid, bits = _lora_inputs(cuda, m, k, r)
+    bits = bits if mode == "bits" else None
+    mid = fused_dropout_matmul(x, a, 7, P, bits=bits)
+    dx, da = fused_dropout_bwd(x, a, dmid, 7, P, bits=bits)
+    torch.cuda.synchronize()
+    assert _rel(mid, fused_dropout_matmul_plain(x, a, 7, THR, bits)) <= MID_REL_TOL
+    dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, 7, THR, bits)
+    assert _rel(dx, dx_ref) <= DX_REL_TOL
+    assert (dx == 0).equal(dx_ref == 0)                  # the same elements dropped
+    assert _rel(da, da_ref) <= DA_REL_TOL
+
+
+def test_lora_hash_mask_is_exact(cuda):
+    m, k, r = 320, 1024, 16
+    x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
+    a = torch.zeros(k, r, device=cuda, dtype=torch.bfloat16)
+    a[:, 0] = 1
+    dmid = torch.zeros(m, r, device=cuda, dtype=torch.bfloat16)
+    dmid[:, 0] = 1
+    for seed in (0, 1, 2**32 - 1):
+        dx, _ = fused_dropout_bwd(x, a, dmid, seed, P, need_da=False)
+        torch.cuda.synchronize()
+        assert torch.equal(dx != 0, hash_bytes(seed, m, k, cuda) >= THR)
+
+
+def test_lora_gradients_and_launch_counts(cuda):
+    x, a, _, _ = _lora_inputs(cuda, 128, 256, 16)
+    x.requires_grad_()
+    a = a.float().requires_grad_()
+    counts = [t.launches for t in (LORA_FWD, LORA_DX, LORA_DA)]
+    mid = fused_dropout_matmul(x, a.to(torch.bfloat16), 3, P)
+    mid.float().square().sum().backward()
+    assert [t.launches for t in (LORA_FWD, LORA_DX, LORA_DA)] == [c + 1 for c in counts]
+    assert x.grad.abs().max() > 0 and a.grad.abs().max() > 0 and a.grad.dtype == torch.float32
+
+
+def test_backward_and_lora_raise_on_what_they_do_not_take(cuda):
+    q, k, v, _ = _inputs(cuda, 1, 128, 4, 2)
+    out, lse = attention_packed(q, k, v, 4, 2)
+    with pytest.raises(ValueError):
+        attention_packed_bwd(q, k, v, out, lse, out.float(), 4, 2)          # f32 do
+    with pytest.raises(ValueError):
+        attention_packed_bwd(q, k, v, out, lse[:, :2], out, 4, 2)            # wrong lse
+    x, a, _, bits = _lora_inputs(cuda, 64, 256, 16)
+    with pytest.raises(ValueError):
+        fused_dropout_matmul(x.float(), a.float(), 0, P)                     # f32
+    with pytest.raises(ValueError):
+        fused_dropout_matmul(x[:, :200].contiguous(), a[:200], 0, P)        # K % 64
+    with pytest.raises(ValueError):
+        fused_dropout_matmul(x, a[:, :8].contiguous(), 0, P)                 # rank 8
+    with pytest.raises(ValueError):
+        fused_dropout_matmul(x, a, 0, P, bits=bits[:, :128])                 # bits shape
