@@ -13,7 +13,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
    length and S = 4608 (where the reference takes its split backward); the
    three LoRA dropout kernels at M = 6144, K = 4096 and 14336,
    in bits mode and in hash mode (mask read back exactly through dx, keep
-   rate, seed determinism);
+   rate, seed determinism); the row quant (both entry points) at
+   (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
+   that is not a multiple of 8 (q and s bit for bit); the LoRA epilogue's
+   forward, dz and dB at M = 6144, r = 16, N = 1024, 4096 and 14336;
 4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
    from a seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
@@ -23,14 +26,23 @@ Phases, each printed with its wall time; any failure exits non-zero:
 7. the full-width LoRA model (r 16, alpha 32, fused u8 dropout 0.1, remat
    per layer): 3 steps of ``train_batches`` at batch 3, launch counts
    against what the code implies, gradients reaching layer 0's adapters;
-8. one more LoRA step under ``torch.profiler``;
+8. one more LoRA step under ``torch.profiler``; then, on the same weights,
+   3 steps with the fused LoRA epilogue (``fused_epilogue='pallas'``), so
+   the step time with the flag off and on come from one run;
+8b. the w8a8g8 LoRA step of record: phase 7's weights quantized to int8 on
+   the card in place, projection by projection, then 3 steps at batch 3
+   with the fused epilogue (launch counts of all ten kernels, non-zero
+   adapter gradients, peak device memory), and one more under
+   ``torch.profiler``;
 9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
 10. narrow models (same geometry, 2 layers, 256 wide) on the card against
-    the same weights in f32 on the CPU: served predictions, and the LoRA
-    loss and adapter gradients of one step;
+    the same weights in f32 on the CPU: served predictions, the LoRA loss
+    and adapter gradients of one step, and the same for a w8a8g8 LoRA step
+    (the same int8 weights on both sides);
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
-    beside the bound;
+    beside the bound; ``torch._int_mm`` in each weight layout against bf16
+    ``F.linear`` at 6144 x 4096 -> 14336;
 12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -71,6 +83,17 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     attention_packed_bwd_plain,
     attention_packed_plain,
 )
+from phantom_vlb_tpu_torch.ops.lora_epilogue import (
+    EPI_DB,
+    EPI_DZ,
+    EPI_FWD,
+    lora_epilogue_db,
+    lora_epilogue_db_plain,
+    lora_epilogue_dz,
+    lora_epilogue_dz_plain,
+    lora_epilogue_fwd,
+    lora_epilogue_plain,
+)
 from phantom_vlb_tpu_torch.ops.lora_fused import (
     LORA_DA,
     LORA_DX,
@@ -82,6 +105,14 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     fused_dropout_matmul_plain,
     hash_bytes,
 )
+from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
+from phantom_vlb_tpu_torch.ops.rowquant import (
+    ROW_QUANT,
+    ROW_QUANT_SCALED,
+    row_quant,
+    row_quant_plain,
+    row_quant_scaled,
+)
 from phantom_vlb_tpu_torch.train.loop import train_batches
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine
 from phantom_vlb_tpu_torch.train.step import loss_fn
@@ -92,14 +123,22 @@ LORA_BATCH = 3            # configs/experiment/vlb_friends_lora.yaml:14
 N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
+EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd": FLASH_BWD,
-           "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA}
+           "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
+           "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
+           "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB}
 REPLACES = {
     "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
     "flash_bwd": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:284"),
     "lora_fwd": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:62"),
     "lora_dx": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:92"),
     "lora_da": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:111"),
+    "row_quant": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35"),
+    "row_quant_scaled": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:45"),
+    "epi_fwd": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:45"),
+    "epi_dz": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:51"),
+    "epi_db": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:69"),
 }
 # bf16 kernel vs f32 plain on the same bf16 inputs (q pre-scaled in bf16 on
 # both sides): out is bf16 (2^-8 relative at |out| <= ~1, plus bf16 P in the
@@ -122,10 +161,20 @@ PRED_TOL = 1e-1
 # through two layers, and the dropout scale 1/keep rounded to bf16 on the
 # card (1.109375) but not in f32 (1.113043).
 LORA_LOSS_TOL, LORA_GRAD_TOL = 1e-3, 5e-2
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3.
-PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# Epilogue kernels vs plain, max|err| / max|ref|: bf16 outputs after f32
+# sums in another order (the forward also rounds acc and acc * s to bf16).
+EPI_REL_TOL = 1e-2
+# Narrow w8a8g8 LoRA step, card (bf16) vs CPU (f32) on the same int8
+# weights: the loss as |err| / |ref|, each adapter gradient by its cosine
+# (the bound of tests/test_quant.py:227-276 for int8 against exact dx): the
+# activations' int8 codes differ where bf16 and f32 values straddle a .5.
+W8_LOSS_TOL, W8_GRAD_COS = 5e-3, 0.98
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 outside
+# them, and HBM3.
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+INT8_GEMM_MARKERS = ("s8", "i8", "imma", "int8")
 
 
 def host_rss_gb() -> float:
@@ -277,6 +326,60 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
     return errs
 
 
+def check_row_quant(gen, dev) -> dict[str, float]:
+    """Both entry points vs plain, bit for bit: bf16 at (6144, 4096) and
+    (6144, 14336) with a zero row, and 6141 rows (not a multiple of 8);
+    returns each entry point's max abs error over q (as float)."""
+    errs = {"row_quant": 0.0, "row_quant_scaled": 0.0}
+    for rows, n in ((LORA_M, LORA_KS[0]), (LORA_M, LORA_KS[1]), (LORA_M - 3, LORA_KS[0])):
+        x = (3 * torch.randn(rows, n, generator=gen, device=dev)).to(torch.bfloat16)
+        x[rows // 3] = 0
+        w = torch.rand(n, generator=gen, device=dev) * 2 + 0.01
+        for name, got, want in (("row_quant", row_quant(x), row_quant_plain(x)),
+                                ("row_quant_scaled", row_quant_scaled(x, w), row_quant_plain(x, w))):
+            torch.cuda.synchronize()
+            q_mis = int((got[0] != want[0]).sum())
+            s_same = bool(torch.equal(got[1], want[1]))
+            floor = got[1][rows // 3].item()
+            print(f"  {name} ({rows}, {n}) bf16: {q_mis} q mismatches, s bit-equal {s_same}, "
+                  f"zero row's s {floor:.3e}")
+            if q_mis or not s_same or floor != torch.tensor(1e-12).item():
+                raise AssertionError(f"{name} disagrees with its plain version at ({rows}, {n})")
+            errs[name] = max(errs[name], abs_err(got[0], want[0]))
+    return errs
+
+
+def epilogue_inputs(n: int, gen, dev):
+    y = torch.randn(LORA_M, n, generator=gen, device=dev, dtype=torch.bfloat16)
+    z = torch.randn(LORA_M, LORA_R, generator=gen, device=dev, dtype=torch.bfloat16)
+    b = (0.05 * torch.randn(LORA_R, n, generator=gen, device=dev)).to(torch.bfloat16)
+    dy = torch.randn(LORA_M, n, generator=gen, device=dev, dtype=torch.bfloat16)
+    return y, z, b, dy
+
+
+def check_epilogue(gen, dev) -> dict[str, float]:
+    """Forward, dz and dB vs plain at M = 6144, r = 16, N = 1024, 4096,
+    14336; returns each kernel's max abs error."""
+    errs = {"epi_fwd": 0.0, "epi_dz": 0.0, "epi_db": 0.0}
+    scaling = 32.0 / LORA_R
+    for n in EPI_NS:
+        y, z, b, dy = epilogue_inputs(n, gen, dev)
+        got = {"epi_fwd": lora_epilogue_fwd(y, z, b, scaling), "epi_dz": lora_epilogue_dz(dy, b, scaling),
+               "epi_db": lora_epilogue_db(z, dy, scaling)}
+        torch.cuda.synchronize()
+        want = {"epi_fwd": lora_epilogue_plain(y, z, b, scaling),
+                "epi_dz": lora_epilogue_dz_plain(dy, b, scaling),
+                "epi_db": lora_epilogue_db_plain(z, dy, scaling)}
+        rels = {k: rel_err(got[k], want[k]) for k in got}
+        print(f"  epilogue N={n}: max|err|/max|ref| " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f" (tol {EPI_REL_TOL})")
+        if max(rels.values()) > EPI_REL_TOL or not all(torch.isfinite(g).all() for g in got.values()):
+            raise AssertionError(f"the epilogue kernels disagree with their plain versions at N={n}")
+        for k in got:
+            errs[k] = max(errs[k], abs_err(got[k], want[k]))
+    return errs
+
+
 def check_predictions(res: dict, rows: int, num_target: int) -> None:
     pred = res["predicted"]
     if pred.shape != (rows, num_target) or not np.isfinite(pred).all():
@@ -291,7 +394,14 @@ def kernel_group(name: str) -> str:
             return group
     if "lora_" in name:
         return "lora"
-    return "gemm" if any(m in name.lower() for m in GEMM_MARKERS) else "other"
+    if "row_quant" in name:
+        return "row_quant"
+    if "epi_" in name:
+        return "epilogue"
+    low = name.lower()
+    if any(m in low for m in GEMM_MARKERS):
+        return "gemm_int8" if any(m in low for m in INT8_GEMM_MARKERS) else "gemm"
+    return "other"
 
 
 def traced(fn, label: str) -> None:
@@ -318,34 +428,50 @@ def traced(fn, label: str) -> None:
         print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
 
 
-def lora_train_config(mistral: MistralConfig | None = None, **overrides) -> VLBConfig:
+def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str = "",
+                      base_quant: str | None = None, **overrides) -> VLBConfig:
     """The reference's LoRA recipe with the fused u8 dropout the bench runs."""
-    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True)
-    mistral = MistralConfig.full(lora=lora, remat=True) if mistral is None else mistral
+    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True,
+                      fused_epilogue=fused_epilogue)
+    if mistral is None:
+        mistral = MistralConfig.full(lora=lora, remat=True, base_quant=base_quant)
     return VLBConfig.full(use_lora=True, mistral=mistral, **overrides)
 
 
-def expected_train_launches(layers: int, steps: int) -> dict[str, int]:
+def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
+                            int8: bool = False) -> dict[str, int]:
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
-    and 2 x 7 LoRA forwards; one flash backward; 7 dA; and 7 dx except for
-    layer 0's q, k and v, whose input (the normed embeddings) needs no
-    gradient."""
-    return {"flash_fwd": 2 * layers * steps, "flash_bwd": layers * steps,
-            "lora_fwd": 14 * layers * steps, "lora_dx": (7 * layers - 3) * steps,
-            "lora_da": 7 * layers * steps}
+    and 2 x 7 LoRA forwards (and, with the int8 base, row quants; with the
+    fused epilogue, epilogue forwards); one flash backward; 7 dA (7 dz and
+    7 dB); and 7 dx (7 scaled row quants) except for layer 0's q, k and v,
+    whose input (the normed embeddings) needs no gradient."""
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd": layers,
+                "lora_fwd": 14 * layers, "lora_dx": 7 * layers - 3, "lora_da": 7 * layers,
+                "row_quant": 14 * layers if int8 else 0,
+                "row_quant_scaled": 7 * layers - 3 if int8 else 0,
+                "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 7 * layers if epilogue else 0,
+                "epi_db": 7 * layers if epilogue else 0}
+    return {name: n * steps for name, n in per_step.items()}
 
 
 def grad_of(model, name: str) -> torch.Tensor:
     return dict(model.named_parameters())[name].grad
 
 
-def train_lora_full(gen, dev) -> dict[str, int]:
-    cfg = lora_train_config()
-    model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
+def train_lora_steps(cfg: VLBConfig, sd: dict, gen, dev, fresh: bool) -> tuple[dict, list[float], object]:
+    """3 steps of ``train_batches`` at batch 3 on ``sd``'s tensors (assigned,
+    not copied), with the launch counts the code implies and gradients on
+    layer 0's adapters: from fresh adapters (lora_b = 0) lora_b's is
+    non-zero and lora_a's exactly 0 at step 1 and non-zero at step 2;
+    otherwise both are non-zero from step 1. Returns (launches, step ms, a
+    closure that runs one more step)."""
+    model = VideoLLaMA2VLB.from_state_dict(cfg, sd)
     optimizer = AdamWCosine(trainable_parameters(model))
     n_train = sum(p.numel() for p in optimizer.params)
-    print(f"  {cfg.mistral.num_hidden_layers} layers, {n_train / 1e6:.3f} M trainable "
+    mcfg = cfg.mistral
+    print(f"  {mcfg.num_hidden_layers} layers, base {mcfg.base_quant or 'bf16'}, fused epilogue "
+          f"{mcfg.lora.fused_epilogue or 'off'}, {n_train / 1e6:.3f} M trainable "
           f"({len(optimizer.params)} tensors), batch {LORA_BATCH}")
     batches = synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev)
     seeds = torch.Generator().manual_seed(SEED)
@@ -360,10 +486,12 @@ def train_lora_full(gen, dev) -> dict[str, int]:
         ga, gb = grad_of(model, q_a), grad_of(model, q_b)
         print(f"  step {step + 1}: |grad| layer 0 q_proj lora_a {ga.norm().item():.4e}, "
               f"lora_b {gb.norm().item():.4e}")
-        if step == 0 and not (gb.abs().max() > 0 and torch.isfinite(gb).all() and ga.abs().max() == 0):
-            raise AssertionError("step 1: layer 0's lora_b needs a non-zero gradient, lora_a exactly 0")
-        if step == 1 and not (ga.abs().max() > 0 and torch.isfinite(ga).all()):
-            raise AssertionError("step 2: layer 0's lora_a needs a non-zero finite gradient")
+        if not (gb.abs().max() > 0 and torch.isfinite(gb).all() and torch.isfinite(ga).all()):
+            raise AssertionError(f"step {step + 1}: layer 0's lora_b needs a non-zero finite gradient")
+        if fresh and step == 0 and ga.abs().max() != 0:
+            raise AssertionError("step 1: with lora_b = 0, layer 0's lora_a gradient must be exactly 0")
+        if (step >= 1 or not fresh) and not ga.abs().max() > 0:
+            raise AssertionError(f"step {step + 1}: layer 0's lora_a needs a non-zero gradient")
     launches = read_launches()
     step_ms = [float(r["step_ms"][0]) for r in runs]
     loss = [float(r["brain_loss"][0]) for r in runs]
@@ -373,14 +501,51 @@ def train_lora_full(gen, dev) -> dict[str, int]:
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not np.isfinite(loss + norm).all():
         raise AssertionError("non-finite LoRA training loss or gradient norm")
-    expected = expected_train_launches(cfg.mistral.num_hidden_layers, N_BATCHES)
+    expected = expected_train_launches(mcfg.num_hidden_layers, N_BATCHES,
+                                       epilogue=bool(mcfg.lora.fused_epilogue),
+                                       int8=mcfg.base_quant is not None)
     if launches != expected:
         raise AssertionError(f"LoRA training launched {launches}, want {expected}")
     print(f"  clips/s at batch {LORA_BATCH} (steps 2-3): "
           f"{[round(LORA_BATCH / (x / 1e3), 3) for x in step_ms[1:]]}")
+
+    def one_more_step():
+        train_batches(model, [batches[-1]], device=dev, generator=seeds, optimizer=optimizer)
+
+    return launches, step_ms, one_more_step
+
+
+def train_lora_full(gen, dev) -> dict[str, int]:
+    """Phases 7, 8 and 8b on one set of full-width weights: bf16 without and
+    with the fused epilogue, then quantized in place for the w8a8g8 step.
+    Returns the w8a8g8 run's launch counts (every kernel of the port)."""
+    cfg = lora_train_config()
+    sd = init_params(cfg, dev, gen)
+    _, off_ms, more = train_lora_steps(cfg, sd, gen, dev, fresh=True)
     with phase("8 profile one LoRA step"):
-        traced(lambda: train_batches(model, [batches[-1]], device=dev, generator=seeds,
-                                     optimizer=optimizer), "LoRA train step")
+        traced(more, "LoRA train step")
+        del more
+        torch.cuda.empty_cache()
+    with phase("8 LoRA train with the fused epilogue"):
+        _, on_ms, more = train_lora_steps(lora_train_config(fused_epilogue="pallas"), sd, gen, dev, fresh=False)
+        del more
+        print(f"  step ms with the fused epilogue off {[round(x, 3) for x in off_ms[1:]]}, "
+              f"on {[round(x, 3) for x in on_ms[1:]]} (steps 2-3, one run)")
+        torch.cuda.empty_cache()
+    with phase("8b w8a8g8 LoRA train at full width"):
+        t0 = time.perf_counter()
+        quantize_state_dict(sd)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = [t for k, t in sd.items() if k.endswith((".weight_q", ".weight_scale"))]
+        print(f"  quantized {len(base) // 2} projections on the card in place in "
+              f"{time.perf_counter() - t0:.2f} s: int8 base {sum(t.numel() * t.element_size() for t in base) / 1e9:.2f} GB, "
+              f"device memory now {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        del base
+        cfg8 = lora_train_config(fused_epilogue="pallas", base_quant="w8a8g8")
+        launches, _, more = train_lora_steps(cfg8, sd, gen, dev, fresh=False)
+    with phase("8b profile one w8a8g8 LoRA step"):
+        traced(more, "w8a8g8 LoRA train step")
     return launches
 
 
@@ -427,19 +592,27 @@ def narrow_reference_check(gen, dev) -> None:
         raise AssertionError("narrow model on the card disagrees with its f32 CPU reference")
 
 
-def narrow_lora_check(gen, dev) -> None:
+def narrow_lora_check(gen, dev, base_quant: str | None = None) -> None:
     """One LoRA step's loss and adapter gradients of the narrow model (fused
     hash dropout at p 0.1, which the CPU's plain version reproduces bit for
-    bit; head dropout off, whose mask comes from a device generator)."""
-    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True)
-    cfg = lora_train_config(narrow_mistral(torch.bfloat16, lora), dropout_rate=0.0)
+    bit; head dropout off, whose mask comes from a device generator). With
+    ``base_quant`` the projections are int8 (the same codes and scales on
+    both sides) and the epilogue fused, so every kernel of the w8a8g8 path
+    runs on the card."""
+    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True,
+                      fused_epilogue="pallas" if base_quant else "")
+
+    def mistral(dtype):
+        return dataclasses.replace(narrow_mistral(dtype, lora), base_quant=base_quant)
+
+    cfg = lora_train_config(mistral(torch.bfloat16), dropout_rate=0.0)
     sd = init_params(cfg, dev, gen)
     for key in sd:
         if key.endswith("lora_b"):       # non-zero, so lora_a's gradient is too
             sd[key] = 0.05 * torch.randn(sd[key].shape, generator=gen, device=dev)
     batch = synthetic_batches(cfg, 1, 1, np.random.default_rng(SEED), gen, dev)[0]
     results = []
-    for device, mcfg in ((dev, cfg), ("cpu", dataclasses.replace(cfg, mistral=narrow_mistral(torch.float32, lora)))):
+    for device, mcfg in ((dev, cfg), ("cpu", dataclasses.replace(cfg, mistral=mistral(torch.float32)))):
         model = VideoLLaMA2VLB.from_state_dict(mcfg, sd, device=device)
         trainable_parameters(model)
         model.train()
@@ -453,11 +626,20 @@ def narrow_lora_check(gen, dev) -> None:
     flat_c = torch.cat([g_c[n].flatten() for n in sorted(g_r)])
     flat_r = torch.cat([g_r[n].flatten() for n in sorted(g_r)])
     grad_rel = rel_err(flat_c, flat_r)
-    print(f"  narrow LoRA step: loss card {loss_c:.6f} cpu f32 {loss_r:.6f} (|err|/|ref| {loss_rel:.3e}, "
-          f"tol {LORA_LOSS_TOL}); adapter grads max|err|/max|ref| {grad_rel:.3e} (tol {LORA_GRAD_TOL}) "
-          f"over {len(g_r)} tensors, max|ref| {flat_r.abs().max().item():.4e}")
-    if not (loss_rel <= LORA_LOSS_TOL and grad_rel <= LORA_GRAD_TOL and flat_c.abs().max() > 0):
-        raise AssertionError("narrow LoRA step on the card disagrees with its f32 CPU reference")
+    cos = min(F.cosine_similarity(g_c[n].flatten().double(), g_r[n].flatten().double(), dim=0).item()
+              for n in g_r)
+    label = f"narrow {base_quant or 'bf16'} LoRA step"
+    print(f"  {label}: loss card {loss_c:.6f} cpu f32 {loss_r:.6f} (|err|/|ref| {loss_rel:.3e}); adapter "
+          f"grads max|err|/max|ref| {grad_rel:.3e}, least cosine {cos:.6f} over {len(g_r)} tensors, "
+          f"max|ref| {flat_r.abs().max().item():.4e}")
+    if base_quant:
+        ok = loss_rel <= W8_LOSS_TOL and cos >= W8_GRAD_COS
+        print(f"  tolerances: loss {W8_LOSS_TOL}, cosine >= {W8_GRAD_COS} for every tensor")
+    else:
+        ok = loss_rel <= LORA_LOSS_TOL and grad_rel <= LORA_GRAD_TOL
+        print(f"  tolerances: loss {LORA_LOSS_TOL}, gradients {LORA_GRAD_TOL}")
+    if not (ok and flat_c.abs().max() > 0 and all(g_c[n].abs().max() > 0 for n in g_c)):
+        raise AssertionError(f"{label} on the card disagrees with its f32 CPU reference")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -502,8 +684,9 @@ def timed(kernel_fn, kernel: str, plain_fn, library_fn, iters: int) -> dict:
             "library_ms": device_ms(library_fn, iters)[1]}
 
 
-def report(name: str, shape: str, rec: dict, flops: float, nbytes: float) -> None:
-    rec.update(bound(flops, nbytes))
+def report(name: str, shape: str, rec: dict, flops: float, nbytes: float,
+           peak_flops: float = PEAK_BF16_FLOPS) -> None:
+    rec.update(bound(flops, nbytes, peak_flops))
     print(f"  {name} {shape}: kernel {rec['ms']:.4f} ms (wrapper {rec['wrapper_ms']:.4f} ms on the device, "
           f"{rec['wrapper_event_ms']:.4f} ms by CUDA events), plain {rec['plain_ms']:.4f} ms, library "
           f"{rec['library_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound "
@@ -511,8 +694,8 @@ def report(name: str, shape: str, rec: dict, flops: float, nbytes: float) -> Non
           f"{nbytes / rec['ms'] / 1e6:.1f} GB/s achieved")
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -605,6 +788,96 @@ def time_lora(gen, dev) -> dict[str, dict]:
     return out
 
 
+def eager_row_quant(x, w=None):
+    """The row quant as the obvious eager torch sequence (library yardstick)."""
+    v = x.float() if w is None else x.float() * w
+    s = (v.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(v / s).clamp(-127, 127).to(torch.int8), s
+
+
+def time_row_quant(gen, dev) -> dict[str, dict]:
+    """Both entry points at (6144, 4096) and (6144, 14336) bf16; the JSON
+    carries N = 4096, the input width of 6 of a layer's 7 projections."""
+    out = {}
+    for n in LORA_KS:
+        x = torch.randn(LORA_M, n, generator=gen, device=dev, dtype=torch.bfloat16)
+        w = torch.rand(n, generator=gen, device=dev) + 0.5
+        cases = {
+            "row_quant": (lambda: row_quant(x), lambda: row_quant_plain(x), lambda: eager_row_quant(x), 0),
+            "row_quant_scaled": (lambda: row_quant_scaled(x, w), lambda: row_quant_plain(x, w),
+                                 lambda: eager_row_quant(x, w), n * 4),
+        }
+        for name, (kernel_fn, plain_fn, library_fn, extra) in cases.items():
+            rec = timed(kernel_fn, "row_quant_kernel", plain_fn, library_fn, 20)
+            # x read once; q and s written once (w_scale read once).
+            report(name, f"({LORA_M}, {n})", rec, 0.0, LORA_M * n * 3 + LORA_M * 4 + extra)
+            if n == LORA_KS[0]:
+                out[name] = rec
+        del x, w
+    return out
+
+
+def time_epilogue(gen, dev) -> dict[str, dict]:
+    """Forward, dz and dB at M = 6144, r = 16, N = 1024, 4096, 14336; the
+    library is one PyTorch call each (``addmm`` with the scaling as alpha),
+    timed only. The JSON carries N = 4096 (q, o and down)."""
+    out = {}
+    s, m, r = 32.0 / LORA_R, LORA_M, LORA_R
+    for n in EPI_NS:
+        y, z, b, dy = epilogue_inputs(n, gen, dev)
+        dz_out = torch.empty(m, r, device=dev, dtype=torch.bfloat16)
+        db_out = torch.empty(r, n, device=dev, dtype=torch.bfloat16)
+        cases = {
+            # y, z, B read once, out written once; r f32 FMAs an element on
+            # the CUDA cores.
+            "epi_fwd": (lambda: lora_epilogue_fwd(y, z, b, s), lambda: lora_epilogue_plain(y, z, b, s),
+                        lambda: torch.addmm(y, z, b, alpha=s), (2 * m * n + m * r + r * n) * 2,
+                        PEAK_F32_FLOPS),
+            # dy and B (z) read once, dz (dB) written once; mma.sync bf16.
+            "epi_dz": (lambda: lora_epilogue_dz(dy, b, s), lambda: lora_epilogue_dz_plain(dy, b, s),
+                       lambda: torch.addmm(dz_out, dy, b.t(), beta=0, alpha=s),
+                       (m * n + r * n + m * r) * 2, PEAK_BF16_FLOPS),
+            "epi_db": (lambda: lora_epilogue_db(z, dy, s), lambda: lora_epilogue_db_plain(z, dy, s),
+                       lambda: torch.addmm(db_out, z.t(), dy, beta=0, alpha=s),
+                       (m * n + m * r + r * n) * 2, PEAK_BF16_FLOPS),
+        }
+        for name, (kernel_fn, plain_fn, library_fn, nbytes, peak) in cases.items():
+            rec = timed(kernel_fn, "epi_", plain_fn, library_fn, 20)
+            report(name, f"M={m} N={n} r={r}", rec, 2 * m * n * r, nbytes, peak)
+            if n == 4096:
+                out[name] = rec
+        del y, z, b, dy, dz_out, db_out
+    return out
+
+
+def time_int_mm(gen, dev) -> None:
+    """``torch._int_mm`` at 6144 x 4096 -> 14336 and its dx (6144 x 14336
+    -> 4096), each with the weight stored (out, in) and (in, out), beside
+    bf16 ``F.linear`` on the same shapes: what decides the int8 base's
+    worth and the layout it is stored in. Printed, not in the JSON line."""
+    m, k, n = LORA_M, LORA_KS[0], LORA_KS[1]
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    g8 = torch.randint(-127, 128, (m, n), generator=gen, device=dev, dtype=torch.int8)
+    w_oi = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    w_io = w_oi.t().contiguous()
+    xb, gb = x8.to(torch.bfloat16), g8.to(torch.bfloat16)
+    wb = w_oi.to(torch.bfloat16)
+    cases = {
+        "forward, weight (out, in)": (lambda: torch._int_mm(x8, w_oi.t()), 2 * m * k * n),
+        "forward, weight (in, out)": (lambda: torch._int_mm(x8, w_io), 2 * m * k * n),
+        "dx, weight (out, in)": (lambda: torch._int_mm(g8, w_oi), 2 * m * k * n),
+        "dx, weight (in, out)": (lambda: torch._int_mm(g8, w_io.t()), 2 * m * k * n),
+        "dx, weight (out, in) transposed per call": (lambda: torch._int_mm(g8, w_oi.t().contiguous().t()),
+                                                     2 * m * k * n),
+        "bf16 F.linear forward": (lambda: F.linear(xb, wb), 2 * m * k * n),
+        "bf16 dx (dy @ W)": (lambda: gb @ wb, 2 * m * k * n),
+    }
+    for label, (fn, flops) in cases.items():
+        ms = cuda_ms(fn, 20)
+        print(f"  {label}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TOP/s)")
+    del x8, g8, w_oi, w_io, xb, gb, wb
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -635,6 +908,9 @@ def main() -> int:
         for k in LORA_KS:
             for name, err in check_lora(k, gen, dev).items():
                 max_abs_err[name] = max(max_abs_err.get(name, 0.0), err)
+        torch.cuda.empty_cache()
+        max_abs_err.update(check_row_quant(gen, dev))
+        max_abs_err.update(check_epilogue(gen, dev))
         torch.cuda.empty_cache()
     with phase("4 full-width model"):
         cfg = VLBConfig.full()
@@ -671,10 +947,13 @@ def main() -> int:
     with phase("10 narrow models vs f32 CPU"):
         narrow_reference_check(gen, dev)
         narrow_lora_check(gen, dev)
+        narrow_lora_check(gen, dev, base_quant="w8a8g8")
     with phase("11 timing"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        timing = {**time_flash(gen, dev), **time_lora(gen, dev)}
+        timing = {**time_flash(gen, dev), **time_lora(gen, dev), **time_row_quant(gen, dev),
+                  **time_epilogue(gen, dev)}
+        time_int_mm(gen, dev)
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with phase("12 host"):
         rss_gb = peak_rss_gb()

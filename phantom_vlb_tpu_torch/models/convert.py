@@ -8,6 +8,9 @@ form, grouped (``sub_{g}``, leading axis L/G, layer ``j*G + g``) or not
 writes them:
 
 - Dense ``kernel`` (in, out) -> ``nn.Linear`` ``weight`` (out, in);
+- a quantized base's ``kernel_q`` int8 (in, out) -> ``weight_q`` (out, in)
+  and ``kernel_scale`` (out,) -> ``weight_scale`` (``ops/quant.py``
+  ``quantize_tree``'s leaves);
 - LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out) -> as they are (the port
   stores them in the reference's orientation);
 - ``embed_tokens/embedding``, RMSNorm ``weight`` -> as they are;
@@ -17,7 +20,11 @@ writes them:
 
 :func:`init_params` makes a random full-width state dict on the device, in
 the backbone's dtype (bf16 at full width) with the head and any adapters in
-f32, from an explicit generator, without a host copy of the backbone.
+f32, from an explicit generator, without a host copy of the backbone. With
+``base_quant`` each projection is drawn in that dtype and quantized on the
+device at once (``quantize_int8``), so the bf16 model is never whole.
+:func:`~phantom_vlb_tpu_torch.ops.quant.quantize_state_dict` quantizes an
+existing state dict in place, projection by projection, on its device.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from phantom_vlb_tpu_torch.core.device import resolve_device
 from phantom_vlb_tpu_torch.models.lora import is_lora_path
 from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB
+from phantom_vlb_tpu_torch.ops.quant import quantize_int8
 
 __all__ = ["from_flax_params", "init_params", "DEFERRED_SUBTREES"]
 
@@ -71,8 +79,11 @@ def _layer_leaf(path: tuple, within: tuple) -> tuple[str, bool]:
     """Path inside one decoder layer -> (key suffix, transpose)."""
     if len(within) == 3 and within[:2] in _DENSE and within[2] == "kernel":
         return f"{within[0]}.{within[1]}.weight", True
-    if len(within) == 3 and within[:2] in _DENSE and within[2] in ("lora_a", "lora_b"):
-        return f"{within[0]}.{within[1]}.{within[2]}", False
+    if len(within) == 3 and within[:2] in _DENSE and within[2] == "kernel_q":
+        return f"{within[0]}.{within[1]}.weight_q", True
+    if len(within) == 3 and within[:2] in _DENSE and within[2] in ("lora_a", "lora_b", "kernel_scale"):
+        name = "weight_scale" if within[2] == "kernel_scale" else within[2]
+        return f"{within[0]}.{within[1]}.{name}", False
     if len(within) == 2 and within[0] in _NORMS and within[1] == "weight":
         return f"{within[0]}.weight", False
     raise _unconsumed(path)
@@ -122,7 +133,9 @@ def init_params(
     """Random state dict made on ``device``: N(0, INIT_STD) projections and
     embeddings in ``cfg.mistral.dtype``, unit norms, an f32 head whose
     ridge weight is N(0, 1/hidden), and f32 adapters as the reference
-    initialises them (``lora_a`` he-uniform over its fan-in, ``lora_b`` 0)."""
+    initialises them (``lora_a`` he-uniform over its fan-in, ``lora_b`` 0).
+    With ``cfg.mistral.base_quant`` each projection is drawn as above and
+    quantized at once into ``weight_q`` / ``weight_scale``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -147,6 +160,13 @@ def init_params(
                 sd[key] = torch.zeros(meta.shape, device=device)
         elif key.endswith("norm.weight"):
             sd[key] = torch.ones(meta.shape, dtype=cfg.mistral.dtype, device=device)
+        elif key.endswith(".weight_scale"):
+            continue                                     # made with its weight_q
+        elif key.endswith(".weight_q"):
+            t = torch.randn(meta.shape, generator=generator, device=device, dtype=cfg.mistral.dtype)
+            base = key[: -len("weight_q")]
+            sd[key], sd[base + "weight_scale"] = quantize_int8(t.mul_(INIT_STD), axis=1)
+            del t
         else:
             t = torch.randn(meta.shape, generator=generator, device=device, dtype=cfg.mistral.dtype)
             sd[key] = t.mul_(INIT_STD)

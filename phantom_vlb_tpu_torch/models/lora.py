@@ -1,8 +1,8 @@
 """LoRA adapters on a frozen bf16 base projection.
 
 Counterpart of ``phantom_vlb_tpu/models/lora.py`` (``LoRAConfig`` :37-78,
-``adapter_dropout`` :80-98, ``LoRADense`` :101-221, ``is_lora_path``,
-``lora_merge``)::
+``adapter_dropout`` :80-98, ``LoRADense`` :101-221, ``FrozenQuantDense``
+:224-272, ``is_lora_path``, ``lora_merge``)::
 
     y = x @ W^T  (frozen)  +  scaling * (dropout(x) @ A) @ B
 
@@ -10,14 +10,21 @@ Counterpart of ``phantom_vlb_tpu/models/lora.py`` (``LoRAConfig`` :37-78,
 masters cast to the compute dtype at use (the reference's
 ``param_dtype=f32``). The fused branch (``fused_dropout``, in training,
 p > 0) runs :func:`~phantom_vlb_tpu_torch.ops.lora_fused.fused_dropout_matmul`:
-its kernels on the card, its plain version on the CPU.
+its kernels on the card, its plain version on the CPU. ``fused_epilogue``
+(``'pallas'``, or ``'fwd'`` for the kernel forward with library dz and dB)
+runs ``y + scaling * (z @ B)`` through
+:func:`~phantom_vlb_tpu_torch.ops.lora_epilogue.lora_epilogue`.
+
+With ``base_quant`` (``'int8'``, ``'w8a8'`` or ``'w8a8g8'``) the frozen base
+is the buffer ``weight_q`` int8 (out, in) with ``weight_scale`` f32 (out,),
+never trainable, and the matmul is the one
+:func:`~phantom_vlb_tpu_torch.ops.quant.quant_matmul` selects; the
+functions there take the (in, out) transpose, as a view.
 
 Dropout masks come only from an explicit per-site seed (an int the caller
 derives from the step, the layer and the site), never from a global RNG
 state: a per-layer ``torch.utils.checkpoint`` replays the layer in the
 backward, and a mask drawn from generator state would differ on the replay.
-The int8 base modes and the fused epilogue come with a later slice of the
-port and raise here.
 """
 
 from __future__ import annotations
@@ -29,9 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from phantom_vlb_tpu_torch.ops.lora_epilogue import lora_epilogue
 from phantom_vlb_tpu_torch.ops.lora_fused import dropout_threshold, fused_dropout_matmul
+from phantom_vlb_tpu_torch.ops.quant import BASE_QUANT_MODES, quant_matmul
 
-__all__ = ["LoRAConfig", "LoRALinear", "adapter_dropout", "is_lora_path", "lora_merge", "site_seed"]
+__all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "is_lora_path",
+           "lora_merge", "site_seed"]
 
 _U32 = 0xFFFFFFFF
 
@@ -44,6 +54,8 @@ class LoRAConfig:
     shared_dropout: bool = False
     dropout_bits: int = 32  # 32: exact Bernoulli; 8: u8 threshold (keep 1 - round(256p)/256)
     fused_dropout: bool = False
+    # '' off, 'pallas' the epilogue kernels both ways, 'fwd' the kernel
+    # forward with library dz and dB (phantom_vlb_tpu/models/lora.py:61-66).
     fused_epilogue: str = ""
 
     @property
@@ -99,23 +111,45 @@ def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int) -> torch.Tensor
     return torch.where(keep, x / _in_dtype(cfg.dropout_keep_prob, x.dtype), 0.0)
 
 
-class LoRALinear(nn.Module):
-    """A frozen ``nn.Linear``-shaped base (``weight`` (out, in), compute
-    dtype) with f32 ``lora_a`` (in, r) and ``lora_b`` (r, out)."""
+def _check_base_quant(base_quant: str | None) -> None:
+    if base_quant is not None and base_quant not in BASE_QUANT_MODES:
+        raise ValueError(f"base_quant must be None or one of {BASE_QUANT_MODES}, not {base_quant!r}")
+
+
+class _QuantBase(nn.Module):
+    """The frozen int8 base: ``weight_q`` (out, in) int8 and ``weight_scale``
+    (out,) f32 buffers, and the matmul ``base_quant`` selects."""
+
+    def _init_quant_base(self, in_features: int, out_features: int, base_quant: str) -> None:
+        self.base_quant = base_quant
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
+
+    def _base(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return quant_matmul(self.base_quant, x, self.weight_q.t(), self.weight_scale, dtype)
+
+
+class LoRALinear(_QuantBase):
+    """A frozen base with f32 ``lora_a`` (in, r) and ``lora_b`` (r, out):
+    ``weight`` (out, in) in the compute dtype, or with ``base_quant`` the
+    int8 buffers of :class:`FrozenQuantDense`."""
 
     def __init__(self, in_features: int, out_features: int, lora: LoRAConfig,
-                 dtype: torch.dtype = torch.bfloat16, quantized: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, base_quant: str | None = None):
         super().__init__()
-        if quantized or lora.fused_epilogue:
-            raise NotImplementedError(
-                "the int8 base modes and the fused LoRA epilogue come with slice 3 of the port"
-            )
-        self.lora = lora
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype),
-                                   requires_grad=False)
+        _check_base_quant(base_quant)
+        if lora.fused_epilogue not in ("", "pallas", "fwd"):
+            raise ValueError(f"fused_epilogue must be '', 'pallas' or 'fwd', not {lora.fused_epilogue!r}")
+        self.lora, self.dtype = lora, dtype
+        if base_quant is None:
+            self.base_quant = None
+            self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype),
+                                       requires_grad=False)
+        else:
+            self._init_quant_base(in_features, out_features, base_quant)
         self.lora_a = nn.Parameter(torch.empty(in_features, lora.rank, dtype=torch.float32))
         self.lora_b = nn.Parameter(torch.zeros(lora.rank, out_features, dtype=torch.float32))
-        if not self.weight.is_meta:
+        if not self.lora_a.is_meta:
             bound = math.sqrt(6.0 / in_features)            # flax he_uniform, fan_in = in
             nn.init.uniform_(self.lora_a, -bound, bound)
 
@@ -123,8 +157,8 @@ class LoRALinear(nn.Module):
                 adapter_x: torch.Tensor | None = None) -> torch.Tensor:
         """``seed`` is the site's dropout seed (None: no dropout);
         ``adapter_x`` a pre-dropped adapter input (shared dropout)."""
-        lora, dtype = self.lora, self.weight.dtype
-        y = F.linear(x, self.weight)
+        lora, dtype = self.lora, self.dtype
+        y = F.linear(x, self.weight) if self.base_quant is None else self._base(x, dtype)
         a = self.lora_a.to(dtype)
         live = self.training and lora.dropout > 0 and seed is not None
         if adapter_x is None and live and lora.fused_dropout:
@@ -135,8 +169,28 @@ class LoRALinear(nn.Module):
             if adapter_x is None and live:
                 z = adapter_dropout(z, lora, seed)
             z = z @ a
+        if lora.fused_epilogue:
+            return lora_epilogue(y, z, self.lora_b.to(dtype), lora.scaling,
+                                 backward="xla" if lora.fused_epilogue == "fwd" else "pallas")
         z = z @ self.lora_b.to(dtype)
         return y + z * _in_dtype(lora.scaling, dtype)
+
+
+class FrozenQuantDense(_QuantBase):
+    """The adapter-free frozen int8 base (the frozen-baseline regime with
+    ``base_quant``): no trainable parameter."""
+
+    def __init__(self, in_features: int, out_features: int, base_quant: str,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if base_quant is None:
+            raise ValueError("FrozenQuantDense needs a base_quant mode")
+        _check_base_quant(base_quant)
+        self.dtype = dtype
+        self._init_quant_base(in_features, out_features, base_quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._base(x, self.dtype)
 
 
 def is_lora_path(path: str) -> bool:
@@ -144,14 +198,37 @@ def is_lora_path(path: str) -> bool:
     return "lora_a" in path or "lora_b" in path
 
 
+def _round_once(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f64 ``v`` rounded to ``dtype`` once, to nearest even. torch converts
+    f64 to bf16 through f32, two roundings; for bf16 the f64 bits are rounded
+    at bf16's last mantissa bit first, so the conversion after is exact
+    (weights are far from bf16's overflow and subnormal range)."""
+    if dtype != torch.bfloat16:
+        return v.to(dtype)
+    u = v.view(torch.int64)
+    drop = 52 - 7                                     # f64 minus bf16 mantissa bits
+    lsb = (u >> drop) & 1
+    u = (u + (1 << (drop - 1)) - 1 + lsb) & ~((1 << drop) - 1)
+    return u.view(torch.float64).to(dtype)
+
+
 def lora_merge(state_dict: dict, scaling: float) -> dict:
-    """Fold adapters into base weights (W^T <- W^T + scaling * A B) for export;
-    the result has no ``lora_a``/``lora_b`` entries."""
-    out = {k: v for k, v in state_dict.items() if not is_lora_path(k)}
+    """Fold adapters into base weights (W^T <- W^T + scaling * A B) for export.
+
+    Each merged weight is the exact sum rounded once to its dtype (the
+    reference adds in its f32 master and rounds at use). Adapters on a
+    quantized base (``weight_q``, no ``weight``) stay unmerged, as the
+    reference merges only where ``kernel`` is present.
+    """
+    out = dict(state_dict)
     for key in state_dict:
-        if key.endswith(".lora_a"):
-            base = key[: -len(".lora_a")]
-            a, b = state_dict[key].float(), state_dict[base + ".lora_b"].float()
-            w = state_dict[base + ".weight"]
-            out[base + ".weight"] = (w.float() + scaling * (a @ b).T).to(w.dtype)
+        if not key.endswith(".lora_a"):
+            continue
+        base = key[: -len(".lora_a")]
+        w = state_dict.get(base + ".weight")
+        if w is None:
+            continue
+        a, b = state_dict[key].double(), state_dict[base + ".lora_b"].double()
+        out[base + ".weight"] = _round_once(w.double() + scaling * (a @ b).T, w.dtype)
+        del out[key], out[base + ".lora_b"]
     return out

@@ -8,7 +8,9 @@ The layers are an unrolled ``nn.ModuleList``; the reference's scan and layer
 grouping are XLA compile devices with no counterpart here.
 
 With ``MistralConfig.lora`` every projection is a :class:`LoRALinear`
-(``_proj``/``_call_proj`` :206-232), and ``shared_dropout`` gives q/k/v and
+(``_proj``/``_call_proj`` :206-232); ``base_quant`` (``'int8'``,
+``'w8a8'``, ``'w8a8g8'``) makes its frozen base int8, or, without LoRA,
+makes every projection a :class:`FrozenQuantDense`; and ``shared_dropout`` gives q/k/v and
 gate/up one adapter-input mask each (:234-245). ``remat`` wraps each layer
 in ``torch.utils.checkpoint`` (non-reentrant) when gradients are recorded:
 the counterpart of ``remat_policy='nothing'`` (:185-203, :418-455), which
@@ -32,7 +34,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from phantom_vlb_tpu_torch.models.lora import LoRAConfig, LoRALinear, adapter_dropout, site_seed
+from phantom_vlb_tpu_torch.models.lora import (
+    FrozenQuantDense,
+    LoRAConfig,
+    LoRALinear,
+    adapter_dropout,
+    site_seed,
+)
 from phantom_vlb_tpu_torch.ops.flash_attention import attention_packed
 
 __all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed"]
@@ -54,6 +62,10 @@ class MistralConfig:
     remat: bool = True
     # LoRA on every projection (the reference's targets); None disables.
     lora: LoRAConfig | None = None
+    # The frozen base projections stored int8: 'int8' (weight-only), 'w8a8'
+    # (int8 activations too, straight-through bf16 dx) or 'w8a8g8' (int8 dx
+    # too); None keeps them in ``dtype``.
+    base_quant: str | None = None
 
     @staticmethod
     def full(**overrides) -> "MistralConfig":
@@ -110,8 +122,12 @@ SITES = {name: i for i, name in enumerate(
 
 
 def _proj(cfg: MistralConfig, in_features: int, out_features: int) -> nn.Module:
+    """LoRALinear (adapters), FrozenQuantDense (an int8 base without
+    adapters: the frozen-baseline regime) or a plain Linear."""
     if cfg.lora is not None:
-        return LoRALinear(in_features, out_features, cfg.lora, cfg.dtype)
+        return LoRALinear(in_features, out_features, cfg.lora, cfg.dtype, base_quant=cfg.base_quant)
+    if cfg.base_quant is not None:
+        return FrozenQuantDense(in_features, out_features, cfg.base_quant, cfg.dtype)
     return nn.Linear(in_features, out_features, bias=False)
 
 

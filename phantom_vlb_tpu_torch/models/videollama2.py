@@ -48,10 +48,12 @@ class VLBConfig:
     freeze_backbone: bool = True    # baseline regime: only the head trains
 
     @staticmethod
-    def full(use_lora: bool = False, **overrides) -> "VLBConfig":
+    def full(use_lora: bool = False, base_quant: str | None = None, **overrides) -> "VLBConfig":
         """The production VideoLLaMA2-7B geometry, bf16 backbone; with
-        ``use_lora`` the reference's adapters (r 16, alpha 32, dropout 0.1)."""
-        base = dict(mistral=MistralConfig(lora=LoRAConfig() if use_lora else None),
+        ``use_lora`` the reference's adapters (r 16, alpha 32, dropout 0.1);
+        ``base_quant`` stores the frozen projections int8."""
+        base = dict(mistral=MistralConfig(lora=LoRAConfig() if use_lora else None,
+                                          base_quant=base_quant),
                     freeze_backbone=not use_lora)
         base.update(overrides)
         cfg = VLBConfig(**base)
@@ -59,12 +61,13 @@ class VLBConfig:
         return cfg
 
     @staticmethod
-    def tiny(use_lora: bool = False, **overrides) -> "VLBConfig":
+    def tiny(use_lora: bool = False, base_quant: str | None = None, **overrides) -> "VLBConfig":
         """The reference's ``VLBConfig.tiny``: TEST_GEOMETRY, 64-token
         sequences; with ``use_lora`` rank-4 adapters without dropout."""
         g = TEST_GEOMETRY
         lora = LoRAConfig(rank=4, alpha=8.0, dropout=0.0) if use_lora else None
-        base = dict(mistral=MistralConfig.tiny(vocab_size=1000, lora=lora), geometry=g,
+        base = dict(mistral=MistralConfig.tiny(vocab_size=1000, lora=lora, base_quant=base_quant),
+                    geometry=g,
                     num_target=g.num_parcels, freeze_backbone=not use_lora)
         base.update(overrides)
         return VLBConfig(**base)
@@ -73,6 +76,14 @@ class VLBConfig:
 def trainable_predicate(name: str) -> bool:
     """Trainable = head parameters + LoRA adapters (the reference regimes)."""
     return name.startswith("head.") or is_lora_path(name)
+
+
+def _stored_dtype(key: str, cfg: VLBConfig) -> torch.dtype:
+    if key.endswith(".weight_q"):
+        return torch.int8
+    if key.endswith(".weight_scale") or trainable_predicate(key):
+        return torch.float32
+    return cfg.mistral.dtype
 
 
 def trainable_parameters(model: nn.Module) -> list[nn.Parameter]:
@@ -129,17 +140,15 @@ class VideoLLaMA2VLB(nn.Module):
         """A frozen eval-mode model holding ``state_dict``'s tensors.
 
         The module is built on the meta device and the tensors are assigned,
-        not copied: backbone tensors already in ``cfg.mistral.dtype`` and
-        head and adapter tensors already in f32, on ``device``, are used as
-        they are. A trainer sets ``requires_grad`` on what
+        not copied: backbone tensors already in ``cfg.mistral.dtype``, head
+        and adapter tensors already in f32 and an int8 base's ``weight_q``
+        (int8) and ``weight_scale`` (f32), on ``device``, are used as they
+        are. A trainer sets ``requires_grad`` on what
         :func:`trainable_predicate` selects.
         """
         with torch.device("meta"):
             model = cls(cfg)
-        sd = {
-            k: t.to(device=device, dtype=torch.float32 if trainable_predicate(k) else cfg.mistral.dtype)
-            for k, t in state_dict.items()
-        }
+        sd = {k: t.to(device=device, dtype=_stored_dtype(k, cfg)) for k, t in state_dict.items()}
         model.load_state_dict(sd, strict=True, assign=True)
         return model.eval().requires_grad_(False)
 

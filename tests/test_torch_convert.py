@@ -165,6 +165,59 @@ def test_lora_merge_matches_jax(lora_pair):
     torch.testing.assert_close(pred_m, pred_l, atol=1e-4, rtol=0)
 
 
+def _bf16_round_once(v: np.ndarray) -> np.ndarray:
+    """f64 values rounded once to bf16's 8 significant bits, half to even
+    (normal numbers), as f32."""
+    m, e = np.frexp(v)
+    return np.ldexp(np.round(m * 256.0) / 256.0, e).astype(np.float32)
+
+
+def test_lora_merge_in_bf16_rounds_once(lora_pair):
+    """A bf16 base (as the port stores it at full width) with f32 adapters:
+    each merged weight is w + s * (A B)^T rounded once to bf16, bit for bit
+    (0 ulp); adding in f32 and then casting would round twice."""
+    cfg, params, _ = lora_pair
+    scaling = cfg.mistral.lora.scaling
+    sd = {k: (v.to(torch.bfloat16) if k.endswith("proj.weight") else v)
+          for k, v in from_flax_params(params).items()}
+    merged = lora_merge(sd, scaling)
+    n = twice_off = 0
+    for key, w in sd.items():
+        if not key.endswith("proj.weight"):
+            continue
+        base = key[: -len(".weight")]
+        a, b = (sd[f"{base}.lora_{x}"].double().numpy() for x in "ab")
+        want = _bf16_round_once(w.double().numpy() + scaling * (a @ b).T)
+        got = merged[key]
+        assert got.dtype == torch.bfloat16 and f"{base}.lora_a" not in merged
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        a32, b32 = (sd[f"{base}.lora_{x}"].float() for x in "ab")
+        twice = (w.float() + scaling * (a32 @ b32).T).to(torch.bfloat16)
+        twice_off += int((twice.float().numpy() != want).sum())
+        n += w.numel()
+    # The data reaches the double-rounding case: f32 then bf16 misses the
+    # one-rounding merge somewhere (at 9 of the 147,456 elements when this
+    # test was written; the count depends on the f32 product's sum order).
+    assert n == 147456 and twice_off > 0
+
+
+def test_lora_merge_leaves_a_quantized_base_unmerged(lora_pair):
+    """Adapters on an int8 base stay, as the reference merges only where
+    ``kernel`` is present; the merge then changes nothing."""
+    from phantom_vlb_tpu.models.lora import lora_merge as j_merge
+    from phantom_vlb_tpu.ops.quant import quantize_tree
+
+    cfg, params, _ = lora_pair
+    tree = quantize_tree(params, lambda p, w: "proj" in p)
+    merged = lora_merge(from_flax_params(tree), cfg.mistral.lora.scaling)
+    want = from_flax_params(j_merge(tree, cfg.mistral.lora.scaling))
+    assert merged.keys() == want.keys()
+    assert sum(k.endswith(".lora_a") for k in merged) == 7 * LAYERS
+    assert sum(k.endswith(".weight_q") for k in merged) == 7 * LAYERS
+    for k in want:
+        assert torch.equal(merged[k], want[k]), k
+
+
 def test_init_params_dtypes_and_shapes():
     cfg = tv.VLBConfig.tiny(mistral=tv.MistralConfig.tiny(vocab_size=1000, dtype=torch.bfloat16))
     sd = init_params(cfg, "cpu", torch.Generator().manual_seed(0))

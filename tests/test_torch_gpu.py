@@ -18,6 +18,18 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     attention_packed_bwd_plain,
     attention_packed_plain,
 )
+from phantom_vlb_tpu_torch.ops.lora_epilogue import (
+    EPI_DB,
+    EPI_DZ,
+    EPI_FWD,
+    lora_epilogue,
+    lora_epilogue_db,
+    lora_epilogue_db_plain,
+    lora_epilogue_dz,
+    lora_epilogue_dz_plain,
+    lora_epilogue_fwd,
+    lora_epilogue_plain,
+)
 from phantom_vlb_tpu_torch.ops.lora_fused import (
     LORA_DA,
     LORA_DX,
@@ -27,6 +39,15 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     fused_dropout_matmul,
     fused_dropout_matmul_plain,
     hash_bytes,
+)
+
+from phantom_vlb_tpu_torch.ops.quant import int8_matmul, int8_matmul_w8a8, int8_matmul_w8a8g8, quantize_int8
+from phantom_vlb_tpu_torch.ops.rowquant import (
+    ROW_QUANT,
+    ROW_QUANT_SCALED,
+    row_quant,
+    row_quant_plain,
+    row_quant_scaled,
 )
 
 pytestmark = pytest.mark.gpu
@@ -41,6 +62,9 @@ BWD_REL_TOL = 2e-2
 # rounding after f32 sums in another order); dA is f32 (order only).
 MID_REL_TOL, DX_REL_TOL, DA_REL_TOL = 1e-2, 1e-2, 1e-3
 P, THR = 0.1, 26
+# Epilogue kernels vs plain, max|err| / max|ref|: bf16 outputs after f32
+# sums in another order (the forward also rounds acc and acc * s to bf16).
+EPI_REL_TOL = 1e-2
 
 
 @pytest.fixture
@@ -216,3 +240,114 @@ def test_backward_and_lora_raise_on_what_they_do_not_take(cuda):
         fused_dropout_matmul(x, a[:, :8].contiguous(), 0, P)                 # rank 8
     with pytest.raises(ValueError):
         fused_dropout_matmul(x, a, 0, P, bits=bits[:, :128])                 # bits shape
+
+
+@pytest.mark.parametrize("rows,n", [(64, 4096), (24, 14336), (13, 1000), (5, 7), (3, 30000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_quant_kernels_match_plain_bit_for_bit(cuda, rows, n, dtype):
+    """Any row count and width (odd, unaligned, longer than shared memory
+    holds), zero rows included: q and s equal the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(rows + n)
+    x = (3 * torch.randn(rows, n, generator=g, device=cuda)).to(dtype)
+    x[rows // 2] = 0
+    w = torch.rand(n, generator=g, device=cuda) * 2 + 0.01
+    for got, want in ((row_quant(x), row_quant_plain(x)), (row_quant_scaled(x, w), row_quant_plain(x, w))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1][rows // 2].item() == torch.tensor(1e-12).item()
+
+
+def test_row_quant_counts_and_raises(cuda):
+    x = torch.randn(4, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = (ROW_QUANT.launches, ROW_QUANT_SCALED.launches)
+    q, s = row_quant(x)
+    row_quant_scaled(x, torch.ones(64, device=cuda))
+    assert q.shape == x.shape and s.shape == (4, 2, 1)
+    assert (ROW_QUANT.launches, ROW_QUANT_SCALED.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError):
+        row_quant(x.half())                                              # fp16
+    with pytest.raises(ValueError):
+        row_quant(x[..., ::2])                                           # strided
+    with pytest.raises(ValueError):
+        row_quant_scaled(x, torch.ones(32, device=cuda))                 # scale width
+    with pytest.raises(ValueError):
+        row_quant_scaled(x, torch.ones(64, device=cuda, dtype=torch.bfloat16))
+
+
+def _epi_inputs(dev, m, n, r, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(m, n, generator=g, device=dev, dtype=torch.bfloat16)
+    z = torch.randn(m, r, generator=g, device=dev, dtype=torch.bfloat16)
+    b = (torch.randn(r, n, generator=g, device=dev) / r ** 0.5).to(torch.bfloat16)
+    dy = torch.randn(m, n, generator=g, device=dev, dtype=torch.bfloat16)
+    return y, z, b, dy
+
+
+@pytest.mark.parametrize("m,n,r", [(256, 1024, 16), (6144, 4096, 16), (100, 300, 4), (70, 1000, 37),
+                                   (64, 256, 128), (33, 9, 16)])
+def test_epilogue_kernels_match_plain(cuda, m, n, r):
+    """Forward, dz and dB at model widths, with M and N tails, odd N and
+    ranks padded to 16, 64 and 128."""
+    y, z, b, dy = _epi_inputs(cuda, m, n, r)
+    got = (lora_epilogue_fwd(y, z, b, 2.0), lora_epilogue_dz(dy, b, 2.0), lora_epilogue_db(z, dy, 2.0))
+    torch.cuda.synchronize()
+    want = (lora_epilogue_plain(y, z, b, 2.0), lora_epilogue_dz_plain(dy, b, 2.0),
+            lora_epilogue_db_plain(z, dy, 2.0))
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape and gt.dtype == torch.bfloat16 and torch.isfinite(gt).all()
+        assert _rel(gt, wt) <= EPI_REL_TOL
+
+
+@pytest.mark.parametrize("backward", ["pallas", "xla"])
+def test_epilogue_autograd_and_launch_counts(cuda, backward):
+    y, z, b, dy = _epi_inputs(cuda, 512, 768, 16)
+    y, z, b = (t.requires_grad_() for t in (y, z, b))
+    counts = [k.launches for k in (EPI_FWD, EPI_DZ, EPI_DB)]
+    out = lora_epilogue(y.view(2, 256, 768), z.view(2, 256, 16), b, 2.0, backward=backward)
+    out.backward(dy.view(2, 256, 768))
+    extra = 1 if backward == "pallas" else 0
+    assert [k.launches for k in (EPI_FWD, EPI_DZ, EPI_DB)] == [counts[0] + 1, counts[1] + extra,
+                                                              counts[2] + extra]
+    assert torch.equal(y.grad, dy)
+    assert _rel(z.grad, lora_epilogue_dz_plain(dy, b.detach(), 2.0)) <= EPI_REL_TOL
+    assert _rel(b.grad, lora_epilogue_db_plain(z.detach(), dy, 2.0)) <= EPI_REL_TOL
+
+
+def test_epilogue_raises_on_what_it_does_not_take(cuda):
+    y, z, b, dy = _epi_inputs(cuda, 64, 256, 16)
+    with pytest.raises(ValueError):
+        lora_epilogue_fwd(y.float(), z.float(), b.float(), 2.0)                 # f32
+    with pytest.raises(ValueError):
+        lora_epilogue_fwd(y[:, ::2], z, b[:, ::2], 2.0)                          # strided
+    big_z = torch.zeros(64, 129, device=cuda, dtype=torch.bfloat16)
+    big_b = torch.zeros(129, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="rank"):
+        lora_epilogue_fwd(y, big_z, big_b, 2.0)                                  # r > 128
+    with pytest.raises(ValueError, match="rank"):
+        lora_epilogue_dz(dy, big_b, 2.0)
+    with pytest.raises(ValueError, match="rank"):
+        lora_epilogue_db(big_z, dy, 2.0)
+
+
+@pytest.mark.parametrize("name", ["int8_matmul", "int8_matmul_w8a8", "int8_matmul_w8a8g8"])
+def test_int8_matmuls_on_the_card_match_the_cpu(cuda, name):
+    """The card (row-quant kernels, ``torch._int_mm``, cuBLAS) against the
+    CPU (plain row quant, exact f64 int product) on the same bf16 inputs and
+    int8 weights stored (out, in): outputs and dx within 2e-2 of their
+    largest value (bf16 outputs; an activation code may flip where f32
+    scaling differs by an ulp)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, s = quantize_int8(0.02 * torch.randn(1024, 512, generator=g, device=cuda), axis=1)
+    x = torch.randn(4, 64, 512, generator=g, device=cuda, dtype=torch.bfloat16)
+    dy = torch.randn(4, 64, 1024, generator=g, device=cuda, dtype=torch.bfloat16)
+    fn = {"int8_matmul": int8_matmul, "int8_matmul_w8a8": int8_matmul_w8a8,
+          "int8_matmul_w8a8g8": int8_matmul_w8a8g8}[name]
+    results = []
+    for dev in (cuda, "cpu"):
+        xd = x.detach().to(dev).requires_grad_()
+        y = fn(xd, q.to(dev).t(), s.to(dev), torch.bfloat16)
+        y.backward(dy.to(dev))
+        results.append((y.detach().cpu(), xd.grad.cpu()))
+    (y_c, dx_c), (y_r, dx_r) = results
+    assert y_c.dtype == torch.bfloat16 and dx_c.dtype == torch.bfloat16
+    assert _rel(y_c, y_r) <= 2e-2 and _rel(dx_c, dx_r) <= 2e-2

@@ -1,0 +1,117 @@
+"""Port parity: the fused LoRA epilogue (plain versions, the CPU path) against
+JAX ``lora_epilogue(interpret=True)``, and a LoRA decoder with the flag on
+against the flag off.
+
+Inputs are made with numpy from a seed. Tolerance 1e-6 of the largest value
+in f32: out is the same f32 arithmetic; dz and dB are f32 sums over N and M
+in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phantom_vlb_tpu.ops.lora_epilogue import lora_epilogue as j_epilogue
+from phantom_vlb_tpu_torch.models import mistral as tm
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig
+from phantom_vlb_tpu_torch.ops.lora_epilogue import (
+    lora_epilogue,
+    lora_epilogue_db,
+    lora_epilogue_db_plain,
+    lora_epilogue_dz,
+    lora_epilogue_dz_plain,
+    lora_epilogue_fwd,
+    lora_epilogue_plain,
+)
+
+TOL = 1e-6
+SCALING = 2.0
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("backward", ["pallas", "xla"])
+@pytest.mark.parametrize("lead,n", [((64,), 256), ((2, 24), 384)], ids=["2d", "3d"])
+@pytest.mark.parametrize("r", [4, 16])
+def test_epilogue_matches_jax(backward, lead, n, r):
+    rng = np.random.default_rng(r + n)
+    y = rng.standard_normal((*lead, n)).astype(np.float32)
+    z = rng.standard_normal((*lead, r)).astype(np.float32)
+    b = (rng.standard_normal((r, n)) / np.sqrt(r)).astype(np.float32)
+    dout = rng.standard_normal((*lead, n)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda *a: j_epilogue(*a, SCALING, interpret=True, backward=backward),
+                         jnp.asarray(y), jnp.asarray(z), jnp.asarray(b))
+    dy_j, dz_j, db_j = vjp(jnp.asarray(dout))
+
+    yt, zt, bt = (torch.from_numpy(a).requires_grad_() for a in (y, z, b))
+    out = lora_epilogue(yt, zt, bt, SCALING, backward=backward)
+    out.backward(torch.from_numpy(dout))
+    assert out.shape == y.shape and zt.grad.shape == z.shape and bt.grad.shape == b.shape
+    assert _rel(out.detach().numpy(), out_j) <= TOL
+    np.testing.assert_array_equal(yt.grad.numpy(), np.asarray(dy_j))      # passed through
+    assert _rel(zt.grad.numpy(), dz_j) <= TOL
+    assert _rel(bt.grad.numpy(), db_j) <= TOL
+
+
+def test_bf16_roundings_follow_the_reference():
+    """bf16: acc rounded, times the bf16 scaling, rounded, plus y, rounded
+    (``_fwd_kernel`` :45-48); dz and dB round the scaled f32 sums once."""
+    rng = np.random.default_rng(5)
+    y = jnp.asarray(rng.standard_normal((64, 256)), jnp.bfloat16)
+    z = jnp.asarray(rng.standard_normal((64, 16)), jnp.bfloat16)
+    b = jnp.asarray(rng.standard_normal((16, 256)), jnp.bfloat16)
+    dout = jnp.asarray(rng.standard_normal((64, 256)), jnp.bfloat16)
+    out_j, vjp = jax.vjp(lambda *a: j_epilogue(*a, 1.7, interpret=True), y, z, b)
+    _, dz_j, db_j = vjp(dout)
+    yt, zt, bt, dt = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+                      for a in (y, z, b, dout))
+    got = (lora_epilogue_plain(yt, zt, bt, 1.7), lora_epilogue_dz_plain(dt, bt, 1.7),
+           lora_epilogue_db_plain(zt, dt, 1.7))
+    for g, w in zip(got, (out_j, dz_j, db_j)):
+        assert g.dtype == torch.bfloat16
+        # f32 sums in another order may flip a rounding of a few elements.
+        mism = (g.float().numpy() != np.asarray(w.astype(jnp.float32))).mean()
+        assert mism <= 1e-2 and _rel(g.float().numpy(), w.astype(jnp.float32)) <= 1e-2
+
+
+def test_cpu_wrappers_are_the_plain_versions():
+    g = torch.Generator().manual_seed(0)
+    y, z, b = torch.randn(8, 32, generator=g), torch.randn(8, 4, generator=g), torch.randn(4, 32, generator=g)
+    assert torch.equal(lora_epilogue_fwd(y, z, b, 2.0), lora_epilogue_plain(y, z, b, 2.0))
+    assert torch.equal(lora_epilogue_dz(y, b, 2.0), lora_epilogue_dz_plain(y, b, 2.0))
+    assert torch.equal(lora_epilogue_db(z, y, 2.0), lora_epilogue_db_plain(z, y, 2.0))
+    with pytest.raises(ValueError, match="backward"):
+        lora_epilogue(y, z, b, 2.0, backward="triton")
+
+
+@pytest.mark.parametrize("flag", ["pallas", "fwd"])
+def test_lora_decoder_with_the_flag_matches_the_flag_off(flag):
+    """The tiny LoRA decoder, f32: outputs and every adapter gradient with
+    ``fused_epilogue`` on equal the unfused epilogue's (1e-6)."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 64)).astype(np.float32))
+    runs = []
+    for fused in ("", flag):
+        model = tm.MistralModel(tm.MistralConfig.tiny(
+            lora=LoRAConfig(rank=4, alpha=8.0, dropout=0.0, fused_epilogue=fused)))
+        gen = torch.Generator().manual_seed(1)
+        for name, p in model.named_parameters():
+            p.requires_grad_("lora_" in name)
+            with torch.no_grad():           # the same seeded weights for both runs
+                if "norm" in name:
+                    p.fill_(1.0)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=gen) / p.shape[-1] ** 0.5)
+        out = model(x)
+        out.square().mean().backward()
+        runs.append((out.detach(), {n: p.grad for n, p in model.named_parameters() if p.requires_grad}))
+    (out0, g0), (out1, g1) = runs
+    assert _rel(out1.numpy(), out0.numpy()) <= TOL
+    assert g0.keys() == g1.keys() and len(g0) == 28
+    for name in g0:
+        assert _rel(g1[name].numpy(), g0[name].numpy()) <= TOL, name

@@ -252,14 +252,16 @@ def test_remat_gives_the_same_gradients_with_dropout(bits, fused, shared):
     assert any(not torch.allclose(off[n], none[n]) for n in off)         # dropout was live
 
 
-@pytest.mark.parametrize("kwargs", [{"quantized": True}, {"fused_epilogue": "pallas"}],
+@pytest.mark.parametrize("kwargs", [{"base_quant": "int4"}, {"fused_epilogue": "triton"}],
                          ids=["int8_base", "fused_epilogue"])
 def test_later_slice_modes_raise(kwargs):
+    """The int8 base and the fused epilogue came with slice 3; a mode that
+    neither the port nor the reference has still raises."""
     from phantom_vlb_tpu_torch.models.lora import LoRALinear
 
     lora = LoRAConfig(fused_epilogue=kwargs.get("fused_epilogue", ""))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        LoRALinear(64, 64, lora, quantized=kwargs.get("quantized", False))
+    with pytest.raises(ValueError, match=next(iter(kwargs))):
+        LoRALinear(64, 64, lora, base_quant=kwargs.get("base_quant"))
 
 
 def test_train_mode_needs_a_seed():
