@@ -16,33 +16,45 @@ Phases, each printed with its wall time; any failure exits non-zero:
    rate, seed determinism); the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8 (q and s bit for bit); the LoRA epilogue's
-   forward, dz and dB at M = 6144, r = 16, N = 1024, 4096 and 14336;
+   forward, dz and dB at M = 6144, r = 16, N = 1024, 4096 and 14336; the
+   fused ring forward against its plain version on rings of 4 and 2 ranks
+   on the card at (3, 2048), with and without padded keys, and at S = 1000
+   on 2 ranks; the flash kernels with causal offsets S_loc and 64;
 4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
    from a seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
    launch count read around that run alone;
 6. one more served batch under ``torch.profiler``: device time by kernel
-   and by group, and the device's idle share;
+   and by group, and the device's idle share; then (6b) that batch again
+   through the fused ring (``attention_impl='ring_fused'`` on 4 ranks of the card,
+   switched on the same model), held against phase 5's predictions;
 7. the full-width LoRA model (r 16, alpha 32, fused u8 dropout 0.1, remat
    per layer): 3 steps of ``train_batches`` at batch 3, launch counts
    against what the code implies, gradients reaching layer 0's adapters;
 8. one more LoRA step under ``torch.profiler``; then, on the same weights,
    3 steps with the fused LoRA epilogue (``fused_epilogue='pallas'``), so
-   the step time with the flag off and on come from one run;
+   the step time with the flag off and on come from one run; then (8c)
+   phase 7's starting adapters again, for 3 steps through the fused ring
+   on 4 ranks of the card (first loss and gradient norm against phase 7's,
+   launch counts) and one more under ``torch.profiler``, and 2 steps
+   through the per-step flash ring;
 8b. the w8a8g8 LoRA step of record: phase 7's weights quantized to int8 on
    the card in place, projection by projection, then 3 steps at batch 3
-   with the fused epilogue (launch counts of all ten kernels, non-zero
-   adapter gradients, peak device memory), and one more under
+   with the fused epilogue (launch counts of every kernel but the ring's,
+   non-zero adapter gradients, peak device memory), and one more under
    ``torch.profiler``;
 9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
 10. narrow models (same geometry, 2 layers, 256 wide) on the card against
     the same weights in f32 on the CPU: served predictions, the LoRA loss
-    and adapter gradients of one step, and the same for a w8a8g8 LoRA step
-    (the same int8 weights on both sides);
+    and adapter gradients of one step (packed, and through the fused ring
+    on 2 ranks of the card), and the same for a w8a8g8 LoRA step (the same
+    int8 weights on both sides);
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
-    beside the bound; ``torch._int_mm`` in each weight layout against bf16
-    ``F.linear`` at 6144 x 4096 -> 14336;
+    beside the bound; one pass of the fused ring (first send to last
+    output) and each rank's kernel, beside SDPA over the whole sequence and
+    the per-step flash ring's forward; ``torch._int_mm`` in each weight
+    layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336;
 12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -52,7 +64,9 @@ device JSON record. Without a card it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import gc
 import json
 import resource
 import subprocess
@@ -66,15 +80,18 @@ from torch.profiler import ProfilerActivity, profile
 
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
+from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
 from phantom_vlb_tpu_torch.models.convert import init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
-from phantom_vlb_tpu_torch.models.mistral import MistralConfig
+from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl
 from phantom_vlb_tpu_torch.models.videollama2 import (
     VLBConfig,
     VideoLLaMA2VLB,
     trainable_parameters,
+    trainable_predicate,
 )
 from phantom_vlb_tpu_torch.ops._build import build_all
+from phantom_vlb_tpu_torch.ops.context_parallel import ring_flash_fwd
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     FLASH_BWD,
     FLASH_FWD,
@@ -82,6 +99,7 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_plain,
+    attention_with_stats,
 )
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
@@ -106,6 +124,7 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     hash_bytes,
 )
 from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
+from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, ring_fwd, ring_fwd_plain
 from phantom_vlb_tpu_torch.ops.rowquant import (
     ROW_QUANT,
     ROW_QUANT_SCALED,
@@ -127,7 +146,7 @@ EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd": FLASH_BWD,
            "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
            "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
-           "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB}
+           "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "ring_fwd": RING_FWD}
 REPLACES = {
     "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
     "flash_bwd": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:284"),
@@ -139,7 +158,9 @@ REPLACES = {
     "epi_fwd": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:45"),
     "epi_dz": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:51"),
     "epi_db": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:69"),
+    "ring_fwd": ("ring_fwd.cu", "phantom_vlb_tpu/ops/ring_fused.py:48"),
 }
+RING_RANKS = 4            # the sequence ring on one card: S_loc = 512 at S = 2048
 # bf16 kernel vs f32 plain on the same bf16 inputs (q pre-scaled in bf16 on
 # both sides): out is bf16 (2^-8 relative at |out| <= ~1, plus bf16 P in the
 # PV product); lse sums f32 scores that differ only in order.
@@ -172,6 +193,16 @@ W8_LOSS_TOL, W8_GRAD_COS = 5e-3, 0.98
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 outside
 # them, and HBM3.
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# Serving through the fused ring against phase 5's predictions for the same
+# batch, max|err| / max|pred|: the two attentions sum in another order and
+# round their bf16 outputs differently, through 32 bf16 layers ahead of
+# the f32 head.
+RING_PRED_TOL = 5e-2
+# A ring LoRA step's first loss and gradient norm against phase 7's, |err| /
+# |ref|: the same weights, batch and dropout masks; only the attention's
+# summation order and bf16 roundings differ (and the flash backward's dq
+# atomics sum in a run-dependent order).
+RING_STEP_TOL = 2e-2
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 INT8_GEMM_MARKERS = ("s8", "i8", "imma", "int8")
@@ -191,9 +222,19 @@ def phase(name: str):
     print(f"[{name}] ...", flush=True)
     t0 = time.perf_counter()
     yield
+    release_host_memory(collect=True)
     peak_gb = peak_rss_gb()
     print(f"[{name}] ok in {time.perf_counter() - t0:.2f} s (host RSS now {host_rss_gb():.2f} GB, "
           f"peak so far {peak_gb:.2f} GB)", flush=True)
+
+
+def release_host_memory(collect: bool = False) -> None:
+    """Hand freed heap back to the OS (glibc's malloc_trim): profiler
+    sessions leave much of it in malloc's free lists, and the phases after
+    them would otherwise stack on that for the peak RSS."""
+    if collect:
+        gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def card_name_and_power() -> str:
@@ -243,33 +284,67 @@ def attention_inputs(b: int, s: int, gen: torch.Generator, dev):
     return q, k, v, kv_mask
 
 
-def check_flash(b: int, s: int, gen, dev) -> tuple[float, float]:
+def check_flash(b: int, s: int, gen, dev, causal_offset: int = 0) -> tuple[float, float]:
     """Forward and backward kernels vs plain (f32) on one input; returns the
     forward's out max abs error and the backward's over dq, dk, dv."""
     q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
-    out, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
+    out, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=causal_offset)
     do = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    grads = attention_packed_bwd(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask)
+    grads = attention_packed_bwd(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask,
+                                 causal_offset=causal_offset)
     torch.cuda.synchronize()
     # The kernel pre-scales q in bf16; give the plain version that same q.
     q_s = q * torch.tensor(D ** -0.5, dtype=torch.bfloat16, device=dev)
     out_ref, lse_ref = attention_packed_plain(
-        q_s.float(), k.float(), v.float(), HQ, HKV, sm_scale=1.0, kv_mask=kv_mask
+        q_s.float(), k.float(), v.float(), HQ, HKV, sm_scale=1.0, kv_mask=kv_mask,
+        causal_offset=causal_offset,
     )
     out_err, lse_err = abs_err(out, out_ref), abs_err(lse, lse_ref)
-    print(f"  flash_fwd B={b} S={s}: out max|err| {out_err:.3e} (tol {OUT_TOL}), "
+    label = f"B={b} S={s}" + (f" causal_offset={causal_offset}" if causal_offset else "")
+    print(f"  flash_fwd {label}: out max|err| {out_err:.3e} (tol {OUT_TOL}), "
           f"lse max|err| {lse_err:.3e} (tol {LSE_TOL})")
     if not (out_err <= OUT_TOL and lse_err <= LSE_TOL):
-        raise AssertionError(f"flash_fwd disagrees with its plain version at B={b} S={s}")
+        raise AssertionError(f"flash_fwd disagrees with its plain version at {label}")
     del out_ref, lse_ref
-    refs = attention_packed_bwd_plain(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask)
+    refs = attention_packed_bwd_plain(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask,
+                                      causal_offset=causal_offset)
     rels = [rel_err(g, r) for g, r in zip(grads, refs)]
     bwd_err = max(abs_err(g, r) for g, r in zip(grads, refs))
-    print(f"  flash_bwd B={b} S={s}: max|err|/max|ref| dq {rels[0]:.3e}, dk {rels[1]:.3e}, "
+    print(f"  flash_bwd {label}: max|err|/max|ref| dq {rels[0]:.3e}, dk {rels[1]:.3e}, "
           f"dv {rels[2]:.3e} (tol {BWD_REL_TOL}); max|err| {bwd_err:.3e}")
     if not max(rels) <= BWD_REL_TOL:
-        raise AssertionError(f"flash_bwd disagrees with its plain version at B={b} S={s}")
+        raise AssertionError(f"flash_bwd disagrees with its plain version at {label}")
     return out_err, bwd_err
+
+
+def check_ring(gen, dev) -> float:
+    """The fused ring kernel vs its plain version (the same bf16 roundings:
+    q pre-scaled and P cast to bf16; sums in another order) on rings of
+    RING_RANKS and 2 ranks of the card at (3, 2048), with the right padding
+    of attention_inputs and without a kv mask, and at S = 1000 on 2 ranks
+    (S_loc 500, not a multiple of 64). Tolerances are the flash forward's:
+    out 2e-2 absolute and as max|err| / max|ref| (bf16 out, 2^-8 relative at
+    |out| <= ~1, and bf16 P), lse 1e-3 (f32, order only). Returns the out's
+    max abs error."""
+    worst = 0.0
+    for n, s, masked in ((RING_RANKS, 2048, True), (RING_RANKS, 2048, False), (2, 2048, True),
+                         (2, 2048, False), (2, 1000, True)):
+        q, k, v, kv_mask = attention_inputs(LORA_BATCH, s, gen, dev)
+        kv_mask = kv_mask if masked else None
+        ring = SequenceRing([dev] * n)
+        out, lse = ring_fwd(q, k, v, HQ, HKV, ring, kv_mask=kv_mask)
+        torch.cuda.synchronize()
+        out_ref, lse_ref = ring_fwd_plain(q, k, v, HQ, HKV, ring, kv_mask=kv_mask)
+        rel, err, lse_err = rel_err(out, out_ref), abs_err(out, out_ref), abs_err(lse, lse_ref)
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        print(f"  ring_fwd n={n} B={LORA_BATCH} S={s} {'padded' if masked else 'no mask'}: out "
+              f"max|err|/max|ref| {rel:.3e}, max|err| {err:.3e} (tol {OUT_TOL}), lse max|err| "
+              f"{lse_err:.3e} (tol {LSE_TOL}), finite {finite}")
+        if not (rel <= OUT_TOL and err <= OUT_TOL and lse_err <= LSE_TOL and finite):
+            raise AssertionError(f"ring_fwd disagrees with its plain version at n={n} S={s}")
+        worst = max(worst, err)
+        del q, k, v, out, lse, out_ref, lse_ref
+    return worst
 
 
 def lora_inputs(k: int, gen, dev):
@@ -389,7 +464,7 @@ def check_predictions(res: dict, rows: int, num_target: int) -> None:
 
 
 def kernel_group(name: str) -> str:
-    for group in ("flash_fwd", "flash_bwd"):
+    for group in ("flash_fwd", "flash_bwd", "ring_fwd"):
         if group in name:
             return group
     if "lora_" in name:
@@ -426,6 +501,33 @@ def traced(fn, label: str) -> None:
         print(f"  {ms:10.3f} ms  x{count:<5d} ({ms / count:.4f} ms each) {name[:100]}")
     for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
+    del prof, kernels
+    release_host_memory(collect=True)
+
+
+def serve_through_the_ring(model, batch: dict, want: np.ndarray, dev) -> None:
+    """Phase 5's last batch again on the same model switched to the fused
+    ring on RING_RANKS ranks of the card: launch counts and predictions."""
+    set_sequence_ring(SequenceRing([dev] * RING_RANKS))
+    set_attention_impl(model, "ring_fused")
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        res = predict_batches(model, [batch], dev)
+        launches = read_launches()
+    finally:
+        set_attention_impl(model, "auto")
+        set_sequence_ring(None)
+    check_predictions(res, BATCH, model.cfg.num_target)
+    err = np.abs(res["predicted"] - want).max() / np.abs(want).max()
+    print(f"  batch ms {[round(float(x), 3) for x in res['batch_ms']]}, launches {launches}; "
+          f"predictions max|ring - phase 5| / max|phase 5| {err:.3e} (tol {RING_PRED_TOL})")
+    layers = model.cfg.mistral.num_hidden_layers
+    want_launches = {n: (layers * RING_RANKS if n == "ring_fwd" else 0) for n in KERNELS}
+    if launches != want_launches:
+        raise AssertionError(f"serving through the ring launched {launches}, want {want_launches}")
+    if not err <= RING_PRED_TOL:
+        raise AssertionError("predictions through the fused ring disagree with the flash path's")
 
 
 def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str = "",
@@ -439,48 +541,69 @@ def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str 
 
 
 def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
-                            int8: bool = False) -> dict[str, int]:
+                            int8: bool = False, ring: str | None = None) -> dict[str, int]:
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
     and 2 x 7 LoRA forwards (and, with the int8 base, row quants; with the
     fused epilogue, epilogue forwards); one flash backward; 7 dA (7 dz and
     7 dB); and 7 dx (7 scaled row quants) except for layer 0's q, k and v,
-    whose input (the normed embeddings) needs no gradient."""
-    per_step = {"flash_fwd": 2 * layers, "flash_bwd": layers,
+    whose input (the normed embeddings) needs no gradient. Through a ring of
+    n = RING_RANKS ranks a layer's attention pass is n ring kernels
+    ('ring_fused') or n(n+1)/2 offset flash forwards ('ring_flash': the
+    steps from later ranks are skipped), and its backward n(n+1)/2 flash
+    backwards."""
+    pairs = RING_RANKS * (RING_RANKS + 1) // 2
+    attn = {None: {"flash_fwd": 2 * layers, "flash_bwd": layers, "ring_fwd": 0},
+            "ring_fused": {"flash_fwd": 0, "flash_bwd": pairs * layers,
+                           "ring_fwd": 2 * RING_RANKS * layers},
+            "ring_flash": {"flash_fwd": 2 * pairs * layers, "flash_bwd": pairs * layers,
+                           "ring_fwd": 0}}[ring]
+    per_step = {**attn,
                 "lora_fwd": 14 * layers, "lora_dx": 7 * layers - 3, "lora_da": 7 * layers,
                 "row_quant": 14 * layers if int8 else 0,
                 "row_quant_scaled": 7 * layers - 3 if int8 else 0,
                 "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 7 * layers if epilogue else 0,
                 "epi_db": 7 * layers if epilogue else 0}
-    return {name: n * steps for name, n in per_step.items()}
+    return {name: per_step[name] * steps for name in KERNELS}
 
 
 def grad_of(model, name: str) -> torch.Tensor:
     return dict(model.named_parameters())[name].grad
 
 
-def train_lora_steps(cfg: VLBConfig, sd: dict, gen, dev, fresh: bool) -> tuple[dict, list[float], object]:
-    """3 steps of ``train_batches`` at batch 3 on ``sd``'s tensors (assigned,
-    not copied), with the launch counts the code implies and gradients on
-    layer 0's adapters: from fresh adapters (lora_b = 0) lora_b's is
-    non-zero and lora_a's exactly 0 at step 1 and non-zero at step 2;
-    otherwise both are non-zero from step 1. Returns (launches, step ms, a
-    closure that runs one more step)."""
+@dataclasses.dataclass
+class LoraRun:
+    launches: dict
+    step_ms: list
+    loss: list
+    norm: list
+    one_more_step: object
+
+
+def train_lora_steps(cfg: VLBConfig, sd: dict, batches: list, dev, fresh: bool,
+                     steps: int = N_BATCHES) -> LoraRun:
+    """``steps`` steps of ``train_batches`` at batch 3 on ``sd``'s tensors
+    (assigned, not copied), with the launch counts the code implies and
+    gradients on layer 0's adapters: from fresh adapters (lora_b = 0)
+    lora_b's is non-zero and lora_a's exactly 0 at step 1 and non-zero at
+    step 2; otherwise both are non-zero from step 1. The run's record holds
+    a closure that runs one more step."""
     model = VideoLLaMA2VLB.from_state_dict(cfg, sd)
     optimizer = AdamWCosine(trainable_parameters(model))
     n_train = sum(p.numel() for p in optimizer.params)
     mcfg = cfg.mistral
+    ring = None if mcfg.attention_impl == "auto" else mcfg.attention_impl
     print(f"  {mcfg.num_hidden_layers} layers, base {mcfg.base_quant or 'bf16'}, fused epilogue "
-          f"{mcfg.lora.fused_epilogue or 'off'}, {n_train / 1e6:.3f} M trainable "
-          f"({len(optimizer.params)} tensors), batch {LORA_BATCH}")
-    batches = synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev)
+          f"{mcfg.lora.fused_epilogue or 'off'}, attention {mcfg.attention_impl}"
+          + (f" on {RING_RANKS} ranks of the card" if ring else "")
+          + f", {n_train / 1e6:.3f} M trainable ({len(optimizer.params)} tensors), batch {LORA_BATCH}")
     seeds = torch.Generator().manual_seed(SEED)
     q_a, q_b = (f"model.layers.0.self_attn.q_proj.lora_{x}" for x in "ab")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     runs = []
-    for step in range(N_BATCHES):
+    for step in range(steps):
         runs.append(train_batches(model, [batches[step]], device=dev, generator=seeds,
                                   optimizer=optimizer))
         ga, gb = grad_of(model, q_a), grad_of(model, q_b)
@@ -501,37 +624,84 @@ def train_lora_steps(cfg: VLBConfig, sd: dict, gen, dev, fresh: bool) -> tuple[d
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not np.isfinite(loss + norm).all():
         raise AssertionError("non-finite LoRA training loss or gradient norm")
-    expected = expected_train_launches(mcfg.num_hidden_layers, N_BATCHES,
+    expected = expected_train_launches(mcfg.num_hidden_layers, steps,
                                        epilogue=bool(mcfg.lora.fused_epilogue),
-                                       int8=mcfg.base_quant is not None)
+                                       int8=mcfg.base_quant is not None, ring=ring)
     if launches != expected:
         raise AssertionError(f"LoRA training launched {launches}, want {expected}")
-    print(f"  clips/s at batch {LORA_BATCH} (steps 2-3): "
-          f"{[round(LORA_BATCH / (x / 1e3), 3) for x in step_ms[1:]]}")
+    if steps > 1:
+        print(f"  clips/s at batch {LORA_BATCH} (steps 2-{steps}): "
+              f"{[round(LORA_BATCH / (x / 1e3), 3) for x in step_ms[1:]]}")
 
     def one_more_step():
         train_batches(model, [batches[-1]], device=dev, generator=seeds, optimizer=optimizer)
 
-    return launches, step_ms, one_more_step
+    return LoraRun(launches, step_ms, loss, norm, one_more_step)
 
 
-def train_lora_full(gen, dev) -> dict[str, int]:
-    """Phases 7, 8 and 8b on one set of full-width weights: bf16 without and
-    with the fused epilogue, then quantized in place for the w8a8g8 step.
-    Returns the w8a8g8 run's launch counts (every kernel of the port)."""
+def lora_batches(cfg: VLBConfig, gen, dev) -> list:
+    return synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev)
+
+
+def train_through_the_ring(sd: dict, start: dict, batches: list, first: LoraRun, dev) -> dict[str, int]:
+    """Phase 7's starting adapters and head again (``start``), on the same
+    bf16 weights and batches: 3 steps through the fused ring (and one more
+    under ``torch.profiler``) and 2 through the per-step flash ring on
+    RING_RANKS ranks of the card. Each first step's loss and gradient norm
+    are held against phase 7's. Returns the fused ring run's launch
+    counts."""
+    set_sequence_ring(SequenceRing([dev] * RING_RANKS))
+    runs = {}
+    try:
+        for impl, steps in (("ring_fused", N_BATCHES), ("ring_flash", 2)):
+            with phase(f"8c LoRA train through the {impl} ring at full width"):
+                for key, t in start.items():
+                    sd[key].copy_(t)
+                mistral = dataclasses.replace(lora_train_config().mistral, attention_impl=impl)
+                run = train_lora_steps(lora_train_config(mistral), sd, batches, dev, fresh=True,
+                                       steps=steps)
+                loss_rel = abs(run.loss[0] - first.loss[0]) / abs(first.loss[0])
+                norm_rel = abs(run.norm[0] - first.norm[0]) / abs(first.norm[0])
+                print(f"  step 1 against phase 7's: brain_loss {run.loss[0]:.6f} vs {first.loss[0]:.6f} "
+                      f"(|err|/|ref| {loss_rel:.3e}), grad norm {run.norm[0]:.6f} vs {first.norm[0]:.6f} "
+                      f"({norm_rel:.3e}); tol {RING_STEP_TOL}")
+                print(f"  step ms {[round(x, 3) for x in run.step_ms]} through the ring, "
+                      f"{[round(x, 3) for x in first.step_ms[:steps]]} in phase 7 (flash, one run)")
+                if not (loss_rel <= RING_STEP_TOL and norm_rel <= RING_STEP_TOL):
+                    raise AssertionError(f"the {impl} LoRA step disagrees with the flash step")
+                if impl == "ring_fused":
+                    traced(run.one_more_step, "LoRA train step through the fused ring")
+                run.one_more_step = None
+                runs[impl] = run
+                torch.cuda.empty_cache()
+    finally:
+        set_sequence_ring(None)
+    return runs["ring_fused"].launches
+
+
+def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
+    """Phases 7, 8, 8c and 8b on one set of full-width weights: bf16 without
+    and with the fused epilogue, through the rings, then quantized in place
+    for the w8a8g8 step. Returns the w8a8g8 run's launch counts (every
+    kernel but the ring's) and the fused ring run's."""
     cfg = lora_train_config()
     sd = init_params(cfg, dev, gen)
-    _, off_ms, more = train_lora_steps(cfg, sd, gen, dev, fresh=True)
+    start = {key: t.clone() for key, t in sd.items() if trainable_predicate(key)}
+    batches = lora_batches(cfg, gen, dev)
+    first = train_lora_steps(cfg, sd, batches, dev, fresh=True)
     with phase("8 profile one LoRA step"):
-        traced(more, "LoRA train step")
-        del more
+        traced(first.one_more_step, "LoRA train step")
+        first.one_more_step = None
         torch.cuda.empty_cache()
     with phase("8 LoRA train with the fused epilogue"):
-        _, on_ms, more = train_lora_steps(lora_train_config(fused_epilogue="pallas"), sd, gen, dev, fresh=False)
-        del more
-        print(f"  step ms with the fused epilogue off {[round(x, 3) for x in off_ms[1:]]}, "
-              f"on {[round(x, 3) for x in on_ms[1:]]} (steps 2-3, one run)")
+        on = train_lora_steps(lora_train_config(fused_epilogue="pallas"), sd, lora_batches(cfg, gen, dev),
+                              dev, fresh=False)
+        print(f"  step ms with the fused epilogue off {[round(x, 3) for x in first.step_ms[1:]]}, "
+              f"on {[round(x, 3) for x in on.step_ms[1:]]} (steps 2-3, one run)")
+        del on
         torch.cuda.empty_cache()
+    ring_launches = train_through_the_ring(sd, start, batches, first, dev)
+    del start, batches
     with phase("8b w8a8g8 LoRA train at full width"):
         t0 = time.perf_counter()
         quantize_state_dict(sd)
@@ -543,10 +713,10 @@ def train_lora_full(gen, dev) -> dict[str, int]:
               f"device memory now {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         del base
         cfg8 = lora_train_config(fused_epilogue="pallas", base_quant="w8a8g8")
-        launches, _, more = train_lora_steps(cfg8, sd, gen, dev, fresh=False)
+        w8 = train_lora_steps(cfg8, sd, lora_batches(cfg, gen, dev), dev, fresh=False)
     with phase("8b profile one w8a8g8 LoRA step"):
-        traced(more, "w8a8g8 LoRA train step")
-    return launches
+        traced(w8.one_more_step, "w8a8g8 LoRA train step")
+    return w8.launches, ring_launches
 
 
 def train_baseline_full(gen, dev) -> None:
@@ -592,26 +762,29 @@ def narrow_reference_check(gen, dev) -> None:
         raise AssertionError("narrow model on the card disagrees with its f32 CPU reference")
 
 
-def narrow_lora_check(gen, dev, base_quant: str | None = None) -> None:
+def narrow_lora_check(gen, dev, base_quant: str | None = None, attention_impl: str = "auto") -> None:
     """One LoRA step's loss and adapter gradients of the narrow model (fused
     hash dropout at p 0.1, which the CPU's plain version reproduces bit for
     bit; head dropout off, whose mask comes from a device generator). With
     ``base_quant`` the projections are int8 (the same codes and scales on
     both sides) and the epilogue fused, so every kernel of the w8a8g8 path
-    runs on the card."""
+    runs on the card. With a ring ``attention_impl`` the card's model runs
+    it on 2 ranks of the card, against plain attention on the CPU."""
     lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P, dropout_bits=8, fused_dropout=True,
                       fused_epilogue="pallas" if base_quant else "")
 
-    def mistral(dtype):
-        return dataclasses.replace(narrow_mistral(dtype, lora), base_quant=base_quant)
+    def mistral(dtype, impl="auto"):
+        return dataclasses.replace(narrow_mistral(dtype, lora), base_quant=base_quant,
+                                   attention_impl=impl)
 
-    cfg = lora_train_config(mistral(torch.bfloat16), dropout_rate=0.0)
+    cfg = lora_train_config(mistral(torch.bfloat16, attention_impl), dropout_rate=0.0)
     sd = init_params(cfg, dev, gen)
     for key in sd:
         if key.endswith("lora_b"):       # non-zero, so lora_a's gradient is too
             sd[key] = 0.05 * torch.randn(sd[key].shape, generator=gen, device=dev)
     batch = synthetic_batches(cfg, 1, 1, np.random.default_rng(SEED), gen, dev)[0]
     results = []
+    set_sequence_ring(SequenceRing([dev] * 2))
     for device, mcfg in ((dev, cfg), ("cpu", dataclasses.replace(cfg, mistral=mistral(torch.float32)))):
         model = VideoLLaMA2VLB.from_state_dict(mcfg, sd, device=device)
         trainable_parameters(model)
@@ -621,6 +794,7 @@ def narrow_lora_check(gen, dev, base_quant: str | None = None) -> None:
         grads = {n: p.grad.float().cpu() for n, p in model.named_parameters() if "lora_" in n}
         results.append((loss.item(), grads))
         del model
+    set_sequence_ring(None)
     (loss_c, g_c), (loss_r, g_r) = results
     loss_rel = abs(loss_c - loss_r) / abs(loss_r)
     flat_c = torch.cat([g_c[n].flatten() for n in sorted(g_r)])
@@ -628,7 +802,8 @@ def narrow_lora_check(gen, dev, base_quant: str | None = None) -> None:
     grad_rel = rel_err(flat_c, flat_r)
     cos = min(F.cosine_similarity(g_c[n].flatten().double(), g_r[n].flatten().double(), dim=0).item()
               for n in g_r)
-    label = f"narrow {base_quant or 'bf16'} LoRA step"
+    label = f"narrow {base_quant or 'bf16'} LoRA step" + (
+        f" through the {attention_impl} ring on 2 ranks" if attention_impl != "auto" else "")
     print(f"  {label}: loss card {loss_c:.6f} cpu f32 {loss_r:.6f} (|err|/|ref| {loss_rel:.3e}); adapter "
           f"grads max|err|/max|ref| {grad_rel:.3e}, least cosine {cos:.6f} over {len(g_r)} tensors, "
           f"max|ref| {flat_r.abs().max().item():.4e}")
@@ -669,6 +844,8 @@ def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         named = sum(e.device_time_total for e in events if kernel in e.key)
+        del prof
+        release_host_memory()
         if named > 0:
             return named / 1e3 / iters, sum(e.device_time_total for e in events) / 1e3 / iters
     raise RuntimeError(f"torch.profiler recorded no device time for {kernel or 'the call'} in {tries} sessions")
@@ -753,6 +930,19 @@ def time_flash(gen, dev) -> dict[str, dict]:
         lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 5)
     report("flash_bwd", f"B={b} S={s}", long, 10 * b * HQ * D * s * (s + 1) // 2,
            4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4)
+    del q, k, v, o, lse, do, q4, k4, v4, o4, do4
+    # A step of the per-step ring: a chunk of S_loc = 512 against an earlier
+    # rank's whole chunk (offset S_loc, no mask), by CUDA events; printed.
+    b, s = LORA_BATCH, REFERENCE_GEOMETRY.feature_len // RING_RANKS
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
+    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    fwd_ms = cuda_ms(lambda: attention_with_stats(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s), 20)
+    bwd_ms = cuda_ms(lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask,
+                                                  causal_offset=s), 20)
+    print(f"  flash_fwd / flash_bwd B={b} S={s} causal_offset={s}: {fwd_ms:.4f} / {bwd_ms:.4f} ms per "
+          f"call (CUDA events, wrappers included); bounds {2 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f}"
+          f" / {5 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f} ms (operations)")
     return out
 
 
@@ -850,6 +1040,84 @@ def time_epilogue(gen, dev) -> dict[str, dict]:
     return out
 
 
+def per_stream_ms(fn, iters: int, kernel: str) -> list[float]:
+    """Mean device time per launch of the kernels named ``kernel``, by the
+    stream they ran on (``torch.profiler`` kernel events), sorted; empty
+    when the tracer recorded none."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_stream: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+            by_stream.setdefault(e.device_resource_id, []).append(e.time_range.elapsed_us())
+    return sorted(sum(x) / len(x) / 1e3 for x in by_stream.values())
+
+
+def time_ring(gen, dev) -> dict[str, dict]:
+    """The fused ring on RING_RANKS ranks of the card at the training shape
+    (B 3, S 2048; the JSON's) and the serving one (B 5). ``ms`` is one pass:
+    CUDA events on the caller's stream around ``ring_fwd``, from before the
+    first send to after the last rank's output, the sends and the ranks'
+    concurrent kernels included. Beside it each rank's kernel (by stream;
+    rank i folds i + 1 chunks), the plain version, the library (SDPA causal
+    with the padding mask over the whole (B, S) on the card: the same
+    output) and the per-step flash ring's forward (timed only). The bound is
+    the causal work's (tiles above each diagonal chunk's diagonal skipped),
+    against q, k, v, bias read and out, lse written once; the sends' bytes
+    are printed beside it."""
+    out = {}
+    s = REFERENCE_GEOMETRY.feature_len
+    s_loc = s // RING_RANKS
+    ring = SequenceRing([dev] * RING_RANKS)
+    for b in (LORA_BATCH, BATCH):
+        q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+        q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2) for t in (q, k, v))
+        keep = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None]
+                & (kv_mask > 0)[:, None, None, :])
+
+        def fused():
+            return ring_fwd(q, k, v, HQ, HKV, ring, kv_mask=kv_mask)
+
+        rec = {"ms": cuda_ms(fused, 20),
+               "plain_ms": device_ms(lambda: ring_fwd_plain(q, k, v, HQ, HKV, ring, kv_mask=kv_mask),
+                                     2, warmup=1)[1],
+               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=keep, enable_gqa=True), 10)[1]}
+        # Few traced passes: each holds ~20 host API events per pass, and the
+        # host's RSS peaks in this phase.
+        kernels_ms, pass_device_ms = device_ms(fused, 5, "ring_fwd_kernel")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fused()
+        host_ms = (time.perf_counter() - t0) * 1e2           # per call, before the card is waited for
+        torch.cuda.synchronize()
+        ranks_ms = per_stream_ms(fused, 5, "ring_fwd_kernel")
+        per_step_ms = cuda_ms(lambda: ring_flash_fwd(q, k, v, HQ, HKV, ring, kv_mask=kv_mask), 10)
+        flops = 4 * b * HQ * D * s * (s + 1) // 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4
+        rec.update(bound(flops, nbytes))
+        sent = 2 * RING_RANKS * (RING_RANKS - 1) * b * s_loc * HKV * D * 2
+        print(f"  ring_fwd n={RING_RANKS} B={b} S={s}: pass {rec['ms']:.4f} ms (CUDA events; the host "
+              f"takes {host_ms:.4f} ms to issue one), kernels "
+              f"{kernels_ms:.4f} ms summed over ranks, each rank "
+              f"{[round(x, 4) for x in ranks_ms] or 'not measured'} ms (by stream, sorted); "
+              f"everything it launches {pass_device_ms:.4f} ms device time; plain {rec['plain_ms']:.4f} ms, "
+              f"SDPA {rec['library_ms']:.4f} ms, per-step flash ring {per_step_ms:.4f} ms; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), {flops / rec['ms'] / 1e9:.1f} TFLOP/s achieved; sends "
+              f"{sent / 1e6:.1f} MB read and written ({2 * sent / PEAK_BYTES_PER_S * 1e3:.4f} ms at the "
+              f"HBM rate)")
+        if b == LORA_BATCH:
+            out["ring_fwd"] = rec
+        del q, k, v, q4, k4, v4, keep
+    return out
+
+
 def time_int_mm(gen, dev) -> None:
     """``torch._int_mm`` at 6144 x 4096 -> 14336 and its dx (6144 x 14336
     -> 4096), each with the weight stored (out, in) and (in, out), beside
@@ -904,6 +1172,11 @@ def main() -> int:
         # Past skv 4096 the reference switches to its split backward
         # (_dq_kernel + _dkv_kernel, flash_attention.py:583); one kernel here.
         check_flash(1, 4608, gen, dev)
+        # The ring's steps: a whole chunk back (S_loc) and a tile (64).
+        s_loc = REFERENCE_GEOMETRY.feature_len // RING_RANKS
+        for offset in (s_loc, 64):
+            check_flash(LORA_BATCH, s_loc, gen, dev, causal_offset=offset)
+        max_abs_err["ring_fwd"] = check_ring(gen, dev)
         torch.cuda.empty_cache()
         for k in LORA_KS:
             for name, err in check_lora(k, gen, dev).items():
@@ -936,10 +1209,13 @@ def main() -> int:
             raise AssertionError(f"serving launched {serve_launches}, want {want}")
     with phase("6 profile one served batch"):
         traced(lambda: predict_batches(model, [batches[-1]], dev), "served batch")
+    with phase("6b serve through the fused ring"):
+        serve_through_the_ring(model, batches[-1], res["predicted"][-BATCH:], dev)
         del model, batches
         torch.cuda.empty_cache()
     with phase("7 LoRA train at full width"):
-        launches = train_lora_full(gen, dev)
+        launches, ring_launches = train_lora_full(gen, dev)
+        launches["ring_fwd"] = ring_launches["ring_fwd"]
         torch.cuda.empty_cache()
     with phase("9 frozen-baseline train at full width"):
         train_baseline_full(gen, dev)
@@ -947,12 +1223,13 @@ def main() -> int:
     with phase("10 narrow models vs f32 CPU"):
         narrow_reference_check(gen, dev)
         narrow_lora_check(gen, dev)
+        narrow_lora_check(gen, dev, attention_impl="ring_fused")
         narrow_lora_check(gen, dev, base_quant="w8a8g8")
     with phase("11 timing"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         timing = {**time_flash(gen, dev), **time_lora(gen, dev), **time_row_quant(gen, dev),
-                  **time_epilogue(gen, dev)}
+                  **time_epilogue(gen, dev), **time_ring(gen, dev)}
         time_int_mm(gen, dev)
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with phase("12 host"):

@@ -8,7 +8,10 @@
 //   s  = q_s K^T + bias + causal,  p = exp(s - lse),  di = rowsum(o * do)
 //   dv = sum_g p^T do,  dp = do V^T,  ds = p (dp - di),
 //   dk = sum_g ds^T q_s,  dq = (ds K) * sm_scale
-// with q_s = q pre-scaled in bf16 by the caller, k, v, dk, dv
+// where the causal mask is col > row + offset (the reference's causal_offset;
+// 0 is plain causal attention; q tiles that see no key of a kv tile skip
+// it, as the reference's tile skip :313 does), with q_s = q pre-scaled in
+// bf16 by the caller, k, v, dk, dv
 // (B, S, Hkv*128) bf16, do (B, S, Hq*128) bf16, bias (B, S) f32 additive
 // (0 or MASK_VALUE) or null, lse and di (B, Hq, S) f32, and dq written as
 // f32 partial sums into a zeroed (B, S, Hq*128) buffer that the caller
@@ -132,7 +135,7 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
                  float* __restrict__ dq,
                  __nv_bfloat16* __restrict__ dk,
                  __nv_bfloat16* __restrict__ dv,
-                 int S, int Hq, int Hkv) {
+                 int S, int Hq, int Hkv, int offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto Ks = reinterpret_cast<__nv_bfloat16 (*)[SROW]>(smem);
   auto Vs = reinterpret_cast<__nv_bfloat16 (*)[SROW]>(smem + KV_BYTES);
@@ -177,8 +180,11 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
   }
 
   const int nq = (S + BQ - 1) / BQ;
-  const int i0 = kv0 / BQ;                      // q tiles above the tile never see it
-  const int per_head = nq - i0;
+  // q tiles whose last row does not reach kv0 never see the tile: the first
+  // q tile that does is i0 (kv0 / BQ at offset 0).
+  const int need = kv0 - offset - (BQ - 1);
+  const int i0 = need <= 0 ? 0 : (need + BQ - 1) / BQ;
+  const int per_head = max(nq - i0, 0);
   const int n_iter = G * per_head;
 
   // Q, dO, lse and di of step `it` into buffer `buf`.
@@ -206,7 +212,7 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
     }
   };
 
-  load_q_tile(0, 0);
+  if (n_iter > 0) load_q_tile(0, 0);
   cp_async_commit();
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -225,7 +231,7 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
 
     const int h = hkv * G + it / per_head;
     const int qt = i0 + it % per_head;
-    const bool diag = qt * BQ < kv0 + BK;        // some key of the tile lies after some query
+    const bool diag = kv0 + BK - 1 > qt * BQ + offset;   // some key lies past some query's reach
 
     // s^T = K Q^T: 16 kv rows x 32 q columns per warp.
     float st[BQ / 8][4];
@@ -253,7 +259,7 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
         const int kr = r0 + g + ((e >> 1) << 3);
         const int qc = n * 8 + 2 * t + (e & 1);
         float x = st[n][e] + Bs[kr];
-        if (diag && kv0 + kr > qt * BQ + qc) x += MASK_VALUE;
+        if (diag && kv0 + kr > qt * BQ + qc + offset) x += MASK_VALUE;
         st[n][e] = exp2f((x - Ls[buf][qc]) * LOG2E);
       }
     }
@@ -387,7 +393,8 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q,     // pre-scaled
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* bias, const void* dout, const void* lse,
                                 const void* di, void* dq, void* dk, void* dv,
-                                int B, int S, int Hq, int Hkv, void* stream) {
+                                int B, int S, int Hq, int Hkv, int offset,
+                                void* stream) {
   static bool smem_set[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -405,6 +412,6 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<float*>(dq),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv, offset);
   return static_cast<int>(cudaGetLastError());
 }

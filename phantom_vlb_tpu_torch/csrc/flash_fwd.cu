@@ -5,7 +5,10 @@
 //   out = softmax(q*s K^T + bias + causal) V,  lse = m + log(l)
 // with q, out (B, S, Hq*128) bf16, k, v (B, S, Hkv*128) bf16, kv head =
 // h / (Hq/Hkv), bias (B, S) f32 additive (0 or MASK_VALUE) or null,
-// lse (B, Hq, S) f32. q is pre-scaled in bf16 (q*s rounded to bf16, as the
+// lse (B, Hq, S) f32. The causal mask is col > row + offset (the reference's
+// causal_offset, which the ring's steps pass; 0 is plain causal attention),
+// and kv tiles that no row of a q tile sees are skipped, as the reference's
+// tile skip (:109) does. q is pre-scaled in bf16 (q*s rounded to bf16, as the
 // reference multiplies in the input dtype before its kernel). Masking adds
 // MASK_VALUE = -0.7*FLT_MAX (never -inf): a masked key on the diagonal
 // gets it twice and sums to -inf; a row whose keys are all masked averages
@@ -96,6 +99,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// kOffset = false is plain causal attention (offset 0): the diagonal tile is
+// j == qi. The ring's steps take kOffset = true.
+template <bool kOffset>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -103,7 +109,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse,
-                 int S, int Hq, int Hkv, float scale) {
+                 int S, int Hq, int Hkv, float scale, int offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto Ks = reinterpret_cast<__nv_bfloat16 (*)[BK][SROW]>(smem);
   auto Vs = reinterpret_cast<__nv_bfloat16 (*)[BK][SROW]>(
@@ -143,7 +149,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_tile(0, 0);
+  const int nk = (S + BK - 1) / BK;
+  // Causal: tiles past the last key the q tile's last row sees are skipped
+  // (all of them when that row sees none: out 0 and lse -inf, as the
+  // reference gives for a q tile whose kv tiles are all skipped).
+  int ntiles = min(qi + 1, nk);
+  if constexpr (kOffset) {
+    const int last_key = qi * BQ + BQ - 1 + offset;
+    ntiles = last_key < 0 ? 0 : min(last_key / BK + 1, nk);
+  }
+  if (!kOffset || ntiles > 0) load_tile(0, 0);
   cp_async_commit();
 
   // Q fragments for the 8 k-steps over d, pre-scaled in bf16.
@@ -171,8 +186,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 
-  const int nk = (S + BK - 1) / BK;
-  const int ntiles = min(qi + 1, nk);      // causal: tiles above the diagonal skipped
   for (int j = 0; j < ntiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < ntiles) load_tile(j + 1, buf ^ 1);
@@ -198,8 +211,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // + bias, then + causal mask (diagonal tile only), as the reference adds them.
-    const bool diag = (j == qi);
+    // + bias, then + causal mask, as the reference adds them; only a tile
+    // whose last key lies past the q tile's first row holds masked keys
+    // (at offset 0 the diagonal tile, j == qi).
+    const bool diag = kOffset ? (j + 1) * BK - 1 > qi * BQ + offset : j == qi;
     float mc[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
@@ -208,7 +223,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = n * 8 + 2 * t + (e & 1);
         const int row = row_a + ((e >> 1) << 3);
         float x = s[n][e] + Bs[buf][col];
-        if (diag && j * BK + col > row) x += MASK_VALUE;
+        if (diag && j * BK + col > row + (kOffset ? offset : 0)) x += MASK_VALUE;
         s[n][e] = x;
         mc[e >> 1] = fmaxf(mc[e >> 1], x);
       }
@@ -291,23 +306,27 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* bias, void* out, void* lse,
                                 int B, int S, int Hq, int Hkv, float scale,
-                                void* stream) {
+                                int offset, void* stream) {
   // The dynamic shared-memory opt-in is per device: set it once on each.
   static bool smem_set[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  using Kernel = decltype(&flash_fwd_kernel<false>);
+  const Kernel kernels[2] = {flash_fwd_kernel<false>, flash_fwd_kernel<true>};
   if (!smem_set[device]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(SMEM_BYTES));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    for (const Kernel kernel : kernels) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(SMEM_BYTES));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     smem_set[device] = true;
   }
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kernels[offset != 0 ? 1 : 0]<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, Hq, Hkv, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, Hq, Hkv, scale, offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 
 Counterpart of ``phantom_vlb_tpu/models/mistral.py``: RMSNorm in HF order
 (:94-113), split-half RoPE on the packed layout (:116-183), GQA attention on
-the packed branch (:265-281) through :func:`attention_packed`, the SwiGLU MLP
+the packed branch (:265-281) through :func:`attention_packed` or, with a ring
+``attention_impl``, context-parallel over the sequence ring (:290-315), the SwiGLU MLP
 (:326-340), the pre-norm decoder layer (:343) and the stack (:396-513).
 The layers are an unrolled ``nn.ModuleList``; the reference's scan and layer
 grouping are XLA compile devices with no counterpart here.
@@ -23,6 +24,13 @@ Parameters are stored in the compute dtype (``MistralConfig.dtype``); the
 reference keeps f32 parameters and casts them to that dtype at each use,
 which rounds them the same way. LoRA adapters stay f32 and are cast at use,
 as there.
+
+``attention_impl``: ``'auto'`` is the packed flash path; ``'ring'``,
+``'ring_flash'`` and ``'ring_fused'`` split the sequence over the ring that
+:func:`~phantom_vlb_tpu_torch.core.mesh.set_sequence_ring` set, after RoPE
+on the global positions, as the reference does. The per-layer checkpoint
+replays the ring. The attention owns no parameters, so
+:func:`set_attention_impl` switches a built model in place.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from phantom_vlb_tpu_torch.core.mesh import get_sequence_ring
 from phantom_vlb_tpu_torch.models.lora import (
     FrozenQuantDense,
     LoRAConfig,
@@ -41,9 +50,16 @@ from phantom_vlb_tpu_torch.models.lora import (
     adapter_dropout,
     site_seed,
 )
+from phantom_vlb_tpu_torch.ops.context_parallel import ring_attention, ring_flash_attention
 from phantom_vlb_tpu_torch.ops.flash_attention import attention_packed
+from phantom_vlb_tpu_torch.ops.ring_fused import ring_flash_fused
 
-__all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed"]
+__all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed",
+           "ATTENTION_IMPLS", "set_attention_impl"]
+
+RING_ATTENTION = {"ring": ring_attention, "ring_flash": ring_flash_attention,
+                  "ring_fused": ring_flash_fused}
+ATTENTION_IMPLS = ("auto", *RING_ATTENTION)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +82,12 @@ class MistralConfig:
     # (int8 activations too, straight-through bf16 dx) or 'w8a8g8' (int8 dx
     # too); None keeps them in ``dtype``.
     base_quant: str | None = None
+    # 'auto' (packed flash attention) or a ring: 'ring', 'ring_flash', 'ring_fused'.
+    attention_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}")
 
     @staticmethod
     def full(**overrides) -> "MistralConfig":
@@ -163,7 +185,11 @@ class MistralAttention(nn.Module):
         q = apply_rope_packed(_call_proj(self.q_proj, "q_proj", x, seed, xa), rope, h)
         k = apply_rope_packed(_call_proj(self.k_proj, "k_proj", x, seed, xa), rope, hkv)
         v = _call_proj(self.v_proj, "v_proj", x, seed, xa)
-        out, _ = attention_packed(q, k, v, h, hkv, kv_mask=kv_mask)
+        if cfg.attention_impl == "auto":
+            out, _ = attention_packed(q, k, v, h, hkv, kv_mask=kv_mask)
+        else:
+            ring = RING_ATTENTION[cfg.attention_impl]
+            out = ring(q, k, v, h, hkv, get_sequence_ring(), kv_mask=kv_mask)
         return _call_proj(self.o_proj, "o_proj", out, seed)
 
 
@@ -232,3 +258,16 @@ class MistralModel(nn.Module):
             else:
                 x = layer(x, rope, kv_mask, layer_seed)
         return self.norm(x)
+
+
+def set_attention_impl(model: nn.Module, impl: str) -> None:
+    """Switch every module of ``model`` that carries a :class:`MistralConfig`
+    (or a config holding one as ``.mistral``) to ``impl``, in place; the
+    weights are untouched."""
+    for module in model.modules():
+        cfg = getattr(module, "cfg", None)
+        if isinstance(cfg, MistralConfig):
+            module.cfg = dataclasses.replace(cfg, attention_impl=impl)
+        elif isinstance(getattr(cfg, "mistral", None), MistralConfig):
+            module.cfg = dataclasses.replace(
+                cfg, mistral=dataclasses.replace(cfg.mistral, attention_impl=impl))

@@ -29,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Sources that call the CUDA driver API (``cuStreamWriteValue32``) link it.
+LINK_FLAGS = {"ring_fwd.cu": ("-lcuda",)}
 # nvcc's report per source (``-Xptxas -v``: registers, shared memory and
 # spills per kernel); empty when the library was already built.
 BUILD_LOGS: dict[Path, str] = {}
@@ -42,8 +44,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _flags(source: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS + LINK_FLAGS.get(source.name, ())
+
+
 def _library(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source)).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -59,7 +65,7 @@ def build_all(sources) -> dict[Path, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            [_nvcc(), *_flags(source), "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running.append((source, lib, tmp, proc))
@@ -104,8 +110,10 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, count: int = 1) -> None:
+        """Call the launcher; ``count`` is the number of kernel launches it
+        makes (one for most)."""
         err = self.load()(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        self.launches += count

@@ -1,8 +1,9 @@
 """Causal GQA flash attention, packed (B, S, H*D) layout: forward and backward.
 
 Counterpart of ``phantom_vlb_tpu/ops/flash_attention.py``
-(``attention_packed`` :766, ``_fwd_impl`` :412, ``_fwd_kernel`` :93;
-``_flash_packed_bwd`` :754, ``_bwd_impl`` :490, ``_dq_dkv_kernel`` :284). On
+(``attention_packed`` :766, ``attention_with_stats`` :798, ``_fwd_impl`` :412,
+``_fwd_kernel`` :93; ``_flash_packed_bwd`` :754, ``_bwd_impl`` :490,
+``_dq_dkv_kernel`` :284). On
 CUDA tensors :func:`attention_packed` is a ``torch.autograd.Function``: its
 forward launches ``csrc/flash_fwd.cu`` and saves (q, k, v, kv bias, out,
 lse); its backward launches ``csrc/flash_bwd.cu``. On CPU tensors it runs
@@ -11,6 +12,18 @@ and autograd differentiates that. :func:`attention_packed_bwd_plain` is the
 plain version of the backward kernel's own arithmetic, which the card holds
 the kernel against. There is no fallback: a CUDA tensor the kernels do not
 take raises.
+
+``causal_offset`` shifts the causal mask as the ring's steps need it: query
+row i sees key j where ``j <= i + causal_offset`` (reference ``_causal_add``
+:86-90), and kv tiles that no row of a q tile sees are skipped (:109,
+:191). At offset 0 this is plain causal attention. With a negative offset a
+row may see no key at all; where a whole q tile sees none, the kernels, as
+the reference's, give out 0 and lse -inf (and zero gradients), but a row
+that sees nothing inside a tile that runs gets the uniform average over that
+tile's masked keys, which depends on the tile size. The ring's callers
+therefore never pass an offset at which a row sees nothing: they skip the
+steps whose chunk comes from a later rank, whose contribution in the
+reference is exactly zero (``ops/context_parallel.py``).
 
 Numerics carried over from the reference:
 
@@ -43,7 +56,7 @@ from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
     "MASK_VALUE", "attention_packed", "attention_packed_plain", "attention_packed_bwd",
-    "attention_packed_bwd_plain", "kv_bias", "FLASH_FWD", "FLASH_BWD",
+    "attention_packed_bwd_plain", "attention_with_stats", "kv_bias", "FLASH_FWD", "FLASH_BWD",
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -52,12 +65,12 @@ HEAD_DIM = 128  # the only head width the kernels are built for
 FLASH_FWD = CudaKernel(
     "flash_fwd.cu",
     "flash_fwd_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
 FLASH_BWD = CudaKernel(
     "flash_bwd.cu",
     "flash_bwd_launch",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
 
 
@@ -92,14 +105,16 @@ def _packed(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g * d)
 
 
-def _masked_scores(qg, kh, kv_mask):
-    """f32 scores (B, Hkv, G, S, S) + bias row + causal MASK_VALUE, in that order."""
+def _masked_scores(qg, kh, kv_mask, causal_offset=0):
+    """f32 scores (B, Hkv, G, S, S) + bias row + causal MASK_VALUE (where
+    ``col > row + causal_offset``), in that order."""
     s = qg.shape[-2]
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kh.float())
     bias = kv_bias(kv_mask)
     if bias is not None:
         scores = scores + bias[:, None, None, None, :]
-    causal = torch.ones(s, s, dtype=torch.bool, device=qg.device).triu(1)
+    pos = torch.arange(s, device=qg.device)
+    causal = pos[None, :] > pos[:, None] + causal_offset
     return scores + torch.where(causal, MASK_VALUE, 0.0)
 
 
@@ -112,6 +127,7 @@ def attention_packed_plain(
     *,
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
+    causal_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward: (out (B, S, Hq*D), lse (B, Hq, S) f32).
 
@@ -122,7 +138,7 @@ def attention_packed_plain(
     group = num_heads // num_kv_heads
     qs = q * _scale_in_dtype(q, num_heads, sm_scale)
     scores = _masked_scores(_heads(qs, num_kv_heads, group), _heads(k, num_kv_heads, 1)[:, :, 0],
-                            kv_mask)
+                            kv_mask, causal_offset)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -145,6 +161,7 @@ def attention_packed_bwd_plain(
     *,
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
+    causal_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel: (dq, dk, dv) in q's, k's, v's dtypes.
 
@@ -160,7 +177,7 @@ def attention_packed_bwd_plain(
     vh = _heads(v, num_kv_heads, 1)[:, :, 0]
     dog = _heads(do, num_kv_heads, group).float()
     og = _heads(out, num_kv_heads, group).float()
-    scores = _masked_scores(qg, kh, kv_mask)
+    scores = _masked_scores(qg, kh, kv_mask, causal_offset)
     p = torch.exp(scores - lse.reshape(b, num_kv_heads, group, s)[..., None])
     di = (og * dog).sum(-1, keepdim=True)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dog)
@@ -187,7 +204,7 @@ def _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask):
         raise ValueError(f"kv_mask must be ({b}, {s}) on {q.device}; got {tuple(kv_mask.shape)} on {kv_mask.device}")
 
 
-def _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale):
+def _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale, causal_offset=0):
     b, s, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, s), dtype=torch.float32, device=q.device)
@@ -197,29 +214,45 @@ def _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale):
             None if bias is None else bias.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
             b, s, num_heads, num_kv_heads, _scale_in_dtype(q, num_heads, sm_scale),
-            torch.cuda.current_stream().cuda_stream,
+            int(causal_offset), torch.cuda.current_stream().cuda_stream,
         )
     return out, lse
 
 
-def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_scale):
+def _bwd_inputs(q, out, do, num_heads, sm_scale):
+    """The backward kernel's inputs besides k, v and lse: q pre-scaled in its
+    dtype and ``di = rowsum(f32(o) * f32(do))`` per head, (B, Hq, S) f32."""
     b, s, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"do must match q {tuple(q.shape)} {q.dtype}; got {tuple(do.shape)} {do.dtype}")
-    do = do.contiguous()
     qs = q * _scale_in_dtype(q, num_heads, sm_scale)
     di = (out.float() * do.float()).view(b, s, num_heads, HEAD_DIM).sum(-1).transpose(1, 2).contiguous()
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    return qs, di
+
+
+def _flash_bwd_launch(qs, k, v, bias, do, lse, di, num_heads, num_kv_heads, causal_offset=0):
+    """One flash_bwd.cu launch: (dq as unscaled f32 sums, dk, dv)."""
+    b, s, _ = qs.shape
+    dq_acc = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(qs.device):
         FLASH_BWD.launch(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(),
             dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, num_heads, num_kv_heads,
+            b, s, num_heads, num_kv_heads, int(causal_offset),
             torch.cuda.current_stream().cuda_stream,
         )
+    return dq_acc, dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_scale,
+                    causal_offset=0):
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q {tuple(q.shape)} {q.dtype}; got {tuple(do.shape)} {do.dtype}")
+    do = do.contiguous()
+    qs, di = _bwd_inputs(q, out, do, num_heads, sm_scale)
+    dq_acc, dk, dv = _flash_bwd_launch(qs, k, v, bias, do, lse, di, num_heads, num_kv_heads,
+                                       causal_offset)
     # d(s)/d(q_unscaled) carries sm_scale once (reference :221-224).
     return (dq_acc * _default_scale(q, num_heads, sm_scale)).to(q.dtype), dk, dv
 
@@ -228,11 +261,11 @@ class _FlashAttention(torch.autograd.Function):
     """CUDA path: flash_fwd.cu forward, flash_bwd.cu backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale):
+    def forward(ctx, q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, causal_offset):
         bias = kv_bias(kv_mask)
-        out, lse = _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale)
+        out, lse = _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale, causal_offset)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.heads = (num_heads, num_kv_heads, sm_scale)
+        ctx.heads = (num_heads, num_kv_heads, sm_scale, causal_offset)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -240,7 +273,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, bias, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_cuda(q, k, v, bias, out, lse, dout, *ctx.heads)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention_packed(
@@ -252,6 +285,7 @@ def attention_packed(
     *,
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
+    causal_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal GQA attention: (out (B, S, Hq*D) in q's dtype, lse (B, Hq, S) f32).
 
@@ -262,12 +296,39 @@ def attention_packed(
     """
     if q.device.type == "cpu":
         return attention_packed_plain(
-            q, k, v, num_heads, num_kv_heads, sm_scale=sm_scale, kv_mask=kv_mask
+            q, k, v, num_heads, num_kv_heads, sm_scale=sm_scale, kv_mask=kv_mask,
+            causal_offset=causal_offset,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
-    return _FlashAttention.apply(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale)
+    return _FlashAttention.apply(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, causal_offset)
+
+
+def attention_with_stats(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    num_kv_heads: int,
+    *,
+    sm_scale: float | None = None,
+    kv_mask: torch.Tensor | None = None,
+    causal_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward-only (out, lse) in the packed layout: the partial-result form a
+    ring step merges (reference ``attention_with_stats`` :798-821). Nothing
+    is recorded for autograd; train through :func:`attention_packed` or the
+    ring functions of ``ops/context_parallel.py``."""
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return attention_packed_plain(q, k, v, num_heads, num_kv_heads, sm_scale=sm_scale,
+                                          kv_mask=kv_mask, causal_offset=causal_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
+    return _flash_fwd_cuda(q, k, v, kv_bias(kv_mask), num_heads, num_kv_heads, sm_scale,
+                           causal_offset)
 
 
 def attention_packed_bwd(
@@ -282,6 +343,7 @@ def attention_packed_bwd(
     *,
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
+    causal_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention_packed` from its saved (out, lse).
 
@@ -290,11 +352,12 @@ def attention_packed_bwd(
     """
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, out, lse, do, num_heads, num_kv_heads,
-                                          sm_scale=sm_scale, kv_mask=kv_mask)
+                                          sm_scale=sm_scale, kv_mask=kv_mask,
+                                          causal_offset=causal_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
     if out.shape != q.shape or lse.shape != (q.shape[0], num_heads, q.shape[1]):
         raise ValueError(f"out {tuple(out.shape)} / lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
     return _flash_bwd_cuda(q, k, v, kv_bias(kv_mask), out.contiguous(), lse.contiguous(), do,
-                           num_heads, num_kv_heads, sm_scale)
+                           num_heads, num_kv_heads, sm_scale, causal_offset)

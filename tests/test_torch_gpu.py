@@ -10,6 +10,8 @@ harness in conftest.py is left out)::
 import pytest
 import torch
 
+from phantom_vlb_tpu_torch.core.mesh import SequenceRing
+from phantom_vlb_tpu_torch.ops.context_parallel import ring_attention
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     FLASH_BWD,
     FLASH_FWD,
@@ -17,6 +19,7 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_plain,
+    attention_with_stats,
 )
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
@@ -41,6 +44,7 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     hash_bytes,
 )
 
+from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, ring_flash_fused, ring_fwd, ring_fwd_plain
 from phantom_vlb_tpu_torch.ops.quant import int8_matmul, int8_matmul_w8a8, int8_matmul_w8a8g8, quantize_int8
 from phantom_vlb_tpu_torch.ops.rowquant import (
     ROW_QUANT,
@@ -85,10 +89,10 @@ def _inputs(dev, b, s, hq, hkv, valid=None, seed=0):
     return q, k, v, mask
 
 
-def _reference(q, k, v, hq, hkv, mask):
+def _reference(q, k, v, hq, hkv, mask, causal_offset=0):
     q_s = q * torch.tensor(D ** -0.5, dtype=q.dtype, device=q.device)
     return attention_packed_plain(q_s.float(), k.float(), v.float(), hq, hkv,
-                                  sm_scale=1.0, kv_mask=mask)
+                                  sm_scale=1.0, kv_mask=mask, causal_offset=causal_offset)
 
 
 @pytest.mark.parametrize(
@@ -351,3 +355,101 @@ def test_int8_matmuls_on_the_card_match_the_cpu(cuda, name):
     (y_c, dx_c), (y_r, dx_r) = results
     assert y_c.dtype == torch.bfloat16 and dx_c.dtype == torch.bfloat16
     assert _rel(y_c, y_r) <= 2e-2 and _rel(dx_c, dx_r) <= 2e-2
+
+
+@pytest.mark.parametrize("offset", [64, 100, 512])
+def test_flash_kernels_with_a_causal_offset_match_plain(cuda, offset):
+    """The forward and backward kernels with the ring's causal offsets (a
+    whole chunk back, a tile, a ragged shift) against their plain versions."""
+    q, k, v, mask = _inputs(cuda, 2, 512, 8, 2, [512, 400], seed=offset)
+    out, lse = attention_with_stats(q, k, v, 8, 2, kv_mask=mask, causal_offset=offset)
+    do = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda, dtype=torch.bfloat16)
+    got = attention_packed_bwd(q, k, v, out, lse, do, 8, 2, kv_mask=mask, causal_offset=offset)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = _reference(q, k, v, 8, 2, mask, offset)
+    assert (out.float() - out_ref).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    want = attention_packed_bwd_plain(q, k, v, out, lse, do, 8, 2, kv_mask=mask, causal_offset=offset)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _rel(g, w) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("n,s,valid", [(2, 1024, None), (4, 1024, [1024, 700]), (2, 1000, [1000, 613]),
+                                       (4, 2048, [2048, 1500])])
+def test_ring_fwd_on_one_card_matches_plain(cuda, n, s, valid):
+    """n ranks on one card (S_loc 500 is not a multiple of 64): the kernel,
+    one launch per rank, against its plain version on the same inputs."""
+    q, k, v, mask = _inputs(cuda, 2, s, 8, 2, valid, seed=n)
+    ring = SequenceRing([cuda] * n)
+    before = RING_FWD.launches
+    out, lse = ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert RING_FWD.launches == before + n
+    out_ref, lse_ref = ring_fwd_plain(q, k, v, 8, 2, ring, kv_mask=mask)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_ring_fwd_passes_never_read_an_earlier_pass(cuda):
+    """Pass after pass on one ring (the flags carry epochs and are never
+    reset): each pass's result is its own inputs'."""
+    ring = SequenceRing([cuda] * 4)
+    for seed in range(3):
+        q, k, v, mask = _inputs(cuda, 1, 512, 4, 1, [450], seed=seed)
+        out, _ = ring_fwd(q, k, v, 4, 1, ring, kv_mask=mask)
+        out_ref, _ = ring_fwd_plain(q, k, v, 4, 1, ring, kv_mask=mask)
+        torch.cuda.synchronize()
+        assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+
+
+def test_ring_flash_fused_gradients_match_the_plain_ring(cuda):
+    """Kernel forward and per-step flash backward on a 4-rank card ring
+    against autograd through the plain ring (f32 on the same bf16 inputs)."""
+    q, k, v, mask = _inputs(cuda, 2, 512, 8, 2, [512, 300])
+    ring = SequenceRing([cuda] * 4)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda,
+                     dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = (RING_FWD.launches, FLASH_BWD.launches)
+    got = torch.autograd.grad(ring_flash_fused(*leaves, 8, 2, ring, kv_mask=mask), leaves, do)
+    assert (RING_FWD.launches, FLASH_BWD.launches) == (counts[0] + 4, counts[1] + 10)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ring_attention(*ref_leaves, 8, 2, ring, kv_mask=mask), ref_leaves,
+                               do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all() and _rel(g, w) <= BWD_REL_TOL
+
+
+def test_ring_over_two_cards(cuda):
+    """Ranks on cuda:0 and cuda:1: chunks and flags cross by peer copies."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a ring over distinct cards waits for a machine that has them")
+    q, k, v, mask = _inputs(cuda, 2, 1024, 8, 2, [1024, 800])
+    ring = SequenceRing([torch.device("cuda", 0), torch.device("cuda", 1)] * 2)
+    out, lse = ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = ring_fwd_plain(q, k, v, 8, 2, ring, kv_mask=mask)
+    assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ring_flash_fused(*leaves, 8, 2, ring, kv_mask=mask), leaves, out)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ring_attention(*ref_leaves, 8, 2, ring, kv_mask=mask), ref_leaves,
+                               out.float())
+    for g, w in zip(got, want):
+        assert g.device == q.device and _rel(g, w) <= BWD_REL_TOL
+
+
+def test_ring_fwd_raises_on_what_it_does_not_take(cuda):
+    q, k, v, _ = _inputs(cuda, 1, 256, 4, 2)
+    ring = SequenceRing([cuda] * 2)
+    with pytest.raises(ValueError):
+        ring_fwd(q.float(), k.float(), v.float(), 4, 2, ring)                  # f32
+    with pytest.raises(ValueError):
+        ring_fwd(q, k, v, 8, 4, ring)                                          # head dim 64
+    with pytest.raises(ValueError):
+        ring_fwd(q, k, v, 4, 2, SequenceRing([cuda] * 3))                      # 256 % 3
+    with pytest.raises(ValueError):
+        ring_fwd(q, k, v, 4, 2, SequenceRing([cuda, "cpu"]))                   # a CPU rank

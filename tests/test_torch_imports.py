@@ -30,6 +30,9 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not leaked, leaked
+ring = {{"phantom_vlb_tpu_torch.core.mesh", "phantom_vlb_tpu_torch.ops.context_parallel",
+        "phantom_vlb_tpu_torch.ops.ring_fused"}}
+assert ring <= set(names), sorted(ring - set(names))
 print(len(names))
 """
 
