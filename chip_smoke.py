@@ -6,20 +6,23 @@
 Phases, each printed with its wall time; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA source of the paths with ``nvcc``, one process each,
-   all at once (registers and spills per kernel);
+2. build every CUDA source of the paths with ``nvcc``, and flash_bwd.cu
+   with each of its cost probes, one process each, all at once (registers
+   and spills per kernel);
 3. each kernel against its plain PyTorch version at the paths' shapes:
-   flash forward and backward at the serving / training shapes, a ragged
-   length and S = 4608 (where the reference takes its split backward); the
+   flash forward and backward (prep, main and post kernels) at the serving /
+   training shapes, a ragged length and S = 4608 (where the reference takes
+   its split backward), GQA groups 1, 2, 4 and 8, and a batch row with every
+   key masked, with the prep's q_s and the post's dq bit for bit; the
    three LoRA dropout kernels at M = 6144, K = 4096 and 14336,
-   in bits mode and in hash mode (mask read back exactly through dx, keep
-   rate, seed determinism); the row quant (both entry points) at
+   in bits mode and in hash mode (dx exactly 0 where the mask drops; both
+   masks read back exactly through dx; keep rate, seed determinism); the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8 (q and s bit for bit); the LoRA epilogue's
    forward, dz and dB at M = 6144, r = 16, N = 1024, 4096 and 14336; the
    fused ring forward against its plain version on rings of 4 and 2 ranks
    on the card at (3, 2048), with and without padded keys, and at S = 1000
-   on 2 ranks; the flash kernels with causal offsets S_loc and 64;
+   on 2 ranks; the flash kernels with causal offsets S_loc, 64 and 0 at S_loc;
 4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
    from a seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
@@ -51,10 +54,13 @@ Phases, each printed with its wall time; any failure exits non-zero:
     int8 weights on both sides);
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
-    beside the bound; one pass of the fused ring (first send to last
+    beside the bound; the flash backward as the sum of its three kernels
+    against SDPA's whole backward (the kernels it ran named), and SDPA with
+    ``is_causal=True``, at (3, 2048) and (1, 4608); one pass of the fused ring (first send to last
     output) and each rank's kernel, beside SDPA over the whole sequence and
     the per-step flash ring's forward; ``torch._int_mm`` in each weight
-    layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336;
+    layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336; the flash
+    backward's main kernel against its cost probes (printed only);
 12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -90,16 +96,24 @@ from phantom_vlb_tpu_torch.models.videollama2 import (
     trainable_parameters,
     trainable_predicate,
 )
-from phantom_vlb_tpu_torch.ops._build import build_all
+from phantom_vlb_tpu_torch.ops._build import CudaKernel, build_all
 from phantom_vlb_tpu_torch.ops.context_parallel import ring_flash_fwd
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     FLASH_BWD,
+    FLASH_BWD_POST,
+    FLASH_BWD_PREP,
     FLASH_FWD,
     attention_packed,
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_plain,
     attention_with_stats,
+    bwd_padded_len,
+    flash_bwd_post,
+    flash_bwd_post_plain,
+    flash_bwd_prep,
+    flash_bwd_prep_plain,
+    kv_bias,
 )
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
@@ -143,13 +157,21 @@ N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
-KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd": FLASH_BWD,
+KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd": FLASH_BWD,
+           "flash_bwd_post": FLASH_BWD_POST,
            "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
            "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
            "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "ring_fwd": RING_FWD}
+# flash_bwd.cu built with each of its cost probes (see its header): the main
+# kernel without a part, or in another block order; timed in phase 11 only.
+BWD_PROBES = {name: CudaKernel("flash_bwd.cu", "flash_bwd_launch", FLASH_BWD.argtypes,
+                               defines=(f"FLASH_BWD_PROBE_{name.upper()}",))
+              for name in ("no_dq_reduce", "no_exp", "grouped")}
 REPLACES = {
     "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
+    "flash_bwd_prep": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:509"),
     "flash_bwd": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:284"),
+    "flash_bwd_post": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:351"),
     "lora_fwd": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:62"),
     "lora_dx": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:92"),
     "lora_da": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:111"),
@@ -169,6 +191,12 @@ OUT_TOL, LSE_TOL = 2e-2, 1e-3
 # bf16 outputs (2^-9) and bf16 p and ds, whose roundings may flip where the
 # kernel's exp2 and the plain exp differ by an ulp.
 BWD_REL_TOL = 2e-2
+# The backward's prep kernel's di against its plain version, max|err| /
+# max|ref|: f32 sums of 128 products in another order (~128 * 2^-24).
+DI_REL_TOL = 1e-5
+# Kernels of the backward, by the names the profiler gives them.
+BWD_PARTS = {"flash_bwd_prep": "flash_bwd_prep_kernel", "flash_bwd": "flash_bwd_kernel",
+             "flash_bwd_post": "flash_bwd_post_kernel"}
 # LoRA kernels vs plain, max|err| / max|ref|: mid and dx are bf16 (one
 # rounding after f32 sums in another order), dA is f32 (order only).
 MID_REL_TOL, DX_REL_TOL, DA_REL_TOL = 1e-2, 1e-2, 1e-3
@@ -201,7 +229,7 @@ RING_PRED_TOL = 5e-2
 # A ring LoRA step's first loss and gradient norm against phase 7's, |err| /
 # |ref|: the same weights, batch and dropout masks; only the attention's
 # summation order and bf16 roundings differ (and the flash backward's dq
-# atomics sum in a run-dependent order).
+# reduce-adds sum in a run-dependent order).
 RING_STEP_TOL = 2e-2
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
@@ -246,15 +274,22 @@ def card_name_and_power() -> str:
 
 
 def build_kernels() -> None:
-    sources = sorted({k.source for k in KERNELS.values()})
-    build_all(sources)
-    for kernel in KERNELS.values():
+    kernels = [*KERNELS.values(), *BWD_PROBES.values()]
+    builds = {}                                          # one kernel per build
+    for kernel in kernels:
+        builds.setdefault(kernel.target, kernel)
+    build_all(list(builds))
+    for kernel in kernels:
         kernel.load()
-    for source in sources:
-        log = next(k.build_log for k in KERNELS.values() if k.source == source)
-        report = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln]
-        print(f"  {source.name}: " + " | ".join(report or ["cached"]))
+    for target, kernel in builds.items():
+        report = [ln.split("info    : ")[-1].strip() for ln in kernel.build_log.splitlines()
+                  if ("Used" in ln and "registers" in ln) or "spill" in ln]
+        probe = "".join(f" -D{d}" for d in target[1]) if isinstance(target, tuple) else ""
+        print(f"  {kernel.source.name}{probe}: " + " | ".join(report or ["cached"]))
+        spills = [ln for ln in report
+                  if "spill" in ln and not ln.startswith("0 bytes stack frame, 0 bytes spill")]
+        if target == FLASH_BWD.target and spills:
+            raise AssertionError(f"flash_bwd.cu spills: {spills}")
 
 
 def reset_launches() -> None:
@@ -274,39 +309,69 @@ def abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def attention_inputs(b: int, s: int, gen: torch.Generator, dev):
-    q = torch.randn(b, s, HQ * D, generator=gen, device=dev, dtype=torch.bfloat16)
-    k = torch.randn(b, s, HKV * D, generator=gen, device=dev, dtype=torch.bfloat16)
-    v = torch.randn(b, s, HKV * D, generator=gen, device=dev, dtype=torch.bfloat16)
+def attention_inputs(b: int, s: int, gen: torch.Generator, dev, hq: int = HQ, hkv: int = HKV,
+                     valid: list[int] | None = None):
+    q = torch.randn(b, s, hq * D, generator=gen, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(b, s, hkv * D, generator=gen, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(b, s, hkv * D, generator=gen, device=dev, dtype=torch.bfloat16)
     # Right padding of varied length per row, as the text padding gives.
-    valid = torch.tensor([s - (s * i) // (2 * b) for i in range(b)], device=dev)
+    valid = torch.tensor(valid or [s - (s * i) // (2 * b) for i in range(b)], device=dev)
     kv_mask = (torch.arange(s, device=dev)[None] < valid[:, None]).int()
     return q, k, v, kv_mask
 
 
-def check_flash(b: int, s: int, gen, dev, causal_offset: int = 0) -> tuple[float, float]:
+def check_bwd_parts(q, out, do, lse, hq: int, label: str) -> tuple[float, float]:
+    """The backward's prep kernel (q_s and the padded lse bit for bit, di
+    within DI_REL_TOL, the accumulator zeroed) and post kernel (both forms
+    bit for bit) against their plain versions; returns their max abs
+    errors (q_s and di; dq)."""
+    got, want = flash_bwd_prep(q, out, do, lse, hq), flash_bwd_prep_plain(q, out, do, lse, hq)
+    acc = torch.randn(want.acc.shape, generator=torch.Generator(device=q.device).manual_seed(5),
+                      device=q.device)
+    dq32 = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(6), device=q.device)
+    scale = D ** -0.5
+    acc2, dq32_2 = acc.clone(), dq32.clone()
+    post, post_ref = flash_bwd_post(acc, q.shape[1], scale), flash_bwd_post_plain(acc, q.shape[1], scale)
+    flash_bwd_post(acc, q.shape[1], scale, dq32=dq32)
+    flash_bwd_post_plain(acc2, q.shape[1], scale, dq32=dq32_2)
+    torch.cuda.synchronize()
+    same = {"q_s": torch.equal(got.qs, want.qs), "lse": torch.equal(got.lse, want.lse),
+            "acc zero": bool((got.acc == 0).all()), "post": torch.equal(post, post_ref),
+            "post accumulate": torch.equal(dq32, dq32_2) and torch.equal(acc, acc2)}
+    di_rel = rel_err(got.di, want.di)
+    print(f"  flash_bwd prep/post {label}: bit-equal {same}; di max|err|/max|ref| {di_rel:.3e} "
+          f"(tol {DI_REL_TOL})")
+    if not (all(same.values()) and di_rel <= DI_REL_TOL):
+        raise AssertionError(f"the backward's prep or post kernel disagrees with its plain version at {label}")
+    return max(abs_err(got.qs, want.qs), abs_err(got.di, want.di)), abs_err(post, post_ref)
+
+
+def check_flash(b: int, s: int, gen, dev, causal_offset: int = 0, hq: int = HQ,
+                hkv: int = HKV, valid: list[int] | None = None) -> tuple[float, float, tuple[float, float]]:
     """Forward and backward kernels vs plain (f32) on one input; returns the
-    forward's out max abs error and the backward's over dq, dk, dv."""
-    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
-    out, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=causal_offset)
+    forward's out max abs error, the backward's over dq, dk, dv, and the
+    prep's and post's (check_bwd_parts)."""
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev, hq, hkv, valid)
+    out, lse = attention_packed(q, k, v, hq, hkv, kv_mask=kv_mask, causal_offset=causal_offset)
     do = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    grads = attention_packed_bwd(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask,
+    grads = attention_packed_bwd(q, k, v, out, lse, do, hq, hkv, kv_mask=kv_mask,
                                  causal_offset=causal_offset)
     torch.cuda.synchronize()
     # The kernel pre-scales q in bf16; give the plain version that same q.
     q_s = q * torch.tensor(D ** -0.5, dtype=torch.bfloat16, device=dev)
     out_ref, lse_ref = attention_packed_plain(
-        q_s.float(), k.float(), v.float(), HQ, HKV, sm_scale=1.0, kv_mask=kv_mask,
+        q_s.float(), k.float(), v.float(), hq, hkv, sm_scale=1.0, kv_mask=kv_mask,
         causal_offset=causal_offset,
     )
     out_err, lse_err = abs_err(out, out_ref), abs_err(lse, lse_ref)
-    label = f"B={b} S={s}" + (f" causal_offset={causal_offset}" if causal_offset else "")
+    label = f"B={b} S={s}" + (f" heads {hq}/{hkv}" if (hq, hkv) != (HQ, HKV) else "") + (
+        f" causal_offset={causal_offset}" if causal_offset else "") + (f" valid {valid}" if valid else "")
     print(f"  flash_fwd {label}: out max|err| {out_err:.3e} (tol {OUT_TOL}), "
           f"lse max|err| {lse_err:.3e} (tol {LSE_TOL})")
     if not (out_err <= OUT_TOL and lse_err <= LSE_TOL):
         raise AssertionError(f"flash_fwd disagrees with its plain version at {label}")
     del out_ref, lse_ref
-    refs = attention_packed_bwd_plain(q, k, v, out, lse, do, HQ, HKV, kv_mask=kv_mask,
+    refs = attention_packed_bwd_plain(q, k, v, out, lse, do, hq, hkv, kv_mask=kv_mask,
                                       causal_offset=causal_offset)
     rels = [rel_err(g, r) for g, r in zip(grads, refs)]
     bwd_err = max(abs_err(g, r) for g, r in zip(grads, refs))
@@ -314,7 +379,8 @@ def check_flash(b: int, s: int, gen, dev, causal_offset: int = 0) -> tuple[float
           f"dv {rels[2]:.3e} (tol {BWD_REL_TOL}); max|err| {bwd_err:.3e}")
     if not max(rels) <= BWD_REL_TOL:
         raise AssertionError(f"flash_bwd disagrees with its plain version at {label}")
-    return out_err, bwd_err
+    del refs, grads
+    return out_err, bwd_err, check_bwd_parts(q, out, do, lse, hq, label)
 
 
 def check_ring(gen, dev) -> float:
@@ -368,18 +434,21 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
         mid_ref = fused_dropout_matmul_plain(x, a, seed, thr, b)
         dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, seed, thr, b)
         rels = (rel_err(mid, mid_ref), rel_err(dx, dx_ref), rel_err(da, da_ref))
-        same_drops = bool(torch.equal(dx == 0, dx_ref == 0))
+        # dx is exactly 0 wherever the mask drops (bits or hash bytes below
+        # thr); both masks are also read back exactly below.
+        drops = (hash_bytes(seed, LORA_M, k, dev) if b is None else b) < thr
+        zero_drops = bool((dx[drops] == 0).all())
         print(f"  lora K={k} {mode}: max|err|/max|ref| fwd {rels[0]:.3e} (tol {MID_REL_TOL}), "
               f"dx {rels[1]:.3e} (tol {DX_REL_TOL}), dA {rels[2]:.3e} (tol {DA_REL_TOL}); "
-              f"dx zeros where plain's are: {same_drops}")
-        if not (rels[0] <= MID_REL_TOL and rels[1] <= DX_REL_TOL and rels[2] <= DA_REL_TOL and same_drops):
+              f"dx exactly 0 at the {int(drops.sum())} dropped elements: {zero_drops}")
+        if not (rels[0] <= MID_REL_TOL and rels[1] <= DX_REL_TOL and rels[2] <= DA_REL_TOL and zero_drops):
             raise AssertionError(f"LoRA kernels disagree with their plain versions ({mode}, K={k})")
         if mode == "bits":
             errs = {"lora_fwd": abs_err(mid, mid_ref), "lora_dx": abs_err(dx, dx_ref),
                     "lora_da": abs_err(da, da_ref)}
         del mid_ref, dx_ref, da_ref
-    # The hash mask read back exactly: dmid = e0 rows and A = e0 columns make
-    # dmid @ A^T all ones, so dx = mask / keep.
+    # The hash and bits masks read back exactly: dmid = e0 rows and A = e0
+    # columns make dmid @ A^T all ones, so dx = mask / keep.
     e_a = torch.zeros_like(a)
     e_a[:, 0] = 1
     e_d = torch.zeros_like(dmid)
@@ -390,14 +459,18 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
         masks.setdefault(seed, []).append(dx != 0)
     plain = hash_bytes(1234, LORA_M, k, dev) >= thr
     mismatches = int((masks[1234][0] != plain).sum())
+    dx, _ = fused_dropout_bwd(x, e_a, e_d, 0, LORA_P, bits=bits, need_da=False)
+    bits_mismatches = int(((dx != 0) != (bits >= thr)).sum())
     rate = masks[1234][0].float().mean().item()
     same = bool(torch.equal(masks[1234][0], masks[1234][1]))
     differ = (masks[1234][0] != masks[99][0]).float().mean().item()
     print(f"  lora K={k} hash mask via dx: {mismatches} mismatches with the plain hash, keep rate "
           f"{rate:.6f} (want {keep:.6f} +- {KEEP_RATE_TOL}), same seed same mask {same}, "
-          f"another seed differs in {differ:.4f} of elements")
-    if mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same or differ < 0.1:
-        raise AssertionError(f"LoRA hash mask is not exact, at its rate or deterministic (K={k})")
+          f"another seed differs in {differ:.4f} of elements; bits mask via dx: "
+          f"{bits_mismatches} mismatches")
+    if (mismatches or bits_mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same
+            or differ < 0.1):
+        raise AssertionError(f"LoRA dropout mask is not exact, at its rate or deterministic (K={k})")
     return errs
 
 
@@ -547,17 +620,19 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
     and 2 x 7 LoRA forwards (and, with the int8 base, row quants; with the
     fused epilogue, epilogue forwards); one flash backward; 7 dA (7 dz and
     7 dB); and 7 dx (7 scaled row quants) except for layer 0's q, k and v,
-    whose input (the normed embeddings) needs no gradient. Through a ring of
-    n = RING_RANKS ranks a layer's attention pass is n ring kernels
-    ('ring_fused') or n(n+1)/2 offset flash forwards ('ring_flash': the
-    steps from later ranks are skipped), and its backward n(n+1)/2 flash
-    backwards."""
+    whose input (the normed embeddings) needs no gradient. A flash backward
+    is a prep, a main kernel and a post. Through a ring of n = RING_RANKS
+    ranks a layer's attention pass is n ring kernels ('ring_fused') or
+    n(n+1)/2 offset flash forwards ('ring_flash': the steps from later ranks
+    are skipped), and its backward one prep per rank and a main kernel and a
+    post (accumulate form) per step, n(n+1)/2 of each."""
     pairs = RING_RANKS * (RING_RANKS + 1) // 2
-    attn = {None: {"flash_fwd": 2 * layers, "flash_bwd": layers, "ring_fwd": 0},
-            "ring_fused": {"flash_fwd": 0, "flash_bwd": pairs * layers,
-                           "ring_fwd": 2 * RING_RANKS * layers},
-            "ring_flash": {"flash_fwd": 2 * pairs * layers, "flash_bwd": pairs * layers,
-                           "ring_fwd": 0}}[ring]
+    ring_bwd = {"flash_bwd_prep": RING_RANKS * layers, "flash_bwd": pairs * layers,
+                "flash_bwd_post": pairs * layers}
+    attn = {None: {"flash_fwd": 2 * layers, "flash_bwd_prep": layers, "flash_bwd": layers,
+                   "flash_bwd_post": layers, "ring_fwd": 0},
+            "ring_fused": {"flash_fwd": 0, **ring_bwd, "ring_fwd": 2 * RING_RANKS * layers},
+            "ring_flash": {"flash_fwd": 2 * pairs * layers, **ring_bwd, "ring_fwd": 0}}[ring]
     per_step = {**attn,
                 "lora_fwd": 14 * layers, "lora_dx": 7 * layers - 3, "lora_da": 7 * layers,
                 "row_quant": 14 * layers if int8 else 0,
@@ -829,26 +904,66 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> tuple[float, float]:
-    """Device time per call from ``torch.profiler``: of the kernels whose
-    name holds ``kernel``, and of every kernel the call launches. A session
-    that recorded none of them (the tracer does drop sessions now and then)
-    is measured again, and after ``tries`` such sessions this raises."""
+def time_bwd_probes(dev) -> None:
+    """The flash backward's main kernel alone, as built and with each cost
+    probe, at the training shape and at the ring's step (S_loc, offset
+    S_loc): CUDA events over 20 launches on the same inputs, the builds
+    taken in turns twice and the lower kept; printed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s_loc = REFERENCE_GEOMETRY.feature_len // RING_RANKS
+    builds = {"as built": FLASH_BWD, **BWD_PROBES}
+    for b, s, offset in ((LORA_BATCH, REFERENCE_GEOMETRY.feature_len, 0), (LORA_BATCH, s_loc, s_loc)):
+        q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+        o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=offset)
+        do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        bias, inp = kv_bias(kv_mask), flash_bwd_prep(q, o, do, lse, HQ)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream().cuda_stream
+        times = {}
+        for _ in range(2):
+            for name, kernel in builds.items():
+                times.setdefault(name, []).append(cuda_ms(lambda kernel=kernel: kernel.launch(
+                    inp.qs.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
+                    inp.lse.data_ptr(), inp.di.data_ptr(), inp.acc.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, s, HQ, HKV, inp.lse.shape[-1], offset, stream), 20, warmup=3))
+        base = min(times["as built"])
+        print(f"  flash_bwd main kernel B={b} S={s} causal_offset={offset}, cost probes (CUDA events): "
+              + ", ".join(f"{name} {min(t):.4f} ms ({min(t) - base:+.4f})" for name, t in times.items()))
+        del q, k, v, o, lse, do, bias, inp, dk, dv
+
+
+def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> dict[str, float]:
+    """Device time per call of every kernel ``fn`` launches, by kernel name
+    (``torch.profiler``). A session that recorded no device time for the
+    kernels whose name holds ``kernel`` (the tracer does drop sessions now
+    and then) is measured again, and after ``tries`` such sessions this
+    raises."""
     for _ in range(warmup):
         fn()
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        named = sum(e.device_time_total for e in events if kernel in e.key)
+        times = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
         del prof
         release_host_memory()
-        if named > 0:
-            return named / 1e3 / iters, sum(e.device_time_total for e in events) / 1e3 / iters
+        if kernel_ms(times, kernel) > 0:
+            return times
     raise RuntimeError(f"torch.profiler recorded no device time for {kernel or 'the call'} in {tries} sessions")
+
+
+def kernel_ms(times: dict[str, float], name: str) -> float:
+    return sum(t for key, t in times.items() if name in key)
+
+
+def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> tuple[float, float]:
+    """Device time per call of the kernels whose name holds ``kernel``, and
+    of every kernel the call launches (traced_kernels)."""
+    times = traced_kernels(fn, iters, kernel, warmup, tries)
+    return kernel_ms(times, kernel), sum(times.values())
 
 
 def timed(kernel_fn, kernel: str, plain_fn, library_fn, iters: int) -> dict:
@@ -900,37 +1015,10 @@ def time_flash(gen, dev) -> dict[str, dict]:
     del q, k, v, q4, k4, v4, keep
 
     b = LORA_BATCH
-    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
-    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
-    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep_mask(kv_mask), enable_gqa=True)
-    do4 = do.view(b, s, -1, D).transpose(1, 2)
-    out["flash_bwd"] = timed(
-        lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask), "flash_bwd_kernel",
-        lambda: attention_packed_bwd_plain(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask),
-        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 10)
-    # Five products over the causal half. q, o, do read and dq written (Hq
-    # wide); k, v read and dk, dv written (Hkv wide); lse and bias read.
-    report("flash_bwd", f"B={b} S={s}", out["flash_bwd"], 10 * b * HQ * D * s * (s + 1) // 2,
-           4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4)
-    del q, k, v, o, lse, do, q4, k4, v4, o4, do4
-    # The same kernel where the reference takes its split backward
-    # (_dq_kernel + _dkv_kernel, skv > 4096): printed, not in the JSON line.
-    b, s = 1, 4608
-    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
-    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
-    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
-    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep_mask(kv_mask), enable_gqa=True)
-    do4 = do.view(b, s, -1, D).transpose(1, 2)
-    long = timed(
-        lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask), "flash_bwd_kernel",
-        lambda: attention_packed_bwd_plain(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask),
-        lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 5)
-    report("flash_bwd", f"B={b} S={s}", long, 10 * b * HQ * D * s * (s + 1) // 2,
-           4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4)
-    del q, k, v, o, lse, do, q4, k4, v4, o4, do4
+    out.update(time_flash_bwd(b, s, gen, dev, keep_mask, 10, json_record=True))
+    # Where the reference takes its split backward (_dq_kernel + _dkv_kernel,
+    # skv > 4096): printed, not in the JSON line.
+    time_flash_bwd(1, 4608, gen, dev, keep_mask, 5)
     # A step of the per-step ring: a chunk of S_loc = 512 against an earlier
     # rank's whole chunk (offset S_loc, no mask), by CUDA events; printed.
     b, s = LORA_BATCH, REFERENCE_GEOMETRY.feature_len // RING_RANKS
@@ -938,12 +1026,87 @@ def time_flash(gen, dev) -> dict[str, dict]:
     o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
     do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
     fwd_ms = cuda_ms(lambda: attention_with_stats(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s), 20)
-    bwd_ms = cuda_ms(lambda: attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask,
-                                                  causal_offset=s), 20)
+
+    def ring_step_bwd():
+        return attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
+
+    bwd_ms = cuda_ms(ring_step_bwd, 20)
+    parts = traced_kernels(ring_step_bwd, 20)
     print(f"  flash_fwd / flash_bwd B={b} S={s} causal_offset={s}: {fwd_ms:.4f} / {bwd_ms:.4f} ms per "
-          f"call (CUDA events, wrappers included); bounds {2 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f}"
+          f"call (CUDA events, wrappers included); backward device time: "
+          + ", ".join(f"{name} {kernel_ms(parts, kernel):.4f}" for name, kernel in BWD_PARTS.items())
+          + f"; bounds {2 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f}"
           f" / {5 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f} ms (operations)")
     return out
+
+
+def top_kernels(times: dict[str, float], n: int = 4) -> str:
+    return "; ".join(f"{key[:72]} {t:.4f}" for key, t in sorted(times.items(), key=lambda x: -x[1])[:n])
+
+
+def time_flash_bwd(b: int, s: int, gen, dev, keep_mask, iters: int,
+                   json_record: bool = False) -> dict[str, dict]:
+    """The port's whole backward (prep + main + post, each kernel's device
+    time and their sum) at (b, s) with padding, beside its plain version,
+    SDPA's backward with the same boolean causal + padding mask (the
+    library yardstick; the kernels it ran are printed) and SDPA's backward
+    with ``is_causal=True`` and no mask (PyTorch's flash backend, printed).
+    Returns the records of the three kernels when ``json_record``."""
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+    o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask)
+    do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    do4 = do.view(b, s, -1, D).transpose(1, 2)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep_mask(kv_mask), enable_gqa=True)
+    sdpa = traced_kernels(lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), iters)
+    del o4
+    o4c = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+    sdpa_causal = traced_kernels(lambda: torch.autograd.grad(o4c, (q4, k4, v4), do4, retain_graph=True),
+                                 iters)
+    del o4c, q4, k4, v4, do4
+
+    def whole():
+        return attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask)
+
+    parts = traced_kernels(whole, iters)
+    ms = {name: kernel_ms(parts, kernel) for name, kernel in BWD_PARTS.items()}
+    s_pad = bwd_padded_len(s)
+    inp = flash_bwd_prep(q, o, do, lse, HQ)
+    rec = {"ms": sum(ms.values()), "main_ms": ms["flash_bwd"], "wrapper_ms": sum(parts.values()),
+           "wrapper_event_ms": cuda_ms(whole, iters),
+           "plain_ms": device_ms(lambda: attention_packed_bwd_plain(q, k, v, o, lse, do, HQ, HKV,
+                                                                    kv_mask=kv_mask), 2, warmup=1)[1],
+           "library_ms": sum(sdpa.values())}
+    prep = {"ms": ms["flash_bwd_prep"], "library_ms": None,
+            "plain_ms": device_ms(lambda: flash_bwd_prep_plain(q, o, do, lse, HQ), iters)[1],
+            # q, o, do and lse read once; q_s, the padded lse and di, and the
+            # zeroed accumulator written once.
+            **bound(3 * q.numel(), 4 * q.numel() * 2 + b * HQ * s * 4 + 2 * b * HQ * s_pad * 4
+                    + b * HQ * s_pad * D * 4, PEAK_F32_FLOPS)}
+    post = {"ms": ms["flash_bwd_post"], "library_ms": None,
+            "plain_ms": device_ms(lambda: flash_bwd_post_plain(inp.acc, s, D ** -0.5), iters)[1],
+            # The accumulator's rows below S read once, dq written once.
+            **bound(q.numel(), b * HQ * s * D * 4 + q.numel() * 2, PEAK_F32_FLOPS)}
+    del inp
+    # Five products over the causal half. q, o, do read and dq written (Hq
+    # wide); k, v read and dk, dv written (Hkv wide); lse and bias read.
+    flops = 10 * b * HQ * D * s * (s + 1) // 2
+    rec.update(bound(flops, 4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * HQ * s + b * s) * 4))
+    print(f"  flash_bwd B={b} S={s}: whole backward {rec['ms']:.4f} ms of device time (prep "
+          f"{prep['ms']:.4f} + main {rec['main_ms']:.4f} + post {post['ms']:.4f}; everything the wrapper "
+          f"launches {rec['wrapper_ms']:.4f}, {rec['wrapper_event_ms']:.4f} by CUDA events); SDPA backward "
+          f"with the boolean mask {rec['library_ms']:.4f} ms [{top_kernels(sdpa)}]; SDPA is_causal without "
+          f"padding {sum(sdpa_causal.values()):.4f} ms [{top_kernels(sdpa_causal)}]; plain "
+          f"{rec['plain_ms']:.4f} ms; {flops / 1e9:.2f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}): whole {rec['bound_ms'] / rec['ms']:.1%} of it, main kernel "
+          f"{rec['bound_ms'] / rec['main_ms']:.1%}, {flops / rec['main_ms'] / 1e9:.1f} TFLOP/s in the main "
+          f"kernel")
+    for name, r in (("flash_bwd_prep", prep), ("flash_bwd_post", post)):
+        print(f"  {name} B={b} S={s}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return {"flash_bwd_prep": prep, "flash_bwd": rec, "flash_bwd_post": post} if json_record else {}
 
 
 def time_lora(gen, dev) -> dict[str, dict]:
@@ -1164,18 +1327,23 @@ def main() -> int:
         build_kernels()
     with phase("3 kernels vs plain"):
         max_abs_err = {}
-        max_abs_err["flash_fwd"], max_abs_err["flash_bwd"] = check_flash(
+        max_abs_err["flash_fwd"], max_abs_err["flash_bwd"], parts = check_flash(
             LORA_BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
-        fwd_err, _ = check_flash(BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
+        max_abs_err["flash_bwd_prep"], max_abs_err["flash_bwd_post"] = parts
+        fwd_err, _, _ = check_flash(BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev)
         max_abs_err["flash_fwd"] = max(max_abs_err["flash_fwd"], fwd_err)
-        check_flash(2, 1000, gen, dev)                 # S not a multiple of 64
+        check_flash(2, 1000, gen, dev)                 # S not a multiple of 64 or 128
         # Past skv 4096 the reference switches to its split backward
         # (_dq_kernel + _dkv_kernel, flash_attention.py:583); one kernel here.
         check_flash(1, 4608, gen, dev)
-        # The ring's steps: a whole chunk back (S_loc) and a tile (64).
+        # The ring's steps: a whole chunk back (S_loc), a tile (64), and none.
         s_loc = REFERENCE_GEOMETRY.feature_len // RING_RANKS
-        for offset in (s_loc, 64):
+        for offset in (s_loc, 64, 0):
             check_flash(LORA_BATCH, s_loc, gen, dev, causal_offset=offset)
+        # GQA groups 1, 2 and 8 (4 above) at lengths off the 128-row kv tile.
+        for b, s, hq, hkv in ((2, 200, 8, 8), (2, 1000, 16, 8), (1, 4608, 32, 4)):
+            check_flash(b, s, gen, dev, hq=hq, hkv=hkv)
+        check_flash(2, 256, gen, dev, hq=16, hkv=4, valid=[0, 256])   # a row with every key masked
         max_abs_err["ring_fwd"] = check_ring(gen, dev)
         torch.cuda.empty_cache()
         for k in LORA_KS:
@@ -1230,6 +1398,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         timing = {**time_flash(gen, dev), **time_lora(gen, dev), **time_row_quant(gen, dev),
                   **time_epilogue(gen, dev), **time_ring(gen, dev)}
+        time_bwd_probes(dev)
         time_int_mm(gen, dev)
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with phase("12 host"):

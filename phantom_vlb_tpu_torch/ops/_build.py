@@ -6,8 +6,9 @@ compiles one such file in seconds (no PyTorch headers are included). A
 library is built at first use into ``build/phantom_vlb_tpu_torch/`` beside
 the package (listed in ``.gitignore``), under a name that carries a hash of
 the source and flags, so an edited source is rebuilt and an unchanged one is
-not. :func:`build_all` starts one ``nvcc`` process per source, all at once,
-and waits for them. Nothing here runs at import time: this module imports on
+not. A source may also be built with macros defined (a separate library).
+:func:`build_all` starts one ``nvcc`` process per build, all at once, and
+waits for them. Nothing here runs at import time: this module imports on
 machines without ``nvcc`` or a card.
 """
 
@@ -29,11 +30,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Sources that call the CUDA driver API (``cuStreamWriteValue32``) link it.
-LINK_FLAGS = {"ring_fwd.cu": ("-lcuda",)}
-# nvcc's report per source (``-Xptxas -v``: registers, shared memory and
-# spills per kernel); empty when the library was already built.
-BUILD_LOGS: dict[Path, str] = {}
+# Sources that call the CUDA driver API (``cuStreamWriteValue32``,
+# ``cuTensorMapEncodeTiled``) link it.
+LINK_FLAGS = {"ring_fwd.cu": ("-lcuda",), "flash_bwd.cu": ("-lcuda",)}
+# nvcc's report per build target (``-Xptxas -v``: registers, shared memory
+# and spills per kernel); empty when the library was already built.
+BUILD_LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -44,39 +46,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _flags(source: Path) -> tuple[str, ...]:
-    return NVCC_FLAGS + LINK_FLAGS.get(source.name, ())
+def _split(target) -> tuple[Path, tuple[str, ...]]:
+    """A build target is a source path, or a (source, macros) pair."""
+    return (Path(target[0]), tuple(target[1])) if isinstance(target, tuple) else (Path(target), ())
 
 
-def _library(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source)).encode())
+def _flags(source: Path, defines: tuple[str, ...] = ()) -> tuple[str, ...]:
+    return NVCC_FLAGS + LINK_FLAGS.get(source.name, ()) + tuple(f"-D{d}" for d in defines)
+
+
+def _library(source: Path, defines: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source, defines)).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(sources) -> dict[Path, Path]:
-    """Compile every source whose library is missing, one ``nvcc`` process
-    each, all started before any is waited for. Returns source -> library."""
-    libs = {Path(s): _library(Path(s)) for s in sources}
+def build_all(targets) -> dict:
+    """Compile every target (a source, or a (source, macros) pair) whose
+    library is missing, one ``nvcc`` process each, all started before any is
+    waited for. Returns target -> library."""
+    libs = {t: _library(*_split(t)) for t in targets}
     running = []
-    for source, lib in libs.items():
+    for target, lib in libs.items():
         if lib.exists():
-            BUILD_LOGS.setdefault(source, "")
+            BUILD_LOGS.setdefault(target, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        source, defines = _split(target)
         proc = subprocess.Popen(
-            [_nvcc(), *_flags(source), "-o", str(tmp), str(source)],
+            [_nvcc(), *_flags(source, defines), "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-        running.append((source, lib, tmp, proc))
+        running.append((target, lib, tmp, proc))
     failed = []
-    for source, lib, tmp, proc in running:
+    for target, lib, tmp, proc in running:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {source}:\n{log}")
+            failed.append(f"nvcc failed on {target}:\n{log}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-        BUILD_LOGS[source] = log
+        BUILD_LOGS[target] = log
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
@@ -85,13 +94,16 @@ def build_all(sources) -> dict[Path, Path]:
 class CudaKernel:
     """One ``extern "C"`` launcher of a ``csrc`` source.
 
-    Built and loaded at the first :meth:`load`. ``launches`` counts the
-    successful launches made through :meth:`launch`, so a run can show that
-    its path went through the kernel; callers may reset it to 0.
+    Built and loaded at the first :meth:`load`, with ``defines`` (macro
+    names) defined if given. ``launches`` counts the successful launches
+    made through :meth:`launch`, so a run can show that its path went
+    through the kernel; callers may reset it to 0.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list, defines: tuple[str, ...] = ()):
         self.source = CSRC_DIR / source
+        # What build_all builds: the source alone, or with the macros.
+        self.target = (self.source, tuple(defines)) if defines else self.source
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
@@ -99,11 +111,11 @@ class CudaKernel:
 
     @property
     def build_log(self) -> str:
-        return BUILD_LOGS.get(self.source, "")
+        return BUILD_LOGS.get(self.target, "")
 
     def load(self):
         if self._fn is None:
-            path = build_all([self.source])[self.source]
+            path = build_all([self.target])[self.target]
             fn = getattr(ctypes.CDLL(str(path)), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

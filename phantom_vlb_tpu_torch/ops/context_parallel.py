@@ -46,16 +46,17 @@ import torch
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
-    _bwd_inputs,
     _check_cuda_inputs,
     _default_scale,
-    _flash_bwd_launch,
+    _flash_bwd_main,
     _heads,
     _packed,
     attention_packed,
     attention_packed_bwd,
     attention_packed_plain,
     attention_with_stats,
+    flash_bwd_post,
+    flash_bwd_prep,
     kv_bias,
 )
 
@@ -188,10 +189,12 @@ def ring_flash_bwd(q, k, v, kv_mask, out, lse, do, num_heads, num_kv_heads, ring
                    *, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the ring from the saved global (out, lse): the flash
     backward per rank and step with the step's causal offset (reference
-    ``bwd_body`` :212-252). On a card each rank pre-scales its q and forms
-    di once for all its steps (the reference does both per step: the same
-    numbers), and each step's dq, rounded to q's dtype as the reference's
-    is, goes into the rank's f32 sum."""
+    ``bwd_body`` :212-252). On a card each rank runs the backward's prep
+    kernel once for all its steps (q pre-scaled and di: the reference forms
+    both per step, the same numbers), then per step the main kernel and the
+    post kernel's accumulate form, which adds the step's dq, rounded to q's
+    dtype as the reference's is, into the rank's f32 sum and zeroes the
+    accumulator for the next step."""
     n = ring.n
     s_loc = q.shape[1] // n
     bias = kv_bias(kv_mask)
@@ -209,15 +212,15 @@ def ring_flash_bwd(q, k, v, kv_mask, out, lse, do, num_heads, num_kv_heads, ring
             if dev.type == "cuda":
                 _check_cuda_inputs(q_loc, kc(idx, dev), vc(idx, dev), num_heads, num_kv_heads,
                                    mc(idx, dev))
-                qs, di = _bwd_inputs(q_loc, o_loc, do_loc, num_heads, sm_scale)
+                inp = flash_bwd_prep(q_loc, o_loc, do_loc, lse_loc, num_heads, sm_scale)
                 scale = _default_scale(q_loc, num_heads, sm_scale)
             for step in range(idx + 1):          # src = idx - step; later ranks skipped
                 src = idx - step
                 if dev.type == "cuda":
-                    dq_acc, dk_b, dv_b = _flash_bwd_launch(
-                        qs, kc(src, dev), vc(src, dev), bc(src, dev), do_loc, lse_loc, di,
-                        num_heads, num_kv_heads, causal_offset=step * s_loc)
-                    dq.add_(dq_acc.mul_(scale).to(q.dtype))
+                    dk_b, dv_b = _flash_bwd_main(
+                        inp, kc(src, dev), vc(src, dev), bc(src, dev), do_loc, num_heads,
+                        num_kv_heads, causal_offset=step * s_loc)
+                    flash_bwd_post(inp.acc, s_loc, scale, dq32=dq)
                 else:
                     dq_b, dk_b, dv_b = attention_packed_bwd(
                         q_loc, kc(src, dev), vc(src, dev), o_loc, lse_loc, do_loc, num_heads,

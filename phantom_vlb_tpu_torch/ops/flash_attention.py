@@ -6,9 +6,11 @@ Counterpart of ``phantom_vlb_tpu/ops/flash_attention.py``
 ``_dq_dkv_kernel`` :284). On
 CUDA tensors :func:`attention_packed` is a ``torch.autograd.Function``: its
 forward launches ``csrc/flash_fwd.cu`` and saves (q, k, v, kv bias, out,
-lse); its backward launches ``csrc/flash_bwd.cu``. On CPU tensors it runs
-:func:`attention_packed_plain`, the plain PyTorch version of the forward,
-and autograd differentiates that. :func:`attention_packed_bwd_plain` is the
+lse); its backward launches the three kernels of ``csrc/flash_bwd.cu``:
+the prep (q pre-scaled, di, padded lse, a zeroed f32 dq accumulator), the
+main kernel (dk, dv and dq's f32 sums) and the post (dq in bf16). On CPU
+tensors it runs :func:`attention_packed_plain`, the plain PyTorch version of
+the forward, and autograd differentiates that. :func:`attention_packed_bwd_plain` is the
 plain version of the backward kernel's own arithmetic, which the card holds
 the kernel against. There is no fallback: a CUDA tensor the kernels do not
 take raises.
@@ -48,15 +50,19 @@ layout is TPU lane padding and has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
     "MASK_VALUE", "attention_packed", "attention_packed_plain", "attention_packed_bwd",
-    "attention_packed_bwd_plain", "attention_with_stats", "kv_bias", "FLASH_FWD", "FLASH_BWD",
+    "attention_packed_bwd_plain", "attention_with_stats", "kv_bias", "BwdInputs", "bwd_padded_len",
+    "flash_bwd_prep", "flash_bwd_prep_plain", "flash_bwd_post", "flash_bwd_post_plain", "FLASH_FWD",
+    "FLASH_BWD", "FLASH_BWD_PREP", "FLASH_BWD_POST",
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -67,11 +73,22 @@ FLASH_FWD = CudaKernel(
     "flash_fwd_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 )
+FLASH_BWD_PREP = CudaKernel(
+    "flash_bwd.cu",
+    "flash_bwd_prep_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+)
 FLASH_BWD = CudaKernel(
     "flash_bwd.cu",
     "flash_bwd_launch",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+FLASH_BWD_POST = CudaKernel(
+    "flash_bwd.cu",
+    "flash_bwd_post_launch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+)
+BWD_Q_TILE = 64  # q rows per tile of the backward; S_pad is a multiple of it
 
 
 def kv_bias(kv_mask: torch.Tensor | None) -> torch.Tensor | None:
@@ -219,30 +236,119 @@ def _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale, causal_off
     return out, lse
 
 
-def _bwd_inputs(q, out, do, num_heads, sm_scale):
-    """The backward kernel's inputs besides k, v and lse: q pre-scaled in its
-    dtype and ``di = rowsum(f32(o) * f32(do))`` per head, (B, Hq, S) f32."""
-    b, s, _ = q.shape
+def bwd_padded_len(s: int) -> int:
+    """S rounded up to the backward's q tile: the length of its padded
+    statistics rows and of its dq accumulator."""
+    return -(-s // BWD_Q_TILE) * BWD_Q_TILE
+
+
+@dataclasses.dataclass
+class BwdInputs:
+    """What the main backward kernel reads besides k, v, the bias and do:
+    q pre-scaled in its dtype (B, S, Hq*D); lse and di (B, Hq, S_pad) f32,
+    zero past S; and the f32 dq accumulator (B, Hq, S_pad, D), zeroed."""
+
+    qs: torch.Tensor
+    lse: torch.Tensor
+    di: torch.Tensor
+    acc: torch.Tensor
+
+
+def flash_bwd_prep_plain(q, out, do, lse, num_heads, sm_scale=None) -> BwdInputs:
+    """Plain version of the prep kernel: ``q * sm_scale`` rounded once in q's
+    dtype (reference :509) and ``di = rowsum(f32(o) * f32(do))`` per head
+    (:522-529), with lse copied into the padded rows and dq's sums zeroed."""
+    b, s, width = q.shape
+    d = width // num_heads
+    pad = (0, bwd_padded_len(s) - s)
     qs = q * _scale_in_dtype(q, num_heads, sm_scale)
-    di = (out.float() * do.float()).view(b, s, num_heads, HEAD_DIM).sum(-1).transpose(1, 2).contiguous()
-    return qs, di
+    di = (out.float() * do.float()).view(b, s, num_heads, d).sum(-1).transpose(1, 2)
+    acc = torch.zeros(b, num_heads, s + pad[1], d, dtype=torch.float32, device=q.device)
+    return BwdInputs(qs, F.pad(lse.float(), pad), F.pad(di, pad), acc)
 
 
-def _flash_bwd_launch(qs, k, v, bias, do, lse, di, num_heads, num_kv_heads, causal_offset=0):
-    """One flash_bwd.cu launch: (dq as unscaled f32 sums, dk, dv)."""
-    b, s, _ = qs.shape
-    dq_acc = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(qs.device):
-        FLASH_BWD.launch(
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, s, num_heads, num_kv_heads, int(causal_offset),
+def flash_bwd_prep(q, out, do, lse, num_heads, sm_scale=None) -> BwdInputs:
+    """The backward's inputs from (q, out, do, lse): ``flash_bwd_prep_kernel``
+    on CUDA tensors (bf16, D = 128, contiguous), the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return flash_bwd_prep_plain(q, out, do, lse, num_heads, sm_scale)
+    b, s, width = q.shape
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != q.shape or x.dtype != torch.bfloat16 or x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bf16 {tuple(q.shape)} tensor on {q.device}")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous() or width != num_heads * HEAD_DIM:
+        raise ValueError(f"q must be a contiguous bf16 (B, S, {num_heads}*{HEAD_DIM}) tensor")
+    if lse.shape != (b, num_heads, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 ({b}, {num_heads}, {s}) tensor")
+    s_pad = bwd_padded_len(s)
+    inp = BwdInputs(
+        torch.empty_like(q),
+        torch.empty(b, num_heads, s_pad, dtype=torch.float32, device=q.device),
+        torch.empty(b, num_heads, s_pad, dtype=torch.float32, device=q.device),
+        torch.empty(b, num_heads, s_pad, HEAD_DIM, dtype=torch.float32, device=q.device),
+    )
+    with torch.cuda.device(q.device):  # the launchers use the current device
+        FLASH_BWD_PREP.launch(
+            q.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(), inp.qs.data_ptr(),
+            inp.lse.data_ptr(), inp.di.data_ptr(), inp.acc.data_ptr(), b, s, num_heads, s_pad,
+            _scale_in_dtype(q, num_heads, sm_scale), torch.cuda.current_stream().cuda_stream,
+        )
+    return inp
+
+
+def flash_bwd_post_plain(acc, s, scale, dq32=None):
+    """Plain version of the post kernel: ``bf16(acc * scale)`` in the packed
+    (B, S, Hq*D) layout; or, given the f32 ``dq32``, ``dq32 += f32(bf16(acc *
+    scale))`` (the ring's per-step rounding) with ``acc``'s rows below S
+    zeroed, returning ``dq32``. The rows past S hold the prep's zeros: the
+    main kernel adds exact zeros there (a padded q row's ds is p * 0)."""
+    b, h, _, d = acc.shape
+    dq = (acc[:, :, :s].transpose(1, 2).reshape(b, s, h * d) * scale).to(torch.bfloat16)
+    if dq32 is None:
+        return dq
+    dq32.add_(dq)
+    acc[:, :, :s].zero_()
+    return dq32
+
+
+def flash_bwd_post(acc, s, scale, dq32=None):
+    """dq from the main kernel's f32 sums: ``flash_bwd_post_kernel`` on CUDA
+    tensors, the plain version on CPU tensors (see
+    :func:`flash_bwd_post_plain`)."""
+    if acc.device.type == "cpu":
+        return flash_bwd_post_plain(acc, s, scale, dq32)
+    b, h, s_pad, d = acc.shape
+    if d != HEAD_DIM or acc.dtype != torch.float32 or not acc.is_contiguous() or s_pad != bwd_padded_len(s):
+        raise ValueError(f"acc must be a contiguous f32 (B, H, {bwd_padded_len(s)}, {HEAD_DIM}) tensor")
+    if dq32 is not None and (dq32.shape != (b, s, h * d) or dq32.dtype != torch.float32
+                             or dq32.device != acc.device or not dq32.is_contiguous()):
+        raise ValueError(f"dq32 must be a contiguous f32 ({b}, {s}, {h * d}) tensor on {acc.device}")
+    dq = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=acc.device) if dq32 is None else None
+    with torch.cuda.device(acc.device):
+        FLASH_BWD_POST.launch(
+            acc.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if dq32 is None else dq32.data_ptr(), b, s, h, s_pad, scale,
             torch.cuda.current_stream().cuda_stream,
         )
-    return dq_acc, dk, dv
+    return dq32 if dq is None else dq
+
+
+def _flash_bwd_main(inp: BwdInputs, k, v, bias, do, num_heads, num_kv_heads, causal_offset=0):
+    """One launch of the main kernel: (dk, dv), with dq's f32 sums added
+    into ``inp.acc``."""
+    b, s, _ = inp.qs.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(inp.qs.device):
+        FLASH_BWD.launch(
+            inp.qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            do.data_ptr(), inp.lse.data_ptr(), inp.di.data_ptr(),
+            inp.acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, num_heads, num_kv_heads, inp.lse.shape[-1], int(causal_offset),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_scale,
@@ -250,15 +356,14 @@ def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_sca
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q {tuple(q.shape)} {q.dtype}; got {tuple(do.shape)} {do.dtype}")
     do = do.contiguous()
-    qs, di = _bwd_inputs(q, out, do, num_heads, sm_scale)
-    dq_acc, dk, dv = _flash_bwd_launch(qs, k, v, bias, do, lse, di, num_heads, num_kv_heads,
-                                       causal_offset)
-    # d(s)/d(q_unscaled) carries sm_scale once (reference :221-224).
-    return (dq_acc * _default_scale(q, num_heads, sm_scale)).to(q.dtype), dk, dv
+    inp = flash_bwd_prep(q, out, do, lse, num_heads, sm_scale)
+    dk, dv = _flash_bwd_main(inp, k, v, bias, do, num_heads, num_kv_heads, causal_offset)
+    # d(s)/d(q_unscaled) carries sm_scale once (reference :351).
+    return flash_bwd_post(inp.acc, q.shape[1], _default_scale(q, num_heads, sm_scale)), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """CUDA path: flash_fwd.cu forward, flash_bwd.cu backward."""
+    """CUDA path: flash_fwd.cu forward, flash_bwd.cu backward (prep, main, post)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, causal_offset):
@@ -347,8 +452,9 @@ def attention_packed_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention_packed` from its saved (out, lse).
 
-    CUDA tensors go through ``csrc/flash_bwd.cu`` (what the autograd path
-    launches); CPU tensors through :func:`attention_packed_bwd_plain`.
+    CUDA tensors go through the three kernels of ``csrc/flash_bwd.cu`` (what
+    the autograd path launches); CPU tensors through
+    :func:`attention_packed_bwd_plain`.
     """
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, out, lse, do, num_heads, num_kv_heads,

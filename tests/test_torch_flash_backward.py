@@ -20,6 +20,8 @@ masked are therefore compared with JAX on neither route, and
 :func:`test_fully_masked_row_corner` pins each route's value there.
 """
 
+import math
+
 import jax
 import jax.ad_checkpoint  # noqa: F401  (the JAX forward names its residuals through it)
 import jax.numpy as jnp
@@ -28,10 +30,15 @@ import pytest
 import torch
 
 from phantom_vlb_tpu.ops import flash_attention as jfa
+from phantom_vlb_tpu_torch.ops import _build
 from phantom_vlb_tpu_torch.ops.flash_attention import (
+    BWD_Q_TILE,
     attention_packed,
     attention_packed_bwd,
     attention_packed_bwd_plain,
+    bwd_padded_len,
+    flash_bwd_post_plain,
+    flash_bwd_prep_plain,
 )
 
 TOL = 1e-5
@@ -141,3 +148,80 @@ def test_plain_backward_rounds_like_the_kernel_in_bf16():
         assert g.dtype == torch.bfloat16
         rel = ((g.float() - w).abs().max() / w.abs().max()).item()
         assert rel <= 2e-2, rel
+
+
+@pytest.mark.parametrize("b,s,hq", [(2, 70, 4), (1, 128, 8)])
+def test_prep_matches_the_reference_inputs(b, s, hq):
+    """The prep's plain version against the reference's own arithmetic
+    (``_bwd_impl``, phantom_vlb_tpu/ops/flash_attention.py:509-529) on bf16
+    inputs: q pre-scaled in bf16 bit for bit, di within 1e-6 of max|di|; the
+    statistics zero-padded to whole q tiles and the dq accumulator zeroed."""
+    rng = np.random.default_rng(s)
+    q, o, do = (rng.standard_normal((b, s, hq * D)).astype(np.float32) for _ in range(3))
+    lse = rng.standard_normal((b, hq, s)).astype(np.float32)
+    qt, ot, dot = (torch.from_numpy(x).bfloat16() for x in (q, o, do))
+    got = flash_bwd_prep_plain(qt, ot, dot, torch.from_numpy(lse), hq)
+    jq, jo, jdo = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (qt, ot, dot))
+    want_qs = jq * jnp.asarray(1.0 / math.sqrt(D), jq.dtype)
+    want_di = jnp.sum((jo.astype(jnp.float32) * jdo.astype(jnp.float32)).reshape(b, s, hq, D),
+                      axis=-1).transpose(0, 2, 1)
+    s_pad = bwd_padded_len(s)
+    assert s_pad % BWD_Q_TILE == 0 and s <= s_pad < s + BWD_Q_TILE
+    assert got.qs.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.qs.float().numpy(), np.asarray(want_qs.astype(jnp.float32)))
+    # di: f32 sums of D products in another order, so 1e-6 of max|di| (a row
+    # sum near 0 after cancellation has no relative bound of its own).
+    want_di = np.asarray(want_di)
+    np.testing.assert_allclose(got.di[..., :s].numpy(), want_di, rtol=0, atol=1e-6 * np.abs(want_di).max())
+    assert got.di.shape == got.lse.shape == (b, hq, s_pad)
+    assert torch.equal(got.lse[..., :s], torch.from_numpy(lse))
+    assert not got.di[..., s:].any() and not got.lse[..., s:].any()
+    assert got.acc.shape == (b, hq, s_pad, D) and not got.acc.any()
+
+
+def test_post_matches_the_ring_step_arithmetic():
+    """The post's plain version: ``bf16(acc * scale)`` as the packed path
+    cast its dq, and the accumulate form as the ring added each step's dq
+    (``dq.add_(dq_acc.mul_(scale).to(bf16))``), bit for bit, with the
+    accumulator's rows below S zeroed for the next step."""
+    b, s, h = 2, 70, 4
+    rng = np.random.default_rng(3)
+    acc = torch.from_numpy(rng.standard_normal((b, h, bwd_padded_len(s), D)).astype(np.float32))
+    dq32 = torch.from_numpy(rng.standard_normal((b, s, h * D)).astype(np.float32))
+    scale = 1.0 / math.sqrt(D)
+    packed = acc[:, :, :s].permute(0, 2, 1, 3).reshape(b, s, h * D)
+    assert torch.equal(flash_bwd_post_plain(acc, s, scale), (packed * scale).to(torch.bfloat16))
+    want = dq32.clone().add_(packed.clone().mul_(scale).to(torch.bfloat16))
+    got = flash_bwd_post_plain(acc, s, scale, dq32=dq32)
+    assert got is dq32 and torch.equal(got, want) and not acc[:, :, :s].any()
+
+
+@pytest.mark.parametrize("s,q_tiles", [(2048, 32), (512, 8), (1000, 16), (4608, 72)])
+def test_backward_pads_to_whole_q_tiles(s, q_tiles):
+    """The main kernel reads lse, di and dq's accumulator in whole 64-row q
+    tiles by bulk copies and reduce-adds: the prep pads them to the q tiles
+    that cover S, and the rows past S hold zeros."""
+    s_pad = bwd_padded_len(s)
+    assert s_pad == q_tiles * BWD_Q_TILE and s_pad - BWD_Q_TILE < s <= s_pad
+    b, hq = 1, 2
+    x = torch.ones(b, s, hq * D)
+    got = flash_bwd_prep_plain(x, x, x, torch.ones(b, hq, s), hq)
+    assert got.lse.shape == got.di.shape == (b, hq, s_pad) and got.acc.shape == (b, hq, s_pad, D)
+    assert got.lse[..., :s].eq(1).all() and got.di[..., :s].eq(D).all()
+    assert not got.lse[..., s:].any() and not got.di[..., s:].any() and not got.acc.any()
+
+
+@pytest.mark.parametrize("probe", ["NO_DQ_REDUCE", "NO_EXP", "GROUPED"])
+def test_cost_probe_builds_are_separate_libraries(probe):
+    """A cost probe of ``flash_bwd.cu`` (a macro its header names) builds
+    into a library of its own, with the macro defined, beside the kernel
+    as it stands; nothing is compiled here."""
+    macro = f"FLASH_BWD_PROBE_{probe}"
+    source = _build.CSRC_DIR / "flash_bwd.cu"
+    assert f"#ifdef {macro}" in source.read_text()
+    kernel = _build.CudaKernel("flash_bwd.cu", "flash_bwd_launch", [], defines=(macro,))
+    assert kernel.target == (source, (macro,))
+    assert _build._split(kernel.target) == (source, (macro,)) and _build._split(source) == (source, ())
+    assert f"-D{macro}" in _build._flags(source, (macro,)) and f"-D{macro}" not in _build._flags(source)
+    assert _build._library(source, (macro,)) != _build._library(source)
+    assert _build._library(source, (macro,)).parent == _build._library(source).parent == _build.BUILD_DIR

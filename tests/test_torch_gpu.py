@@ -14,12 +14,18 @@ from phantom_vlb_tpu_torch.core.mesh import SequenceRing
 from phantom_vlb_tpu_torch.ops.context_parallel import ring_attention
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     FLASH_BWD,
+    FLASH_BWD_POST,
+    FLASH_BWD_PREP,
     FLASH_FWD,
     attention_packed,
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_plain,
     attention_with_stats,
+    flash_bwd_post,
+    flash_bwd_post_plain,
+    flash_bwd_prep,
+    flash_bwd_prep_plain,
 )
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
@@ -62,6 +68,9 @@ OUT_TOL, LSE_TOL = 2e-2, 1e-3
 # Backward, as max|err| / max|ref| of dq, dk, dv: bf16 outputs (2^-9), and
 # bf16 p and ds whose roundings may flip where exp2 and exp differ by an ulp.
 BWD_REL_TOL = 2e-2
+# The backward's prep kernel's di, max|err| / max|ref|: f32 sums of 128
+# products in another order (~128 * 2^-24).
+DI_REL_TOL = 1e-5
 # LoRA kernels vs plain, as max|err| / max|ref|: bf16 mid and dx (one
 # rounding after f32 sums in another order); dA is f32 (order only).
 MID_REL_TOL, DX_REL_TOL, DA_REL_TOL = 1e-2, 1e-2, 1e-3
@@ -165,6 +174,61 @@ def test_flash_bwd_matches_plain(cuda, b, s, hq, hkv, valid):
         assert _rel(g, w) <= BWD_REL_TOL
 
 
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,valid,offset",
+    [
+        (2, 200, 8, 8, [200, 150], 0),        # group 1, S < one 128-row kv tile
+        (2, 1000, 16, 8, [1000, 613], 0),     # group 2, S not a multiple of 64 or 128
+        (2, 1000, 32, 8, None, 64),           # group 4, a tile's offset
+        (2, 300, 32, 4, [300, 211], 0),       # group 8
+        (1, 4608, 8, 1, [4000], 0),           # group 8, past the reference's fused limit
+        (3, 512, 32, 8, [512, 400, 300], 512),  # the ring's step: a whole chunk back
+        (3, 512, 8, 2, None, 64),             # a tile back, no mask
+        (1, 130, 4, 2, None, 0),              # two q tiles, one row past the first kv tile
+    ],
+)
+def test_flash_bwd_tiles_match_plain(cuda, b, s, hq, hkv, valid, offset):
+    """The backward at lengths off its 64-row q and 128-row kv tiles, every
+    GQA group size the model family uses, and the ring's causal offsets."""
+    q, k, v, mask = _inputs(cuda, b, s, hq, hkv, valid, seed=s + offset)
+    out, lse = attention_packed(q, k, v, hq, hkv, kv_mask=mask, causal_offset=offset)
+    do = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda,
+                     dtype=torch.bfloat16)
+    counts = (FLASH_BWD_PREP.launches, FLASH_BWD.launches, FLASH_BWD_POST.launches)
+    got = attention_packed_bwd(q, k, v, out, lse, do, hq, hkv, kv_mask=mask, causal_offset=offset)
+    torch.cuda.synchronize()
+    assert (FLASH_BWD_PREP.launches, FLASH_BWD.launches, FLASH_BWD_POST.launches) == tuple(
+        c + 1 for c in counts)
+    want = attention_packed_bwd_plain(q, k, v, out, lse, do, hq, hkv, kv_mask=mask,
+                                      causal_offset=offset)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert _rel(g, w) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("b,s,hq", [(2, 200, 8), (3, 512, 32), (1, 1000, 16)])
+def test_flash_bwd_prep_and_post_match_plain(cuda, b, s, hq):
+    """The prep kernel (q_s and the padded lse bit for bit, di to f32
+    order, the accumulator zeroed) and the post kernel in both forms (bit
+    for bit) against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q, out, do = (torch.randn(b, s, hq * D, generator=g, device=cuda, dtype=torch.bfloat16)
+                  for _ in range(3))
+    lse = torch.randn(b, hq, s, generator=g, device=cuda)
+    got, want = flash_bwd_prep(q, out, do, lse, hq), flash_bwd_prep_plain(q, out, do, lse, hq)
+    torch.cuda.synchronize()
+    assert torch.equal(got.qs, want.qs) and torch.equal(got.lse, want.lse)
+    assert _rel(got.di, want.di) <= DI_REL_TOL and bool((got.acc == 0).all())
+    acc = torch.randn(want.acc.shape, generator=g, device=cuda)
+    dq32 = torch.randn(q.shape, generator=g, device=cuda)
+    acc2, dq32_2 = acc.clone(), dq32.clone()
+    assert torch.equal(flash_bwd_post(acc, s, 0.125), flash_bwd_post_plain(acc, s, 0.125))
+    flash_bwd_post(acc, s, 0.125, dq32=dq32)
+    flash_bwd_post_plain(acc2, s, 0.125, dq32=dq32_2)
+    torch.cuda.synchronize()
+    assert torch.equal(dq32, dq32_2) and torch.equal(acc, acc2) and not acc[:, :, :s].any()
+
+
 def test_gradients_flow_through_the_kernels(cuda):
     q, k, v, mask = _inputs(cuda, 2, 300, 8, 2, [300, 211])
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -175,7 +239,7 @@ def test_gradients_flow_through_the_kernels(cuda):
     assert FLASH_BWD.launches == before + 1
     want = attention_packed_bwd(q.detach(), k.detach(), v.detach(), out.detach(), lse, do, 8, 2,
                                 kv_mask=mask)
-    # The same kernel twice; dq's atomic sums may round differently.
+    # The same kernels twice; dq's reduce-adds may sum in another order.
     for g, w in zip((dq, dk, dv), want):
         assert g.abs().max() > 0 and _rel(g, w) <= BWD_REL_TOL
 
