@@ -7,8 +7,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the paths with ``nvcc``, and flash_bwd.cu
-   with each of its cost probes, one process each, all at once (registers
-   and spills per kernel);
+   and lora_epilogue.cu with each of their cost probes, one process each,
+   all at once (registers and spills per kernel);
 3. each kernel against its plain PyTorch version at the paths' shapes:
    flash forward and backward (prep, main and post kernels) at the serving /
    training shapes, a ragged length and S = 4608 (where the reference takes
@@ -19,7 +19,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
    masks read back exactly through dx; keep rate, seed determinism); the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8 (q and s bit for bit); the LoRA epilogue's
-   forward, dz and dB at M = 6144, r = 16, N = 1024, 4096 and 14336; the
+   forward, fused dz + dB, and dz and dB alone at M = 6144, r = 16, N =
+   1024, 4096 and 14336 (two calls of each backward bit for bit); the
    fused ring forward against its plain version on rings of 4 and 2 ranks
    on the card at (3, 2048), with and without padded keys, and at S = 1000
    on 2 ranks; the flash kernels with causal offsets S_loc, 64 and 0 at S_loc;
@@ -45,7 +46,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
    the card in place, projection by projection, then 3 steps at batch 3
    with the fused epilogue (launch counts of every kernel but the ring's,
    non-zero adapter gradients, peak device memory), and one more under
-   ``torch.profiler``;
+   ``torch.profiler`` (with the epilogue group's device time);
 9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
 10. narrow models (same geometry, 2 layers, 256 wide) on the card against
     the same weights in f32 on the CPU: served predictions, the LoRA loss
@@ -60,7 +61,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
     output) and each rank's kernel, beside SDPA over the whole sequence and
     the per-step flash ring's forward; ``torch._int_mm`` in each weight
     layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336; the flash
-    backward's main kernel against its cost probes (printed only);
+    backward's main kernel against its cost probes (printed only); the
+    epilogue's fused dz + dB against both ``addmm`` calls, and dz and dB
+    alone against one each, with their f32 partial bytes, and the fused
+    kernel against its cost probe (printed only);
 12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -118,13 +122,17 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
     EPI_DZ,
+    EPI_DZDB,
     EPI_FWD,
     lora_epilogue_db,
     lora_epilogue_db_plain,
     lora_epilogue_dz,
     lora_epilogue_dz_plain,
+    lora_epilogue_dzdb,
+    lora_epilogue_dzdb_plain,
     lora_epilogue_fwd,
     lora_epilogue_plain,
+    partial_bytes,
 )
 from phantom_vlb_tpu_torch.ops.lora_fused import (
     LORA_DA,
@@ -161,12 +169,17 @@ KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd"
            "flash_bwd_post": FLASH_BWD_POST,
            "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
            "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
-           "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "ring_fwd": RING_FWD}
+           "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "epi_dzdb": EPI_DZDB,
+           "ring_fwd": RING_FWD}
 # flash_bwd.cu built with each of its cost probes (see its header): the main
 # kernel without a part, or in another block order; timed in phase 11 only.
 BWD_PROBES = {name: CudaKernel("flash_bwd.cu", "flash_bwd_launch", FLASH_BWD.argtypes,
                                defines=(f"FLASH_BWD_PROBE_{name.upper()}",))
               for name in ("no_dq_reduce", "no_exp", "grouped")}
+# The epilogue's backward built with its cost probe (see lora_epilogue.cu):
+# the fold left out; timed in phase 11 only.
+EPI_NO_FOLD = CudaKernel("lora_epilogue.cu", "epi_dzdb_launch", EPI_DZDB.argtypes,
+                         defines=("EPI_DZDB_PROBE_NO_FOLD",))
 REPLACES = {
     "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
     "flash_bwd_prep": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:509"),
@@ -180,6 +193,7 @@ REPLACES = {
     "epi_fwd": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:45"),
     "epi_dz": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:51"),
     "epi_db": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:69"),
+    "epi_dzdb": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:51,69"),
     "ring_fwd": ("ring_fwd.cu", "phantom_vlb_tpu/ops/ring_fused.py:48"),
 }
 RING_RANKS = 4            # the sequence ring on one card: S_loc = 512 at S = 2048
@@ -274,7 +288,7 @@ def card_name_and_power() -> str:
 
 
 def build_kernels() -> None:
-    kernels = [*KERNELS.values(), *BWD_PROBES.values()]
+    kernels = [*KERNELS.values(), *BWD_PROBES.values(), EPI_NO_FOLD]
     builds = {}                                          # one kernel per build
     for kernel in kernels:
         builds.setdefault(kernel.target, kernel)
@@ -506,25 +520,34 @@ def epilogue_inputs(n: int, gen, dev):
 
 
 def check_epilogue(gen, dev) -> dict[str, float]:
-    """Forward, dz and dB vs plain at M = 6144, r = 16, N = 1024, 4096,
-    14336; returns each kernel's max abs error."""
-    errs = {"epi_fwd": 0.0, "epi_dz": 0.0, "epi_db": 0.0}
+    """Forward, the fused dz + dB, and dz and dB alone vs plain at M = 6144,
+    r = 16, N = 1024, 4096, 14336, and two calls of each backward entry
+    point bit for bit; returns each kernel's max abs error."""
+    errs = {"epi_fwd": 0.0, "epi_dz": 0.0, "epi_db": 0.0, "epi_dzdb": 0.0}
     scaling = 32.0 / LORA_R
     for n in EPI_NS:
         y, z, b, dy = epilogue_inputs(n, gen, dev)
-        got = {"epi_fwd": lora_epilogue_fwd(y, z, b, scaling), "epi_dz": lora_epilogue_dz(dy, b, scaling),
-               "epi_db": lora_epilogue_db(z, dy, scaling)}
+        backward = {"epi_dz": lambda: (lora_epilogue_dz(dy, b, scaling),),
+                    "epi_db": lambda: (lora_epilogue_db(z, dy, scaling),),
+                    "epi_dzdb": lambda: lora_epilogue_dzdb(z, dy, b, scaling)}
+        runs = {k: (fn(), fn()) for k, fn in backward.items()}
+        fwd = lora_epilogue_fwd(y, z, b, scaling)
         torch.cuda.synchronize()
-        want = {"epi_fwd": lora_epilogue_plain(y, z, b, scaling),
-                "epi_dz": lora_epilogue_dz_plain(dy, b, scaling),
-                "epi_db": lora_epilogue_db_plain(z, dy, scaling)}
-        rels = {k: rel_err(got[k], want[k]) for k in got}
+        dz_p, db_p = lora_epilogue_dzdb_plain(z, dy, b, scaling)
+        got = {"epi_fwd": (fwd,), **{k: first for k, (first, _) in runs.items()}}
+        want = {"epi_fwd": (lora_epilogue_plain(y, z, b, scaling),), "epi_dz": (dz_p,), "epi_db": (db_p,),
+                "epi_dzdb": (dz_p, db_p)}
+        rels = {k: max(rel_err(g, w) for g, w in zip(got[k], want[k])) for k in got}
+        repeat = all(torch.equal(a, c) for first, second in runs.values() for a, c in zip(first, second))
         print(f"  epilogue N={n}: max|err|/max|ref| " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-              + f" (tol {EPI_REL_TOL})")
-        if max(rels.values()) > EPI_REL_TOL or not all(torch.isfinite(g).all() for g in got.values()):
+              + f" (tol {EPI_REL_TOL}); two calls of each backward bit-equal: {repeat}")
+        if max(rels.values()) > EPI_REL_TOL or not all(torch.isfinite(t).all() for g in got.values() for t in g):
             raise AssertionError(f"the epilogue kernels disagree with their plain versions at N={n}")
+        if not repeat:
+            raise AssertionError(f"the epilogue's backward does not repeat bit for bit at N={n}")
         for k in got:
-            errs[k] = max(errs[k], abs_err(got[k], want[k]))
+            errs[k] = max(errs[k], *(abs_err(g, w) for g, w in zip(got[k], want[k])))
+        del y, z, b, dy, runs, got, want
     return errs
 
 
@@ -552,9 +575,9 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def traced(fn, label: str) -> None:
+def traced(fn, label: str) -> dict[str, float]:
     """Trace ``fn()`` on a warm model: device time by kernel and by group,
-    and the idle share of its wall time."""
+    and the idle share of its wall time. Returns ms by group."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -576,6 +599,7 @@ def traced(fn, label: str) -> None:
         print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
     del prof, kernels
     release_host_memory(collect=True)
+    return groups
 
 
 def serve_through_the_ring(model, batch: dict, want: np.ndarray, dev) -> None:
@@ -618,8 +642,10 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
     and 2 x 7 LoRA forwards (and, with the int8 base, row quants; with the
-    fused epilogue, epilogue forwards); one flash backward; 7 dA (7 dz and
-    7 dB); and 7 dx (7 scaled row quants) except for layer 0's q, k and v,
+    fused epilogue, epilogue forwards); one flash backward; 7 dA (and 7
+    fused epilogue backwards, dz and dB from one launch: the single dz and
+    dB entry points never run, as both grads are always needed); and 7 dx
+    (7 scaled row quants) except for layer 0's q, k and v,
     whose input (the normed embeddings) needs no gradient. A flash backward
     is a prep, a main kernel and a post. Through a ring of n = RING_RANKS
     ranks a layer's attention pass is n ring kernels ('ring_fused') or
@@ -637,8 +663,8 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
                 "lora_fwd": 14 * layers, "lora_dx": 7 * layers - 3, "lora_da": 7 * layers,
                 "row_quant": 14 * layers if int8 else 0,
                 "row_quant_scaled": 7 * layers - 3 if int8 else 0,
-                "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 7 * layers if epilogue else 0,
-                "epi_db": 7 * layers if epilogue else 0}
+                "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
+                "epi_dzdb": 7 * layers if epilogue else 0}
     return {name: per_step[name] * steps for name in KERNELS}
 
 
@@ -790,7 +816,8 @@ def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
         cfg8 = lora_train_config(fused_epilogue="pallas", base_quant="w8a8g8")
         w8 = train_lora_steps(cfg8, sd, lora_batches(cfg, gen, dev), dev, fresh=False)
     with phase("8b profile one w8a8g8 LoRA step"):
-        traced(w8.one_more_step, "w8a8g8 LoRA train step")
+        groups = traced(w8.one_more_step, "w8a8g8 LoRA train step")
+        print(f"  epilogue group (epi_fwd + epi_dzdb) {groups.get('epilogue', 0.0):.3f} ms of device time")
     return w8.launches, ring_launches
 
 
@@ -1171,34 +1198,63 @@ def time_row_quant(gen, dev) -> dict[str, dict]:
 
 
 def time_epilogue(gen, dev) -> dict[str, dict]:
-    """Forward, dz and dB at M = 6144, r = 16, N = 1024, 4096, 14336; the
-    library is one PyTorch call each (``addmm`` with the scaling as alpha),
-    timed only. The JSON carries N = 4096 (q, o and down)."""
+    """Forward, dz, dB and the fused dz + dB at M = 6144, r = 16, N = 1024,
+    4096, 14336; the library is one PyTorch call each (``addmm`` with the
+    scaling as alpha), and for the fused call the pair of them, timed only.
+    Each backward prints its grid's f32 partial bytes; the fused kernel is
+    also timed against its cost probe (device time, printed only). The JSON
+    carries N = 4096 (q, o and down); the fused kernel's library_ms is null
+    there, as no single PyTorch call computes both outputs."""
     out = {}
     s, m, r = 32.0 / LORA_R, LORA_M, LORA_R
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n in EPI_NS:
         y, z, b, dy = epilogue_inputs(n, gen, dev)
         dz_out = torch.empty(m, r, device=dev, dtype=torch.bfloat16)
         db_out = torch.empty(r, n, device=dev, dtype=torch.bfloat16)
+
+        def addmm_dz():
+            return torch.addmm(dz_out, dy, b.t(), beta=0, alpha=s)
+
+        def addmm_db():
+            return torch.addmm(db_out, z.t(), dy, beta=0, alpha=s)
+
         cases = {
             # y, z, B read once, out written once; r f32 FMAs an element on
             # the CUDA cores.
             "epi_fwd": (lambda: lora_epilogue_fwd(y, z, b, s), lambda: lora_epilogue_plain(y, z, b, s),
-                        lambda: torch.addmm(y, z, b, alpha=s), (2 * m * n + m * r + r * n) * 2,
-                        PEAK_F32_FLOPS),
+                        lambda: torch.addmm(y, z, b, alpha=s), 2 * m * n * r,
+                        (2 * m * n + m * r + r * n) * 2, PEAK_F32_FLOPS),
             # dy and B (z) read once, dz (dB) written once; mma.sync bf16.
             "epi_dz": (lambda: lora_epilogue_dz(dy, b, s), lambda: lora_epilogue_dz_plain(dy, b, s),
-                       lambda: torch.addmm(dz_out, dy, b.t(), beta=0, alpha=s),
-                       (m * n + r * n + m * r) * 2, PEAK_BF16_FLOPS),
+                       addmm_dz, 2 * m * n * r, (m * n + r * n + m * r) * 2, PEAK_BF16_FLOPS),
             "epi_db": (lambda: lora_epilogue_db(z, dy, s), lambda: lora_epilogue_db_plain(z, dy, s),
-                       lambda: torch.addmm(db_out, z.t(), dy, beta=0, alpha=s),
-                       (m * n + m * r + r * n) * 2, PEAK_BF16_FLOPS),
+                       addmm_db, 2 * m * n * r, (m * n + m * r + r * n) * 2, PEAK_BF16_FLOPS),
+            # dy, z and B read once, dz and dB written once.
+            "epi_dzdb": (lambda: lora_epilogue_dzdb(z, dy, b, s), lambda: lora_epilogue_dzdb_plain(z, dy, b, s),
+                         lambda: (addmm_dz(), addmm_db()), 4 * m * n * r,
+                         (m * n + 2 * (m * r + r * n)) * 2, PEAK_BF16_FLOPS),
         }
-        for name, (kernel_fn, plain_fn, library_fn, nbytes, peak) in cases.items():
+        for name, (kernel_fn, plain_fn, library_fn, flops, nbytes, peak) in cases.items():
             rec = timed(kernel_fn, "epi_", plain_fn, library_fn, 20)
-            report(name, f"M={m} N={n} r={r}", rec, 2 * m * n * r, nbytes, peak)
+            report(name, f"M={m} N={n} r={r}", rec, flops, nbytes, peak)
+            if name != "epi_fwd":
+                both = name == "epi_dzdb"
+                part = partial_bytes(m, n, r, dz=name != "epi_db", db=name != "epi_dz", sms=sms)
+                print(f"    {name}: {part / 1e6:.2f} MB of f32 partials; "
+                      + (f"library = both addmm calls {rec['library_ms']:.4f} ms; " if both else "")
+                      + f"{rec['bound_ms'] / rec['ms']:.1%} of the byte bound, "
+                      + f"library / kernel {rec['library_ms'] / rec['ms']:.2f}")
             if n == 4096:
-                out[name] = rec
+                out[name] = dict(rec, library_ms=None) if name == "epi_dzdb" else rec
+        times = {}
+        for _ in range(2):
+            for label, kernel in (("as built", EPI_DZDB), ("no_fold", EPI_NO_FOLD)):
+                times.setdefault(label, []).append(device_ms(
+                    lambda kernel=kernel: lora_epilogue_dzdb(z, dy, b, s, kernel=kernel), 20, "epi_dzdb")[0])
+        base = min(times["as built"])
+        print(f"  epi_dzdb N={n}, cost probe (device time): as built {base:.4f} ms, without the fold "
+              f"{min(times['no_fold']):.4f} ms ({min(times['no_fold']) - base:+.4f})")
         del y, z, b, dy, dz_out, db_out
     return out
 

@@ -1,65 +1,90 @@
-// Fused LoRA rank-r epilogue for Hopper (sm_90a): forward, dz and dB.
+// Fused LoRA rank-r epilogue for Hopper (sm_90a): the forward, and one
+// backward kernel that reads dy once for dz and dB.
 //
 // Replaces phantom_vlb_tpu/ops/lora_epilogue.py:_fwd_kernel (line 45),
 // _dz_kernel (:51) and _db_kernel (:69), reached through lora_epilogue
 // (:96):
 //   out = bf16(y + bf16(bf16(z @ B) * s))   f32 sums, the reference's roundings
-//   dz  = bf16(s * (dy @ B^T))              f32 sums
-//   dB  = bf16(s * (z^T @ dy))              f32 sums
+//   dz  = bf16(s * (dy @ B^T))              f32 sums, one rounding
+//   dB  = bf16(s * (z^T @ dy))              f32 sums, one rounding
 // with y, dy (M, N) bf16, z (M, r) bf16, B (r, N) bf16, r <= 128, s the
 // LoRA scaling (rounded to bf16 by the caller for the forward, f32 in the
 // backward, as the reference multiplies). d(y) = dy passes through in the
 // caller. The TPU's rank padding to 128 lanes is not copied: the rank is
-// padded in shared memory and registers to the next of 16, 32, 64, 128, and
-// M and N tails are masked in the loads and stores.
+// padded in shared memory and registers to R, the next of 16, 32, 64, 128,
+// and M and N tails are masked (zero-filled) in the loads and stores.
 //
-// Bound: bytes. At M = 6144, N = 4096 the forward moves y in and out out
-// (100.7 MB, 30.0 us at 3.35 TB/s); dz and dB each read dy once (50.3 MB,
-// 15.0 us). At N = 14336: 105.2 us and 52.6 us. z and B are a few hundred
-// KB.
+// Forward (epi_fwd_kernel): a block of 8 warps owns 32 rows x 256 columns;
+// each thread holds 4 rows x 8 neighbouring columns, prefetches its y (16
+// bytes a row) before the rank loop, and makes r f32 FMAs per element from
+// z and B chunks of 16 ranks staged as f32 in shared memory. Bound by
+// bytes: y in and out out, 100.7 MB at M = 6144, N = 4096 (30.0 us at 3.35
+// TB/s).
 //
-// Design (simple and right first):
-// - forward: a block of 8 warps owns 32 rows x 256 columns; each thread
-//   holds 4 rows x 8 neighbouring columns, prefetches its y (16 bytes a
-//   row) before the rank loop, and makes r f32 FMAs per element from z and
-//   B chunks of 16 ranks staged as f32 in shared memory (z read as a
-//   broadcast, B as two 16-byte reads per rank).
-// - dz: a block of 4 warps owns 64 rows of M and a contiguous share of the
-//   64-column chunks of N; dy's 64 x 64 chunk and B's R x 64 chunk go to
-//   shared memory (next chunk prefetched into registers), and each warp
-//   multiplies its 16 rows with mma.sync.m16n8k16 (B's fragments by a plain
-//   ldmatrix: B is stored rank-major, as the MMA's column operand wants).
-//   Partial sums per share go to an f32 (split, M, R) buffer, and a second
-//   small kernel sums the shares in order, scales by s and rounds once.
-// - dB: the same with the roles turned: a block owns 64 columns of N and a
-//   share of the 64-row chunks of M, and transposing ldmatrix reads give
-//   dy^T and z as the MMA's operands, so dB^T (N, R) partials go to
-//   (split, N, R) f32; the second kernel writes dB (r, N).
-// The split (a few shares per block, ~4 blocks per SM) keeps the card
-// full; the order of the f32 sums is fixed, so results repeat bit for bit.
+// Backward (epi_dzdb_kernel<R, DZ, DB>): dz and dB from one pass over dy;
+// the entry points for dz alone and dB alone are the same kernel with the
+// other output compiled out. Bound by bytes: dy read once, z and B read
+// once, dz and dB written once, (M N + 2 r (M + N)) * 2 bytes = 51.0 MB at
+// M = 6144, N = 4096, r = 16 (15.2 us at 3.35 TB/s; 53.0 us at N = 14336).
+// The tensor-core work, 4 M N r flops (1.6 GFLOP), is ~2 us even on
+// mma.sync, so the design is about moving dy once, at the rate HBM gives:
+// - Blocks: dy's 64 x 64 tiles are cut into mb row groups x nb column
+//   groups (ops/lora_epilogue.py:_grid, within one wave of the card's
+//   blocks), and a block walks its group pair's tiles row chunk by row
+//   chunk. Its dB^T sums for each of its column chunks stay in registers
+//   across the walk (at most 16 column chunks at R = 16: 128 registers a
+//   thread), its dz sums for a row chunk until the row chunk ends. At
+//   M = 6144, r = 16 the fused grid is mb x nb = 24 x 4 (N = 1024),
+//   16 x 8 (4096) and 8 x 14 (14336).
+// - Pipeline: one producer warp keeps a ring of 8 dy tiles (8 KB each,
+//   128B-swizzled) in flight by TMA with mbarriers, with the block's B
+//   chunks resident and a ring of z chunks beside it; dy is loaded with an
+//   L2 evict-first policy (it is read once), which keeps the partials in L2
+//   for the fold. Four consumer warps multiply each tile twice from the
+//   same shared copy: ldmatrix + mma.sync.m16n8k16 against the B chunk for
+//   dz (16 rows a warp) and ldmatrix.trans against the z chunk for dB^T (16
+//   columns a warp); the swizzle XOR goes into the ldmatrix addresses.
+//   mma.sync and not wgmma: the products are 64 x R x 64 with R = 16 on the
+//   path, and their time hides behind the loads either way.
+// - Where a stride or base does not allow TMA (N % 8 != 0, r != R, or a
+//   base not 16-byte aligned), the producer warp loads the same tiles with
+//   plain 16-byte loads (zeros past the edges) into the same layout.
+// - Reduction in the same launch: each block writes f32 partials, its dz
+//   rows x R (pdz[nb][M][R]) and its dB^T columns x R (rank-major,
+//   pdb[mb][R][N_pad]), 4 R (M nb + N_pad mb) bytes in all (7.3 MB at N =
+//   4096, r = 16, against dy's 50.3 MB). The launch is cooperative (every
+//   block resident at once): after a grid-wide barrier (an arrival count
+//   its last arrival resets, and a generation word) every thread of every
+//   block sums some of the outputs' partials in partial order, scales by s,
+//   rounds once and writes dz (M, r) and dB (r, N). A grid larger than one
+//   wave (only where N needs more column groups than the card holds
+//   blocks: N > 132 * 64 columns at r = 128, twice that at r = 64) is
+//   launched plainly instead: the last block of a row group (column
+//   group), found by an arrival count per group that the last block
+//   resets, sums that group's dz rows (dB columns) alone. In bring-up that
+//   last-block fold, used for every grid, was slower than the whole pass
+//   over dy at N = 4096: one SM's reads are latency-bound. The counts live
+//   in one int32 buffer per (device, stream) that the wrapper zeroes once;
+//   every launch leaves them at zero. No atomics touch a sum, and every sum
+//   has a fixed order: results repeat bit for bit.
+// Against the two kernels and two finalize launches it replaces: dy is read
+// once and not twice, there is one launch and no finalize, the ring keeps
+// 64 KB a block in flight where a register prefetch kept 8 KB, and the
+// finalize's strided reads are gone (the fold reads its partials coalesced).
+// Cost probe: built with EPI_DZDB_PROBE_NO_FOLD the fold is left out (wrong
+// on purpose); chip_smoke.py phase 11 times it against the kernel, which
+// says what the fold costs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int CH = 64;                 // chunk edge (rows and columns) of dz / dB
-constexpr int NTHREADS = 128;          // dz / dB blocks
-constexpr int SROW = CH + 8;           // padded shared row of a 64-wide chunk
+constexpr int CH = 64;                 // tile edge (rows and columns) of the backward
 constexpr int FWD_ROWS = 32, FWD_COLS = 256, FWD_RK = 16, FWD_THREADS = 256;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
-}
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -69,6 +94,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -178,241 +204,592 @@ epi_fwd_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restr
   }
 }
 
-// A 64 x 64 chunk of a row-major (rows, cols) bf16 matrix at (r0, c0):
-// 512 pieces of 16 bytes, 4 a thread, prefetched into registers.
-struct Chunk64 {
-  uint4 v[4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* g, int rows, int cols, int ld,
-                                       int r0, int c0, bool vec, int tid) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = tid + u * NTHREADS;
-      v[u] = load8(g, rows, cols, ld, r0 + (c >> 3), c0 + (c & 7) * 8, vec);
-    }
-  }
-  __device__ __forceinline__ void store(__nv_bfloat16 (*s)[SROW], int tid) const {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = tid + u * NTHREADS;
-      *reinterpret_cast<uint4*>(&s[c >> 3][(c & 7) * 8]) = v[u];
-    }
-  }
+
+// ---- backward: dz and dB from one pass over dy ----
+
+constexpr int NST = 8;                          // dy tiles in flight a block
+constexpr int CONSUMERS = 128;                  // four warps multiply
+constexpr int DZDB_THREADS = CONSUMERS + 32;    // and one warp loads
+constexpr uint32_t TILE_BYTES = CH * CH * 2;    // a 64 x 64 bf16 tile, 128-byte rows
+
+// By padded rank R: the column chunks a block may own (its dB^T sums stay
+// in registers, CPB * R / 2 a thread; ops/lora_epilogue.py
+// CHUNKS_PER_BLOCK), the z slots in flight, and the bytes of a B chunk
+// (R ranks x 64 columns) and a z chunk (64 rows x R ranks).
+template <int R>
+struct Rank {
+  static constexpr int CPB = R == 16 ? 16 : R == 32 ? 8 : R == 64 ? 2 : 1;
+  static constexpr int ZST = R == 128 ? 4 : NST;
+  static constexpr uint32_t B_SLOT = R * 128;
+  static constexpr uint32_t Z_SLOT = CH * R * 2;
 };
 
-// NR rows x NC columns (NC a multiple of 8) of a row-major (rows, cols) bf16
-// matrix at (r0, c0): NR * NC / 8 pieces, NR * NC / (8 * 128) a thread.
-template <int NR, int NC>
-struct Tile {
-  static constexpr int PER = NR * NC / (8 * NTHREADS);
-  uint4 v[PER];
-  __device__ __forceinline__ void load(const __nv_bfloat16* g, int rows, int cols, int ld,
-                                       int r0, int c0, bool vec, int tid) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int c = tid + u * NTHREADS;
-      v[u] = load8(g, rows, cols, ld, r0 + c / (NC / 8), c0 + (c % (NC / 8)) * 8, vec);
-    }
-  }
-  __device__ __forceinline__ void store(__nv_bfloat16 (*s)[NC + 8], int tid) const {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int c = tid + u * NTHREADS;
-      *reinterpret_cast<uint4*>(&s[c / (NC / 8)][(c % (NC / 8)) * 8]) = v[u];
-    }
-  }
+// Shared memory of epi_dzdb_kernel, bytes from a 1024-aligned base (every
+// slot is a multiple of 1024 bytes, as the swizzles want).
+template <int R, bool DZ, bool DB>
+struct DzdbSmem {
+  using K = Rank<R>;
+  static constexpr uint32_t DY = 0;                                   // [NST] dy tiles
+  static constexpr uint32_t B = DY + NST * TILE_BYTES;                // [CPB] B chunks
+  static constexpr uint32_t Z = B + (DZ ? K::CPB * K::B_SLOT : 0);    // [ZST] z chunks
+  // full[NST], empty[NST], zfull[ZST], zempty[ZST], bfull; then two flags
+  static constexpr uint32_t BAR = Z + (DB ? K::ZST * K::Z_SLOT : 0);
+  static constexpr uint32_t FLAGS = BAR + 8 * (2 * NST + 2 * K::ZST + 1);
+  static constexpr uint32_t BYTES = FLAGS + 8 + 1024;                 // + alignment slack
 };
 
-__device__ __forceinline__ void share_range(int chunks, int split, int& begin, int& end) {
-  begin = static_cast<int>(static_cast<long long>(chunks) * blockIdx.y / split);
-  end = static_cast<int>(static_cast<long long>(chunks) * (blockIdx.y + 1) / split);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dz partials: grid (ceil(M/64), split); part[split][M][R] f32.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Returns once the phase of parity `parity` has completed. A wait longer
+// than 20 s traps ("unspecified launch failure") rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && (n & 1023) == 1023) {
+      if (t0 == 0) t0 = global_ns();
+      else if (global_ns() - t0 > 20000000000ull) __trap();
+    }
+  }
+}
+
+// A 2D box (columns, rows) of a tensor map into shared memory, with an L2
+// eviction policy (createpolicy).
+__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                                 uint32_t bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// A 2D box (columns, rows) of a tensor map into shared memory.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, const uint4& v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// Byte offset of (row, col), col a multiple of 8, in a tile of 128-byte
+// rows (dy's 64 columns, B's 64 columns) as TMA's 128-byte swizzle lays it
+// out from a 1024-aligned base: 16-byte piece col / 8 of a row lands at
+// piece (col / 8) ^ (row % 8).
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return static_cast<uint32_t>(row * 128 + ((((col >> 3) ^ row) & 7) << 4));
+}
+
+// (row, col) of a z chunk, 64 rows x R ranks. R >= 64: 64-rank halves of
+// 64 x 128 bytes, each as sw128. R = 16, 32: rows of 2R bytes under TMA's
+// 32- or 64-byte swizzle (byte address bits 4.. XOR bits 7..).
 template <int R>
-__global__ void __launch_bounds__(NTHREADS)
-epi_dz_kernel(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ b,
-              float* __restrict__ part, int M, int N, int r, int split, bool vec_dy, bool vec_b) {
-  __shared__ __align__(16) __nv_bfloat16 ds[CH][SROW];
-  __shared__ __align__(16) __nv_bfloat16 bs[R][SROW];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, mat = lane >> 3, mr = lane & 7;
-  const int m0 = blockIdx.x * CH;
-  int c_begin, c_end;
-  share_range((N + CH - 1) / CH, split, c_begin, c_end);
-
-  float acc[R / 8][4];
-#pragma unroll
-  for (int n = 0; n < R / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  Chunk64 dc;
-  Tile<R, CH> bc;
-  if (c_begin < c_end) {
-    dc.load(dy, M, N, N, m0, c_begin * CH, vec_dy, tid);
-    bc.load(b, r, N, N, 0, c_begin * CH, vec_b, tid);
-  }
-  for (int c = c_begin; c < c_end; ++c) {
-    dc.store(ds, tid);
-    bc.store(bs, tid);
-    __syncthreads();
-    if (c + 1 < c_end) {
-      dc.load(dy, M, N, N, m0, (c + 1) * CH, vec_dy, tid);
-      bc.load(b, r, N, N, 0, (c + 1) * CH, vec_b, tid);
-    }
-#pragma unroll
-    for (int ks = 0; ks < CH / 16; ++ks) {
-      uint32_t da[4];
-      ldmatrix_x4(da, &ds[warp * 16 + (mat & 1) * 8 + mr][ks * 16 + (mat >> 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < R / 16; ++np) {
-        uint32_t bb[4];
-        ldmatrix_x4(bb, &bs[np * 16 + (mat >> 1) * 8 + mr][ks * 16 + (mat & 1) * 8]);
-        mma_bf16(acc[2 * np], da, bb[0], bb[1]);
-        mma_bf16(acc[2 * np + 1], da, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int e2 = 0; e2 < 2; ++e2) {
-    const int row = m0 + warp * 16 + g + 8 * e2;
-    if (row < M) {
-      float* dst = part + (static_cast<size_t>(blockIdx.y) * M + row) * R + 2 * t;
-#pragma unroll
-      for (int n = 0; n < R / 8; ++n) {
-        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(acc[n][2 * e2], acc[n][2 * e2 + 1]);
-      }
-    }
+__device__ __forceinline__ uint32_t zoff(int row, int col) {
+  if constexpr (R >= 64) {
+    return static_cast<uint32_t>((col >> 6) * (CH * 128)) + sw128(row, col & 63);
+  } else {
+    const uint32_t off = static_cast<uint32_t>(row * 2 * R + (col >> 3) * 16);
+    return off ^ (((off >> 7) & (R / 8 - 1)) << 4);
   }
 }
 
-// dB^T partials: grid (ceil(N/64), split); part[split][N][R] f32.
-template <int R>
-__global__ void __launch_bounds__(NTHREADS)
-epi_db_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
-              float* __restrict__ part, int M, int N, int r, int split, bool vec_z, bool vec_dy) {
-  __shared__ __align__(16) __nv_bfloat16 ys[CH][SROW];
-  __shared__ __align__(16) __nv_bfloat16 zs[CH][R + 8];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, mat = lane >> 3, mr = lane & 7;
-  const int n0 = blockIdx.x * CH;
-  int c_begin, c_end;
-  share_range((M + CH - 1) / CH, split, c_begin, c_end);
-
-  float acc[R / 8][4];
+// The sum of the `count` f32x4 partials at src + p * stride, in partial
+// order (p = 0, 1, ...), with up to 8 loads in flight. The partials were
+// written by other blocks of this launch: they are read through L2.
+__device__ __forceinline__ float4 sum_partials(const float* src, size_t stride, int count) {
+  float4 v = __ldcg(reinterpret_cast<const float4*>(src));
+  for (int p = 1; p < count; p += 8) {
+    float4 w[8];
 #pragma unroll
-  for (int n = 0; n < R / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  Chunk64 yc;
-  Tile<CH, R> zc;
-  if (c_begin < c_end) {
-    yc.load(dy, M, N, N, c_begin * CH, n0, vec_dy, tid);
-    zc.load(z, M, r, r, c_begin * CH, 0, vec_z, tid);
-  }
-  for (int c = c_begin; c < c_end; ++c) {
-    yc.store(ys, tid);
-    zc.store(zs, tid);
-    __syncthreads();
-    if (c + 1 < c_end) {
-      yc.load(dy, M, N, N, (c + 1) * CH, n0, vec_dy, tid);
-      zc.load(z, M, r, r, (c + 1) * CH, 0, vec_z, tid);
+    for (int i = 0; i < 8; ++i) {
+      if (p + i < count) w[i] = __ldcg(reinterpret_cast<const float4*>(src + (p + i) * stride));
     }
-    // acc (16 columns of N x R) += dy^T z over this chunk's 64 rows.
 #pragma unroll
-    for (int ks = 0; ks < CH / 16; ++ks) {
-      uint32_t ya[4];
-      ldmatrix_x4_trans(ya, &ys[ks * 16 + (mat >> 1) * 8 + mr][warp * 16 + (mat & 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < R / 16; ++np) {
-        uint32_t zb[4];
-        ldmatrix_x4_trans(zb, &zs[ks * 16 + (mat & 1) * 8 + mr][np * 16 + (mat >> 1) * 8]);
-        mma_bf16(acc[2 * np], ya, zb[0], zb[1]);
-        mma_bf16(acc[2 * np + 1], ya, zb[2], zb[3]);
+    for (int i = 0; i < 8; ++i) {
+      if (p + i < count) {
+        v.x += w[i].x;
+        v.y += w[i].y;
+        v.z += w[i].z;
+        v.w += w[i].w;
       }
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int e2 = 0; e2 < 2; ++e2) {
-    const int col = n0 + warp * 16 + g + 8 * e2;
-    if (col < N) {
-      float* dst = part + (static_cast<size_t>(blockIdx.y) * N + col) * R + 2 * t;
-#pragma unroll
-      for (int n = 0; n < R / 8; ++n) {
-        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(acc[n][2 * e2], acc[n][2 * e2 + 1]);
-      }
-    }
+  return v;
+}
+
+// dz rows [row0, row1): dz[row][k .. k + 3] (those below r) = bf16(s * the
+// sum of the nb partials), for items (row, k / 4) first, first + step, ...
+__device__ void fold_dz(const float* pdz, __nv_bfloat16* dz, int row0, int row1, long long first,
+                        long long step, int M, int r, int R, int nb, float s) {
+  const int Q = R / 4;
+  const long long items = static_cast<long long>(row1 - row0) * Q;
+  for (long long e = first; e < items; e += step) {
+    const int row = row0 + static_cast<int>(e / Q), k = static_cast<int>(e % Q) * 4;
+    if (k >= r) continue;
+    const float4 v = sum_partials(pdz + static_cast<size_t>(row) * R + k, static_cast<size_t>(M) * R, nb);
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    __nv_bfloat16* out = dz + static_cast<size_t>(row) * r + k;
+    for (int i = 0; i < 4 && k + i < r; ++i) out[i] = __float2bfloat16_rn(s * f[i]);
   }
 }
 
-// out = bf16(s * sum over the split of part[., i, k]) for i < rows, k < r,
-// at out[i * r + k] (dz) or out[k * rows + i] (dB from dB^T partials).
-__global__ void epi_finalize_kernel(const float* __restrict__ part, int split, int rows, int R,
-                                    int r, float s, bool transpose, __nv_bfloat16* __restrict__ out) {
-  const size_t total = static_cast<size_t>(rows) * r;
-  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < total;
-       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    size_t i, k;
-    if (transpose) {
-      k = e / rows;
-      i = e % rows;
+// dB columns [col0, col1) (multiples of 4): dB[k][col .. col + 3] (those
+// below N) = bf16(s * the sum of the mb partials), for items (k, col / 4).
+__device__ void fold_db(const float* pdb, __nv_bfloat16* db, int col0, int col1, long long first,
+                        long long step, int N, size_t n_pad, int r, int R, int mb, float s) {
+  const int q = (col1 - col0) / 4;
+  const long long items = static_cast<long long>(r) * q;
+  for (long long e = first; e < items; e += step) {
+    const int k = static_cast<int>(e / q), col = col0 + static_cast<int>(e % q) * 4;
+    if (col >= N) continue;
+    const float4 v = sum_partials(pdb + static_cast<size_t>(k) * n_pad + col, R * n_pad, mb);
+    __nv_bfloat16* out = db + static_cast<size_t>(k) * N + col;
+    if (N % 4 == 0) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s * v.x, s * v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s * v.z, s * v.w);
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&lo);
+      u.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(out) = u;
     } else {
-      i = e / r;
-      k = e % r;
+      const float f[4] = {v.x, v.y, v.z, v.w};
+      for (int i = 0; i < 4 && col + i < N; ++i) out[i] = __float2bfloat16_rn(s * f[i]);
     }
-    float v = 0.0f;
-    for (int p = 0; p < split; ++p) v += part[(static_cast<size_t>(p) * rows + i) * R + k];
-    out[e] = __float2bfloat16_rn(s * v);
   }
 }
 
-int finalize(const float* part, int split, int rows, int R, int r, float s, bool transpose,
-             void* out, cudaStream_t stream) {
-  const size_t total = static_cast<size_t>(rows) * r;
-  const int blocks = static_cast<int>(total / 256 + 1 < 4096 ? total / 256 + 1 : 4096);
-  epi_finalize_kernel<<<blocks, 256, 0, stream>>>(part, split, rows, R, r, s, transpose,
-                                                  static_cast<__nv_bfloat16*>(out));
-  return static_cast<int>(cudaGetLastError());
+// Every block of a cooperative launch waits here for all `blocks`, with
+// its writes visible to all of them after. bar[0] counts arrivals (the
+// last arrival resets it), bar[1] is a generation the last arrival bumps.
+__device__ __forceinline__ void grid_sync(int* bar, int blocks) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile int* generation = bar + 1;
+    const int gen = *generation;
+    __threadfence();
+    if (atomicAdd(bar, 1) == blocks - 1) {
+      atomicExch(bar, 0);
+      __threadfence();
+      atomicAdd(bar + 1, 1);
+    } else {
+      uint64_t t0 = 0;
+      for (uint32_t n = 0; *generation == gen; ++n) {
+        if ((n & 1023) == 1023) {
+          if (t0 == 0) t0 = global_ns();
+          else if (global_ns() - t0 > 20000000000ull) __trap();
+        }
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// grid (nb, mb), DZDB_THREADS threads, DzdbSmem bytes. Block (gj, gi) owns
+// row chunks [rc gi / mb, rc (gi + 1) / mb) and column chunks
+// [cc gj / nb, cc (gj + 1) / nb) of dy's 64 x 64 tiles (at most CPB
+// columns). `tma`: the tensor maps are valid; else the producer warp loads
+// with plain loads (vec_*: 16-byte loads of that tensor are allowed).
+// counters: the grid barrier's two words (arrivals, generation), then mb
+// row-group and nb column-group counters; every count is zero on entry and
+// on exit. `coop`: a cooperative launch (every block resident at once).
+template <int R, bool DZ, bool DB>
+__global__ void __launch_bounds__(DZDB_THREADS, 1)
+epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64 boxes
+                const __grid_constant__ CUtensorMap tm_z,     // (M, r), 64 x min(R, 64) boxes
+                const __grid_constant__ CUtensorMap tm_b,     // (r, N), R x 64 boxes
+                const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ z,
+                const __nv_bfloat16* __restrict__ b, float* __restrict__ pdz,
+                float* __restrict__ pdb, int* __restrict__ counters,
+                __nv_bfloat16* __restrict__ dz, __nv_bfloat16* __restrict__ db, int M, int N, int r,
+                int mb, int nb, float s, bool tma, bool coop, bool vec_dy, bool vec_z, bool vec_b) {
+  using K = Rank<R>;
+  using L = DzdbSmem<R, DZ, DB>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  volatile int* flags = reinterpret_cast<volatile int*>(smem_raw + (base - raw) + L::FLAGS);
+  const uint32_t full = base + L::BAR, empty = full + 8 * NST, zfull = empty + 8 * NST,
+                 zempty = zfull + 8 * K::ZST, bfull = zempty + 8 * K::ZST;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gj = blockIdx.x, gi = blockIdx.y;
+  const int rc = (M + CH - 1) / CH, cc = (N + CH - 1) / CH;
+  const int rb0 = static_cast<int>(static_cast<long long>(rc) * gi / mb);
+  const int rb1 = static_cast<int>(static_cast<long long>(rc) * (gi + 1) / mb);
+  const int cb0 = static_cast<int>(static_cast<long long>(cc) * gj / nb);
+  const int cb1 = static_cast<int>(static_cast<long long>(cc) * (gj + 1) / nb);
+  const int nrows = rb1 - rb0, ncols = cb1 - cb0;
+  const size_t n_pad = static_cast<size_t>(cc) * CH;
+
+  if (tid == 0) {
+    const uint32_t arrivals = tma ? 1 : 32;     // the TMA thread, or every producer lane
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(full + 8 * i, arrivals);
+      mbar_init(empty + 8 * i, CONSUMERS);
+    }
+    for (int i = 0; i < K::ZST; ++i) {
+      mbar_init(zfull + 8 * i, arrivals);
+      mbar_init(zempty + 8 * i, CONSUMERS);
+    }
+    mbar_init(bfull, arrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // ---- producer warp: B chunks once, then per row chunk its z chunk and
+    // its dy tiles, in the order the consumers take them ----
+    if (tma) {
+      if (lane == 0) {
+        // dy is read once: first out of L2, so the partials stay there for the fold.
+        uint64_t dy_policy;
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(dy_policy));
+        if constexpr (DZ) {
+          mbar_expect_tx(bfull, ncols * K::B_SLOT);
+          for (int jj = 0; jj < ncols; ++jj) {
+            tma_load_2d(base + L::B + jj * K::B_SLOT, &tm_b, (cb0 + jj) * CH, 0, bfull);
+          }
+        }
+        for (int li = 0; li < nrows; ++li) {
+          const int row0 = (rb0 + li) * CH;
+          if constexpr (DB) {
+            const int zs = li % K::ZST;
+            if (li >= K::ZST) mbar_wait(zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
+            mbar_expect_tx(zfull + 8 * zs, K::Z_SLOT);
+#pragma unroll
+            for (int h = 0; h < (R >= 64 ? R / 64 : 1); ++h) {
+              tma_load_2d(base + L::Z + zs * K::Z_SLOT + h * CH * 128, &tm_z, h * 64, row0,
+                          zfull + 8 * zs);
+            }
+          }
+          for (int jj = 0; jj < ncols; ++jj) {
+            const int t = li * ncols + jj, st = t % NST;
+            if (t >= NST) mbar_wait(empty + 8 * st, ((t / NST) - 1) & 1);
+            mbar_expect_tx(full + 8 * st, TILE_BYTES);
+            tma_load_2d_hint(base + L::DY + st * TILE_BYTES, &tm_dy, (cb0 + jj) * CH, row0, full + 8 * st,
+                             dy_policy);
+          }
+        }
+      }
+    } else {
+      if constexpr (DZ) {
+        for (int p = lane; p < ncols * R * 8; p += 32) {
+          const int jj = p / (R * 8), k = (p % (R * 8)) >> 3, c = (p & 7) * 8;
+          st_shared16(base + L::B + jj * K::B_SLOT + sw128(k, c),
+                      load8(b, r, N, N, k, (cb0 + jj) * CH + c, vec_b));
+        }
+        mbar_arrive(bfull);
+      }
+      for (int li = 0; li < nrows; ++li) {
+        const int row0 = (rb0 + li) * CH;
+        if constexpr (DB) {
+          const int zs = li % K::ZST;
+          if (li >= K::ZST) mbar_wait(zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
+          for (int p = lane; p < CH * R / 8; p += 32) {
+            const int row = p / (R / 8), c = (p % (R / 8)) * 8;
+            st_shared16(base + L::Z + zs * K::Z_SLOT + zoff<R>(row, c),
+                        load8(z, M, r, r, row0 + row, c, vec_z));
+          }
+          mbar_arrive(zfull + 8 * zs);
+        }
+        for (int jj = 0; jj < ncols; ++jj) {
+          const int t = li * ncols + jj, st = t % NST;
+          if (t >= NST) mbar_wait(empty + 8 * st, ((t / NST) - 1) & 1);
+          uint4 v[16];
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            const int p = lane + 32 * u;
+            v[u] = load8(dy, M, N, N, row0 + (p >> 3), (cb0 + jj) * CH + (p & 7) * 8, vec_dy);
+          }
+#pragma unroll
+          for (int u = 0; u < 16; ++u) {
+            const int p = lane + 32 * u;
+            st_shared16(base + L::DY + st * TILE_BYTES + sw128(p >> 3, (p & 7) * 8), v[u]);
+          }
+          mbar_arrive(full + 8 * st);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warps: each tile twice, dz rows and dB^T columns ----
+    const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3, mr = lane & 7;
+    float acc_db[DB ? K::CPB : 1][R / 8][4];
+#pragma unroll
+    for (int jj = 0; jj < (DB ? K::CPB : 1); ++jj)
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n)
+        acc_db[jj][n][0] = acc_db[jj][n][1] = acc_db[jj][n][2] = acc_db[jj][n][3] = 0.0f;
+    if constexpr (DZ) mbar_wait(bfull, 0);
+    for (int li = 0; li < nrows; ++li) {
+      const int zs = li % K::ZST;
+      const uint32_t zchunk = base + L::Z + zs * K::Z_SLOT;
+      if constexpr (DB) mbar_wait(zfull + 8 * zs, (li / K::ZST) & 1);
+      float acc_dz[R / 8][4];
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) acc_dz[n][0] = acc_dz[n][1] = acc_dz[n][2] = acc_dz[n][3] = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < K::CPB; ++jj) {
+        if (jj < ncols) {
+          const int t = li * ncols + jj, st = t % NST;
+          mbar_wait(full + 8 * st, (t / NST) & 1);
+          const uint32_t tile = base + L::DY + st * TILE_BYTES;
+          if constexpr (DZ) {
+            // dz rows warp*16.. += dy (16 x 64) B_chunk^T (64 x R)
+            const uint32_t bchunk = base + L::B + jj * K::B_SLOT;
+#pragma unroll
+            for (int ks = 0; ks < CH / 16; ++ks) {
+              uint32_t a[4];
+              ldsm_x4(a, tile + sw128(warp * 16 + (mat & 1) * 8 + mr, ks * 16 + (mat >> 1) * 8));
+#pragma unroll
+              for (int np = 0; np < R / 16; ++np) {
+                uint32_t bb[4];
+                ldsm_x4(bb, bchunk + sw128(np * 16 + (mat >> 1) * 8 + mr, ks * 16 + (mat & 1) * 8));
+                mma_bf16(acc_dz[2 * np], a, bb[0], bb[1]);
+                mma_bf16(acc_dz[2 * np + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+          if constexpr (DB) {
+            // dB^T columns warp*16.. += dy^T (16 x 64) z_chunk (64 x R)
+#pragma unroll
+            for (int ks = 0; ks < CH / 16; ++ks) {
+              uint32_t a[4];
+              ldsm_x4_t(a, tile + sw128(ks * 16 + (mat >> 1) * 8 + mr, warp * 16 + (mat & 1) * 8));
+#pragma unroll
+              for (int np = 0; np < R / 16; ++np) {
+                uint32_t zb[4];
+                ldsm_x4_t(zb, zchunk + zoff<R>(ks * 16 + (mat & 1) * 8 + mr, np * 16 + (mat >> 1) * 8));
+                mma_bf16(acc_db[jj][2 * np], a, zb[0], zb[1]);
+                mma_bf16(acc_db[jj][2 * np + 1], a, zb[2], zb[3]);
+              }
+            }
+          }
+          mbar_arrive(empty + 8 * st);
+        }
+      }
+      if constexpr (DB) mbar_arrive(zempty + 8 * zs);
+      if constexpr (DZ) {
+        // Accumulator element i: row g (i < 2) or g + 8, rank 8n + 2 t4 + (i & 1).
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int row = (rb0 + li) * CH + warp * 16 + g + 8 * e2;
+          if (row < M) {
+            float* dst = pdz + (static_cast<size_t>(gj) * M + row) * R + 2 * t4;
+#pragma unroll
+            for (int n = 0; n < R / 8; ++n) {
+              *reinterpret_cast<float2*>(dst + n * 8) = make_float2(acc_dz[n][2 * e2], acc_dz[n][2 * e2 + 1]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (DB) {
+      // Element i: column g (i < 2) or g + 8 of the warp's 16, rank 8n + 2 t4 + (i & 1).
+#pragma unroll
+      for (int jj = 0; jj < K::CPB; ++jj) {
+        if (jj < ncols) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int col = (cb0 + jj) * CH + warp * 16 + g + 8 * e2;
+#pragma unroll
+            for (int n = 0; n < R / 8; ++n) {
+              const int k = n * 8 + 2 * t4;
+              float* dst = pdb + (static_cast<size_t>(gi) * R + k) * n_pad + col;
+              if (k < r) dst[0] = acc_db[jj][n][2 * e2];
+              if (k + 1 < r) dst[n_pad] = acc_db[jj][n][2 * e2 + 1];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // ---- the fold: every f32 sum of dz and dB over its partials, in
+  // partial order. Cooperative launch: after a grid-wide barrier, spread
+  // over every thread of every block. Otherwise (a grid larger than one
+  // wave) the last block of a row group folds its dz rows and the last
+  // block of a column group its dB columns. ----
+  if (coop) {
+    grid_sync(counters, mb * nb);
+#ifndef EPI_DZDB_PROBE_NO_FOLD
+    const long long step = static_cast<long long>(mb) * nb * DZDB_THREADS;
+    const long long first = (static_cast<long long>(gi) * nb + gj) * DZDB_THREADS + tid;
+    if constexpr (DZ) fold_dz(pdz, dz, 0, M, first, step, M, r, R, nb, s);
+    if constexpr (DB) fold_db(pdb, db, 0, static_cast<int>(n_pad), first, step, N, n_pad, r, R, mb, s);
+#endif
+    return;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int last_row = 0, last_col = 0;
+    if constexpr (DZ) {
+      last_row = atomicAdd(&counters[2 + gi], 1) == nb - 1;
+      if (last_row) atomicExch(&counters[2 + gi], 0);
+    }
+    if constexpr (DB) {
+      last_col = atomicAdd(&counters[2 + mb + gj], 1) == mb - 1;
+      if (last_col) atomicExch(&counters[2 + mb + gj], 0);
+    }
+    flags[0] = last_row;
+    flags[1] = last_col;
+  }
+  __syncthreads();
+  const bool last_row = flags[0] != 0, last_col = flags[1] != 0;
+  if (!(last_row || last_col)) return;
+  __threadfence();
+#ifndef EPI_DZDB_PROBE_NO_FOLD
+  if (DZ && last_row) fold_dz(pdz, dz, rb0 * CH, min(rb1 * CH, M), tid, DZDB_THREADS, M, r, R, nb, s);
+  if (DB && last_col) fold_db(pdb, db, cb0 * CH, cb1 * CH, tid, DZDB_THREADS, N, n_pad, r, R, mb, s);
+#endif
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int R>
-struct DzLaunch {
-  static int run(const void* dy, const void* b, void* part, void* dz, int M, int N, int r,
-                 int split, float s, cudaStream_t stream) {
-    const dim3 grid((M + CH - 1) / CH, split);
-    epi_dz_kernel<R><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(b),
-        static_cast<float*>(part), M, N, r, split, N % 8 == 0 && aligned16(dy),
-        N % 8 == 0 && aligned16(b));
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    return finalize(static_cast<const float*>(part), split, M, R, r, s, false, dz, stream);
-  }
-};
+// Tensor-map encoding failures come back as this plus the CUresult.
+constexpr int ENCODE_ERROR = 100000;
 
-template <int R>
-struct DbLaunch {
-  static int run(const void* z, const void* dy, void* part, void* db, int M, int N, int r,
-                 int split, float s, cudaStream_t stream) {
-    const dim3 grid((N + CH - 1) / CH, split);
-    epi_db_kernel<R><<<grid, NTHREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<float*>(part), M, N, r, split, r % 8 == 0 && aligned16(z),
-        N % 8 == 0 && aligned16(dy));
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    return finalize(static_cast<const float*>(part), split, N, R, r, s, true, db, stream);
-  }
-};
+// Tensor map of a row-major (rows, cols) bf16 matrix: boxes of box_cols x
+// box_rows, zero-filled past the edges.
+CUresult encode_2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_cols, int box_rows,
+                   CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
 
-template <template <int> class Launch, typename... Args>
-int dispatch_rank(int R, Args... args) {
+template <int R, bool DZ, bool DB>
+int dzdb_run(const void* dy, const void* z, const void* b, void* part, void* counters, void* dz,
+             void* db, int M, int N, int r, int mb, int nb, float s, cudaStream_t stream) {
+  using K = Rank<R>;
+  using L = DzdbSmem<R, DZ, DB>;
+  static int resident[64] = {};      // blocks of this kernel the device holds at once
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  // cuTensorMapEncodeTiled needs the device's context current on this
+  // thread (PyTorch's autograd threads may not have made it so yet);
+  // cudaFree(0) binds it.
+  CUcontext ctx = nullptr;
+  if (cuCtxGetCurrent(&ctx) != CUDA_SUCCESS || ctx == nullptr) {
+    err = cudaFree(nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (resident[device] == 0) {
+    err = cudaFuncSetAttribute(epi_dzdb_kernel<R, DZ, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L::BYTES));
+    int per_sm = 0, sms = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epi_dzdb_kernel<R, DZ, DB>,
+                                                          DZDB_THREADS, L::BYTES);
+    }
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm * sms <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[device] = per_sm * sms;
+  }
+  const int rc = (M + CH - 1) / CH, cc = (N + CH - 1) / CH;
+  if (mb < 1 || nb < 1 || mb > rc || nb > cc || mb > 65535 || (cc + nb - 1) / nb > K::CPB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool tma = N % 8 == 0 && r == R && aligned16(dy) && (!DB || aligned16(z)) &&
+                   (!DZ || aligned16(b));
+  CUtensorMap tdy, tz, tb;
+  memset(&tdy, 0, sizeof(tdy));
+  memset(&tz, 0, sizeof(tz));
+  memset(&tb, 0, sizeof(tb));
+  if (tma) {
+    CUresult e = encode_2d(&tdy, dy, N, M, CH, CH, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == CUDA_SUCCESS && DB) {
+      e = encode_2d(&tz, z, r, M, R >= 64 ? 64 : R, CH,
+                    R == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                    : R == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (e == CUDA_SUCCESS && DZ) e = encode_2d(&tb, b, N, r, CH, R, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(e);
+  }
+  float* pdz = DZ ? static_cast<float*>(part) : nullptr;
+  float* pdb = DB ? static_cast<float*>(part) + (DZ ? static_cast<size_t>(nb) * M * R : 0) : nullptr;
+  const bool coop = mb * nb <= resident[device];
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb, mb);
+  cfg.blockDim = dim3(DZDB_THREADS);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = coop ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, epi_dzdb_kernel<R, DZ, DB>, tdy, tz, tb,
+                           static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(z),
+                           static_cast<const __nv_bfloat16*>(b), pdz, pdb, static_cast<int*>(counters),
+                           static_cast<__nv_bfloat16*>(dz), static_cast<__nv_bfloat16*>(db), M, N, r,
+                           mb, nb, s, tma, coop, N % 8 == 0 && aligned16(dy),
+                           r % 8 == 0 && aligned16(z), N % 8 == 0 && aligned16(b));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DZ, bool DB>
+int dzdb_dispatch(const void* dy, const void* z, const void* b, void* part, void* counters, void* dz,
+                  void* db, int M, int N, int r, int R, int mb, int nb, float s, void* stream) {
+  if (M <= 0 || N <= 0 || r <= 0 || r > R) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 16: return Launch<16>::run(args...);
-    case 32: return Launch<32>::run(args...);
-    case 64: return Launch<64>::run(args...);
-    case 128: return Launch<128>::run(args...);
+    case 16: return dzdb_run<16, DZ, DB>(dy, z, b, part, counters, dz, db, M, N, r, mb, nb, s, st);
+    case 32: return dzdb_run<32, DZ, DB>(dy, z, b, part, counters, dz, db, M, N, r, mb, nb, s, st);
+    case 64: return dzdb_run<64, DZ, DB>(dy, z, b, part, counters, dz, db, M, N, r, mb, nb, s, st);
+    case 128: return dzdb_run<128, DZ, DB>(dy, z, b, part, counters, dz, db, M, N, r, mb, nb, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -420,9 +797,13 @@ int dispatch_rank(int R, Args... args) {
 }  // namespace
 
 // Plain-C launchers (bound with ctypes): the caller's current device and
-// stream, contiguous row-major bf16 tensors, 0 < r <= R, R in {16, 32, 64,
-// 128} the padded rank, part an f32 (split, M or N, R) scratch buffer. Each
-// returns cudaGetLastError() after its last launch.
+// stream, contiguous row-major bf16 tensors. The backward's: 0 < r <= R, R
+// in {16, 32, 64, 128} the padded rank, (mb, nb) the grid
+// (ops/lora_epilogue.py:_grid), part an f32 scratch of R (M nb + N_pad mb)
+// floats for the outputs computed (dz's first), counters 2 + mb + nb int32
+// that are zero and that every launch leaves zero (but the second word, a
+// generation, which may hold anything). Each returns cudaGetLastError()
+// after its launch.
 extern "C" int epi_fwd_launch(const void* y, const void* z, const void* b, void* out, int M, int N,
                               int r, float s, void* stream) {
   if (M <= 0 || N <= 0 || r <= 0 || r > 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -434,16 +815,20 @@ extern "C" int epi_fwd_launch(const void* y, const void* z, const void* b, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int epi_dz_launch(const void* dy, const void* b, void* part, void* dz, int M, int N,
-                             int r, int R, int split, float s, void* stream) {
-  if (M <= 0 || N <= 0 || r <= 0 || r > R || split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_rank<DzLaunch>(R, dy, b, part, dz, M, N, r, split, s,
-                                 static_cast<cudaStream_t>(stream));
+extern "C" int epi_dzdb_launch(const void* dy, const void* z, const void* b, void* part,
+                               void* counters, void* dz, void* db, int M, int N, int r, int R,
+                               int mb, int nb, float s, void* stream) {
+  return dzdb_dispatch<true, true>(dy, z, b, part, counters, dz, db, M, N, r, R, mb, nb, s, stream);
 }
 
-extern "C" int epi_db_launch(const void* z, const void* dy, void* part, void* db, int M, int N,
-                             int r, int R, int split, float s, void* stream) {
-  if (M <= 0 || N <= 0 || r <= 0 || r > R || split <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_rank<DbLaunch>(R, z, dy, part, db, M, N, r, split, s,
-                                 static_cast<cudaStream_t>(stream));
+extern "C" int epi_dz_launch(const void* dy, const void* b, void* part, void* counters, void* dz,
+                             int M, int N, int r, int R, int mb, int nb, float s, void* stream) {
+  return dzdb_dispatch<true, false>(dy, nullptr, b, part, counters, dz, nullptr, M, N, r, R, mb, nb,
+                                    s, stream);
+}
+
+extern "C" int epi_db_launch(const void* z, const void* dy, void* part, void* counters, void* db,
+                             int M, int N, int r, int R, int mb, int nb, float s, void* stream) {
+  return dzdb_dispatch<false, true>(dy, z, nullptr, part, counters, nullptr, db, M, N, r, R, mb, nb,
+                                    s, stream);
 }

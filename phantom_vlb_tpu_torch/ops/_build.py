@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 # Sources that call the CUDA driver API (``cuStreamWriteValue32``,
 # ``cuTensorMapEncodeTiled``) link it.
-LINK_FLAGS = {"ring_fwd.cu": ("-lcuda",), "flash_bwd.cu": ("-lcuda",)}
+LINK_FLAGS = {name: ("-lcuda",) for name in ("ring_fwd.cu", "flash_bwd.cu", "lora_epilogue.cu")}
 # nvcc's report per build target (``-Xptxas -v``: registers, shared memory
 # and spills per kernel); empty when the library was already built.
 BUILD_LOGS: dict = {}

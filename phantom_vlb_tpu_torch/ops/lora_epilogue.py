@@ -13,7 +13,10 @@ rounded to y's dtype first, as the reference multiplies a bf16 product by
 a weakly typed float; the backward's multiplies f32 sums.
 
 On CUDA tensors the kernels of ``csrc/lora_epilogue.cu`` run (bf16,
-contiguous, r <= 128; anything else raises). ``backward="xla"`` (the
+contiguous, r <= 128; anything else raises): the forward, and one backward
+kernel that reads dy once for dz and dB (``lora_epilogue_dzdb``) or is
+built with one of the two left out (``lora_epilogue_dz``,
+``lora_epilogue_db``). ``backward="xla"`` (the
 LoRA flag value ``'fwd'``) keeps the kernel forward and computes dz and dB
 with ``torch.addmm`` (the scaling applied to the f32 sums before the one
 rounding), as the JAX package leaves them to XLA. On CPU tensors every
@@ -25,7 +28,7 @@ forward needs y's storage back, and at 80 GB the alias the TPU needs
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
 
 import torch
 
@@ -33,27 +36,29 @@ from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
     "lora_epilogue", "lora_epilogue_plain", "lora_epilogue_dz_plain", "lora_epilogue_db_plain",
-    "lora_epilogue_fwd", "lora_epilogue_dz", "lora_epilogue_db", "EPI_FWD", "EPI_DZ", "EPI_DB",
-    "MAX_RANK",
+    "lora_epilogue_dzdb_plain", "lora_epilogue_fwd", "lora_epilogue_dz", "lora_epilogue_db",
+    "lora_epilogue_dzdb", "EPI_FWD", "EPI_DZ", "EPI_DB", "EPI_DZDB", "MAX_RANK",
 ]
 
 MAX_RANK = 128
-CHUNK = 64            # the backward kernels' chunk edge
-TARGET_BLOCKS = 528   # 4 blocks per SM of an H100 when splitting a contraction
+CHUNK = 64            # the backward kernel's tile edge
+# Column chunks a block of the backward kernel may own, by padded rank: its
+# dB^T sums stay in registers (CHUNKS_PER_BLOCK * R / 2 a thread).
+CHUNKS_PER_BLOCK = {16: 16, 32: 8, 64: 2, 128: 1}
+# The grid's cost model (an estimate of the kernel's time, used only to
+# rank grids): an H100's HBM rate, the blocks that saturate it, and a dy
+# tile's bytes.
+HBM_BYTES_PER_S, SATURATING_BLOCKS, TILE_BYTES = 3.35e12, 100, 8192
 
 _SRC = "lora_epilogue.cu"
-EPI_FWD = CudaKernel(
-    _SRC, "epi_fwd_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
-)
-EPI_DZ = CudaKernel(
-    _SRC, "epi_dz_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-)
-EPI_DB = CudaKernel(
-    _SRC, "epi_db_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+EPI_FWD = CudaKernel(_SRC, "epi_fwd_launch", [_PTR] * 4 + [_INT] * 3 + [ctypes.c_float, _PTR])
+# dy, B, partials, counters, dz | M, N, r, R, mb, nb | s, stream
+EPI_DZ = CudaKernel(_SRC, "epi_dz_launch", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR])
+# z, dy, partials, counters, dB | M, N, r, R, mb, nb | s, stream
+EPI_DB = CudaKernel(_SRC, "epi_db_launch", [_PTR] * 5 + [_INT] * 6 + [ctypes.c_float, _PTR])
+# dy, z, B, partials, counters, dz, dB | M, N, r, R, mb, nb | s, stream
+EPI_DZDB = CudaKernel(_SRC, "epi_dzdb_launch", [_PTR] * 7 + [_INT] * 6 + [ctypes.c_float, _PTR])
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -74,6 +79,11 @@ def lora_epilogue_dz_plain(dy, b, scaling: float) -> torch.Tensor:
 def lora_epilogue_db_plain(z, dy, scaling: float) -> torch.Tensor:
     """Plain dB (r, N) in dy's dtype."""
     return (scaling * (z.float().t() @ dy.float())).to(dy.dtype)
+
+
+def lora_epilogue_dzdb_plain(z, dy, b, scaling: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain (dz, dB): the two plain versions above."""
+    return lora_epilogue_dz_plain(dy, b, scaling), lora_epilogue_db_plain(z, dy, scaling)
 
 
 def _check_cuda(**tensors) -> None:
@@ -97,8 +107,62 @@ def _padded_rank(r: int) -> int:
     return next(p for p in (16, 32, 64, 128) if r <= p)
 
 
-def _split(blocks: int, chunks: int) -> int:
-    return min(chunks, max(1, math.ceil(TARGET_BLOCKS / blocks)))
+@functools.lru_cache(maxsize=None)
+def _grid(m: int, n: int, rp: int, dz: bool, db: bool, sms: int) -> tuple[int, int]:
+    """(mb, nb): the backward kernel's row groups x column groups of 64-row x
+    64-column dy tiles. A block owns one group pair and at most
+    ``CHUNKS_PER_BLOCK[rp]`` column chunks; the grid stays within one wave
+    of ``sms`` blocks (unless N alone needs more). Among those, the grid of
+    least estimated time: the slowest block's tiles (and z chunks) at the
+    HBM rate shared by the blocks, and the f32 partials (4 rp (M nb + N mb)
+    bytes for the outputs the grid computes), written once and read back
+    once."""
+    rc, cc = -(-m // CHUNK), -(-n // CHUNK)
+    nb_min = -(-cc // CHUNKS_PER_BLOCK[rp])
+    best = None
+    for nb in range(nb_min, cc + 1):
+        if nb > sms and nb > nb_min:
+            break
+        for mb in range(1, max(1, min(rc, sms // nb)) + 1):
+            rows, cols = -(-rc // mb), -(-cc // nb)
+            # a block's dy tiles, and a z chunk (rp / 64 of a tile) per row chunk for dB
+            tiles = rows * cols + db * rows * rp / 64
+            stream = tiles * TILE_BYTES * max(mb * nb, SATURATING_BLOCKS) / HBM_BYTES_PER_S
+            part = 4 * rp * (dz * m * nb + db * cc * CHUNK * mb)
+            cost = stream + 2 * part / HBM_BYTES_PER_S
+            if best is None or cost < best[0]:
+                best = (cost, mb, nb)
+    return best[1], best[2]
+
+
+def partial_bytes(m: int, n: int, r: int, dz: bool = True, db: bool = True, sms: int = 132) -> int:
+    """Bytes of f32 partial sums the backward kernel writes (and its fold
+    reads back) at (M, N, r) on a card of ``sms`` SMs."""
+    rp = _padded_rank(r)
+    mb, nb = _grid(m, n, rp, dz, db, sms)
+    return 4 * rp * (dz * m * nb + db * -(-n // CHUNK) * CHUNK * mb)
+
+
+_SMS: dict = {}
+# The backward kernel's grid barrier (arrivals, generation) and arrival
+# counters of its row and column groups, one int32 buffer per (device,
+# stream): zeroed once, and every launch leaves the counts at zero again
+# (the barrier's last arrival and each group's last block reset their own).
+_COUNTERS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _counters(dev, stream: int, count: int) -> torch.Tensor:
+    buf = _COUNTERS.get((dev.index, stream))
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev.index, stream)] = buf
+    return buf
 
 
 def _stream(t):
@@ -120,40 +184,58 @@ def lora_epilogue_fwd(y, z, b, scaling: float) -> torch.Tensor:
     return out
 
 
+def _dzdb_launch(kernel: CudaKernel, z, dy, b, scaling: float, want_dz: bool, want_db: bool):
+    """One launch of the backward kernel (or a build of it: a cost probe)
+    for dz, dB or both; returns (dz or None, dB or None)."""
+    m, n = dy.shape
+    r = (b if want_dz else z).shape[0 if want_dz else 1]
+    tensors = {"dy": dy, **({"b": b} if want_dz else {}), **({"z": z} if want_db else {})}
+    _check_cuda(**tensors)
+    _check_shapes(m, n, r, z.shape if want_db else (m, r), b.shape if want_dz else (r, n))
+    rp = _padded_rank(r)
+    mb, nb = _grid(m, n, rp, want_dz, want_db, _sm_count(dy.device))
+    cols = -(-n // CHUNK) * CHUNK
+    part = torch.empty(rp * (want_dz * m * nb + want_db * cols * mb), dtype=torch.float32,
+                       device=dy.device)
+    dz = torch.empty((m, r), dtype=dy.dtype, device=dy.device) if want_dz else None
+    db = torch.empty((r, n), dtype=dy.dtype, device=dy.device) if want_db else None
+    stream = _stream(dy)
+    counters = _counters(dy.device, stream, 2 + mb + nb)
+    sizes = (m, n, r, rp, mb, nb, float(scaling), stream)
+    with torch.cuda.device(dy.device):
+        if want_dz and want_db:
+            kernel.launch(dy.data_ptr(), z.data_ptr(), b.data_ptr(), part.data_ptr(),
+                          counters.data_ptr(), dz.data_ptr(), db.data_ptr(), *sizes)
+        elif want_dz:
+            kernel.launch(dy.data_ptr(), b.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                          dz.data_ptr(), *sizes)
+        else:
+            kernel.launch(z.data_ptr(), dy.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                          db.data_ptr(), *sizes)
+    return dz, db
+
+
 def lora_epilogue_dz(dy, b, scaling: float) -> torch.Tensor:
     """``s * dy @ b^T`` (M, r) on 2-D tensors: the kernel on CUDA, plain on the CPU."""
     if dy.device.type == "cpu":
         return lora_epilogue_dz_plain(dy, b, scaling)
-    m, n = dy.shape
-    r = b.shape[0]
-    _check_cuda(dy=dy, b=b)
-    _check_shapes(m, n, r, (m, r), b.shape)
-    rp = _padded_rank(r)
-    split = _split(math.ceil(m / CHUNK), math.ceil(n / CHUNK))
-    part = torch.empty((split, m, rp), dtype=torch.float32, device=dy.device)
-    dz = torch.empty((m, r), dtype=dy.dtype, device=dy.device)
-    with torch.cuda.device(dy.device):
-        EPI_DZ.launch(dy.data_ptr(), b.data_ptr(), part.data_ptr(), dz.data_ptr(), m, n, r, rp, split,
-                      float(scaling), _stream(dy))
-    return dz
+    return _dzdb_launch(EPI_DZ, None, dy, b, scaling, True, False)[0]
 
 
 def lora_epilogue_db(z, dy, scaling: float) -> torch.Tensor:
     """``s * z^T @ dy`` (r, N) on 2-D tensors: the kernel on CUDA, plain on the CPU."""
     if dy.device.type == "cpu":
         return lora_epilogue_db_plain(z, dy, scaling)
-    m, n = dy.shape
-    r = z.shape[1]
-    _check_cuda(z=z, dy=dy)
-    _check_shapes(m, n, r, z.shape, (r, n))
-    rp = _padded_rank(r)
-    split = _split(math.ceil(n / CHUNK), math.ceil(m / CHUNK))
-    part = torch.empty((split, n, rp), dtype=torch.float32, device=dy.device)
-    db = torch.empty((r, n), dtype=dy.dtype, device=dy.device)
-    with torch.cuda.device(dy.device):
-        EPI_DB.launch(z.data_ptr(), dy.data_ptr(), part.data_ptr(), db.data_ptr(), m, n, r, rp, split,
-                      float(scaling), _stream(dy))
-    return db
+    return _dzdb_launch(EPI_DB, z, dy, None, scaling, False, True)[1]
+
+
+def lora_epilogue_dzdb(z, dy, b, scaling: float, *, kernel: CudaKernel = EPI_DZDB):
+    """``(s * dy @ b^T, s * z^T @ dy)`` on 2-D tensors from one pass over dy:
+    the kernel on CUDA (``kernel``: another build of its launcher, such as a
+    cost probe), plain on the CPU."""
+    if dy.device.type == "cpu":
+        return lora_epilogue_dzdb_plain(z, dy, b, scaling)
+    return _dzdb_launch(kernel, z, dy, b, scaling, True, True)
 
 
 def _addmm_scaled(a, b, scaling: float) -> torch.Tensor:
@@ -181,11 +263,12 @@ class _LoRAEpilogue(torch.autograd.Function):
                 dz = _addmm_scaled(dy, b.t(), ctx.scaling)
             if ctx.needs_input_grad[2]:
                 db = _addmm_scaled(z.t(), dy, ctx.scaling)
-        else:
-            if ctx.needs_input_grad[1]:
-                dz = lora_epilogue_dz(dy, b, ctx.scaling)
-            if ctx.needs_input_grad[2]:
-                db = lora_epilogue_db(z, dy, ctx.scaling)
+        elif ctx.needs_input_grad[1] and ctx.needs_input_grad[2]:
+            dz, db = lora_epilogue_dzdb(z, dy, b, ctx.scaling)
+        elif ctx.needs_input_grad[1]:
+            dz = lora_epilogue_dz(dy, b, ctx.scaling)
+        elif ctx.needs_input_grad[2]:
+            db = lora_epilogue_db(z, dy, ctx.scaling)
         return (dy if ctx.needs_input_grad[0] else None), dz, db, None, None
 
 
@@ -194,8 +277,9 @@ def lora_epilogue(y: torch.Tensor, z: torch.Tensor, b: torch.Tensor, scaling: fl
     """``y + scaling * (z @ b)``, differentiable in y, z and b.
 
     y (..., N), z (..., r), b (r, N). ``backward``: ``"pallas"`` runs the
-    dz and dB kernels, ``"xla"`` the library products (the forward is the
-    kernel either way).
+    backward kernel (one pass over dy for both grads, or the entry point of
+    the one grad needed), ``"xla"`` the library products (the forward is
+    the kernel either way).
     """
     if backward not in ("pallas", "xla"):
         raise ValueError(f"backward must be 'pallas' or 'xla', not {backward!r}")

@@ -30,12 +30,14 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     EPI_DB,
     EPI_DZ,
+    EPI_DZDB,
     EPI_FWD,
     lora_epilogue,
     lora_epilogue_db,
     lora_epilogue_db_plain,
     lora_epilogue_dz,
     lora_epilogue_dz_plain,
+    lora_epilogue_dzdb,
     lora_epilogue_fwd,
     lora_epilogue_plain,
 )
@@ -351,31 +353,58 @@ def _epi_inputs(dev, m, n, r, seed=0):
     return y, z, b, dy
 
 
-@pytest.mark.parametrize("m,n,r", [(256, 1024, 16), (6144, 4096, 16), (100, 300, 4), (70, 1000, 37),
-                                   (64, 256, 128), (33, 9, 16)])
+# Model widths, M and N tails, odd N (the plain-load path: N % 8 != 0 or
+# r not a padded rank), ranks 1 to 128, the two extreme grids (one row
+# chunk; one column chunk), and a grid of more blocks than the card holds
+# at once (r 128 at N 9000: 141 column groups; the last-block fold).
+EPI_SHAPES = [(256, 1024, 16), (6144, 4096, 16), (100, 300, 4), (70, 1000, 37), (64, 256, 128),
+              (33, 9, 16), (64, 14336, 16), (6144, 64, 16), (256, 1024, 1), (512, 2048, 128),
+              (128, 9000, 128)]
+
+
+@pytest.mark.parametrize("m,n,r", EPI_SHAPES)
 def test_epilogue_kernels_match_plain(cuda, m, n, r):
-    """Forward, dz and dB at model widths, with M and N tails, odd N and
-    ranks padded to 16, 64 and 128."""
+    """Forward, the fused dz + dB, and dz and dB alone against plain."""
     y, z, b, dy = _epi_inputs(cuda, m, n, r)
-    got = (lora_epilogue_fwd(y, z, b, 2.0), lora_epilogue_dz(dy, b, 2.0), lora_epilogue_db(z, dy, 2.0))
+    dz_f, db_f = lora_epilogue_dzdb(z, dy, b, 2.0)
+    got = (lora_epilogue_fwd(y, z, b, 2.0), lora_epilogue_dz(dy, b, 2.0), lora_epilogue_db(z, dy, 2.0),
+           dz_f, db_f)
     torch.cuda.synchronize()
-    want = (lora_epilogue_plain(y, z, b, 2.0), lora_epilogue_dz_plain(dy, b, 2.0),
-            lora_epilogue_db_plain(z, dy, 2.0))
+    dz_p, db_p = lora_epilogue_dz_plain(dy, b, 2.0), lora_epilogue_db_plain(z, dy, 2.0)
+    want = (lora_epilogue_plain(y, z, b, 2.0), dz_p, db_p, dz_p, db_p)
     for gt, wt in zip(got, want):
         assert gt.shape == wt.shape and gt.dtype == torch.bfloat16 and torch.isfinite(gt).all()
         assert _rel(gt, wt) <= EPI_REL_TOL
 
 
+@pytest.mark.parametrize("m,n,r", [(6144, 4096, 16), (100, 300, 4), (6144, 64, 16), (512, 2048, 128),
+                                   (128, 9000, 128)])
+def test_epilogue_backward_repeats_bit_for_bit(cuda, m, n, r):
+    """Two calls of each backward entry point give the same bits (fixed
+    summation order; the group counters are back at zero after a launch),
+    and the fused call's outputs agree with the single entry points'."""
+    _, z, b, dy = _epi_inputs(cuda, m, n, r, seed=3)
+    first = (*lora_epilogue_dzdb(z, dy, b, 2.0), lora_epilogue_dz(dy, b, 2.0), lora_epilogue_db(z, dy, 2.0))
+    second = (*lora_epilogue_dzdb(z, dy, b, 2.0), lora_epilogue_dz(dy, b, 2.0), lora_epilogue_db(z, dy, 2.0))
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    # Same tiles and sums; the grids may differ, so the partials' order may too.
+    assert _rel(first[0], first[2]) <= EPI_REL_TOL and _rel(first[1], first[3]) <= EPI_REL_TOL
+
+
 @pytest.mark.parametrize("backward", ["pallas", "xla"])
 def test_epilogue_autograd_and_launch_counts(cuda, backward):
+    """backward='pallas' launches the fused backward once (dz and dB from one
+    pass over dy) and neither single entry point; 'xla' none of them."""
     y, z, b, dy = _epi_inputs(cuda, 512, 768, 16)
     y, z, b = (t.requires_grad_() for t in (y, z, b))
-    counts = [k.launches for k in (EPI_FWD, EPI_DZ, EPI_DB)]
+    kernels = (EPI_FWD, EPI_DZ, EPI_DB, EPI_DZDB)
+    counts = [k.launches for k in kernels]
     out = lora_epilogue(y.view(2, 256, 768), z.view(2, 256, 16), b, 2.0, backward=backward)
     out.backward(dy.view(2, 256, 768))
-    extra = 1 if backward == "pallas" else 0
-    assert [k.launches for k in (EPI_FWD, EPI_DZ, EPI_DB)] == [counts[0] + 1, counts[1] + extra,
-                                                              counts[2] + extra]
+    fused = 1 if backward == "pallas" else 0
+    assert [k.launches for k in kernels] == [counts[0] + 1, counts[1], counts[2], counts[3] + fused]
     assert torch.equal(y.grad, dy)
     assert _rel(z.grad, lora_epilogue_dz_plain(dy, b.detach(), 2.0)) <= EPI_REL_TOL
     assert _rel(b.grad, lora_epilogue_db_plain(z.detach(), dy, 2.0)) <= EPI_REL_TOL
@@ -387,6 +416,12 @@ def test_epilogue_raises_on_what_it_does_not_take(cuda):
         lora_epilogue_fwd(y.float(), z.float(), b.float(), 2.0)                 # f32
     with pytest.raises(ValueError):
         lora_epilogue_fwd(y[:, ::2], z, b[:, ::2], 2.0)                          # strided
+    with pytest.raises(ValueError):
+        lora_epilogue_dzdb(z.float(), dy.float(), b.float(), 2.0)                # f32
+    with pytest.raises(ValueError):
+        lora_epilogue_dzdb(z, dy[:, ::2], b[:, ::2], 2.0)                        # strided
+    with pytest.raises(ValueError):
+        lora_epilogue_dzdb(z[:32], dy, b, 2.0)                                   # z rows
     big_z = torch.zeros(64, 129, device=cuda, dtype=torch.bfloat16)
     big_b = torch.zeros(129, 256, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="rank"):
@@ -395,6 +430,8 @@ def test_epilogue_raises_on_what_it_does_not_take(cuda):
         lora_epilogue_dz(dy, big_b, 2.0)
     with pytest.raises(ValueError, match="rank"):
         lora_epilogue_db(big_z, dy, 2.0)
+    with pytest.raises(ValueError, match="rank"):
+        lora_epilogue_dzdb(big_z, dy, big_b, 2.0)
 
 
 @pytest.mark.parametrize("name", ["int8_matmul", "int8_matmul_w8a8", "int8_matmul_w8a8g8"])

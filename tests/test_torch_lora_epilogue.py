@@ -16,12 +16,15 @@ import torch
 from phantom_vlb_tpu.ops.lora_epilogue import lora_epilogue as j_epilogue
 from phantom_vlb_tpu_torch.models import mistral as tm
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
+from phantom_vlb_tpu_torch.ops import lora_epilogue as epi
 from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     lora_epilogue,
     lora_epilogue_db,
     lora_epilogue_db_plain,
     lora_epilogue_dz,
     lora_epilogue_dz_plain,
+    lora_epilogue_dzdb,
+    lora_epilogue_dzdb_plain,
     lora_epilogue_fwd,
     lora_epilogue_plain,
 )
@@ -58,6 +61,26 @@ def test_epilogue_matches_jax(backward, lead, n, r):
     assert _rel(bt.grad.numpy(), db_j) <= TOL
 
 
+@pytest.mark.parametrize("lead,n", [((64,), 256), ((2, 24), 384)], ids=["2d", "3d"])
+@pytest.mark.parametrize("r", [4, 16])
+def test_dzdb_plain_matches_the_jax_vjp(lead, n, r):
+    """The fused backward's plain version (dz and dB from one call) against
+    the reference's vjp in interpret mode, f32."""
+    rng = np.random.default_rng(3 * r + n)
+    y = rng.standard_normal((*lead, n)).astype(np.float32)
+    z = rng.standard_normal((*lead, r)).astype(np.float32)
+    b = (rng.standard_normal((r, n)) / np.sqrt(r)).astype(np.float32)
+    dout = rng.standard_normal((*lead, n)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: j_epilogue(*a, SCALING, interpret=True),
+                     jnp.asarray(y), jnp.asarray(z), jnp.asarray(b))
+    _, dz_j, db_j = vjp(jnp.asarray(dout))
+    dz, db = lora_epilogue_dzdb_plain(torch.from_numpy(z.reshape(-1, r)),
+                                      torch.from_numpy(dout.reshape(-1, n)), torch.from_numpy(b), SCALING)
+    assert dz.shape == (z.size // r, r) and db.shape == (r, n)
+    assert _rel(dz.numpy(), np.asarray(dz_j).reshape(-1, r)) <= TOL
+    assert _rel(db.numpy(), db_j) <= TOL
+
+
 def test_bf16_roundings_follow_the_reference():
     """bf16: acc rounded, times the bf16 scaling, rounded, plus y, rounded
     (``_fwd_kernel`` :45-48); dz and dB round the scaled f32 sums once."""
@@ -87,6 +110,63 @@ def test_cpu_wrappers_are_the_plain_versions():
     assert torch.equal(lora_epilogue_db(z, y, 2.0), lora_epilogue_db_plain(z, y, 2.0))
     with pytest.raises(ValueError, match="backward"):
         lora_epilogue(y, z, b, 2.0, backward="triton")
+
+
+def test_cpu_dzdb_wrapper_is_the_plain_version():
+    g = torch.Generator().manual_seed(1)
+    z, dy, b = torch.randn(40, 8, generator=g), torch.randn(40, 96, generator=g), torch.randn(8, 96, generator=g)
+    got, want = lora_epilogue_dzdb(z, dy, b, 1.5), lora_epilogue_dzdb_plain(z, dy, b, 1.5)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert torch.equal(want[0], lora_epilogue_dz_plain(dy, b, 1.5))
+    assert torch.equal(want[1], lora_epilogue_db_plain(z, dy, 1.5))
+
+
+@pytest.mark.parametrize("m,n,r", [(6144, 4096, 16), (6144, 14336, 16), (6144, 1024, 16), (64, 14336, 16),
+                                   (6144, 64, 16), (33, 9, 16), (100, 300, 4), (70, 1000, 37), (64, 256, 128),
+                                   (512, 2048, 128), (256, 1024, 1)])
+@pytest.mark.parametrize("which", ["dzdb", "dz", "db"])
+def test_backward_grid_fits_the_kernel(m, n, r, which):
+    """The grid the wrapper gives the backward kernel: every block owns at
+    least one tile and at most CHUNKS_PER_BLOCK column chunks, the grid is
+    one wave of 132 blocks where N allows, and the choice does not change
+    from call to call (the kernel's sums then repeat bit for bit)."""
+    dz, db = which != "db", which != "dz"
+    rp = epi._padded_rank(r)
+    mb, nb = epi._grid(m, n, rp, dz, db, 132)
+    rc, cc = -(-m // epi.CHUNK), -(-n // epi.CHUNK)
+    assert 1 <= mb <= rc and 1 <= nb <= cc
+    assert -(-cc // nb) <= epi.CHUNKS_PER_BLOCK[rp]
+    assert mb * nb <= max(132, -(-cc // epi.CHUNKS_PER_BLOCK[rp]))
+    epi._grid.cache_clear()
+    assert epi._grid(m, n, rp, dz, db, 132) == (mb, nb)
+    want = 4 * rp * (dz * m * nb + db * cc * epi.CHUNK * mb)
+    assert epi.partial_bytes(m, n, r, dz, db) == want
+
+
+def test_backward_grid_at_the_path_shapes():
+    """The fused grid at M = 6144, r = 16: at N = 4096 and 14336 the
+    partials stay well below dy's bytes (7.5 MB against 50.3 MB at 4096)."""
+    for n, (mb, nb) in ((1024, (24, 4)), (4096, (16, 8)), (14336, (8, 14))):
+        assert epi._grid(6144, n, 16, True, True, 132) == (mb, nb)
+        assert n == 1024 or epi.partial_bytes(6144, n, 16) < 0.16 * 6144 * n * 2
+
+
+def test_autograd_backward_takes_the_fused_entry_point_when_both_grads_are_needed(monkeypatch):
+    """backward='pallas': one fused call when z and B both need grads, the
+    single entry point otherwise (CPU tensors: each runs its plain version)."""
+    calls = []
+    for name in ("lora_epilogue_dzdb", "lora_epilogue_dz", "lora_epilogue_db"):
+        fn = getattr(epi, name)
+        monkeypatch.setattr(epi, name, lambda *a, fn=fn, name=name, **k: calls.append(name) or fn(*a, **k))
+    g = torch.Generator().manual_seed(2)
+    y, z, b = torch.randn(16, 64, generator=g), torch.randn(16, 4, generator=g), torch.randn(4, 64, generator=g)
+    for grads, want in (((True, True), ["lora_epilogue_dzdb"]), ((True, False), ["lora_epilogue_dz"]),
+                        ((False, True), ["lora_epilogue_db"])):
+        calls.clear()
+        zt, bt = z.clone().requires_grad_(grads[0]), b.clone().requires_grad_(grads[1])
+        lora_epilogue(y.clone().requires_grad_(), zt, bt, 2.0).sum().backward()
+        assert calls == want
+        assert (zt.grad is not None) == grads[0] and (bt.grad is not None) == grads[1]
 
 
 @pytest.mark.parametrize("flag", ["pallas", "fwd"])
