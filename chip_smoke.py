@@ -6,9 +6,10 @@
 Phases, each printed with its wall time; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA source of the paths with ``nvcc``, and flash_bwd.cu
-   and lora_epilogue.cu with each of their cost probes, one process each,
-   all at once (registers and spills per kernel);
+2. build every CUDA source of the paths with ``nvcc``, and flash_bwd.cu,
+   flash_fwd.cu and lora_epilogue.cu with each of their cost probes, one
+   process each, all at once (registers and spills per kernel; the flash
+   kernels and the ring's must not spill);
 3. each kernel against its plain PyTorch version at the paths' shapes:
    flash forward and backward (prep, main and post kernels) at the serving /
    training shapes, a ragged length and S = 4608 (where the reference takes
@@ -22,8 +23,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
    forward, fused dz + dB, and dz and dB alone at M = 6144, r = 16, N =
    1024, 4096 and 14336 (two calls of each backward bit for bit); the
    fused ring forward against its plain version on rings of 4 and 2 ranks
-   on the card at (3, 2048), with and without padded keys, and at S = 1000
-   on 2 ranks; the flash kernels with causal offsets S_loc, 64 and 0 at S_loc;
+   on the card at B = 3, S_loc 512 and 500, with and without padded keys,
+   and at S = 2048 on 2 ranks, one ring per n taking every case in turn
+   (landing slots reused pass after pass), n(n-1)/2 chunk sends a pass; the
+   flash kernels with causal offsets S_loc, 192, 64 and 0 at S_loc, and q
+   tiles shorter than 128 rows (S 100, and S 300 at offset 64);
 4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
    from a seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
@@ -55,16 +59,19 @@ Phases, each printed with its wall time; any failure exits non-zero:
     int8 weights on both sides);
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
-    beside the bound; the flash backward as the sum of its three kernels
-    against SDPA's whole backward (the kernels it ran named), and SDPA with
-    ``is_causal=True``, at (3, 2048) and (1, 4608); one pass of the fused ring (first send to last
-    output) and each rank's kernel, beside SDPA over the whole sequence and
-    the per-step flash ring's forward; ``torch._int_mm`` in each weight
+    beside the bound; SDPA's ``is_causal`` forward beside the masked one;
+    the flash backward as the sum of its three kernels against SDPA's whole
+    backward (the kernels it ran named), and SDPA with ``is_causal=True``,
+    at (3, 2048) and (1, 4608); one pass of the fused ring (first send to
+    last output) and each rank's kernel, beside SDPA over the whole
+    sequence (masked and ``is_causal``) and the per-step flash ring's
+    forward, with the host's issue time of a pass split into Python and the
+    C launcher and the chunk sends a pass; ``torch._int_mm`` in each weight
     layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336; the flash
-    backward's main kernel against its cost probes (printed only); the
-    epilogue's fused dz + dB against both ``addmm`` calls, and dz and dB
-    alone against one each, with their f32 partial bytes, and the fused
-    kernel against its cost probe (printed only);
+    forward and the flash backward's main kernel against their cost probes
+    (printed only); the epilogue's fused dz + dB against both ``addmm``
+    calls, and dz and dB alone against one each, with their f32 partial
+    bytes, and the fused kernel against its cost probe (printed only);
 12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -146,7 +153,7 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     hash_bytes,
 )
 from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
-from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, ring_fwd, ring_fwd_plain
+from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, RING_STATS, ring_fwd, ring_fwd_plain, ring_send_plan
 from phantom_vlb_tpu_torch.ops.rowquant import (
     ROW_QUANT,
     ROW_QUANT_SCALED,
@@ -176,6 +183,14 @@ KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd"
 BWD_PROBES = {name: CudaKernel("flash_bwd.cu", "flash_bwd_launch", FLASH_BWD.argtypes,
                                defines=(f"FLASH_BWD_PROBE_{name.upper()}",))
               for name in ("no_dq_reduce", "no_exp", "grouped")}
+# flash_fwd.cu built with each cost probe of its core (see attn_fwd.cuh):
+# the exponential or the P V product left out, or the core without a part
+# of its design (ping-pong of the consumer warpgroups, the one-instruction
+# exp2, the third K/V stage, the persistent grid); timed in phase 11 only.
+FWD_PROBES = {name: CudaKernel("flash_fwd.cu", "flash_fwd_launch", FLASH_FWD.argtypes, defines=(macro,))
+              for name, macro in (("no_exp", "ATTN_FWD_PROBE_NO_EXP"), ("no_pv", "ATTN_FWD_PROBE_NO_PV"),
+                                  ("no_pingpong", "ATTN_FWD_NO_PINGPONG"), ("exp2f", "ATTN_FWD_EXP2F"),
+                                  ("two_stages", "ATTN_FWD_STAGES=2"), ("no_persist", "ATTN_FWD_NO_PERSIST"))}
 # The epilogue's backward built with its cost probe (see lora_epilogue.cu):
 # the fold left out; timed in phase 11 only.
 EPI_NO_FOLD = CudaKernel("lora_epilogue.cu", "epi_dzdb_launch", EPI_DZDB.argtypes,
@@ -288,7 +303,7 @@ def card_name_and_power() -> str:
 
 
 def build_kernels() -> None:
-    kernels = [*KERNELS.values(), *BWD_PROBES.values(), EPI_NO_FOLD]
+    kernels = [*KERNELS.values(), *BWD_PROBES.values(), *FWD_PROBES.values(), EPI_NO_FOLD]
     builds = {}                                          # one kernel per build
     for kernel in kernels:
         builds.setdefault(kernel.target, kernel)
@@ -302,13 +317,27 @@ def build_kernels() -> None:
         print(f"  {kernel.source.name}{probe}: " + " | ".join(report or ["cached"]))
         spills = [ln for ln in report
                   if "spill" in ln and not ln.startswith("0 bytes stack frame, 0 bytes spill")]
-        if target == FLASH_BWD.target and spills:
-            raise AssertionError(f"flash_bwd.cu spills: {spills}")
+        if target in (FLASH_BWD.target, FLASH_FWD.target, RING_FWD.target) and spills:
+            raise AssertionError(f"{kernel.source.name} spills: {spills}")
 
 
 def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+    RING_STATS.sends = 0
+
+
+def sends_per_pass(n: int) -> int:
+    return len(ring_send_plan(n))
+
+
+def check_ring_sends(launches: dict[str, int], label: str) -> None:
+    """The chunk sends since the counts were reset: n(n-1)/2 per pass of
+    the RING_RANKS-rank ring (``ring_fwd`` launches n kernels a pass)."""
+    want = launches["ring_fwd"] // RING_RANKS * sends_per_pass(RING_RANKS)
+    print(f"  ring chunk sends {RING_STATS.sends} (want {want}: {sends_per_pass(RING_RANKS)} a pass)")
+    if RING_STATS.sends != want:
+        raise AssertionError(f"{label}: the ring passes made {RING_STATS.sends} sends, want {want}")
 
 
 def read_launches() -> dict[str, int]:
@@ -400,28 +429,36 @@ def check_flash(b: int, s: int, gen, dev, causal_offset: int = 0, hq: int = HQ,
 def check_ring(gen, dev) -> float:
     """The fused ring kernel vs its plain version (the same bf16 roundings:
     q pre-scaled and P cast to bf16; sums in another order) on rings of
-    RING_RANKS and 2 ranks of the card at (3, 2048), with the right padding
-    of attention_inputs and without a kv mask, and at S = 1000 on 2 ranks
-    (S_loc 500, not a multiple of 64). Tolerances are the flash forward's:
-    out 2e-2 absolute and as max|err| / max|ref| (bf16 out, 2^-8 relative at
-    |out| <= ~1, and bf16 P), lse 1e-3 (f32, order only). Returns the out's
-    max abs error."""
+    RING_RANKS and 2 ranks of the card at B = 3, S_loc 512 and 500 (not a
+    multiple of the 128-row tile), with the right padding of
+    attention_inputs and without a kv mask, and at S = 2048 on 2 ranks. One
+    ring per n takes every case in turn, so its landing slots are reused
+    pass after pass and made anew when S_loc changes; each pass makes
+    n(n-1)/2 sends. Tolerances are the flash forward's: out 2e-2 absolute
+    and as max|err| / max|ref| (bf16 out, 2^-8 relative at |out| <= ~1, and
+    bf16 P), lse 1e-3 (f32, order only). Returns the out's max abs error."""
     worst = 0.0
-    for n, s, masked in ((RING_RANKS, 2048, True), (RING_RANKS, 2048, False), (2, 2048, True),
-                         (2, 2048, False), (2, 1000, True)):
+    rings = {n: SequenceRing([dev] * n) for n in (RING_RANKS, 2)}
+    for n, s, masked in ((RING_RANKS, 2048, True), (RING_RANKS, 2048, False), (RING_RANKS, 2000, True),
+                         (RING_RANKS, 2000, False), (2, 2048, True), (2, 2048, False), (2, 1024, True),
+                         (2, 1024, False), (2, 1000, True), (2, 1000, False)):
         q, k, v, kv_mask = attention_inputs(LORA_BATCH, s, gen, dev)
         kv_mask = kv_mask if masked else None
-        ring = SequenceRing([dev] * n)
+        ring = rings[n]
+        sends = RING_STATS.sends
         out, lse = ring_fwd(q, k, v, HQ, HKV, ring, kv_mask=kv_mask)
         torch.cuda.synchronize()
+        sends = RING_STATS.sends - sends
         out_ref, lse_ref = ring_fwd_plain(q, k, v, HQ, HKV, ring, kv_mask=kv_mask)
         rel, err, lse_err = rel_err(out, out_ref), abs_err(out, out_ref), abs_err(lse, lse_ref)
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
-        print(f"  ring_fwd n={n} B={LORA_BATCH} S={s} {'padded' if masked else 'no mask'}: out "
-              f"max|err|/max|ref| {rel:.3e}, max|err| {err:.3e} (tol {OUT_TOL}), lse max|err| "
-              f"{lse_err:.3e} (tol {LSE_TOL}), finite {finite}")
+        print(f"  ring_fwd n={n} B={LORA_BATCH} S={s} (S_loc {s // n}) {'padded' if masked else 'no mask'}: "
+              f"out max|err|/max|ref| {rel:.3e}, max|err| {err:.3e} (tol {OUT_TOL}), lse max|err| "
+              f"{lse_err:.3e} (tol {LSE_TOL}), finite {finite}, {sends} sends (want {sends_per_pass(n)})")
         if not (rel <= OUT_TOL and err <= OUT_TOL and lse_err <= LSE_TOL and finite):
             raise AssertionError(f"ring_fwd disagrees with its plain version at n={n} S={s}")
+        if sends != sends_per_pass(n):
+            raise AssertionError(f"a ring pass on {n} ranks made {sends} sends, want {sends_per_pass(n)}")
         worst = max(worst, err)
         del q, k, v, out, lse, out_ref, lse_ref
     return worst
@@ -615,6 +652,7 @@ def serve_through_the_ring(model, batch: dict, want: np.ndarray, dev) -> None:
     finally:
         set_attention_impl(model, "auto")
         set_sequence_ring(None)
+    check_ring_sends(launches, "serving through the ring")
     check_predictions(res, BATCH, model.cfg.num_target)
     err = np.abs(res["predicted"] - want).max() / np.abs(want).max()
     print(f"  batch ms {[round(float(x), 3) for x in res['batch_ms']]}, launches {launches}; "
@@ -730,6 +768,7 @@ def train_lora_steps(cfg: VLBConfig, sd: dict, batches: list, dev, fresh: bool,
                                        int8=mcfg.base_quant is not None, ring=ring)
     if launches != expected:
         raise AssertionError(f"LoRA training launched {launches}, want {expected}")
+    check_ring_sends(launches, "LoRA training")
     if steps > 1:
         print(f"  clips/s at batch {LORA_BATCH} (steps 2-{steps}): "
               f"{[round(LORA_BATCH / (x / 1e3), 3) for x in step_ms[1:]]}")
@@ -959,6 +998,31 @@ def time_bwd_probes(dev) -> None:
         del q, k, v, o, lse, do, bias, inp, dk, dv
 
 
+def time_fwd_probes(dev) -> None:
+    """The flash forward kernel alone, as built and with each cost probe of
+    its core, at the serving shape (masked) and at the ring's step (S_loc,
+    offset S_loc): CUDA events over 20 launches on the same inputs, the
+    builds taken in turns twice and the lower kept; printed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s_loc = REFERENCE_GEOMETRY.feature_len // RING_RANKS
+    builds = {"as built": FLASH_FWD, **FWD_PROBES}
+    for b, s, offset in ((BATCH, REFERENCE_GEOMETRY.feature_len, 0), (LORA_BATCH, s_loc, s_loc)):
+        q, k, v, kv_mask = attention_inputs(b, s, gen, dev)
+        bias = kv_bias(kv_mask)
+        out, lse = torch.empty_like(q), torch.empty(b, HQ, s, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        times = {}
+        for _ in range(2):
+            for name, kernel in builds.items():
+                times.setdefault(name, []).append(cuda_ms(lambda kernel=kernel: kernel.launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), b, s, HQ, HKV, D ** -0.5, offset, stream), 20, warmup=3))
+        base = min(times["as built"])
+        print(f"  flash_fwd kernel B={b} S={s} causal_offset={offset}, cost probes (CUDA events): "
+              + ", ".join(f"{name} {min(t):.4f} ms ({min(t) - base:+.4f})" for name, t in times.items()))
+        del q, k, v, kv_mask, bias, out, lse
+
+
 def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> dict[str, float]:
     """Device time per call of every kernel ``fn`` launches, by kernel name
     (``torch.profiler``). A session that recorded no device time for the
@@ -1039,6 +1103,13 @@ def time_flash(gen, dev) -> dict[str, dict]:
     # q, k, v and the bias row read once; out and lse written once.
     report("flash_fwd", f"B={b} S={s}", out["flash_fwd"], 4 * b * HQ * D * s * (s + 1) // 2,
            (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4)
+    # SDPA's causal forward without the padding mask (the unmasked function,
+    # the fastest PyTorch call of this shape): a yardstick only, printed.
+    causal = traced_kernels(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                                   enable_gqa=True), 10)
+    print(f"  flash_fwd B={b} S={s}: SDPA is_causal (no padding mask) {sum(causal.values()):.4f} ms device "
+          f"time ({top_kernels(causal)}), against the masked SDPA's {out['flash_fwd']['library_ms']:.4f} "
+          f"and the kernel's {out['flash_fwd']['ms']:.4f}")
     del q, k, v, q4, k4, v4, keep
 
     b = LORA_BATCH
@@ -1053,6 +1124,8 @@ def time_flash(gen, dev) -> dict[str, dict]:
     o, lse = attention_packed(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
     do = torch.randn(o.shape, generator=gen, device=dev, dtype=torch.bfloat16)
     fwd_ms = cuda_ms(lambda: attention_with_stats(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s), 20)
+    fwd_dev = device_ms(lambda: attention_with_stats(q, k, v, HQ, HKV, kv_mask=kv_mask, causal_offset=s), 20,
+                        "flash_fwd_kernel")[0]
 
     def ring_step_bwd():
         return attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
@@ -1062,6 +1135,7 @@ def time_flash(gen, dev) -> dict[str, dict]:
     print(f"  flash_fwd / flash_bwd B={b} S={s} causal_offset={s}: {fwd_ms:.4f} / {bwd_ms:.4f} ms per "
           f"call (CUDA events, wrappers included); backward device time: "
           + ", ".join(f"{name} {kernel_ms(parts, kernel):.4f}" for name, kernel in BWD_PARTS.items())
+          + f"; forward kernel {fwd_dev:.4f} ms device time"
           + f"; bounds {2 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f}"
           f" / {5 * 2 * b * HQ * D * s * s / PEAK_BF16_FLOPS * 1e3:.4f} ms (operations)")
     return out
@@ -1309,24 +1383,37 @@ def time_ring(gen, dev) -> dict[str, dict]:
         # Few traced passes: each holds ~20 host API events per pass, and the
         # host's RSS peaks in this phase.
         kernels_ms, pass_device_ms = device_ms(fused, 5, "ring_fwd_kernel")
+        # The host's issue time per pass, before the card is waited for, and
+        # of it the C launcher's: 5 groups of 10 passes with the card waited
+        # for between groups, the median group's kept (host-clocked times
+        # move with the machine's other load).
+        groups = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            launch_s, sends = RING_STATS.launch_s, RING_STATS.sends
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fused()
+            groups.append(((time.perf_counter() - t0) * 1e2, (RING_STATS.launch_s - launch_s) * 1e2))
+        sends = (RING_STATS.sends - sends) / 10
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            fused()
-        host_ms = (time.perf_counter() - t0) * 1e2           # per call, before the card is waited for
-        torch.cuda.synchronize()
+        host_ms, c_ms = sorted(groups)[len(groups) // 2]
+        causal_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                                     enable_gqa=True), 10)[1]
         ranks_ms = per_stream_ms(fused, 5, "ring_fwd_kernel")
         per_step_ms = cuda_ms(lambda: ring_flash_fwd(q, k, v, HQ, HKV, ring, kv_mask=kv_mask), 10)
         flops = 4 * b * HQ * D * s * (s + 1) // 2
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4
         rec.update(bound(flops, nbytes))
-        sent = 2 * RING_RANKS * (RING_RANKS - 1) * b * s_loc * HKV * D * 2
+        sent = 2 * sends_per_pass(RING_RANKS) * b * s_loc * HKV * D * 2
         print(f"  ring_fwd n={RING_RANKS} B={b} S={s}: pass {rec['ms']:.4f} ms (CUDA events; the host "
-              f"takes {host_ms:.4f} ms to issue one), kernels "
+              f"takes {host_ms:.4f} ms to issue one: {host_ms - c_ms:.4f} in Python, {c_ms:.4f} in the C "
+              f"launcher, median of groups {[round(g[0], 4) for g in groups]}; {sends:g} sends a pass), kernels "
               f"{kernels_ms:.4f} ms summed over ranks, each rank "
               f"{[round(x, 4) for x in ranks_ms] or 'not measured'} ms (by stream, sorted); "
               f"everything it launches {pass_device_ms:.4f} ms device time; plain {rec['plain_ms']:.4f} ms, "
-              f"SDPA {rec['library_ms']:.4f} ms, per-step flash ring {per_step_ms:.4f} ms; "
+              f"SDPA {rec['library_ms']:.4f} ms (is_causal, no padding mask: {causal_ms:.4f}), per-step "
+              f"flash ring {per_step_ms:.4f} ms; "
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB -> bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), {flops / rec['ms'] / 1e9:.1f} TFLOP/s achieved; sends "
               f"{sent / 1e6:.1f} MB read and written ({2 * sent / PEAK_BYTES_PER_S * 1e3:.4f} ms at the "
@@ -1392,10 +1479,15 @@ def main() -> int:
         # Past skv 4096 the reference switches to its split backward
         # (_dq_kernel + _dkv_kernel, flash_attention.py:583); one kernel here.
         check_flash(1, 4608, gen, dev)
-        # The ring's steps: a whole chunk back (S_loc), a tile (64), and none.
+        # The ring's steps: a whole chunk back (S_loc), a tile (64), and none;
+        # and an offset that is no multiple of the 128-row tile (192).
         s_loc = REFERENCE_GEOMETRY.feature_len // RING_RANKS
-        for offset in (s_loc, 64, 0):
+        for offset in (s_loc, 192, 64, 0):
             check_flash(LORA_BATCH, s_loc, gen, dev, causal_offset=offset)
+        # q tiles shorter than 128 rows: one tile of 100, and a last tile of 44
+        # with half a tile's offset.
+        check_flash(2, 100, gen, dev)
+        check_flash(2, 300, gen, dev, causal_offset=64)
         # GQA groups 1, 2 and 8 (4 above) at lengths off the 128-row kv tile.
         for b, s, hq, hkv in ((2, 200, 8, 8), (2, 1000, 16, 8), (1, 4608, 32, 4)):
             check_flash(b, s, gen, dev, hq=hq, hkv=hkv)
@@ -1455,6 +1547,7 @@ def main() -> int:
         timing = {**time_flash(gen, dev), **time_lora(gen, dev), **time_row_quant(gen, dev),
                   **time_epilogue(gen, dev), **time_ring(gen, dev)}
         time_bwd_probes(dev)
+        time_fwd_probes(dev)
         time_int_mm(gen, dev)
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with phase("12 host"):

@@ -12,287 +12,123 @@
 // reference multiplies in the input dtype before its kernel). Masking adds
 // MASK_VALUE = -0.7*FLT_MAX (never -inf): a masked key on the diagonal
 // gets it twice and sums to -inf; a row whose keys are all masked averages
-// them uniformly; the l == 0 guard is kept.
+// them uniformly; the l == 0 guard is kept. Keys past S (the zero fill of
+// the last kv tile) get MASK_VALUE twice and weigh exactly nothing.
 //
 // Bound at the serving shape (B=5, S=2048, Hq=32, Hkv=8, D=128, causal):
 // 4*B*Hq*D*S(S+1)/2 = 171.9 GFLOP -> 0.174 ms at 989 TFLOP/s (bf16 dense),
 // against 211 MB of traffic (q, k, v, out, lse, bias once) -> 0.063 ms at
 // 3.35 TB/s. So it is bound by operations: the tensor cores set the limit.
 //
-// Design (simple and right first): one block of 4 warps per (64-row q tile,
-// q head, batch row); each warp owns 16 q rows, held as mma.sync A
-// fragments in registers. K/V tiles of 64x128 bf16 are double-buffered in
-// shared memory with cp.async (rows padded to 136 elements, so the ldmatrix
-// reads are free of bank conflicts); out-of-range rows are zero-filled in
-// the copy and masked in-kernel, with no padding copies on the host. QK^T and PV are mma.sync.m16n8k16 bf16 with f32 sums; the
-// online softmax keeps m, l and the 16x128 accumulator in f32 registers
-// (exp as exp2 of the scaled difference); P goes from the QK^T accumulators
-// to PV A fragments without touching shared memory; K's and V's B fragments
-// come from ldmatrix (V's transposed), four 8x8 matrices per instruction.
-// kv tiles above the diagonal are skipped, and the longest q tiles are
-// launched first.
+// Design: the Hopper core of attn_fwd.cuh, which answers that bound with
+// wgmma (the only route to the full tensor-core rate), operands that reach
+// the tensor cores from shared memory by TMA without passing through
+// registers, a producer warpgroup keeping three K/V stages in flight, and
+// two consumer warpgroups that take turns at their products (one's softmax
+// runs while the other's products do) and, inside each, issue a tile's
+// Q K^T beside the previous tile's P V. A persistent grid, one block an SM,
+// walks the (128-row q tile, q head, batch row) items longest first, so
+// that one item's epilogue overlaps the next item's first K/V loads; for
+// each the producer walks the kv tiles up to the last one the q tile's last
+// row sees. A consumer warpgroup masks a tile only where some key of it may
+// lie past its first row's reach or past S; the other tiles take the
+// unmasked step.
 //
-// Left on the table: wgmma (the only route to the full tensor-core rate,
-// which mma.sync does not reach), TMA loads with mbarriers, a
-// producer warp and ping-pong consumer warpgroups, a persistent schedule
-// over tiles, 32 q rows per warp (each K/V fragment read from shared
-// memory now feeds one 16-row MMA), occupancy (210 registers a thread fit
-// two blocks, 8 warps, on an SM).
+// Left on the table: items handed out at run time (an atomic counter) in
+// place of the static snake order, and the upper half of each diagonal
+// tile, which the lower consumer warpgroup computes and masks. The previous
+// design (mma.sync, 64 x 64 tiles, cp.async, one block of 4 warps per 64 q
+// rows) took 0.82 ms at the serving shape (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_fwd.cuh"
 
 namespace {
 
-constexpr int D = 128;                 // head dim
-constexpr int BQ = 64;                 // q rows per block: 4 warps x 16
-constexpr int BK = 64;                 // kv rows per tile (== BQ: tile j is
-                                       // causal-partial only when j == q tile)
-constexpr int NTHREADS = 128;
-constexpr int SROW = D + 8;            // padded shared row, elements (272 B)
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr size_t SMEM_BYTES =
-    2 * 2 * BK * SROW * sizeof(__nv_bfloat16) + 2 * BK * sizeof(float);
+using namespace attn_fwd;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;        // 0 bytes read -> 16 bytes of zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s) : "memory");
-}
-
-// c += a(16x16, row) * b(16x8, col); bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kOffset = false is plain causal attention (offset 0): the diagonal tile is
-// j == qi. The ring's steps take kOffset = true.
+// kOffset = false is plain causal attention (offset 0). The ring's steps
+// take kOffset = true.
 template <bool kOffset>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse,
-                 int S, int Hq, int Hkv, float scale, int offset) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto Ks = reinterpret_cast<__nv_bfloat16 (*)[BK][SROW]>(smem);
-  auto Vs = reinterpret_cast<__nv_bfloat16 (*)[BK][SROW]>(
-      smem + 2 * BK * SROW * sizeof(__nv_bfloat16));
-  auto Bs = reinterpret_cast<float (*)[BK]>(
-      smem + 4 * BK * SROW * sizeof(__nv_bfloat16));
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q   (B, S, Hq*128), 64-row boxes
+                 const __grid_constant__ CUtensorMap tm_k,     // k   (B, S, Hkv*128), 128-row boxes
+                 const __grid_constant__ CUtensorMap tm_v,     // v   (B, S, Hkv*128)
+                 const __grid_constant__ CUtensorMap tm_o,     // out (B, S, Hq*128), 64-row boxes
+                 const float* __restrict__ bias,               // (B, S) or null
+                 float* __restrict__ lse,                      // (B, Hq, S)
+                 int B, int S, int Hq, int Hkv, float scale, int offset) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Block blk = block_init(smem_raw);
 
-  const int nq = (S + BQ - 1) / BQ;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x);   // longest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hkv = h / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment row group / column pair
-  const size_t q_stride = static_cast<size_t>(Hq) * D;
-  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
-  const int row_a = qi * BQ + warp * 16 + g;   // this thread's rows: row_a, row_a + 8
-
-  // One 64x128 K/V tile (+ its bias row) into buffer `buf`.
-  auto load_tile = [&](int j, int buf) {
-#pragma unroll
-    for (int i = 0; i < (BK * D / 8) / NTHREADS; ++i) {
-      const int c = tid + i * NTHREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
-      const int kv = j * BK + r;
-      const bool ok = kv < S;
-      const size_t off = (static_cast<size_t>(b) * S + (ok ? kv : 0)) * kv_stride
-                         + static_cast<size_t>(hkv) * D + col;
-      cp_async16(&Ks[buf][r][col], k + off, ok);
-      cp_async16(&Vs[buf][r][col], v + off, ok);
-    }
-    if (tid < BK) {
-      const int kv = j * BK + tid;
-      Bs[buf][tid] = kv >= S ? MASK_VALUE
-                   : (bias != nullptr ? bias[static_cast<size_t>(b) * S + kv] : 0.0f);
-    }
+  const int nq = (S + BM - 1) / BM;
+  const int items = nq * Hq * B;
+  const int off = kOffset ? offset : 0;
+  const int nk = (S + BN - 1) / BN;
+  // Tiles past the last key the q tile's last row sees are skipped (all of
+  // them when that row sees none: out 0 and lse -inf, as the reference
+  // gives for a q tile whose kv tiles are all skipped).
+  auto ntiles = [&](int qi) {
+    const int last_key = qi * BM + BM - 1 + off;
+    return last_key < 0 ? 0 : min(last_key / BN + 1, nk);
   };
 
-  const int nk = (S + BK - 1) / BK;
-  // Causal: tiles past the last key the q tile's last row sees are skipped
-  // (all of them when that row sees none: out 0 and lse -inf, as the
-  // reference gives for a q tile whose kv tiles are all skipped).
-  int ntiles = min(qi + 1, nk);
-  if constexpr (kOffset) {
-    const int last_key = qi * BQ + BQ - 1 + offset;
-    ntiles = last_key < 0 ? 0 : min(last_key / BK + 1, nk);
-  }
-  if (!kOffset || ntiles > 0) load_tile(0, 0);
-  cp_async_commit();
-
-  // Q fragments for the 8 k-steps over d, pre-scaled in bf16.
-  uint32_t qf[D / 16][4];
-  {
-    auto load_q = [&](int row, int col) -> uint32_t {
-      if (row >= S) return 0u;
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-          q + (static_cast<size_t>(b) * S + row) * q_stride + static_cast<size_t>(h) * D + col);
-      const float2 f = __bfloat1622float2(x);
-      return pack_bf16(f.x * scale, f.y * scale);
-    };
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int r = 0, w; (w = item_at(r)) < items; ++r) {
+        const Item t = item_of(w, nq, Hq, B);
+        const int n = ntiles(t.qi), hkv = t.h / (Hq / Hkv);
+        auto load_kv = [&](int it) {
+          const int st = claim_stage(blk, g + it);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = load_q(row_a, kk * 16 + 2 * t);
-      qf[kk][1] = load_q(row_a + 8, kk * 16 + 2 * t);
-      qf[kk][2] = load_q(row_a, kk * 16 + 8 + 2 * t);
-      qf[kk][3] = load_q(row_a + 8, kk * 16 + 8 + 2 * t);
-    }
-  }
-
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.0f, 0.0f};             // this thread's share of the row sums
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-
-  for (int j = 0; j < ntiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < ntiles) load_tile(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();                  // tile j has landed
-    __syncthreads();
-
-    // s = q K^T for this warp's 16 rows x 64 keys. One ldmatrix.x4 gives the
-    // B fragments of two 8-key n-tiles: matrices (keys +0, d +0), (keys +0,
-    // d +8), (keys +8, d +0), (keys +8, d +8).
-    const int mat = lane >> 3, mr = lane & 7;
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, &Ks[buf][np * 16 + (mat >> 1) * 8 + mr][kk * 16 + (mat & 1) * 8]);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+          for (int half = 0; half < 2; ++half) {
+            tma_load_3d(blk.k(st) + half * Smem::HALF, &tm_k, hkv * D + half * 64, it * BN, t.b, blk.full(st));
+            tma_load_3d(blk.v(st) + half * Smem::HALF, &tm_v, hkv * D + half * 64, it * BN, t.b, blk.full(st));
+          }
+        };
+        // The item's first tiles go out while the consumers finish the
+        // previous item; its Q once they have stored that item's output.
+        const int pre = min(n, NST - 1);
+        for (int it = 0; it < pre; ++it) load_kv(it);
+        for (int wg = 0; wg < 2; ++wg) load_q(blk, wg, r, &tm_q, t.h * D, t.qi * BM + 64 * wg, t.b);
+        for (int it = pre; it < n; ++it) load_kv(it);
+        g += n;
+      }
+    } else if ((threadIdx.x >> 5) == 1) {
+      int g = 0;
+      for (int r = 0, w; (w = item_at(r)) < items; ++r) {
+        const Item t = item_of(w, nq, Hq, B);
+        const int n = ntiles(t.qi);
+        const float* row = bias != nullptr ? bias + static_cast<size_t>(t.b) * S : nullptr;
+        for (int it = 0; it < n; ++it) put_bias(blk, g + it, row, it * BN, S);
+        g += n;
       }
     }
-
-    // + bias, then + causal mask, as the reference adds them; only a tile
-    // whose last key lies past the q tile's first row holds masked keys
-    // (at offset 0 the diagonal tile, j == qi).
-    const bool diag = kOffset ? (j + 1) * BK - 1 > qi * BQ + offset : j == qi;
-    float mc[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const int row = row_a + ((e >> 1) << 3);
-        float x = s[n][e] + Bs[buf][col];
-        if (diag && j * BK + col > row + (kOffset ? offset : 0)) x += MASK_VALUE;
-        s[n][e] = x;
-        mc[e >> 1] = fmaxf(mc[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
-      mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
-      const float m_next = fmaxf(m_r[r], mc[r]);
-      alpha[r] = exp2f((m_r[r] - m_next) * LOG2E);
-      m_r[r] = m_next;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // Subtract before scaling: MASK_VALUE * log2(e) would overflow.
-        const float p = exp2f((s[n][e] - m_r[e >> 1]) * LOG2E);
-        s[n][e] = p;
-        l_r[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
-
-    // o += P V, P (bf16) straight from the s accumulators.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &Vs[buf][kk * 16 + (mat & 1) * 8 + mr][np * 16 + (mat >> 1) * 8]);
-        mma_bf16(o[2 * np], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();                       // buffer `buf` is refilled next iteration
-  }
-
-  // Epilogue: normalise, store out (bf16) and lse (f32).
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = (l == 0.0f) ? 1.0f : 1.0f / l;
-    const int row = row_a + 8 * r;
-    if (row < S) {
-      __nv_bfloat16* op = out + (static_cast<size_t>(b) * S + row) * q_stride
-                          + static_cast<size_t>(h) * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(op + n * 8) =
-            pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-      }
-      if (t == 0) {
-        lse[(static_cast<size_t>(b) * Hq + h) * S + row] = m_r[r] + logf(fmaxf(l, 1e-30f));
-      }
+  } else {
+    // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const Consumer c;
+    if (item_at(0) < items && ntiles(item_of(item_at(0), nq, Hq, B).qi) > 0) seed_turns(c);
+    int g = 0;
+    for (int r = 0, w; (w = item_at(r)) < items; ++r) {
+      const Item t = item_of(w, nq, Hq, B);
+      const int n = ntiles(t.qi);
+      const int next = item_at(r + 1);
+      const bool more = next < items && ntiles(item_of(next, nq, Hq, B).qi) > 0;
+      const int q_row0 = t.qi * BM + c.wg * 64;
+      scale_q(blk, c, scale, r);
+      Softmax sm;
+      sm.init();
+      // A tile is masked where some key of it lies past the reach of the
+      // warpgroup's first row, or past S.
+      run_tiles(blk, c, sm, g, n, more, q_row0, S, [&](int it) {
+        const int key0 = it * BN;
+        return TileInfo{key0, off, key0 + BN - 1 > q_row0 + off || key0 + BN > S};
+      });
+      finish(blk, c, sm, &tm_o, t.h * D, q_row0, t.b, lse + (static_cast<size_t>(t.b) * Hq + t.h) * S, S);
+      g += n;
     }
   }
 }
@@ -301,8 +137,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Plain-C launcher (bound with ctypes). Launches on the caller's current
 // device and stream; the caller makes the tensors' device current. Returns
-// cudaGetLastError() after the launch: a refused launch never runs, and a
-// later synchronize would not say so.
+// cudaGetLastError() after the launch (a refused launch never runs, and a
+// later synchronize would not say so), or ENCODE_ERROR + a CUresult.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 const void* bias, void* out, void* lse,
                                 int B, int S, int Hq, int Hkv, float scale,
@@ -313,20 +149,30 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  err = bind_context();
+  if (err != cudaSuccess) return static_cast<int>(err);
   using Kernel = decltype(&flash_fwd_kernel<false>);
   const Kernel kernels[2] = {flash_fwd_kernel<false>, flash_fwd_kernel<true>};
   if (!smem_set[device]) {
     for (const Kernel kernel : kernels) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(SMEM_BYTES));
+                                 static_cast<int>(Smem::BYTES));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     smem_set[device] = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  kernels[offset != 0 ? 1 : 0]<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, Hq, Hkv, scale, offset);
+  const long long q_bs = static_cast<long long>(S) * Hq * D, kv_bs = static_cast<long long>(S) * Hkv * D;
+  CUtensorMap tq, tk, tv, to;
+  CUresult r = encode_rows(&tq, q, Hq * D, S, B, q_bs, 64);
+  if (r == CUDA_SUCCESS) r = encode_rows(&tk, k, Hkv * D, S, B, kv_bs, BN);
+  if (r == CUDA_SUCCESS) r = encode_rows(&tv, v, Hkv * D, S, B, kv_bs, BN);
+  if (r == CUDA_SUCCESS) r = encode_rows(&to, out, Hq * D, S, B, q_bs, 64);
+  if (r != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(r);
+  int blocks = 0;
+  err = persistent_blocks((S + BM - 1) / BM * Hq * B, device, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernels[offset != 0 ? 1 : 0]<<<blocks, NTHREADS, Smem::BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, to, static_cast<const float*>(bias), static_cast<float*>(lse), B, S, Hq, Hkv, scale,
+      offset);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,10 @@ pointers, sizes and a stream, and return ``cudaGetLastError()``. ``nvcc``
 compiles one such file in seconds (no PyTorch headers are included). A
 library is built at first use into ``build/phantom_vlb_tpu_torch/`` beside
 the package (listed in ``.gitignore``), under a name that carries a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one is
-not. A source may also be built with macros defined (a separate library).
+the source, of every local header it includes (``#include "..."``, found
+beside it, and theirs in turn) and of the flags, so an edited source or
+header is rebuilt and an unchanged one is not. A source may also be built
+with macros defined (a separate library).
 :func:`build_all` starts one ``nvcc`` process per build, all at once, and
 waits for them. Nothing here runs at import time: this module imports on
 machines without ``nvcc`` or a card.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,7 +35,8 @@ NVCC_FLAGS = (
 )
 # Sources that call the CUDA driver API (``cuStreamWriteValue32``,
 # ``cuTensorMapEncodeTiled``) link it.
-LINK_FLAGS = {name: ("-lcuda",) for name in ("ring_fwd.cu", "flash_bwd.cu", "lora_epilogue.cu")}
+LINK_FLAGS = {name: ("-lcuda",) for name in ("flash_fwd.cu", "ring_fwd.cu", "flash_bwd.cu",
+                                              "lora_epilogue.cu")}
 # nvcc's report per build target (``-Xptxas -v``: registers, shared memory
 # and spills per kernel); empty when the library was already built.
 BUILD_LOGS: dict = {}
@@ -55,8 +59,31 @@ def _flags(source: Path, defines: tuple[str, ...] = ()) -> tuple[str, ...]:
     return NVCC_FLAGS + LINK_FLAGS.get(source.name, ()) + tuple(f"-D{d}" for d in defines)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: Path) -> list[Path]:
+    """The source and the local headers it includes, transitively, each
+    once, in the order first reached; an include not found beside its
+    includer is a system header's business and is left out."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            cand = path.parent / name.decode()
+            if cand.is_file():
+                todo.append(cand.resolve())
+    return seen
+
+
 def _library(source: Path, defines: tuple[str, ...] = ()) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_flags(source, defines)).encode())
+    digest = hashlib.sha256()
+    for path in _sources(source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(_flags(source, defines)).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -103,10 +104,15 @@ def _default_scale(q: torch.Tensor, num_heads: int, sm_scale: float | None) -> f
     return 1.0 / math.sqrt(q.shape[-1] // num_heads) if sm_scale is None else sm_scale
 
 
+@functools.lru_cache(maxsize=64)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def _scale_in_dtype(q: torch.Tensor, num_heads: int, sm_scale: float | None) -> float:
     """sm_scale rounded to q's dtype: ``q * it`` rounds the exact product
     once, as the reference's ``q * asarray(sm_scale, q.dtype)`` does."""
-    return float(torch.tensor(_default_scale(q, num_heads, sm_scale), dtype=q.dtype))
+    return _rounded(_default_scale(q, num_heads, sm_scale), q.dtype)
 
 
 def _heads(x: torch.Tensor, num_kv_heads: int, group: int) -> torch.Tensor:

@@ -24,13 +24,21 @@ backward is the per-step ring's (:func:`ring_flash_bwd`) on the saved
 - :func:`ring_flash_fused`: trainable; the kernel forward and the per-step
   ring backward. With one rank it is the normal attention, as the
   reference's is (:322-326).
+- :func:`ring_send_plan`: the chunk sends of a pass, (step, sender, slot):
+  only the chunks some rank reads, n(n-1)/2 of them.
 
-``RING_FWD.launches`` counts kernel launches, one per rank per pass.
+``RING_FWD.launches`` counts kernel launches, one per rank per pass;
+``RING_STATS.sends`` the chunk sends the passes issued, and
+``RING_STATS.launch_s`` the host seconds spent in the C launcher (the rest
+of a pass's host time is the Python around it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import time
+import weakref
 
 import torch
 
@@ -51,17 +59,41 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     kv_bias,
 )
 
-__all__ = ["ring_fwd", "ring_fwd_plain", "ring_flash_fused", "RING_FWD"]
+__all__ = ["ring_fwd", "ring_fwd_plain", "ring_flash_fused", "ring_send_plan", "RING_FWD", "RING_STATS"]
 
 _SRC = "ring_fwd.cu"
-_I = ctypes.c_int
+_I, _U64 = ctypes.c_int, ctypes.c_uint64
 # One ring pass: every send and every rank's kernel (n launches of it).
 RING_FWD = CudaKernel(
     _SRC, "ring_pass_launch",
-    [_I] * 5 + [ctypes.c_float, ctypes.c_uint32, ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_uint64),
-                ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_uint64)],
+    [_U64] + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32, ctypes.POINTER(_U64),
+                         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_U64), _I, ctypes.POINTER(_I)],
 )
 RING_PEER = CudaKernel(_SRC, "ring_enable_peer", [_I, _I])
+RING_STATE_CREATE = CudaKernel(_SRC, "ring_state_create", [_I, ctypes.POINTER(_I), ctypes.POINTER(_U64)])
+RING_STATE_DESTROY = CudaKernel(_SRC, "ring_state_destroy", [_U64])
+
+
+@dataclasses.dataclass
+class RingStats:
+    """Chunk sends issued by ring passes, and host seconds spent in the C
+    launcher; callers may reset both to 0."""
+
+    sends: int = 0
+    launch_s: float = 0.0
+
+
+RING_STATS = RingStats()
+
+
+def ring_send_plan(n: int) -> list[tuple[int, int, int]]:
+    """The chunk sends of one pass on n ranks, in issue order: (step r,
+    sender i, the receiver's slot). At step r rank i forwards the chunk of
+    rank i - r to rank i + 1, into its slot r, which rank i + 1 reads at its
+    step r + 1. Only chunks some rank reads travel: a chunk goes on while a
+    later rank needs it, so r <= i <= n - 2, n(n-1)/2 sends (the reference's
+    chain makes n(n-1))."""
+    return [(r, i, r) for r in range(n - 1) for i in range(r, n - 1)]
 
 
 def ring_fwd_plain(
@@ -124,11 +156,63 @@ def _check_cuda(q, k, v, num_heads, num_kv_heads, ring, kv_mask):
         raise ValueError(f"a CUDA tensor needs a ring of cards; got {ring}")
 
 
-def _enable_peers(ring: SequenceRing) -> None:
-    for i, dev in enumerate(ring.devices):
-        right = ring.devices[(i + 1) % ring.n]
-        if right != dev:
-            RING_PEER.launch(dev.index, right.index)
+class _RingNative:
+    """What a ring's passes keep between calls: the C launcher's events, the
+    send plan, each rank's streams and flags, the arrival-order index of the
+    bias, and the landing slots of the last shape."""
+
+    def __init__(self, ring: SequenceRing):
+        n = ring.n
+        for i, dev in enumerate(ring.devices):       # the flag writes of a ring over distinct cards
+            right = ring.devices[(i + 1) % n]
+            if right != dev:
+                RING_PEER.launch(dev.index, right.index, count=0)
+        self.plan = ring_send_plan(n)
+        self.plan_arg = (ctypes.c_int * max(3 * len(self.plan), 1))(*[x for send in self.plan for x in send])
+        handle = ctypes.c_uint64()
+        RING_STATE_CREATE.launch(n, (ctypes.c_int * n)(*[d.index for d in ring.devices]),
+                                 ctypes.byref(handle), count=0)
+        self.handle = handle.value
+        self._free = weakref.finalize(self, RING_STATE_DESTROY.launch, self.handle, count=0)
+        self._free.atexit = False                    # the driver may be gone by then
+        self.streams = [ring.streams(i) for i in range(n)]
+        self.flags = [ring.flags(i).data_ptr() for i in range(n)]   # made before the first pass's start
+        rank = torch.arange(n)
+        self.order = (rank[:, None] - rank[None, :]) % n             # [rank, step] -> chunk
+        self.slots_key, self.slots = None, []
+
+    def arrival_bias(self, kv_mask: torch.Tensor, b: int, s_loc: int) -> torch.Tensor:
+        """Every rank's bias in arrival order, one gather: (B, rank, step,
+        S_loc), step r of rank i holding chunk (i - r) mod n (reference
+        :243-246)."""
+        if self.order.device != kv_mask.device:
+            self.order = self.order.to(kv_mask.device)
+        return kv_bias(kv_mask).view(b, -1, s_loc)[:, self.order]
+
+    def slots_for(self, ring: SequenceRing, b: int, s_loc: int, kv_w: int, dtype) -> list:
+        """Each rank's landing slots, (max(n - 1, 1), 2, B, S_loc, kv_w): k and
+        v of each slot. Made once per shape; slots of another shape are let go
+        after the streams that used them (the rank's compute and copy streams
+        and its left neighbour's copy stream)."""
+        key = (b, s_loc, kv_w, dtype)
+        if key != self.slots_key:
+            n = ring.n
+            for i, old in enumerate(self.slots):
+                for stream in (*self.streams[i], self.streams[(i - 1) % n][1]):
+                    old.record_stream(stream)
+            self.slots = [torch.empty(max(n - 1, 1), 2, b, s_loc, kv_w, dtype=dtype, device=dev)
+                          for dev in ring.devices]
+            self.slots_key = key
+        return self.slots
+
+
+_NATIVE: "weakref.WeakKeyDictionary[SequenceRing, _RingNative]" = weakref.WeakKeyDictionary()
+
+
+def _native(ring: SequenceRing) -> _RingNative:
+    if ring not in _NATIVE:
+        _NATIVE[ring] = _RingNative(ring)
+    return _NATIVE[ring]
 
 
 def _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, ring: SequenceRing, sm_scale, kv_mask):
@@ -136,77 +220,54 @@ def _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, ring: SequenceRing, sm_scal
     b, s, q_w = q.shape
     kv_w = k.shape[-1]
     s_loc = s // n
-    scale = _scale_in_dtype(q, num_heads, sm_scale)
     home = q.device
-    if any(dev != home for dev in ring.devices):
-        _enable_peers(ring)
+    nat = _native(ring)
+    slots = nat.slots_for(ring, b, s_loc, kv_w, k.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(b, num_heads, s, dtype=torch.float32, device=home)
-    bias = kv_bias(kv_mask)
-    if bias is not None:
-        # Every rank's bias in arrival order, (n, B, n, S_loc): position r of
-        # rank i holds chunk (i - r) mod n (reference :243-246).
-        rank = torch.arange(n, device=home)
-        order = (rank[:, None] - rank[None, :]) % n
-        bias = bias.view(b, n, s_loc)[:, order].transpose(0, 1).contiguous()
+    bias = None if kv_mask is None else nat.arrival_bias(kv_mask, b, s_loc)
     # Per rank: its chunk of q, k, v, out and lse (on q's card, the rows of
-    # the global tensors in place; on another card, copies), its bias, its
-    # landing slots (2, n - 1, B, S_loc, Hkv*D): k then v, its flags; as
-    # pointers and element strides for the pass launcher. The tensors stay
-    # referenced until the cards' current streams wait for the ring's.
-    slot_bytes = b * s_loc * kv_w * k.element_size()
-    ptrs, strides, streams, keep, outs = [], [], [], [], []
+    # the global tensors in place, as pointers and element strides; on
+    # another card, copies made on that card's current stream), its landing
+    # slots, flags and bias.
+    ptrs, strides, streams, away, caller = [], [], [], [], {}
     for i, dev in enumerate(ring.devices):
-        rows = slice(i * s_loc, (i + 1) * s_loc)
-        with on_device(dev):
-            if dev == home:
-                q_i, k_i, v_i, out_i, lse_i = q[:, rows], k[:, rows], v[:, rows], out[:, rows], lse[:, :, rows]
-            else:
-                q_i, k_i, v_i = (x[:, rows].to(dev).contiguous() for x in (q, k, v))
-                out_i = torch.empty(b, s_loc, q_w, dtype=q.dtype, device=dev)
-                lse_i = torch.empty(b, num_heads, s_loc, dtype=torch.float32, device=dev)
-            bias_i = None if bias is None else bias[i].to(dev)
-            slots = torch.empty(2, max(n - 1, 1), b, s_loc, kv_w, dtype=k.dtype, device=dev)
-        flags = ring.flags(i)                    # made (zeroed) before the ready events
-        ptrs += [q_i.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), slots.data_ptr(),
-                 slots.data_ptr() + max(n - 1, 1) * slot_bytes, flags.data_ptr(),
-                 0 if bias_i is None else bias_i.data_ptr(), out_i.data_ptr(), lse_i.data_ptr()]
-        strides += [q_i.stride(0), k_i.stride(0), out_i.stride(0), lse_i.stride(1)]
-        streams += [stream.cuda_stream for stream in ring.streams(i)]
-        keep += [q_i, k_i, v_i, bias_i, slots]
-        outs.append((out_i, lse_i))
-    for dev in dict.fromkeys(ring.devices):
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(dev))
-        for i in range(n):
-            for stream in ring.streams(i):
-                stream.wait_event(ready)
-    RING_FWD.launch(
-        n, b, s_loc, num_heads, num_kv_heads, scale, ring.next_epoch(),
-        (ctypes.c_int * n)(*[dev.index for dev in ring.devices]),
-        (ctypes.c_uint64 * (9 * n))(*ptrs), (ctypes.c_longlong * (4 * n))(*strides),
-        (ctypes.c_uint64 * (2 * n))(*streams), count=n)
-    # Landing slots come and go with each pass: the allocator must not hand
-    # them to other work before the streams that touch them are done (the
-    # left neighbour's copy stream writes them).
-    for i in range(n):
-        compute, copy = ring.streams(i)
-        keep[5 * i + 4].record_stream(compute)
-        keep[5 * i + 4].record_stream(copy)
-        keep[5 * ((i + 1) % n) + 4].record_stream(copy)
-
-    # Autograd and the checkpoint replay use the outputs (and may reuse the
-    # inputs) on each card's current stream: it waits for the ranks there.
-    for i, dev in enumerate(ring.devices):
-        current = torch.cuda.current_stream(dev)
-        for stream in ring.streams(i):
-            current.wait_stream(stream)
-        if dev != home:
+        if dev == home:
+            ptrs += [q.data_ptr() + 2 * i * s_loc * q_w, k.data_ptr() + 2 * i * s_loc * kv_w,
+                     v.data_ptr() + 2 * i * s_loc * kv_w, slots[i].data_ptr(), nat.flags[i],
+                     0 if bias is None else bias.data_ptr() + 4 * i * n * s_loc,
+                     out.data_ptr() + 2 * i * s_loc * q_w, lse.data_ptr() + 4 * i * s_loc]
+            strides += [s * q_w, s * kv_w, s * q_w, n * n * s_loc, s]
+        else:
             rows = slice(i * s_loc, (i + 1) * s_loc)
             with on_device(dev):
-                out[:, rows].copy_(outs[i][0])
-                lse[:, :, rows].copy_(outs[i][1])
-    del keep
+                q_i, k_i, v_i = (x[:, rows].to(dev).contiguous() for x in (q, k, v))
+                bias_i = None if bias is None else bias[:, i].to(dev).contiguous()
+                out_i = torch.empty(b, s_loc, q_w, dtype=q.dtype, device=dev)
+                lse_i = torch.empty(b, num_heads, s_loc, dtype=torch.float32, device=dev)
+            ptrs += [q_i.data_ptr(), k_i.data_ptr(), v_i.data_ptr(), slots[i].data_ptr(), nat.flags[i],
+                     0 if bias_i is None else bias_i.data_ptr(), out_i.data_ptr(), lse_i.data_ptr()]
+            strides += [s_loc * q_w, s_loc * kv_w, s_loc * q_w, n * s_loc, s_loc]
+            away.append((i, dev, out_i, lse_i, (q_i, k_i, v_i, bias_i)))
+        if dev not in caller:
+            caller[dev] = torch.cuda.current_stream(dev).cuda_stream
+        compute, copy = nat.streams[i]
+        streams += [compute.cuda_stream, copy.cuda_stream, caller[dev]]
+    args = (nat.handle, n, b, s_loc, num_heads, num_kv_heads, _scale_in_dtype(q, num_heads, sm_scale),
+            ring.next_epoch(), (ctypes.c_uint64 * (8 * n))(*ptrs), (ctypes.c_longlong * (5 * n))(*strides),
+            (ctypes.c_uint64 * (3 * n))(*streams), len(nat.plan), nat.plan_arg)
+    t0 = time.perf_counter()
+    RING_FWD.launch(*args, count=n)
+    RING_STATS.launch_s += time.perf_counter() - t0
+    RING_STATS.sends += len(nat.plan)
+    # The caller's stream on each card now waits for the ranks there (the
+    # launcher ends the pass so): autograd and the checkpoint replay use the
+    # outputs, and may reuse the inputs, on it.
+    for i, dev, out_i, lse_i, _ in away:
+        rows = slice(i * s_loc, (i + 1) * s_loc)
+        with on_device(dev):
+            out[:, rows].copy_(out_i)
+            lse[:, :, rows].copy_(lse_i)
     return out, lse
 
 

@@ -52,7 +52,13 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     hash_bytes,
 )
 
-from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, ring_flash_fused, ring_fwd, ring_fwd_plain
+from phantom_vlb_tpu_torch.ops.ring_fused import (
+    RING_FWD,
+    RING_STATS,
+    ring_flash_fused,
+    ring_fwd,
+    ring_fwd_plain,
+)
 from phantom_vlb_tpu_torch.ops.quant import int8_matmul, int8_matmul_w8a8, int8_matmul_w8a8g8, quantize_int8
 from phantom_vlb_tpu_torch.ops.rowquant import (
     ROW_QUANT,
@@ -122,6 +128,30 @@ def test_flash_fwd_matches_plain(cuda, b, s, hq, hkv, valid):
     out, lse = attention_packed(q, k, v, hq, hkv, kv_mask=mask)
     torch.cuda.synchronize()
     out_ref, lse_ref = _reference(q, k, v, hq, hkv, mask)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - out_ref).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,valid,offset",
+    [
+        (1, 4608, 8, 2, [4000], 0),          # long: 36 kv tiles of 128
+        (2, 512, 8, 2, [512, 400], 192),     # an offset not a multiple of the 128-row tile
+        (2, 512, 8, 2, None, 100),           # the diagonal inside a tile, no mask
+        (2, 100, 4, 2, [100, 37], 0),        # one q tile shorter than 128 rows
+        (2, 300, 8, 8, [300, 211], 64),      # a short last q tile and half a tile's offset
+        (1, 129, 4, 1, None, 0),             # one row past the first tile (bias stride 516 B)
+        (3, 512, 32, 8, [512, 400, 300], 512),  # the ring's step: a whole chunk back
+    ],
+)
+def test_flash_fwd_tiles_and_offsets_match_plain(cuda, b, s, hq, hkv, valid, offset):
+    """The forward at lengths off its 128-row tiles and at the ring's causal
+    offsets, against its plain version."""
+    q, k, v, mask = _inputs(cuda, b, s, hq, hkv, valid, seed=s + offset)
+    out, lse = attention_with_stats(q, k, v, hq, hkv, kv_mask=mask, causal_offset=offset)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = _reference(q, k, v, hq, hkv, mask, offset)
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     assert (out.float() - out_ref).abs().max().item() <= OUT_TOL
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
@@ -503,6 +533,60 @@ def test_ring_fwd_passes_never_read_an_earlier_pass(cuda):
         out_ref, _ = ring_fwd_plain(q, k, v, 4, 1, ring, kv_mask=mask)
         torch.cuda.synchronize()
         assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_ring_pass_sends_only_what_is_read(cuda, n):
+    """A pass makes n(n-1)/2 chunk sends (chunk i travels while a later rank
+    reads it), and its result is still the plain version's."""
+    q, k, v, mask = _inputs(cuda, 2, 256 * n, 8, 2, [256 * n, 200], seed=10 + n)
+    ring = SequenceRing([cuda] * n)
+    before = RING_STATS.sends
+    out, lse = ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask)
+    ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert RING_STATS.sends == before + n * (n - 1)
+    out_ref, lse_ref = ring_fwd_plain(q, k, v, 8, 2, ring, kv_mask=mask)
+    assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_ring_fwd_under_inference_mode(cuda):
+    """Serving runs under ``torch.inference_mode``, whose tensors keep no
+    version counter: a pass on such inputs and mask is still the plain
+    version's."""
+    ring = SequenceRing([cuda] * 4)
+    with torch.inference_mode():
+        q, k, v, mask = _inputs(cuda, 2, 1024, 8, 2, [1024, 600], seed=5)
+        out, lse = ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask)
+        out_ref, lse_ref = ring_fwd_plain(q, k, v, 8, 2, ring, kv_mask=mask)
+    assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_ring_passes_reuse_their_slots(cuda):
+    """Passes back to back on one 4-rank ring with changing inputs (the
+    landing slots persist, so each pass's sends wait for the previous
+    pass's readers), a change of shape (new slots) and back: each result is
+    its own inputs'. Inputs are made before the passes, so nothing but the
+    ring's own ordering keeps a slot's next send after its last read."""
+    ring = SequenceRing([cuda] * 4)
+    cases = [(2, 1024, [1024, 700], seed) for seed in range(4)] + [(3, 512, [500, 512, 64], 7),
+                                                                  (2, 1024, None, 8), (2, 1024, [900, 1024], 9)]
+    inputs = [_inputs(cuda, b, s, 8, 2, valid, seed=seed) for b, s, valid, seed in cases]
+    outs = [ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask) for q, k, v, mask in inputs]
+    torch.cuda.synchronize()
+    # Last, the last mask tensor changed in place: the pass reads it as it is now.
+    q, k, v, mask = inputs[-1]
+    mask[1, 300:] = 0
+    inputs.append((q, k, v, mask))
+    outs.append(ring_fwd(q, k, v, 8, 2, ring, kv_mask=mask))
+    for i, ((q, k, v, mask), (out, lse)) in enumerate(zip(inputs, outs)):
+        if i == len(cases) - 1:
+            continue                     # its mask has changed since
+        out_ref, lse_ref = ring_fwd_plain(q, k, v, 8, 2, ring, kv_mask=mask)
+        assert (out.float() - out_ref.float()).abs().max().item() <= OUT_TOL
+        assert (lse - lse_ref).abs().max().item() <= LSE_TOL
 
 
 def test_ring_flash_fused_gradients_match_the_plain_ring(cuda):

@@ -42,7 +42,7 @@ from phantom_vlb_tpu_torch.ops.flash_attention import (
     attention_packed_plain,
     attention_with_stats,
 )
-from phantom_vlb_tpu_torch.ops.ring_fused import ring_flash_fused, ring_fwd, ring_fwd_plain
+from phantom_vlb_tpu_torch.ops.ring_fused import ring_flash_fused, ring_fwd, ring_fwd_plain, ring_send_plan
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
 FWD_TOL, GRAD_TOL = 2e-3, 5e-3
@@ -186,6 +186,47 @@ def test_ring_fwd_matches_jax(n, masked):
     _close(lse.numpy(), j_lse, FWD_TOL)
     plain = ring_fwd_plain(tq, tk, tv_, HQ, HKV, _ring(n), kv_mask=tm)
     assert torch.equal(out, plain[0]) and torch.equal(lse, plain[1])
+
+
+def _replay_send_plan(n):
+    """Replays ``ring_send_plan(n)`` on numpy chunks: rank i's local chunk
+    holds i; a send copies the sender's local chunk (step 0) or its slot
+    r - 1 (step r), which must have been written by then, into the right
+    neighbour's slot. Returns the slots (-1 where nothing landed) and the
+    plan."""
+    plan = ring_send_plan(n)
+    slots = np.full((n, max(n - 1, 1)), -1)
+    for r, i, slot in plan:
+        if r == 0:
+            chunk = i
+        else:
+            chunk = slots[i, r - 1]
+            assert chunk >= 0, f"send {(r, i, slot)} forwards slot {r - 1} of rank {i} before it landed"
+        slots[(i + 1) % n, slot] = chunk
+    return slots, plan
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
+def test_send_plan_delivers_every_chunk_a_rank_reads(n):
+    """At its step r (1 <= r <= my) rank my reads slot r - 1, which must
+    hold the chunk of rank my - r once the pass's sends have run."""
+    slots, _ = _replay_send_plan(n)
+    for my in range(n):
+        for r in range(1, my + 1):
+            assert slots[my, r - 1] == my - r, (my, r, slots[my])
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
+def test_send_plan_sends_only_chunks_some_rank_reads(n):
+    """n(n-1)/2 sends, in step order, each into a slot its receiver reads
+    (slot <= receiver - 1), none past rank n - 1, and no slot written twice."""
+    _, plan = _replay_send_plan(n)
+    assert len(plan) == n * (n - 1) // 2
+    assert [r for r, _, _ in plan] == sorted(r for r, _, _ in plan)
+    targets = [((i + 1) % n, slot) for _, i, slot in plan]
+    assert len(set(targets)) == len(targets)
+    for (r, i, slot), (receiver, _) in zip(plan, targets):
+        assert slot == r and receiver == i + 1 and slot <= receiver - 1
 
 
 # (e) the trainable fused ring ---------------------------------------------------
