@@ -2,6 +2,10 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
+        # only the host's issue time of a fused ring pass, for the package
+        # under each root in turn (e.g. a parent tree and this one), each
+        # timed by the same code in a process of its own
 
 Phases, each printed with its wall time; any failure exits non-zero:
 
@@ -66,7 +70,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
     last output) and each rank's kernel, beside SDPA over the whole
     sequence (masked and ``is_causal``) and the per-step flash ring's
     forward, with the host's issue time of a pass split into Python and the
-    C launcher and the chunk sends a pass; ``torch._int_mm`` in each weight
+    C launcher and the chunk sends a pass (a process of its own times 50
+    passes after 10 and divides); ``torch._int_mm`` in each weight
     layout against bf16 ``F.linear`` at 6144 x 4096 -> 14336; the flash
     forward and the flash backward's main kernel against their cost probes
     (printed only); the epilogue's fused dz + dB against both ``addmm``
@@ -89,6 +94,7 @@ import resource
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -165,6 +171,7 @@ from phantom_vlb_tpu_torch.train.loop import train_batches
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
+ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 5                 # configs/experiment/vlb_friends_baseline.yaml
 LORA_BATCH = 3            # configs/experiment/vlb_friends_lora.yaml:14
@@ -184,13 +191,10 @@ BWD_PROBES = {name: CudaKernel("flash_bwd.cu", "flash_bwd_launch", FLASH_BWD.arg
                                defines=(f"FLASH_BWD_PROBE_{name.upper()}",))
               for name in ("no_dq_reduce", "no_exp", "grouped")}
 # flash_fwd.cu built with each cost probe of its core (see attn_fwd.cuh):
-# the exponential or the P V product left out, or the core without a part
-# of its design (ping-pong of the consumer warpgroups, the one-instruction
-# exp2, the third K/V stage, the persistent grid); timed in phase 11 only.
-FWD_PROBES = {name: CudaKernel("flash_fwd.cu", "flash_fwd_launch", FLASH_FWD.argtypes, defines=(macro,))
-              for name, macro in (("no_exp", "ATTN_FWD_PROBE_NO_EXP"), ("no_pv", "ATTN_FWD_PROBE_NO_PV"),
-                                  ("no_pingpong", "ATTN_FWD_NO_PINGPONG"), ("exp2f", "ATTN_FWD_EXP2F"),
-                                  ("two_stages", "ATTN_FWD_STAGES=2"), ("no_persist", "ATTN_FWD_NO_PERSIST"))}
+# the exponential or the P V product left out; timed in phase 11 only.
+FWD_PROBES = {name: CudaKernel("flash_fwd.cu", "flash_fwd_launch", FLASH_FWD.argtypes,
+                               defines=(f"ATTN_FWD_PROBE_{name.upper()}",))
+              for name in ("no_exp", "no_pv")}
 # The epilogue's backward built with its cost probe (see lora_epilogue.cu):
 # the fold left out; timed in phase 11 only.
 EPI_NO_FOLD = CudaKernel("lora_epilogue.cu", "epi_dzdb_launch", EPI_DZDB.argtypes,
@@ -300,6 +304,68 @@ def card_name_and_power() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# The host's issue time of a fused ring pass, measured in a process of its
+# own on the package under argv[1] (this tree's, or another tree's for a
+# comparison: the same code times both). Inputs as attention_inputs makes
+# them at (LORA_BATCH, S) on RING_RANKS ranks of card 0; WARMUP passes,
+# then one window of PASSES passes with the card waited for before and
+# after: the host's time in the window over the passes, the C launcher's
+# part of it and the sends a pass where the package counts them (else
+# null). Prints one JSON line.
+RING_ISSUE_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from phantom_vlb_tpu_torch.core.mesh import SequenceRing
+from phantom_vlb_tpu_torch.ops import ring_fused
+b, s, n, hq, hkv, d, seed, warmup, passes = json.loads(sys.argv[2])
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(seed)
+q = torch.randn(b, s, hq * d, generator=gen, device=dev, dtype=torch.bfloat16)
+k = torch.randn(b, s, hkv * d, generator=gen, device=dev, dtype=torch.bfloat16)
+v = torch.randn(b, s, hkv * d, generator=gen, device=dev, dtype=torch.bfloat16)
+valid = torch.tensor([s - (s * i) // (2 * b) for i in range(b)], device=dev)
+kv_mask = (torch.arange(s, device=dev)[None] < valid[:, None]).int()
+ring = SequenceRing([dev] * n)
+stats = getattr(ring_fused, "RING_STATS", None)
+for _ in range(warmup):
+    ring_fused.ring_fwd(q, k, v, hq, hkv, ring, kv_mask=kv_mask)
+torch.cuda.synchronize()
+c0, sends0 = (stats.launch_s, stats.sends) if stats else (0.0, 0)
+t0 = time.perf_counter()
+for _ in range(passes):
+    ring_fused.ring_fwd(q, k, v, hq, hkv, ring, kv_mask=kv_mask)
+host_s = time.perf_counter() - t0
+torch.cuda.synchronize()
+print(json.dumps({"host_ms": host_s / passes * 1e3,
+                  "c_ms": (stats.launch_s - c0) / passes * 1e3 if stats else None,
+                  "sends": (stats.sends - sends0) / passes if stats else None, "passes": passes}))
+"""
+RING_ISSUE_WARMUP, RING_ISSUE_PASSES = 10, 50
+
+
+def ring_issue(root: str) -> dict:
+    """RING_ISSUE_CHILD on the package under ``root``: its JSON record."""
+    shape = [LORA_BATCH, REFERENCE_GEOMETRY.feature_len, RING_RANKS, HQ, HKV, D, SEED,
+             RING_ISSUE_WARMUP, RING_ISSUE_PASSES]
+    proc = subprocess.run([sys.executable, "-c", RING_ISSUE_CHILD, root, json.dumps(shape)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ring issue timing under {root} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def compare_ring_issue(roots: list[str]) -> int:
+    """``--ring-issue ROOT ...``: the host's issue time of a ring pass for
+    the package under each root, in the order given (e.g. parent, change,
+    change, parent), each in a process of its own; printed, one line each."""
+    print(card_name_and_power())
+    for root in roots:
+        rec = ring_issue(root)
+        print(json.dumps({"root": root, **rec}), flush=True)
+    return 0
 
 
 def build_kernels() -> None:
@@ -1383,21 +1449,6 @@ def time_ring(gen, dev) -> dict[str, dict]:
         # Few traced passes: each holds ~20 host API events per pass, and the
         # host's RSS peaks in this phase.
         kernels_ms, pass_device_ms = device_ms(fused, 5, "ring_fwd_kernel")
-        # The host's issue time per pass, before the card is waited for, and
-        # of it the C launcher's: 5 groups of 10 passes with the card waited
-        # for between groups, the median group's kept (host-clocked times
-        # move with the machine's other load).
-        groups = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            launch_s, sends = RING_STATS.launch_s, RING_STATS.sends
-            t0 = time.perf_counter()
-            for _ in range(10):
-                fused()
-            groups.append(((time.perf_counter() - t0) * 1e2, (RING_STATS.launch_s - launch_s) * 1e2))
-        sends = (RING_STATS.sends - sends) / 10
-        torch.cuda.synchronize()
-        host_ms, c_ms = sorted(groups)[len(groups) // 2]
         causal_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                                      enable_gqa=True), 10)[1]
         ranks_ms = per_stream_ms(fused, 5, "ring_fwd_kernel")
@@ -1406,9 +1457,7 @@ def time_ring(gen, dev) -> dict[str, dict]:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * HQ * s + b * s) * 4
         rec.update(bound(flops, nbytes))
         sent = 2 * sends_per_pass(RING_RANKS) * b * s_loc * HKV * D * 2
-        print(f"  ring_fwd n={RING_RANKS} B={b} S={s}: pass {rec['ms']:.4f} ms (CUDA events; the host "
-              f"takes {host_ms:.4f} ms to issue one: {host_ms - c_ms:.4f} in Python, {c_ms:.4f} in the C "
-              f"launcher, median of groups {[round(g[0], 4) for g in groups]}; {sends:g} sends a pass), kernels "
+        print(f"  ring_fwd n={RING_RANKS} B={b} S={s}: pass {rec['ms']:.4f} ms (CUDA events), kernels "
               f"{kernels_ms:.4f} ms summed over ranks, each rank "
               f"{[round(x, 4) for x in ranks_ms] or 'not measured'} ms (by stream, sorted); "
               f"everything it launches {pass_device_ms:.4f} ms device time; plain {rec['plain_ms']:.4f} ms, "
@@ -1421,6 +1470,14 @@ def time_ring(gen, dev) -> dict[str, dict]:
         if b == LORA_BATCH:
             out["ring_fwd"] = rec
         del q, k, v, q4, k4, v4, keep
+    issue = ring_issue(str(ROOT))
+    print(f"  ring_fwd n={RING_RANKS} B={LORA_BATCH} S={s}: the host takes {issue['host_ms']:.4f} ms to issue "
+          f"a pass ({issue['host_ms'] - issue['c_ms']:.4f} in Python, {issue['c_ms']:.4f} in the C launcher; "
+          f"{RING_ISSUE_PASSES} passes after {RING_ISSUE_WARMUP}, in a process of its own), "
+          f"{issue['sends']:g} sends a pass (want {sends_per_pass(RING_RANKS)})")
+    if issue["sends"] != sends_per_pass(RING_RANKS):
+        raise AssertionError(f"the timed ring passes made {issue['sends']:g} sends a pass, "
+                             f"want {sends_per_pass(RING_RANKS)}")
     return out
 
 
@@ -1456,6 +1513,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ring-issue"]:
+        return compare_ring_issue(sys.argv[2:])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -38,11 +38,7 @@
 // Cost probes, timed only (chip_smoke.py phase 11): built with
 // ATTN_FWD_PROBE_NO_EXP (the exponential left out) or ATTN_FWD_PROBE_NO_PV
 // (the P V product left out), both wrong on purpose, a kernel says what
-// that part costs; built with ATTN_FWD_NO_PINGPONG (no turns between the
-// consumer warpgroups), ATTN_FWD_EXP2F (exp2f in place of one ex2
-// instruction), ATTN_FWD_STAGES=2 (K/V stages in flight; 3 as built) or
-// ATTN_FWD_NO_PERSIST (one block an item), it says what that part of the
-// design gains.
+// that part costs.
 //
 // ptxas 12.9 crashed on wgmma with a runtime scale-d, on warpgroup loops
 // with a runtime start and on empty-asm fences of freshly zeroed
@@ -64,11 +60,7 @@ constexpr int D = 128;                 // head dim
 constexpr int BM = 128;                // q rows per block: two consumer warpgroups of 64
 constexpr int BN = 128;                // kv rows per tile
 constexpr int NTHREADS = 384;          // producer warpgroup + two consumer warpgroups
-#ifndef ATTN_FWD_STAGES
 constexpr int NST = 3;                 // K/V stages in flight: two held by the pipelined consumers
-#else
-constexpr int NST = ATTN_FWD_STAGES;
-#endif
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned long long SPIN_LIMIT_NS = 20ull * 1000 * 1000 * 1000;
@@ -191,15 +183,11 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 // wg waits on barrier 3 + wg until the other has issued its own and
 // arrived there (256 threads: one warpgroup waiting, the other arriving).
 __device__ __forceinline__ void turn_wait(int wg) {
-#ifndef ATTN_FWD_NO_PINGPONG
   asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
-#endif
 }
 
 __device__ __forceinline__ void turn_pass(int wg) {
-#ifndef ATTN_FWD_NO_PINGPONG
   asm volatile("bar.arrive %0, 256;\n" :: "r"(3 + (wg ^ 1)) : "memory");
-#endif
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -295,13 +283,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 // (exp2f's fix-ups for such results cost three more instructions, and such
 // a term is below f32's resolution of a row sum that holds a 1).
 __device__ __forceinline__ float exp2_ftz(float x) {
-#ifdef ATTN_FWD_EXP2F
-  return exp2f(x);
-#else
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-#endif
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -697,19 +681,14 @@ inline CUresult encode_rows(CUtensorMap* map, const void* ptr, int width, int ro
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// The persistent grid: one block an SM (ATTN_FWD_NO_PERSIST: one block an
-// item, a cost probe), never more blocks than items.
+// The persistent grid: one block an SM, never more blocks than items.
 inline cudaError_t persistent_blocks(int items, int device, int* blocks) {
   static int sms[64] = {};
   if (sms[device] == 0) {
     const cudaError_t err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
   }
-#ifdef ATTN_FWD_NO_PERSIST
-  *blocks = items;
-#else
   *blocks = items < sms[device] ? items : sms[device];
-#endif
   return cudaSuccess;
 }
 

@@ -307,13 +307,15 @@ extern "C" int ring_state_destroy(unsigned long long handle) {
 // stream wait), since its sends run on that card's SMs and its blocks must
 // not hold them while they wait; other ranks launch first and wait on their
 // flags inside the kernel. The caller's streams end after every rank's.
+// *issued receives the sends enqueued whole (their copies and flag write).
 // Returns 0, or the first failure (see SEND_ERROR, ENCODE_ERROR).
 extern "C" int ring_pass_launch(unsigned long long handle, int n, int B, int S, int Hq, int Hkv,
                                 float scale, unsigned epoch,
                                 const unsigned long long* ptr,       // n x 8
                                 const long long* stride,              // n x 5
                                 const unsigned long long* stream,    // n x 3
-                                int n_sends, const int* plan) {      // n_sends x 3
+                                int n_sends, const int* plan,        // n_sends x 3
+                                int* issued) {
   enum { Q, K, V, SLOTS, FLAGS, BIAS, OUT, LSE };
   enum { Q_BS, KV_BS, OUT_BS, BIAS_BS, LSE_HS };
   enum { COMPUTE, COPY, CALLER };
@@ -333,6 +335,7 @@ extern "C" int ring_pass_launch(unsigned long long handle, int n, int B, int S, 
   auto strm = [&](int i, int which) { return reinterpret_cast<cudaStream_t>(stream[3 * i + which]); };
   int code = 0;
   auto fail = [&](int c) { if (code == 0) code = c; return code; };
+  *issued = 0;
 
   // Every rank's streams start after the caller's stream on its card: the
   // compute stream of a gated rank through its slots' landing, which comes
@@ -414,6 +417,7 @@ extern "C" int ring_pass_launch(unsigned long long handle, int n, int B, int S, 
     const CUresult res = cuStreamWriteValue32(copy, static_cast<CUdeviceptr>(P(right, FLAGS) + 4 * slot),
                                               epoch, CU_STREAM_WRITE_VALUE_DEFAULT);
     if (res != CUDA_SUCCESS) { fail(SEND_ERROR + static_cast<int>(res)); break; }
+    ++*issued;
     if ((err = cudaEventRecord(rs.landed[static_cast<size_t>(right) * n + slot], copy)) != cudaSuccess) {
       fail(err);
       break;

@@ -28,7 +28,7 @@ backward is the per-step ring's (:func:`ring_flash_bwd`) on the saved
   only the chunks some rank reads, n(n-1)/2 of them.
 
 ``RING_FWD.launches`` counts kernel launches, one per rank per pass;
-``RING_STATS.sends`` the chunk sends the passes issued, and
+``RING_STATS.sends`` the chunk sends the C launcher enqueued, and
 ``RING_STATS.launch_s`` the host seconds spent in the C launcher (the rest
 of a pass's host time is the Python around it).
 """
@@ -67,7 +67,8 @@ _I, _U64 = ctypes.c_int, ctypes.c_uint64
 RING_FWD = CudaKernel(
     _SRC, "ring_pass_launch",
     [_U64] + [_I] * 5 + [ctypes.c_float, ctypes.c_uint32, ctypes.POINTER(_U64),
-                         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_U64), _I, ctypes.POINTER(_I)],
+                         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_U64), _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(_I)],
 )
 RING_PEER = CudaKernel(_SRC, "ring_enable_peer", [_I, _I])
 RING_STATE_CREATE = CudaKernel(_SRC, "ring_state_create", [_I, ctypes.POINTER(_I), ctypes.POINTER(_U64)])
@@ -76,8 +77,8 @@ RING_STATE_DESTROY = CudaKernel(_SRC, "ring_state_destroy", [_U64])
 
 @dataclasses.dataclass
 class RingStats:
-    """Chunk sends issued by ring passes, and host seconds spent in the C
-    launcher; callers may reset both to 0."""
+    """Chunk sends the C launcher enqueued (as it counts them), and host
+    seconds spent in it; callers may reset both to 0."""
 
     sends: int = 0
     launch_s: float = 0.0
@@ -169,6 +170,7 @@ class _RingNative:
                 RING_PEER.launch(dev.index, right.index, count=0)
         self.plan = ring_send_plan(n)
         self.plan_arg = (ctypes.c_int * max(3 * len(self.plan), 1))(*[x for send in self.plan for x in send])
+        self.issued = ctypes.c_int()                 # the launcher's count of the sends it enqueued
         handle = ctypes.c_uint64()
         RING_STATE_CREATE.launch(n, (ctypes.c_int * n)(*[d.index for d in ring.devices]),
                                  ctypes.byref(handle), count=0)
@@ -255,11 +257,11 @@ def _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, ring: SequenceRing, sm_scal
         streams += [compute.cuda_stream, copy.cuda_stream, caller[dev]]
     args = (nat.handle, n, b, s_loc, num_heads, num_kv_heads, _scale_in_dtype(q, num_heads, sm_scale),
             ring.next_epoch(), (ctypes.c_uint64 * (8 * n))(*ptrs), (ctypes.c_longlong * (5 * n))(*strides),
-            (ctypes.c_uint64 * (3 * n))(*streams), len(nat.plan), nat.plan_arg)
+            (ctypes.c_uint64 * (3 * n))(*streams), len(nat.plan), nat.plan_arg, ctypes.byref(nat.issued))
     t0 = time.perf_counter()
     RING_FWD.launch(*args, count=n)
     RING_STATS.launch_s += time.perf_counter() - t0
-    RING_STATS.sends += len(nat.plan)
+    RING_STATS.sends += nat.issued.value
     # The caller's stream on each card now waits for the ranks there (the
     # launcher ends the pass so): autograd and the checkpoint replay use the
     # outputs, and may reuse the inputs, on it.

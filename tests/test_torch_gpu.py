@@ -538,7 +538,8 @@ def test_ring_fwd_passes_never_read_an_earlier_pass(cuda):
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_ring_pass_sends_only_what_is_read(cuda, n):
     """A pass makes n(n-1)/2 chunk sends (chunk i travels while a later rank
-    reads it), and its result is still the plain version's."""
+    reads it), as the C launcher counts what it enqueued, and its result is
+    still the plain version's."""
     q, k, v, mask = _inputs(cuda, 2, 256 * n, 8, 2, [256 * n, 200], seed=10 + n)
     ring = SequenceRing([cuda] * n)
     before = RING_STATS.sends
