@@ -14,12 +14,35 @@
 // padded in shared memory and registers to R, the next of 16, 32, 64, 128,
 // and M and N tails are masked (zero-filled) in the loads and stores.
 //
-// Forward (epi_fwd_kernel): a block of 8 warps owns 32 rows x 256 columns;
-// each thread holds 4 rows x 8 neighbouring columns, prefetches its y (16
-// bytes a row) before the rank loop, and makes r f32 FMAs per element from
-// z and B chunks of 16 ranks staged as f32 in shared memory. Bound by
-// bytes: y in and out out, 100.7 MB at M = 6144, N = 4096 (30.0 us at 3.35
-// TB/s).
+// Forward (epi_fwd_kernel<R>): bound by bytes. y is read once and out
+// written once, z and B read once: (2 M N + r (M + N)) * 2 bytes, 7.6 /
+// 30.1 / 105.4 us at M = 6144, r = 16, N = 1024 / 4096 / 14336 (3.35
+// TB/s). The rank product, 2 M N r flops (0.8 GFLOP at N = 4096), is under
+// 1 us on the tensor cores, so the design is about streaming y through:
+// - Persistent blocks that own column strips: y's 64 x 64 tiles are cut
+//   into mb row groups x nb column groups within one wave of the card's
+//   blocks (ops/lora_epilogue.py:_fwd_grid). A block loads its strip of B
+//   (R x 64 per column chunk, at most FWD_CPB chunks) into shared memory
+//   once and walks its row group's tiles. At M = 6144, r = 16 the grid is
+//   mb x nb = 32 x 4 (N = 1024), 16 x 8 (4096) and 8 x 14 (14336).
+// - The backward's producer warp (produce, below) keeps a ring of 8 y
+//   tiles and a ring of z chunks in flight by TMA with mbarriers; y is
+//   loaded with an L2 evict-first policy (it is read once).
+// - Two groups of four consumer warps take the tiles in turn, 16 rows of a
+//   tile a warp, so that one group's products and stores overlap the
+//   other's (in bring-up one group was slower, and more stages were no
+//   faster). A warp's z rows are its mma.sync A fragments (ldmatrix, once
+//   a row chunk); acc = z B by ldmatrix.trans of the B chunk and
+//   mma.sync.m16n8k16, f32 sums. Then
+//   bf16(acc), times s and plus y in bf16x2 arithmetic, each correctly
+//   rounded: a product or sum of two bf16 values rounded in f32 and then
+//   to bf16 rounds as if once (f32 has more than 2 * 8 + 2 bits), so these
+//   are the reference's roundings. The result goes over y in its slot, and
+//   a TMA store of the warp's 16 rows leaves while the warp takes the next
+//   tile; the slot is freed once the store has read it.
+// - Where a stride or base does not allow TMA, the producer warp loads the
+//   same tiles with plain 16-byte loads (as for the backward), and where
+//   out's does not, each thread writes its elements.
 //
 // Backward (epi_dzdb_kernel<R, DZ, DB>): dz and dB from one pass over dy;
 // the entry points for dz alone and dB alone are the same kernel with the
@@ -83,8 +106,7 @@
 
 namespace {
 
-constexpr int CH = 64;                 // tile edge (rows and columns) of the backward
-constexpr int FWD_ROWS = 32, FWD_COLS = 256, FWD_RK = 16, FWD_THREADS = 256;
+constexpr int CH = 64;                 // tile edge (rows and columns)
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -95,10 +117,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // 8 bf16 at (row, col .. col + 7) of a row-major matrix with leading
 // dimension ld, zeros outside (rows, cols). `vec`: ld % 8 == 0 and an
@@ -119,106 +137,25 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ g, int 
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&v)[8]) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-  }
-}
-
-__device__ __forceinline__ float bf16_at(const __nv_bfloat16* __restrict__ g, size_t i) {
-  return __bfloat162float(g[i]);
-}
-
-// Forward: grid (ceil(N/256), ceil(M/32)), 256 threads.
-__global__ void __launch_bounds__(FWD_THREADS)
-epi_fwd_kernel(const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ z,
-               const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out,
-               int M, int N, int r, float s, bool vec_y) {
-  __shared__ float zs[FWD_ROWS][FWD_RK + 1];
-  __shared__ __align__(16) float bs[FWD_RK][FWD_COLS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * FWD_ROWS, n0 = blockIdx.x * FWD_COLS;
-  const int col = n0 + lane * 8;
-  constexpr int RPT = FWD_ROWS / (FWD_THREADS / 32);    // rows a thread: 4
-
-  uint4 yv[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) yv[i] = load8(y, M, N, N, m0 + warp * RPT + i, col, vec_y);
-
-  float acc[RPT][8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < r; k0 += FWD_RK) {
-    for (int e = tid; e < FWD_ROWS * FWD_RK; e += FWD_THREADS) {
-      const int row = m0 + e / FWD_RK, k = k0 + e % FWD_RK;
-      zs[e / FWD_RK][e % FWD_RK] = row < M && k < r ? bf16_at(z, static_cast<size_t>(row) * r + k) : 0.0f;
-    }
-    for (int e = tid; e < FWD_RK * FWD_COLS; e += FWD_THREADS) {
-      const int k = k0 + e / FWD_COLS, c = n0 + e % FWD_COLS;
-      bs[e / FWD_COLS][e % FWD_COLS] = k < r && c < N ? bf16_at(b, static_cast<size_t>(k) * N + c) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FWD_RK; ++k) {
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[k][lane * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[k][lane * 8 + 4]);
-      const float bk[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float zk = zs[warp * RPT + i][k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(zk, bk[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = m0 + warp * RPT + i;
-    if (row >= M || col >= N) continue;
-    float yf[8];
-    unpack8(yv[i], yf);
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float lo = __fadd_rn(yf[2 * j], bf16_round(__fmul_rn(bf16_round(acc[i][2 * j]), s)));
-      const float hi = __fadd_rn(yf[2 * j + 1], bf16_round(__fmul_rn(bf16_round(acc[i][2 * j + 1]), s)));
-      __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-      w[j] = *reinterpret_cast<uint32_t*>(&v);
-    }
-    __nv_bfloat16* dst = out + static_cast<size_t>(row) * N + col;
-    if (vec_y && col + 8 <= N) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-      const uint16_t* h = reinterpret_cast<const uint16_t*>(w);
-      uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-      for (int j = 0; j < 8 && col + j < N; ++j) d[j] = h[j];
-    }
-  }
-}
-
-
-// ---- backward: dz and dB from one pass over dy ----
-
-constexpr int NST = 8;                          // dy tiles in flight a block
+constexpr int NST = 8;                          // y / dy tiles in flight a block
 constexpr int CONSUMERS = 128;                  // four warps multiply
-constexpr int DZDB_THREADS = CONSUMERS + 32;    // and one warp loads
+constexpr int THREADS = CONSUMERS + 32;         // and one warp loads
 constexpr uint32_t TILE_BYTES = CH * CH * 2;    // a 64 x 64 bf16 tile, 128-byte rows
+// The forward's consumers: FWD_GROUPS groups of four warps take turns at the
+// tiles, so that one group's loads, products and stores overlap another's.
+constexpr int FWD_GROUPS = 2;
+constexpr int FWD_CONSUMERS = FWD_GROUPS * CONSUMERS;
+constexpr int FWD_THREADS = FWD_CONSUMERS + 32;
 
-// By padded rank R: the column chunks a block may own (its dB^T sums stay
-// in registers, CPB * R / 2 a thread; ops/lora_epilogue.py
-// CHUNKS_PER_BLOCK), the z slots in flight, and the bytes of a B chunk
+// By padded rank R: the column chunks a block of the backward may own (its
+// dB^T sums stay in registers, CPB * R / 2 a thread; ops/lora_epilogue.py
+// CHUNKS_PER_BLOCK) and of the forward (its B strip, at most 64 KB;
+// FWD_CHUNKS_PER_BLOCK), the z slots in flight, and the bytes of a B chunk
 // (R ranks x 64 columns) and a z chunk (64 rows x R ranks).
 template <int R>
 struct Rank {
   static constexpr int CPB = R == 16 ? 16 : R == 32 ? 8 : R == 64 ? 2 : 1;
+  static constexpr int FWD_CPB = 512 / R;
   static constexpr int ZST = R == 128 ? 4 : NST;
   static constexpr uint32_t B_SLOT = R * 128;
   static constexpr uint32_t Z_SLOT = CH * R * 2;
@@ -236,6 +173,20 @@ struct DzdbSmem {
   static constexpr uint32_t BAR = Z + (DB ? K::ZST * K::Z_SLOT : 0);
   static constexpr uint32_t FLAGS = BAR + 8 * (2 * NST + 2 * K::ZST + 1);
   static constexpr uint32_t BYTES = FLAGS + 8 + 1024;                 // + alignment slack
+};
+
+// Shared memory of epi_fwd_kernel, as DzdbSmem; the B strip comes last, its
+// size set at launch by the block's column chunks (ops/lora_epilogue.py
+// fwd_smem_bytes mirrors this).
+template <int R>
+struct FwdSmem {
+  using K = Rank<R>;
+  static constexpr uint32_t Y = 0;                                    // [NST] y tiles
+  static constexpr uint32_t Z = Y + NST * TILE_BYTES;                 // [ZST] z chunks
+  // full[NST], empty[NST], zfull[ZST], zempty[ZST], bfull
+  static constexpr uint32_t BAR = Z + K::ZST * K::Z_SLOT;
+  static constexpr uint32_t B = (BAR + 8 * (2 * NST + 2 * K::ZST + 1) + 1023) / 1024 * 1024;
+  static constexpr uint32_t bytes(int ncols) { return B + ncols * K::B_SLOT + 1024; }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -336,6 +287,265 @@ __device__ __forceinline__ uint32_t zoff(int row, int col) {
   }
 }
 
+// A 2D box of shared memory into a tensor map's elements (columns, rows);
+// elements out of the tensor's bounds are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most N of this thread's bulk stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to bulk copies.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The row chunks [rb0, rb0 + nrows) and column chunks [cb0, cb0 + ncols) of
+// 64 x 64 tiles that block (gj, gi) of an (nb, mb) grid owns.
+struct Span {
+  int rb0, nrows, cb0, ncols;
+};
+
+__device__ __forceinline__ Span span_of(int M, int N, int mb, int nb) {
+  const int rc = (M + CH - 1) / CH, cc = (N + CH - 1) / CH;
+  const int gj = blockIdx.x, gi = blockIdx.y;
+  const int rb0 = static_cast<int>(static_cast<long long>(rc) * gi / mb);
+  const int rb1 = static_cast<int>(static_cast<long long>(rc) * (gi + 1) / mb);
+  const int cb0 = static_cast<int>(static_cast<long long>(cc) * gj / nb);
+  const int cb1 = static_cast<int>(static_cast<long long>(cc) * (gj + 1) / nb);
+  return {rb0, rb1 - rb0, cb0, cb1 - cb0};
+}
+
+// Shared-memory addresses of a block's rings: NST tiles, ZST z chunks, the B
+// chunks, and their mbarriers.
+struct Ring {
+  uint32_t tiles, zs, bs, full, empty, zfull, zempty, bfull;
+};
+
+// The producer warp of both kernels: the block's B chunks once (WANT_B),
+// then row chunk by row chunk its z chunk (WANT_Z) and the 64 x 64 tiles
+// of x (y or dy) in its column chunks, in the order the consumers take
+// them. `tma`: the tensor maps are valid, and lane 0 loads by TMA, x with
+// an L2 evict-first policy (it is read once); else every lane loads with
+// plain loads into the same swizzled layouts (vec_*: 16-byte loads of that
+// tensor are allowed), zeros past the edges.
+template <int R, bool WANT_B, bool WANT_Z>
+__device__ __forceinline__ void produce(const Ring& q, const CUtensorMap* tm_x, const CUtensorMap* tm_z,
+                                        const CUtensorMap* tm_b, const __nv_bfloat16* __restrict__ x,
+                                        const __nv_bfloat16* __restrict__ z,
+                                        const __nv_bfloat16* __restrict__ b, int M, int N, int r,
+                                        const Span& sp, bool tma, bool vec_x, bool vec_z, bool vec_b) {
+  using K = Rank<R>;
+  const int lane = threadIdx.x & 31;
+  if (tma) {
+    if (lane != 0) return;
+    uint64_t x_policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(x_policy));
+    if constexpr (WANT_B) {
+      mbar_expect_tx(q.bfull, sp.ncols * K::B_SLOT);
+      for (int jj = 0; jj < sp.ncols; ++jj) {
+        tma_load_2d(q.bs + jj * K::B_SLOT, tm_b, (sp.cb0 + jj) * CH, 0, q.bfull);
+      }
+    }
+    for (int li = 0; li < sp.nrows; ++li) {
+      const int row0 = (sp.rb0 + li) * CH;
+      if constexpr (WANT_Z) {
+        const int zs = li % K::ZST;
+        if (li >= K::ZST) mbar_wait(q.zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
+        mbar_expect_tx(q.zfull + 8 * zs, K::Z_SLOT);
+#pragma unroll
+        for (int h = 0; h < (R >= 64 ? R / 64 : 1); ++h) {
+          tma_load_2d(q.zs + zs * K::Z_SLOT + h * CH * 128, tm_z, h * 64, row0, q.zfull + 8 * zs);
+        }
+      }
+      for (int jj = 0; jj < sp.ncols; ++jj) {
+        const int t = li * sp.ncols + jj, st = t % NST;
+        if (t >= NST) mbar_wait(q.empty + 8 * st, ((t / NST) - 1) & 1);
+        mbar_expect_tx(q.full + 8 * st, TILE_BYTES);
+        tma_load_2d_hint(q.tiles + st * TILE_BYTES, tm_x, (sp.cb0 + jj) * CH, row0, q.full + 8 * st,
+                         x_policy);
+      }
+    }
+    return;
+  }
+  if constexpr (WANT_B) {
+    for (int p = lane; p < sp.ncols * R * 8; p += 32) {
+      const int jj = p / (R * 8), k = (p % (R * 8)) >> 3, c = (p & 7) * 8;
+      st_shared16(q.bs + jj * K::B_SLOT + sw128(k, c), load8(b, r, N, N, k, (sp.cb0 + jj) * CH + c, vec_b));
+    }
+    mbar_arrive(q.bfull);
+  }
+  for (int li = 0; li < sp.nrows; ++li) {
+    const int row0 = (sp.rb0 + li) * CH;
+    if constexpr (WANT_Z) {
+      const int zs = li % K::ZST;
+      if (li >= K::ZST) mbar_wait(q.zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
+      for (int p = lane; p < CH * R / 8; p += 32) {
+        const int row = p / (R / 8), c = (p % (R / 8)) * 8;
+        st_shared16(q.zs + zs * K::Z_SLOT + zoff<R>(row, c), load8(z, M, r, r, row0 + row, c, vec_z));
+      }
+      mbar_arrive(q.zfull + 8 * zs);
+    }
+    for (int jj = 0; jj < sp.ncols; ++jj) {
+      const int t = li * sp.ncols + jj, st = t % NST;
+      if (t >= NST) mbar_wait(q.empty + 8 * st, ((t / NST) - 1) & 1);
+      uint4 v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int p = lane + 32 * u;
+        v[u] = load8(x, M, N, N, row0 + (p >> 3), (sp.cb0 + jj) * CH + (p & 7) * 8, vec_x);
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int p = lane + 32 * u;
+        st_shared16(q.tiles + st * TILE_BYTES + sw128(p >> 3, (p & 7) * 8), v[u]);
+      }
+      mbar_arrive(q.full + 8 * st);
+    }
+  }
+}
+
+// ---- forward ----
+
+// grid (nb, mb), FWD_THREADS threads, FwdSmem<R>::bytes(column chunks a
+// block) bytes. Block (gj, gi) owns span_of's tiles (at most FWD_CPB column
+// chunks); consumer group k takes its tiles t = k, k + FWD_GROUPS, ...
+// `tma`: tm_y, tm_z and tm_b are valid (else the producer warp loads with
+// plain loads, vec_*: 16-byte loads of that tensor allowed);
+// `tma_out`: tm_out is valid (boxes of 64 columns x 16 rows), else each
+// consumer thread writes its elements of out.
+template <int R>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+epi_fwd_kernel(const __grid_constant__ CUtensorMap tm_y,      // (M, N), 64 x 64 boxes
+               const __grid_constant__ CUtensorMap tm_z,      // (M, r), 64 x min(R, 64) boxes
+               const __grid_constant__ CUtensorMap tm_b,      // (r, N), R x 64 boxes
+               const __grid_constant__ CUtensorMap tm_out,    // (M, N), 16 x 64 boxes
+               const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ z,
+               const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out, int M, int N,
+               int r, int mb, int nb, float s, bool tma, bool tma_out, bool vec_y, bool vec_z,
+               bool vec_b) {
+  using K = Rank<R>;
+  using L = FwdSmem<R>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + L::BAR, empty = full + 8 * NST, zfull = empty + 8 * NST,
+                 zempty = zfull + 8 * K::ZST, bfull = zempty + 8 * K::ZST;
+  const Ring q = {base + L::Y, base + L::Z, base + L::B, full, empty, zfull, zempty, bfull};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Span sp = span_of(M, N, mb, nb);
+
+  if (tid == 0) {
+    const uint32_t arrivals = tma ? 1 : 32;     // the TMA thread, or every producer lane
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(full + 8 * i, arrivals);
+      mbar_init(empty + 8 * i, CONSUMERS / 32);  // lane 0 of each warp of the tile's group
+    }
+    for (int i = 0; i < K::ZST; ++i) {
+      mbar_init(zfull + 8 * i, arrivals);
+      mbar_init(zempty + 8 * i, FWD_CONSUMERS);
+    }
+    mbar_init(bfull, arrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == FWD_CONSUMERS / 32) {
+    produce<R, true, true>(q, &tm_y, &tm_z, &tm_b, y, z, b, M, N, r, sp, tma, vec_y, vec_z, vec_b);
+    return;
+  }
+  // ---- consumer warps: rows (warp % 4)*16 .. +15 of every tile of group warp / 4 ----
+  const int grp = warp >> 2, wr = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3, mr = lane & 7;
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(s);   // s is a bf16 value: exact
+  int pending = -1;      // the last tile whose store may still read its slot (tma_out)
+  mbar_wait(bfull, 0);
+  for (int li = 0; li < sp.nrows; ++li) {
+    const int zs = li % K::ZST, row0 = (sp.rb0 + li) * CH;
+    mbar_wait(zfull + 8 * zs, (li / K::ZST) & 1);
+    uint32_t a[R / 16][4];                    // z rows wr*16.. as A fragments, all R ranks
+#pragma unroll
+    for (int ks = 0; ks < R / 16; ++ks) {
+      ldsm_x4(a[ks], q.zs + zs * K::Z_SLOT + zoff<R>(wr * 16 + (mat & 1) * 8 + mr, ks * 16 + (mat >> 1) * 8));
+    }
+    mbar_arrive(zempty + 8 * zs);
+    for (int jj = 0; jj < sp.ncols; ++jj) {
+      const int t = li * sp.ncols + jj, st = t % NST;
+      if (t % FWD_GROUPS != grp) continue;
+      mbar_wait(full + 8 * st, (t / NST) & 1);
+      const uint32_t tile = q.tiles + st * TILE_BYTES, bchunk = q.bs + jj * K::B_SLOT;
+      // acc (16 x 64) = z rows (16 x R) B chunk (R x 64)
+      float acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < R / 16; ++ks) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, bchunk + sw128(ks * 16 + (mat & 1) * 8 + mr, np * 16 + (mat >> 1) * 8));
+          mma_bf16(acc[2 * np], a[ks], bb[0], bb[1]);
+          mma_bf16(acc[2 * np + 1], a[ks], bb[2], bb[3]);
+        }
+      }
+      // Accumulator element i of n: row g (i < 2) or g + 8, column 8n + 2 t4
+      // + (i & 1); y's pair of them is word (sw128(row, 8n) + 4 t4) / 4.
+      __nv_bfloat162* ytile = reinterpret_cast<__nv_bfloat162*>(smem + (tile - base) + 4 * t4);
+      __nv_bfloat162 yv[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) yv[n][e2] = ytile[sw128(wr * 16 + g + 8 * e2, n * 8) / 4];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const __nv_bfloat162 p = __float22bfloat162_rn(make_float2(acc[n][2 * e2], acc[n][2 * e2 + 1]));
+          const __nv_bfloat162 o = __hadd2(yv[n][e2], __hmul2(p, s2));
+          if (tma_out) {
+            ytile[sw128(wr * 16 + g + 8 * e2, n * 8) / 4] = o;
+          } else {
+            const int row = row0 + wr * 16 + g + 8 * e2, col = (sp.cb0 + jj) * CH + n * 8 + 2 * t4;
+            if (row < M && col < N) {
+              __nv_bfloat16* dst = out + static_cast<size_t>(row) * N + col;
+              dst[0] = o.x;
+              if (col + 1 < N) dst[1] = o.y;
+            }
+          }
+        }
+      }
+      if (tma_out) {
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) {
+          tma_store_2d(&tm_out, tile + wr * 16 * 128, (sp.cb0 + jj) * CH, row0 + wr * 16);
+          bulk_commit();
+          bulk_wait_read<1>();
+          if (pending >= 0) mbar_arrive(empty + 8 * (pending % NST));
+        }
+        pending = t;
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
+    }
+  }
+  if (tma_out && lane == 0) bulk_wait_read<0>();
+}
+
+// ---- backward: dz and dB from one pass over dy ----
+
 // The sum of the `count` f32x4 partials at src + p * stride, in partial
 // order (p = 0, 1, ...), with up to 8 loads in flight. The partials were
 // written by other blocks of this launch: they are read through L2.
@@ -429,7 +639,7 @@ __device__ __forceinline__ void grid_sync(int* bar, int blocks) {
   __syncthreads();
 }
 
-// grid (nb, mb), DZDB_THREADS threads, DzdbSmem bytes. Block (gj, gi) owns
+// grid (nb, mb), THREADS threads, DzdbSmem bytes. Block (gj, gi) owns
 // row chunks [rc gi / mb, rc (gi + 1) / mb) and column chunks
 // [cc gj / nb, cc (gj + 1) / nb) of dy's 64 x 64 tiles (at most CPB
 // columns). `tma`: the tensor maps are valid; else the producer warp loads
@@ -438,7 +648,7 @@ __device__ __forceinline__ void grid_sync(int* bar, int blocks) {
 // row-group and nb column-group counters; every count is zero on entry and
 // on exit. `coop`: a cooperative launch (every block resident at once).
 template <int R, bool DZ, bool DB>
-__global__ void __launch_bounds__(DZDB_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64 boxes
                 const __grid_constant__ CUtensorMap tm_z,     // (M, r), 64 x min(R, 64) boxes
                 const __grid_constant__ CUtensorMap tm_b,     // (r, N), R x 64 boxes
@@ -457,12 +667,9 @@ epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64
                  zempty = zfull + 8 * K::ZST, bfull = zempty + 8 * K::ZST;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gj = blockIdx.x, gi = blockIdx.y;
-  const int rc = (M + CH - 1) / CH, cc = (N + CH - 1) / CH;
-  const int rb0 = static_cast<int>(static_cast<long long>(rc) * gi / mb);
-  const int rb1 = static_cast<int>(static_cast<long long>(rc) * (gi + 1) / mb);
-  const int cb0 = static_cast<int>(static_cast<long long>(cc) * gj / nb);
-  const int cb1 = static_cast<int>(static_cast<long long>(cc) * (gj + 1) / nb);
-  const int nrows = rb1 - rb0, ncols = cb1 - cb0;
+  const Span sp = span_of(M, N, mb, nb);
+  const int rb0 = sp.rb0, rb1 = sp.rb0 + sp.nrows, cb0 = sp.cb0, cb1 = sp.cb0 + sp.ncols;
+  const int nrows = sp.nrows, ncols = sp.ncols, cc = (N + CH - 1) / CH;
   const size_t n_pad = static_cast<size_t>(cc) * CH;
 
   if (tid == 0) {
@@ -481,79 +688,8 @@ epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64
   __syncthreads();
 
   if (warp == CONSUMERS / 32) {
-    // ---- producer warp: B chunks once, then per row chunk its z chunk and
-    // its dy tiles, in the order the consumers take them ----
-    if (tma) {
-      if (lane == 0) {
-        // dy is read once: first out of L2, so the partials stay there for the fold.
-        uint64_t dy_policy;
-        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(dy_policy));
-        if constexpr (DZ) {
-          mbar_expect_tx(bfull, ncols * K::B_SLOT);
-          for (int jj = 0; jj < ncols; ++jj) {
-            tma_load_2d(base + L::B + jj * K::B_SLOT, &tm_b, (cb0 + jj) * CH, 0, bfull);
-          }
-        }
-        for (int li = 0; li < nrows; ++li) {
-          const int row0 = (rb0 + li) * CH;
-          if constexpr (DB) {
-            const int zs = li % K::ZST;
-            if (li >= K::ZST) mbar_wait(zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
-            mbar_expect_tx(zfull + 8 * zs, K::Z_SLOT);
-#pragma unroll
-            for (int h = 0; h < (R >= 64 ? R / 64 : 1); ++h) {
-              tma_load_2d(base + L::Z + zs * K::Z_SLOT + h * CH * 128, &tm_z, h * 64, row0,
-                          zfull + 8 * zs);
-            }
-          }
-          for (int jj = 0; jj < ncols; ++jj) {
-            const int t = li * ncols + jj, st = t % NST;
-            if (t >= NST) mbar_wait(empty + 8 * st, ((t / NST) - 1) & 1);
-            mbar_expect_tx(full + 8 * st, TILE_BYTES);
-            tma_load_2d_hint(base + L::DY + st * TILE_BYTES, &tm_dy, (cb0 + jj) * CH, row0, full + 8 * st,
-                             dy_policy);
-          }
-        }
-      }
-    } else {
-      if constexpr (DZ) {
-        for (int p = lane; p < ncols * R * 8; p += 32) {
-          const int jj = p / (R * 8), k = (p % (R * 8)) >> 3, c = (p & 7) * 8;
-          st_shared16(base + L::B + jj * K::B_SLOT + sw128(k, c),
-                      load8(b, r, N, N, k, (cb0 + jj) * CH + c, vec_b));
-        }
-        mbar_arrive(bfull);
-      }
-      for (int li = 0; li < nrows; ++li) {
-        const int row0 = (rb0 + li) * CH;
-        if constexpr (DB) {
-          const int zs = li % K::ZST;
-          if (li >= K::ZST) mbar_wait(zempty + 8 * zs, ((li / K::ZST) - 1) & 1);
-          for (int p = lane; p < CH * R / 8; p += 32) {
-            const int row = p / (R / 8), c = (p % (R / 8)) * 8;
-            st_shared16(base + L::Z + zs * K::Z_SLOT + zoff<R>(row, c),
-                        load8(z, M, r, r, row0 + row, c, vec_z));
-          }
-          mbar_arrive(zfull + 8 * zs);
-        }
-        for (int jj = 0; jj < ncols; ++jj) {
-          const int t = li * ncols + jj, st = t % NST;
-          if (t >= NST) mbar_wait(empty + 8 * st, ((t / NST) - 1) & 1);
-          uint4 v[16];
-#pragma unroll
-          for (int u = 0; u < 16; ++u) {
-            const int p = lane + 32 * u;
-            v[u] = load8(dy, M, N, N, row0 + (p >> 3), (cb0 + jj) * CH + (p & 7) * 8, vec_dy);
-          }
-#pragma unroll
-          for (int u = 0; u < 16; ++u) {
-            const int p = lane + 32 * u;
-            st_shared16(base + L::DY + st * TILE_BYTES + sw128(p >> 3, (p & 7) * 8), v[u]);
-          }
-          mbar_arrive(full + 8 * st);
-        }
-      }
-    }
+    const Ring q = {base + L::DY, base + L::Z, base + L::B, full, empty, zfull, zempty, bfull};
+    produce<R, DZ, DB>(q, &tm_dy, &tm_z, &tm_b, dy, z, b, M, N, r, sp, tma, vec_dy, vec_z, vec_b);
   } else {
     // ---- consumer warps: each tile twice, dz rows and dB^T columns ----
     const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3, mr = lane & 7;
@@ -656,8 +792,8 @@ epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64
   if (coop) {
     grid_sync(counters, mb * nb);
 #ifndef EPI_DZDB_PROBE_NO_FOLD
-    const long long step = static_cast<long long>(mb) * nb * DZDB_THREADS;
-    const long long first = (static_cast<long long>(gi) * nb + gj) * DZDB_THREADS + tid;
+    const long long step = static_cast<long long>(mb) * nb * THREADS;
+    const long long first = (static_cast<long long>(gi) * nb + gj) * THREADS + tid;
     if constexpr (DZ) fold_dz(pdz, dz, 0, M, first, step, M, r, R, nb, s);
     if constexpr (DB) fold_db(pdb, db, 0, static_cast<int>(n_pad), first, step, N, n_pad, r, R, mb, s);
 #endif
@@ -683,8 +819,8 @@ epi_dzdb_kernel(const __grid_constant__ CUtensorMap tm_dy,    // (M, N), 64 x 64
   if (!(last_row || last_col)) return;
   __threadfence();
 #ifndef EPI_DZDB_PROBE_NO_FOLD
-  if (DZ && last_row) fold_dz(pdz, dz, rb0 * CH, min(rb1 * CH, M), tid, DZDB_THREADS, M, r, R, nb, s);
-  if (DB && last_col) fold_db(pdb, db, cb0 * CH, cb1 * CH, tid, DZDB_THREADS, N, n_pad, r, R, mb, s);
+  if (DZ && last_row) fold_dz(pdz, dz, rb0 * CH, min(rb1 * CH, M), tid, THREADS, M, r, R, nb, s);
+  if (DB && last_col) fold_db(pdb, db, cb0 * CH, cb1 * CH, tid, THREADS, N, n_pad, r, R, mb, s);
 #endif
 }
 
@@ -706,6 +842,64 @@ CUresult encode_2d(CUtensorMap* map, const void* ptr, int cols, int rows, int bo
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The device the caller made current (below 64), with its context bound to
+// this thread: cuTensorMapEncodeTiled needs it, and PyTorch's autograd
+// threads may not have bound it yet (cudaFree(0) binds it).
+cudaError_t current_device(int* device) {
+  cudaError_t err = cudaGetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (*device >= 64) return cudaErrorInvalidDevice;
+  CUcontext ctx = nullptr;
+  if (cuCtxGetCurrent(&ctx) != CUDA_SUCCESS || ctx == nullptr) return cudaFree(nullptr);
+  return cudaSuccess;
+}
+
+template <int R>
+int fwd_run(const void* y, const void* z, const void* b, void* out, int M, int N, int r, int mb, int nb,
+            float s, cudaStream_t stream) {
+  using K = Rank<R>;
+  using L = FwdSmem<R>;
+  static bool ready[64] = {};        // the kernel's shared-memory limit raised on this device
+  int device = 0;
+  cudaError_t err = current_device(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(epi_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L::bytes(K::FWD_CPB)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[device] = true;
+  }
+  const int rc = (M + CH - 1) / CH, cc = (N + CH - 1) / CH;
+  const int cols = (cc + nb - 1) / nb;          // the most column chunks a block owns
+  if (mb < 1 || nb < 1 || mb > rc || nb > cc || mb > 65535 || cols > K::FWD_CPB) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool tma = N % 8 == 0 && r == R && aligned16(y) && aligned16(z) && aligned16(b);
+  const bool tma_out = N % 8 == 0 && aligned16(out);
+  CUtensorMap ty, tz, tb, tout;
+  memset(&ty, 0, sizeof(ty));
+  memset(&tz, 0, sizeof(tz));
+  memset(&tb, 0, sizeof(tb));
+  memset(&tout, 0, sizeof(tout));
+  CUresult e = CUDA_SUCCESS;
+  if (tma) {
+    e = encode_2d(&ty, y, N, M, CH, CH, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e == CUDA_SUCCESS) {
+      e = encode_2d(&tz, z, r, M, R >= 64 ? 64 : R, CH,
+                    R == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                    : R == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (e == CUDA_SUCCESS) e = encode_2d(&tb, b, N, r, CH, R, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (e == CUDA_SUCCESS && tma_out) e = encode_2d(&tout, out, N, M, CH, 16, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != CUDA_SUCCESS) return ENCODE_ERROR + static_cast<int>(e);
+  epi_fwd_kernel<R><<<dim3(nb, mb), FWD_THREADS, L::bytes(cols), stream>>>(
+      ty, tz, tb, tout, static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(z),
+      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), M, N, r, mb, nb, s, tma,
+      tma_out, N % 8 == 0 && aligned16(y), r % 8 == 0 && aligned16(z), N % 8 == 0 && aligned16(b));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int R, bool DZ, bool DB>
 int dzdb_run(const void* dy, const void* z, const void* b, void* part, void* counters, void* dz,
              void* db, int M, int N, int r, int mb, int nb, float s, cudaStream_t stream) {
@@ -713,24 +907,15 @@ int dzdb_run(const void* dy, const void* z, const void* b, void* part, void* cou
   using L = DzdbSmem<R, DZ, DB>;
   static int resident[64] = {};      // blocks of this kernel the device holds at once
   int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = current_device(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  // cuTensorMapEncodeTiled needs the device's context current on this
-  // thread (PyTorch's autograd threads may not have made it so yet);
-  // cudaFree(0) binds it.
-  CUcontext ctx = nullptr;
-  if (cuCtxGetCurrent(&ctx) != CUDA_SUCCESS || ctx == nullptr) {
-    err = cudaFree(nullptr);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   if (resident[device] == 0) {
     err = cudaFuncSetAttribute(epi_dzdb_kernel<R, DZ, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(L::BYTES));
     int per_sm = 0, sms = 0;
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epi_dzdb_kernel<R, DZ, DB>,
-                                                          DZDB_THREADS, L::BYTES);
+                                                          THREADS, L::BYTES);
     }
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -765,7 +950,7 @@ int dzdb_run(const void* dy, const void* z, const void* b, void* part, void* cou
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nb, mb);
-  cfg.blockDim = dim3(DZDB_THREADS);
+  cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = L::BYTES;
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -797,22 +982,24 @@ int dzdb_dispatch(const void* dy, const void* z, const void* b, void* part, void
 }  // namespace
 
 // Plain-C launchers (bound with ctypes): the caller's current device and
-// stream, contiguous row-major bf16 tensors. The backward's: 0 < r <= R, R
-// in {16, 32, 64, 128} the padded rank, (mb, nb) the grid
-// (ops/lora_epilogue.py:_grid), part an f32 scratch of R (M nb + N_pad mb)
+// stream, contiguous row-major bf16 tensors; 0 < r <= R, R in {16, 32, 64,
+// 128} the padded rank, (mb, nb) the grid (ops/lora_epilogue.py:_fwd_grid
+// for the forward, _grid for the backward). The backward's part is an f32 scratch of R (M nb + N_pad mb)
 // floats for the outputs computed (dz's first), counters 2 + mb + nb int32
 // that are zero and that every launch leaves zero (but the second word, a
 // generation, which may hold anything). Each returns cudaGetLastError()
 // after its launch.
 extern "C" int epi_fwd_launch(const void* y, const void* z, const void* b, void* out, int M, int N,
-                              int r, float s, void* stream) {
-  if (M <= 0 || N <= 0 || r <= 0 || r > 128) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + FWD_COLS - 1) / FWD_COLS, (M + FWD_ROWS - 1) / FWD_ROWS);
-  epi_fwd_kernel<<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(z),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), M, N, r, s,
-      N % 8 == 0 && aligned16(y) && aligned16(out));
-  return static_cast<int>(cudaGetLastError());
+                              int r, int R, int mb, int nb, float s, void* stream) {
+  if (M <= 0 || N <= 0 || r <= 0 || r > R) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 16: return fwd_run<16>(y, z, b, out, M, N, r, mb, nb, s, st);
+    case 32: return fwd_run<32>(y, z, b, out, M, N, r, mb, nb, s, st);
+    case 64: return fwd_run<64>(y, z, b, out, M, N, r, mb, nb, s, st);
+    case 128: return fwd_run<128>(y, z, b, out, M, N, r, mb, nb, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int epi_dzdb_launch(const void* dy, const void* z, const void* b, void* part,

@@ -407,6 +407,43 @@ def test_epilogue_kernels_match_plain(cuda, m, n, r):
         assert _rel(gt, wt) <= EPI_REL_TOL
 
 
+# The forward alone where a block walks more than one row tile of its strip
+# and around its rings: N = 1024 at M = 6144 (3 row chunks a block, 12
+# tiles through 8 slots), the plain loads at r 37 (10 tiles), and r 128 (8
+# row chunks through 4 z slots).
+@pytest.mark.parametrize("m,n,r", [(6144, 1024, 16), (4096, 1000, 37), (16384, 256, 128)])
+def test_epilogue_forward_walks_its_strip(cuda, m, n, r):
+    y, z, b, _ = _epi_inputs(cuda, m, n, r, seed=4)
+    got = lora_epilogue_fwd(y, z, b, 2.0)
+    torch.cuda.synchronize()
+    assert got.shape == y.shape and torch.isfinite(got).all()
+    assert _rel(got, lora_epilogue_plain(y, z, b, 2.0)) <= EPI_REL_TOL
+
+
+def test_epilogue_forward_with_an_unaligned_y(cuda):
+    """y a contiguous view at an odd element offset (not 16-byte aligned):
+    the kernel's plain loads, and its TMA store into the new, aligned out."""
+    y0, z, b, _ = _epi_inputs(cuda, 300, 1024, 16, seed=5)
+    y = torch.empty(y0.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(y0.shape)
+    y.copy_(y0)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    got = lora_epilogue_fwd(y, z, b, 2.0)
+    torch.cuda.synchronize()
+    assert got.data_ptr() % 16 == 0 and torch.isfinite(got).all()
+    assert _rel(got, lora_epilogue_plain(y0, z, b, 2.0)) <= EPI_REL_TOL
+
+
+@pytest.mark.parametrize("m,n,r", [(6144, 4096, 16), (6144, 1024, 16), (100, 300, 4), (16384, 256, 128)])
+def test_epilogue_forward_repeats_and_leaves_y(cuda, m, n, r):
+    """Two calls of the forward give the same bits, and y is left as it was
+    (the kernel writes its result over y's tile in shared memory only)."""
+    y, z, b, _ = _epi_inputs(cuda, m, n, r, seed=6)
+    y0 = y.clone()
+    first, second = lora_epilogue_fwd(y, z, b, 2.0), lora_epilogue_fwd(y, z, b, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(y, y0)
+
+
 @pytest.mark.parametrize("m,n,r", [(6144, 4096, 16), (100, 300, 4), (6144, 64, 16), (512, 2048, 128),
                                    (128, 9000, 128)])
 def test_epilogue_backward_repeats_bit_for_bit(cuda, m, n, r):

@@ -31,6 +31,8 @@ from phantom_vlb_tpu_torch.ops.lora_epilogue import (
 
 TOL = 1e-6
 SCALING = 2.0
+# The shared memory a block may take on an H100 (227 KB).
+SMEM_PER_BLOCK = 232448
 
 
 def _rel(got, want) -> float:
@@ -149,6 +151,41 @@ def test_backward_grid_at_the_path_shapes():
     for n, (mb, nb) in ((1024, (24, 4)), (4096, (16, 8)), (14336, (8, 14))):
         assert epi._grid(6144, n, 16, True, True, 132) == (mb, nb)
         assert n == 1024 or epi.partial_bytes(6144, n, 16) < 0.16 * 6144 * n * 2
+
+
+@pytest.mark.parametrize("m,n", [(33, 9), (100, 300), (70, 1000), (6144, 1024), (6144, 4096), (6144, 14336)])
+@pytest.mark.parametrize("r", [1, 16, 32, 64, 128])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_forward_grid_fits_the_kernel(m, n, r, sms):
+    """The grid the wrapper gives the forward kernel, replayed as the kernel
+    walks it (block (gj, gi) owns row chunks [rc gi / mb, rc (gi + 1) / mb)
+    and column chunks [cc gj / nb, cc (gj + 1) / nb)): every (row tile,
+    column strip) is covered exactly once, every block owns a tile and at
+    most FWD_CHUNKS_PER_BLOCK column chunks, fits its shared memory, and the
+    grid is one wave of ``sms`` blocks; the choice repeats from call to call."""
+    rp = epi._padded_rank(r)
+    mb, nb = epi._fwd_grid(m, n, rp, sms)
+    rc, cc = -(-m // epi.CHUNK), -(-n // epi.CHUNK)
+    assert 1 <= mb <= rc and 1 <= nb <= cc and mb * nb <= sms
+    cover = np.zeros((rc, cc), np.int64)
+    for gi in range(mb):
+        for gj in range(nb):
+            rows = range(rc * gi // mb, rc * (gi + 1) // mb)
+            cols = range(cc * gj // nb, cc * (gj + 1) // nb)
+            assert len(rows) >= 1 and 1 <= len(cols) <= epi.FWD_CHUNKS_PER_BLOCK[rp]
+            assert epi.fwd_smem_bytes(rp, len(cols)) <= SMEM_PER_BLOCK
+            cover[rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (cover == 1).all()
+    epi._fwd_grid.cache_clear()
+    assert epi._fwd_grid(m, n, rp, sms) == (mb, nb)
+
+
+def test_forward_grid_at_the_path_shapes():
+    """At M = 6144, r = 16 on 132 SMs the forward's grid fills at least 112
+    SMs at every width of the path, N = 1024 (16 column chunks) among them."""
+    for n, (mb, nb) in ((1024, (32, 4)), (4096, (16, 8)), (14336, (8, 14))):
+        assert epi._fwd_grid(6144, n, 16, 132) == (mb, nb)
+        assert 112 <= mb * nb <= 132
 
 
 def test_autograd_backward_takes_the_fused_entry_point_when_both_grads_are_needed(monkeypatch):
