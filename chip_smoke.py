@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
 
+Both paths run from cached video tokens and from raw frames through the
+vision towers.
+
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
@@ -23,7 +26,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
    in bits mode and in hash mode (dx exactly 0 where the mask drops; both
    masks read back exactly through dx; keep rate, seed determinism); the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
-   that is not a multiple of 8 (q and s bit for bit); the LoRA epilogue's
+   that is not a multiple of 8, and at the vision tower's (20772, 1024) and
+   (20772, 4096) (q and s bit for bit); the LoRA epilogue's
    forward, fused dz + dB, and dz and dB alone at M = 6144, r = 16, N =
    1024, 4096 and 14336 (two calls of each backward bit for bit; the
    forward's elements that differ from plain counted); the
@@ -33,33 +37,50 @@ Phases, each printed with its wall time; any failure exits non-zero:
    (landing slots reused pass after pass), n(n-1)/2 chunk sends a pass; the
    flash kernels with causal offsets S_loc, 192, 64 and 0 at S_loc, and q
    tiles shorter than 128 rows (S 100, and S 300 at offset 64);
-4. the full-width Mistral-7B VLB model (32 layers, bf16), made on the card
-   from a seeded generator;
+4. the full-width VLB model (the CLIP ViT-L/14-336 tower's 23 layers, the
+   STC connector and the 32-layer Mistral-7B, bf16), made on the card from a
+   seeded generator;
 5. ``predict_batches`` over 3 synthetic batches of 5, with every kernel's
    launch count read around that run alone;
 6. one more served batch under ``torch.profiler``: device time by kernel
    and by group, and the device's idle share; then (6b) that batch again
    through the fused ring (``attention_impl='ring_fused'`` on 4 ranks of the card,
    switched on the same model), held against phase 5's predictions;
+6v. 3 batches of 5 served from frames made on the card (12 x 3 x 336 x 336
+   each) through the same model's towers, with launch counts; the same
+   batches fed the tokens ``encode_video`` gives for their frames (the
+   predictions held against the frames path's); ``encode_video``'s device
+   time per batch (CUDA events) and its share of the batch's; one more
+   batch traced, with the ``vision`` group (the kernels launched inside
+   ``encode_video``'s ``record_function`` range) and the idle share;
 7. the full-width LoRA model (r 16, alpha 32, fused u8 dropout 0.1, remat
    per layer): 3 steps of ``train_batches`` at batch 3, launch counts
    against what the code implies, gradients reaching layer 0's adapters;
 8. one more LoRA step under ``torch.profiler``; then, on the same weights,
    3 steps with the fused LoRA epilogue (``fused_epilogue='pallas'``), so
-   the step time with the flag off and on come from one run; then (8c)
+   the step time with the flag off and on come from one run; then (8v) 3
+   steps from frames on the same weights (launch counts, adapter
+   gradients), one more traced, and its batch's ``encode_video`` traced
+   with the ``vision`` group (the vision share of the step); then (8c)
    phase 7's starting adapters again, for 3 steps through the fused ring
    on 4 ranks of the card (first loss and gradient norm against phase 7's,
    launch counts) and one more under ``torch.profiler``, and 2 steps
    through the per-step flash ring;
 8b. the w8a8g8 LoRA step of record: phase 7's weights quantized to int8 on
-   the card in place, projection by projection, then 3 steps at batch 3
+   the card in place, projection by projection (the tower's too), then 3
+   steps at batch 3
    with the fused epilogue (launch counts of every kernel but the ring's,
    non-zero adapter gradients, peak device memory), and one more under
    ``torch.profiler`` (with the epilogue group's device time and
    ``epi_fwd``'s);
 9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
+9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
+   decoder's and its tower's projections int8): ``row_quant`` launched once
+   for each of the 7 x 32 decoder and 6 x 23 tower projections;
 10. narrow models (same geometry, 2 layers, 256 wide) on the card against
-    the same weights in f32 on the CPU: served predictions, the LoRA loss
+    the same weights in f32 on the CPU: served predictions (from cached
+    tokens, and from frames through narrow towers: 2 CLIP layers 256 wide
+    and an STC of depth 1, the video tokens compared too), the LoRA loss
     and adapter gradients of one step (packed, and through the fused ring
     on 2 ranks of the card), and the same for a w8a8g8 LoRA step (the same
     int8 weights on both sides);
@@ -80,8 +101,12 @@ Phases, each printed with its wall time; any failure exits non-zero:
     grid, its fused dz + dB against both ``addmm`` calls, and dz and dB
     alone against one each, with their f32 partial bytes, each with its
     share of the byte bound, and the fused kernel against its cost probe
-    (printed only);
-12. peak host RSS (peak device memory is printed in phases 5, 7 and 11).
+    (printed only); the CLIP tower per frame and the STC connector per clip
+    (phase 4's towers, 5 clips), SDPA at (60, 16, 577, 64), the 4096-channel
+    depthwise 3x3 and the sampler's Conv3d, each beside its bound (printed
+    only);
+12. peak host RSS (peak device memory is printed in phases 5, 6v, 7, 8v and
+    11).
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON record. Without a card it exits 1 and prints no result.
@@ -108,10 +133,13 @@ from torch.profiler import ProfilerActivity, profile
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
+from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl
+from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
 from phantom_vlb_tpu_torch.models.videollama2 import (
+    VISION_PREFIXES,
     VLBConfig,
     VideoLLaMA2VLB,
     trainable_parameters,
@@ -185,6 +213,10 @@ N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
+# The vision tower's projections at batch 3: 12 frames of 577 tokens (not a
+# multiple of 8 rows), at its two input widths.
+TOWER_ROWS = LORA_BATCH * REFERENCE_GEOMETRY.num_frames * (REFERENCE_GEOMETRY.patch_grid ** 2 + 1)
+TOWER_WIDTHS = (1024, 4096)
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd": FLASH_BWD,
            "flash_bwd_post": FLASH_BWD_POST,
            "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
@@ -270,8 +302,20 @@ RING_PRED_TOL = 5e-2
 # summation order and bf16 roundings differ (and the flash backward's dq
 # reduce-adds sum in a run-dependent order).
 RING_STEP_TOL = 2e-2
+# The full-width model served from frames against the same model fed the
+# tokens its encode_video gives for those frames, max|err| / max|pred|: the
+# same kernels on the same inputs, so bit-equal is expected; 1e-6 would
+# still catch any token that reached the decoder otherwise.
+FRAMES_TOKENS_TOL = 1e-6
+# Narrow towers on the card (bf16) against the same weights in f32 on the
+# CPU, the video tokens as max|err| / max|ref|: bf16 activations (2^-8
+# relative each) through the patch conv, 2 CLIP layers and an STC block of
+# four convolutions, each after a LayerNorm whose output is rounded to
+# bf16, then the 2-layer readout. The predictions keep PRED_TOL.
+NARROW_TOKENS_TOL = 5e-2
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
+QUEUE_FULL = "Command Buffer Full"
 INT8_GEMM_MARKERS = ("s8", "i8", "imma", "int8")
 
 
@@ -599,10 +643,12 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
 
 def check_row_quant(gen, dev) -> dict[str, float]:
     """Both entry points vs plain, bit for bit: bf16 at (6144, 4096) and
-    (6144, 14336) with a zero row, and 6141 rows (not a multiple of 8);
-    returns each entry point's max abs error over q (as float)."""
+    (6144, 14336) with a zero row, 6141 rows (not a multiple of 8), and the
+    vision tower's (20772, 1024) and (20772, 4096); returns each entry
+    point's max abs error over q (as float)."""
     errs = {"row_quant": 0.0, "row_quant_scaled": 0.0}
-    for rows, n in ((LORA_M, LORA_KS[0]), (LORA_M, LORA_KS[1]), (LORA_M - 3, LORA_KS[0])):
+    for rows, n in ((LORA_M, LORA_KS[0]), (LORA_M, LORA_KS[1]), (LORA_M - 3, LORA_KS[0]),
+                    *((TOWER_ROWS, n) for n in TOWER_WIDTHS)):
         x = (3 * torch.randn(rows, n, generator=gen, device=dev)).to(torch.bfloat16)
         x[rows // 3] = 0
         w = torch.rand(n, generator=gen, device=dev) * 2 + 0.01
@@ -688,16 +734,41 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def traced(fn, label: str) -> tuple[dict[str, float], dict[str, float]]:
+def span_device_ms(prof, span: str) -> float:
+    """Device time of the kernels launched inside the ``record_function``
+    range ``span`` (each kernel is attributed to the op that launched it,
+    and that op's ancestors are searched for the range)."""
+    total = 0.0
+    for e in prof.events():
+        parent = e.cpu_parent
+        while parent is not None and parent.name != span:
+            parent = parent.cpu_parent
+        if parent is not None:
+            total += e.self_device_time_total
+    return total / 1e3
+
+
+def traced(fn, label: str, span: str | None = None) -> tuple[dict[str, float], dict[str, float]]:
     """Trace ``fn()`` on a warm model: device time by kernel and by group,
-    and the idle share of its wall time. Returns ms by group and by kernel."""
+    and the idle share of its wall time; with ``span`` (a
+    ``record_function`` range, which needs the host's ops traced too) also
+    the group of kernels launched inside it, on top of the others. Returns
+    ms by group and by kernel."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if span else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # CUPTI's record of the host blocked on a full launch queue, and the
+    # span's own range on the device's timeline: no kernels.
+    queue_full = [e for e in kernels if e.key == QUEUE_FULL]
+    kernels = [e for e in kernels if e.key not in (QUEUE_FULL, span)]
+    if queue_full:
+        print(f"  host blocked on a full launch queue ({QUEUE_FULL!r}) {queue_full[0].device_time_total / 1e3:.3f} "
+              f"ms: not counted as device time")
     by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in kernels),
                        key=lambda x: -x[1])
     groups: dict[str, float] = {}
@@ -710,6 +781,11 @@ def traced(fn, label: str) -> tuple[dict[str, float], dict[str, float]]:
         print(f"  {ms:10.3f} ms  x{count:<5d} ({ms / count:.4f} ms each) {name[:100]}")
     for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
+    if span:
+        groups[span] = span_device_ms(prof, span)
+        print(f"  group {span:9s} {groups[span]:10.3f} ms ({groups[span] / max(busy_ms, 1e-9):.1%} of device "
+              f"time: the kernels launched inside the {span!r} range, counted in the groups above too); "
+              f"host RSS after the trace {host_rss_gb():.2f} GB, peak so far {peak_rss_gb():.2f} GB")
     del prof, kernels
     release_host_memory(collect=True)
     return groups, {name: ms for name, ms, _ in by_kernel}
@@ -741,6 +817,70 @@ def serve_through_the_ring(model, batch: dict, want: np.ndarray, dev) -> None:
         raise AssertionError("predictions through the fused ring disagree with the flash path's")
 
 
+def serve_from_frames(model, gen, dev) -> None:
+    """3 batches of 5 from frames made on the card, through the towers of
+    the phase-4 model: launch counts, then the same batches fed the tokens
+    ``encode_video`` gives for their frames (predictions against the frames
+    path), ``encode_video``'s CUDA-event time per batch and its share of the
+    batch's, and one more batch traced with the ``vision`` group."""
+    cfg = model.cfg
+    batches = synthetic_batches(cfg, N_BATCHES, BATCH, np.random.default_rng(SEED), gen, dev, frames=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = predict_batches(model, batches, dev)
+    launches = read_launches()
+    check_predictions(res, N_BATCHES * BATCH, cfg.num_target)
+    print(f"  frames {tuple(batches[0]['vision'].shape)} f32 per batch; batch ms "
+          f"{[round(float(x), 3) for x in res['batch_ms']]}, brain_loss "
+          f"{[round(float(x), 5) for x in res['brain_loss']]}, launches {launches}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, host RSS "
+          f"{host_rss_gb():.2f} GB (peak so far {peak_rss_gb():.2f})")
+    want = {n: (cfg.mistral.num_hidden_layers * N_BATCHES if n == "flash_fwd" else 0) for n in KERNELS}
+    if launches != want:
+        raise AssertionError(f"serving from frames launched {launches}, want {want}")
+    with torch.inference_mode():
+        tokens = [dict(b, vision=model.encode_video(b["vision"])) for b in batches]
+    print(f"  encode_video: {tuple(tokens[0]['vision'].shape)} {tokens[0]['vision'].dtype} tokens per batch")
+    from_tokens = predict_batches(model, tokens, dev)
+    err = np.abs(res["predicted"] - from_tokens["predicted"]).max() / np.abs(from_tokens["predicted"]).max()
+    print(f"  predictions from frames against the same model fed encode_video's tokens: "
+          f"max|err| / max|pred| {err:.3e} (tol {FRAMES_TOKENS_TOL})")
+    if not err <= FRAMES_TOKENS_TOL:
+        raise AssertionError("serving from frames disagrees with serving encode_video's tokens")
+    with torch.inference_mode():
+        enc_ms = [cuda_ms(lambda b=b: model.encode_video(b["vision"]), 1, warmup=0) for b in batches]
+        batch_ms = [cuda_ms(lambda b=b: predict_batches(model, [b], dev), 1, warmup=0) for b in batches]
+    print(f"  encode_video {[round(x, 3) for x in enc_ms]} ms per batch of {BATCH} (CUDA events), of a "
+          f"served batch's {[round(x, 3) for x in batch_ms]}: {[round(e / t, 4) for e, t in zip(enc_ms, batch_ms)]}")
+    traced(lambda: predict_batches(model, [batches[-1]], dev), "served batch from frames", span="vision")
+    del batches, tokens
+
+
+def serve_w8a8g8_from_frames(gen, dev) -> dict[str, int]:
+    """One batch of 5 from frames through a w8a8g8 frozen model, its
+    decoder's and tower's projections int8 (made on the card and quantized
+    at once): every projection's input goes through ``row_quant``, 7 a
+    decoder layer and 6 a tower layer. Returns the launch counts."""
+    cfg = VLBConfig.full(base_quant="w8a8g8")
+    model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
+    batch = synthetic_batches(cfg, 1, BATCH, np.random.default_rng(SEED), gen, dev, frames=True)
+    predict_batches(model, batch, dev)                   # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    res = predict_batches(model, batch, dev)
+    launches = read_launches()
+    check_predictions(res, BATCH, cfg.num_target)
+    layers, tower_layers = cfg.mistral.num_hidden_layers, cfg.clip.effective_layers
+    want = {n: 0 for n in KERNELS}
+    want.update(flash_fwd=layers, row_quant=7 * layers + 6 * tower_layers)
+    print(f"  w8a8g8 batch of {BATCH} from frames: {float(res['batch_ms'][0]):.3f} ms, launches {launches} "
+          f"(row_quant: {7 * layers} decoder + {6 * tower_layers} tower projections)")
+    if launches != want:
+        raise AssertionError(f"w8a8g8 serving from frames launched {launches}, want {want}")
+    return launches
+
+
 def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str = "",
                       base_quant: str | None = None, **overrides) -> VLBConfig:
     """The reference's LoRA recipe with the fused u8 dropout the bench runs."""
@@ -748,7 +888,7 @@ def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str 
                       fused_epilogue=fused_epilogue)
     if mistral is None:
         mistral = MistralConfig.full(lora=lora, remat=True, base_quant=base_quant)
-    return VLBConfig.full(use_lora=True, mistral=mistral, **overrides)
+    return VLBConfig.full(use_lora=True, base_quant=base_quant, mistral=mistral, **overrides)
 
 
 def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
@@ -855,8 +995,9 @@ def train_lora_steps(cfg: VLBConfig, sd: dict, batches: list, dev, fresh: bool,
     return LoraRun(launches, step_ms, loss, norm, one_more_step)
 
 
-def lora_batches(cfg: VLBConfig, gen, dev) -> list:
-    return synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev)
+def lora_batches(cfg: VLBConfig, gen, dev, frames: bool = False) -> list:
+    return synthetic_batches(cfg, N_BATCHES + 1, LORA_BATCH, np.random.default_rng(SEED), gen, dev,
+                             frames=frames)
 
 
 def train_through_the_ring(sd: dict, start: dict, batches: list, first: LoraRun, dev) -> dict[str, int]:
@@ -896,10 +1037,11 @@ def train_through_the_ring(sd: dict, start: dict, batches: list, first: LoraRun,
 
 
 def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
-    """Phases 7, 8, 8c and 8b on one set of full-width weights: bf16 without
-    and with the fused epilogue, through the rings, then quantized in place
-    for the w8a8g8 step. Returns the w8a8g8 run's launch counts (every
-    kernel but the ring's) and the fused ring run's."""
+    """Phases 7, 8, 8v, 8c and 8b on one set of full-width weights: bf16
+    without and with the fused epilogue, from frames, through the rings,
+    then quantized in place (the decoder's projections and the tower's) for
+    the w8a8g8 step. Returns the w8a8g8 run's launch counts (every kernel
+    but the ring's) and the fused ring run's."""
     cfg = lora_train_config()
     sd = init_params(cfg, dev, gen)
     start = {key: t.clone() for key, t in sd.items() if trainable_predicate(key)}
@@ -916,6 +1058,23 @@ def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
               f"on {[round(x, 3) for x in on.step_ms[1:]]} (steps 2-3, one run)")
         del on
         torch.cuda.empty_cache()
+    with phase("8v LoRA train from frames at full width"):
+        frame_batches = lora_batches(cfg, gen, dev, frames=True)
+        frames = train_lora_steps(cfg, sd, frame_batches, dev, fresh=False)
+        print(f"  step ms from frames {[round(x, 3) for x in frames.step_ms[1:]]}, from cached tokens "
+              f"{[round(x, 3) for x in first.step_ms[1:]]} in phase 7 (steps 2-3, one run)")
+        # The step traced for the device alone (tracing the host's ops of a
+        # whole step costs host memory the RSS bound has little room for),
+        # then its batch's encode_video with its vision range.
+        _, step_kernels = traced(frames.one_more_step, "LoRA train step from frames")
+        towers = VideoLLaMA2VLB.from_state_dict(cfg, sd)
+        groups, _ = traced(lambda: towers.encode_video(frame_batches[-1]["vision"]),
+                           f"encode_video at batch {LORA_BATCH}", span="vision")
+        print(f"  vision share of the LoRA step from frames: {groups['vision']:.3f} ms of "
+              f"{sum(step_kernels.values()):.3f} ms device time "
+              f"({groups['vision'] / sum(step_kernels.values()):.1%})")
+        del frames, frame_batches, towers
+        torch.cuda.empty_cache()
     ring_launches = train_through_the_ring(sd, start, batches, first, dev)
     del start, batches
     with phase("8b w8a8g8 LoRA train at full width"):
@@ -924,7 +1083,7 @@ def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = [t for k, t in sd.items() if k.endswith((".weight_q", ".weight_scale"))]
-        print(f"  quantized {len(base) // 2} projections on the card in place in "
+        print(f"  quantized {len(base) // 2} projections (the decoder's and the tower's) on the card in place in "
               f"{time.perf_counter() - t0:.2f} s: int8 base {sum(t.numel() * t.element_size() for t in base) / 1e9:.2f} GB, "
               f"device memory now {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         del base
@@ -961,23 +1120,47 @@ def narrow_mistral(dtype, lora=None) -> MistralConfig:
     )
 
 
-def narrow_reference_check(gen, dev) -> None:
+def narrow_towers(dtype, base_quant: str | None = None) -> dict:
+    """The vision path at the serving geometry (336 px, 12 frames -> 1183
+    tokens), narrow: 2 CLIP layers 256 wide (4 heads of 64), an STC of depth
+    1 from 256 through 512 to the decoder's 256."""
+    clip = CLIPVisionConfig(hidden_size=256, intermediate_size=1024, num_attention_heads=4,
+                            num_hidden_layers=3, dtype=dtype, base_quant=base_quant)
+    stc = STCConfig(encoder_hidden_size=256, hidden_size=512, output_hidden_size=256, depth=1, dtype=dtype)
+    return {"clip": clip, "stc": stc}
+
+
+def narrow_reference_check(gen, dev, frames: bool = False) -> None:
     """A 2-layer, 256-wide model at the serving geometry: card (bf16, kernels)
-    against the same weights in f32 on the CPU (plain versions)."""
-    cfg = VLBConfig.full(mistral=narrow_mistral(torch.bfloat16))
+    against the same weights in f32 on the CPU (plain versions), at batch 2;
+    with ``frames``, at batch 1 (the CPU's f32 towers hold the host's
+    memory) served from frames through the narrow towers, whose video
+    tokens are compared too."""
+    cfg = VLBConfig.full(mistral=narrow_mistral(torch.bfloat16), **narrow_towers(torch.bfloat16))
     sd = init_params(cfg, dev, gen)
-    batches = synthetic_batches(cfg, 1, 2, np.random.default_rng(SEED), gen, dev)
-    card = predict_batches(VideoLLaMA2VLB.from_state_dict(cfg, sd), batches, dev)
-    cfg32 = dataclasses.replace(cfg, mistral=narrow_mistral(torch.float32))
+    rows = 1 if frames else 2
+    batches = synthetic_batches(cfg, 1, rows, np.random.default_rng(SEED), gen, dev, frames=frames)
+    card_model = VideoLLaMA2VLB.from_state_dict(cfg, sd)
+    card = predict_batches(card_model, batches, dev)
+    cfg32 = dataclasses.replace(cfg, mistral=narrow_mistral(torch.float32), **narrow_towers(torch.float32))
     cpu_model = VideoLLaMA2VLB.from_state_dict(cfg32, sd, device="cpu")
     cpu_batches = [{k: torch.as_tensor(v).cpu() for k, v in bt.items()} for bt in batches]
     ref = predict_batches(cpu_model, cpu_batches, "cpu")
-    check_predictions(card, 2, cfg.num_target)
+    check_predictions(card, rows, cfg.num_target)
     err = np.abs(card["predicted"] - ref["predicted"]).max()
     scale = np.abs(ref["predicted"]).max()
-    print(f"  narrow model: preds max|card - cpu f32| {err:.3e} (tol {PRED_TOL}), max|pred| {scale:.3f}")
+    label = "narrow model from frames (2 CLIP layers, STC depth 1)" if frames else "narrow model"
+    print(f"  {label}: preds max|card - cpu f32| {err:.3e} (tol {PRED_TOL}), max|pred| {scale:.3f}")
     if not err <= PRED_TOL:
-        raise AssertionError("narrow model on the card disagrees with its f32 CPU reference")
+        raise AssertionError(f"{label} on the card disagrees with its f32 CPU reference")
+    if frames:
+        tokens = card_model.encode_video(batches[0]["vision"]).float().cpu()
+        want = cpu_model.encode_video(cpu_batches[0]["vision"])
+        rel = rel_err(tokens, want)
+        print(f"  narrow towers: video tokens {tuple(tokens.shape)} max|card - cpu f32| / max|cpu| {rel:.3e} "
+              f"(tol {NARROW_TOKENS_TOL}), max|token| {want.abs().max().item():.3f}")
+        if not rel <= NARROW_TOKENS_TOL:
+            raise AssertionError("the narrow towers on the card disagree with their f32 CPU reference")
 
 
 def narrow_lora_check(gen, dev, base_quant: str | None = None, attention_impl: str = "auto") -> None:
@@ -995,7 +1178,8 @@ def narrow_lora_check(gen, dev, base_quant: str | None = None, attention_impl: s
         return dataclasses.replace(narrow_mistral(dtype, lora), base_quant=base_quant,
                                    attention_impl=impl)
 
-    cfg = lora_train_config(mistral(torch.bfloat16, attention_impl), dropout_rate=0.0)
+    cfg = lora_train_config(mistral(torch.bfloat16, attention_impl), base_quant=base_quant,
+                            dropout_rate=0.0, **narrow_towers(torch.bfloat16, base_quant))
     sd = init_params(cfg, dev, gen)
     for key in sd:
         if key.endswith("lora_b"):       # non-zero, so lora_a's gradient is too
@@ -1003,7 +1187,8 @@ def narrow_lora_check(gen, dev, base_quant: str | None = None, attention_impl: s
     batch = synthetic_batches(cfg, 1, 1, np.random.default_rng(SEED), gen, dev)[0]
     results = []
     set_sequence_ring(SequenceRing([dev] * 2))
-    for device, mcfg in ((dev, cfg), ("cpu", dataclasses.replace(cfg, mistral=mistral(torch.float32)))):
+    cfg32 = dataclasses.replace(cfg, mistral=mistral(torch.float32), **narrow_towers(torch.float32, base_quant))
+    for device, mcfg in ((dev, cfg), ("cpu", cfg32)):
         model = VideoLLaMA2VLB.from_state_dict(mcfg, sd, device=device)
         trainable_parameters(model)
         model.train()
@@ -1496,6 +1681,78 @@ def time_ring(gen, dev) -> dict[str, dict]:
     return out
 
 
+def clip_flops(cfg: CLIPVisionConfig) -> float:
+    """Multiply-adds x 2 of the tower on one frame: the patch conv, and each
+    layer's four projections, MLP and the two attention products."""
+    s, e, p = cfg.num_patches + 1, cfg.hidden_size, cfg.patch_size
+    layer = 2 * s * (4 * e * e + 2 * e * cfg.intermediate_size) + 4 * s * s * e
+    return 2 * cfg.num_patches * 3 * p * p * e + cfg.effective_layers * layer
+
+
+def stc_flops(cfg: STCConfig, t: int, grid: int) -> float:
+    """Multiply-adds x 2 of the connector on one clip of t frames of
+    grid x grid features: each bottleneck's 1x1 convs (and shortcut), its
+    depthwise 3x3 and squeeze-excite, the sampler and the readout."""
+    def block(images, side, cin, cout):
+        rd = max(1, int(round(cin * cfg.se_ratio)))
+        px = images * side * side
+        convs = cin * cout + cout * cout + (cin * cout if cin != cout else 0) + 9 * cout
+        return 2 * px * convs + 2 * images * 2 * cout * rd
+
+    c = cfg.hidden_size
+    td, gd = t // 2 + 1, grid // 2 + 1
+    s1 = block(t, grid, cfg.encoder_hidden_size, c) + (cfg.depth - 1) * block(t, grid, c, c)
+    s2 = cfg.depth * block(td, gd, c, c)
+    px2 = td * gd * gd
+    readout = 2 * px2 * (c * cfg.output_hidden_size + (cfg.mlp_depth - 1) * cfg.output_hidden_size ** 2)
+    return s1 + 2 * px2 * 8 * c * c + s2 + readout
+
+
+def time_vision(towers, gen, dev) -> None:
+    """The phase-4 model's towers at the serving batch (5 clips of 12
+    frames): the CLIP tower per frame and the STC connector per clip by CUDA
+    events, beside their operations bound at the bf16 peak; SDPA at the
+    tower's (60, 16, 577, 64); the 4096-channel depthwise 3x3 of s1 and the
+    sampler's Conv3d, each beside its bound. Printed, not in the JSON line
+    (the vision path has no kernel of its own)."""
+    tower, connector = towers
+    ccfg, scfg = tower.cfg, connector.cfg
+    g, frames = REFERENCE_GEOMETRY, BATCH * REFERENCE_GEOMETRY.num_frames
+    x = torch.randn(frames, 3, g.image_size, g.image_size, generator=gen, device=dev)
+    with torch.inference_mode():
+        clip_ms = cuda_ms(lambda: tower(x), 5)
+        feats = tower(x).reshape(BATCH, g.num_frames, ccfg.grid, ccfg.grid, ccfg.hidden_size)
+        stc_ms = cuda_ms(lambda: connector(feats), 5)
+        h = torch.randn(frames, ccfg.grid, ccfg.grid, scfg.hidden_size, generator=gen, device=dev,
+                        dtype=scfg.dtype)
+        dw = connector.s1.b2.conv2
+        dw_ms = cuda_ms(lambda: dw(h.permute(0, 3, 1, 2)), 10)
+        h3 = h.reshape(BATCH, g.num_frames, ccfg.grid, ccfg.grid, scfg.hidden_size)
+        conv3d = connector.sampler_conv
+        conv3d_ms = cuda_ms(lambda: conv3d(h3.permute(0, 4, 1, 2, 3)), 10)
+        heads, s = ccfg.num_attention_heads, ccfg.num_patches + 1
+        q, k, v = (torch.randn(frames, heads, s, ccfg.hidden_size // heads, generator=gen, device=dev,
+                               dtype=ccfg.dtype) for _ in range(3))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    c, px = scfg.hidden_size, frames * ccfg.grid * ccfg.grid
+    td, gd = g.num_frames // 2 + 1, ccfg.grid // 2 + 1
+    cases = (
+        ("CLIP tower per frame", clip_ms / frames, clip_flops(ccfg), 0.0),
+        ("STC connector per clip", stc_ms / BATCH, stc_flops(scfg, g.num_frames, ccfg.grid), 0.0),
+        (f"depthwise 3x3 ({frames}, {c}, {ccfg.grid}, {ccfg.grid}) channels-last", dw_ms,
+         2 * px * c * 9, 2 * h.numel() * 2 + c * 9 * 2),
+        (f"Conv3d k 2 s 2 p 1 ({BATCH}, {c}, {g.num_frames}, {ccfg.grid}, {ccfg.grid})", conv3d_ms,
+         2 * BATCH * td * gd * gd * 8 * c * c, (h3.numel() + BATCH * td * gd * gd * c + 8 * c * c) * 2),
+        (f"SDPA ({frames}, {heads}, {s}, {ccfg.hidden_size // heads}) bf16", sdpa_ms,
+         4 * frames * heads * s * s * (ccfg.hidden_size // heads), 4 * q.numel() * 2),
+    )
+    for label, ms, flops, nbytes in cases:
+        rec = bound(flops, nbytes)
+        print(f"  {label}: {ms:.4f} ms (CUDA events); {flops / 1e9:.2f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}, {rec['bound_ms'] / ms:.1%} of it), {flops / ms / 1e9:.1f} TFLOP/s")
+    del x, feats, h, h3, q, k, v
+
+
 def time_int_mm(gen, dev) -> None:
     """``torch._int_mm`` at 6144 x 4096 -> 14336 and its dx (6144 x 14336
     -> 4096), each with the weight stored (out, in) and (in, out), beside
@@ -1580,8 +1837,10 @@ def main() -> int:
         model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
         n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"  {cfg.mistral.num_hidden_layers} layers, {n_params / 1e9:.3f} B parameters, "
-              f"{n_bytes / 1e9:.2f} GB on {torch.cuda.get_device_name(0)}")
+        n_vision = sum(p.numel() for name, p in model.named_parameters() if name.startswith(VISION_PREFIXES))
+        print(f"  {cfg.mistral.num_hidden_layers} layers, {n_params / 1e9:.3f} B parameters "
+              f"({n_vision / 1e9:.3f} B in the CLIP tower's {cfg.clip.effective_layers} layers and the STC "
+              f"connector), {n_bytes / 1e9:.2f} GB on {torch.cuda.get_device_name(0)}")
     with phase("5 serve"):
         batches = synthetic_batches(cfg, N_BATCHES, BATCH, np.random.default_rng(SEED), gen, dev)
         torch.cuda.synchronize()
@@ -1601,7 +1860,11 @@ def main() -> int:
         traced(lambda: predict_batches(model, [batches[-1]], dev), "served batch")
     with phase("6b serve through the fused ring"):
         serve_through_the_ring(model, batches[-1], res["predicted"][-BATCH:], dev)
-        del model, batches
+        del batches
+    with phase("6v serve from frames"):
+        serve_from_frames(model, gen, dev)
+        towers = (model.vision_tower, model.mm_projector)          # timed in phase 11
+        del model
         torch.cuda.empty_cache()
     with phase("7 LoRA train at full width"):
         launches, ring_launches = train_lora_full(gen, dev)
@@ -1610,11 +1873,18 @@ def main() -> int:
     with phase("9 frozen-baseline train at full width"):
         train_baseline_full(gen, dev)
         torch.cuda.empty_cache()
+    with phase("9v w8a8g8 serve from frames"):
+        serve_w8a8g8_from_frames(gen, dev)
+        torch.cuda.empty_cache()
     with phase("10 narrow models vs f32 CPU"):
-        narrow_reference_check(gen, dev)
-        narrow_lora_check(gen, dev)
-        narrow_lora_check(gen, dev, attention_impl="ring_fused")
-        narrow_lora_check(gen, dev, base_quant="w8a8g8")
+        # Each check's CPU work handed back before the next (peak host RSS).
+        for check in (lambda: narrow_reference_check(gen, dev),
+                      lambda: narrow_reference_check(gen, dev, frames=True),
+                      lambda: narrow_lora_check(gen, dev),
+                      lambda: narrow_lora_check(gen, dev, attention_impl="ring_fused"),
+                      lambda: narrow_lora_check(gen, dev, base_quant="w8a8g8")):
+            check()
+            release_host_memory(collect=True)
     with phase("11 timing"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1623,6 +1893,8 @@ def main() -> int:
         time_bwd_probes(dev)
         time_fwd_probes(dev)
         time_int_mm(gen, dev)
+        time_vision(towers, gen, dev)
+        del towers
         print(f"  peak device memory in timing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     with phase("12 host"):
         rss_gb = peak_rss_gb()

@@ -3,7 +3,8 @@
 The JAX package stays the reference; this package mirrors its module paths
 (``models/mistral.py`` here is the counterpart of
 ``phantom_vlb_tpu/models/mistral.py``) and imports nothing from it. It covers
-the frozen-baseline serving forward (cached video tokens + text ids ->
+the frozen-baseline serving forward (raw frames through the frozen CLIP
+ViT-L/14-336 tower and STC connector, or cached video tokens, + text ids ->
 32-layer Mistral-7B -> HRF head -> predictions, masked MSE and streaming
 Pearson) and the training step in both regimes (the head alone, or head +
 LoRA adapters; AdamW on the cosine schedule with clipping). Attention and

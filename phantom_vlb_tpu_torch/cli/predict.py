@@ -4,7 +4,8 @@ Counterpart of the sweep in ``phantom_vlb_tpu/cli/predict.py`` (:24-71): the
 frozen model's forward over each batch, the masked loss, and the streaming
 Pearson merge, keeping only the valid rows of each fixed-shape batch. The
 HDF5 writer, config composition and data loaders are not ported yet;
-:func:`synthetic_batches` makes seeded inputs of the serving shapes instead.
+:func:`synthetic_batches` makes seeded inputs of the serving shapes instead,
+with cached video tokens or raw frames.
 """
 
 from __future__ import annotations
@@ -66,19 +67,25 @@ def synthetic_batches(
     rng: np.random.Generator,
     generator: torch.Generator,
     device: str | torch.device = "cuda",
+    frames: bool = False,
 ) -> list[dict]:
     """``n`` seeded batches: text rows from :func:`synth_language_row` and HRF
-    weights, targets from ``rng``; cached video tokens (N(0, 1), in the
-    backbone's dtype) made on ``device`` from ``generator``."""
+    weights, targets from ``rng``; and, made on ``device`` from
+    ``generator``, either cached video tokens (N(0, 1), in the backbone's
+    dtype) or, with ``frames``, normalised frames (B, T, 3, H, W) (N(0, 1),
+    f32) for the vision towers."""
     device = resolve_device(device)
     g = cfg.geometry
+    if frames:
+        shape, dtype = (g.num_frames, 3, g.image_size, g.image_size), torch.float32
+    else:
+        shape, dtype = (g.num_vis_tokens, cfg.mistral.hidden_size), cfg.mistral.dtype
     out = []
     for i in range(n):
         rows = [synth_language_row(g, rng, (i * batch + r + 1) * g.tr) for r in range(batch)]
         out.append({
             "language": np.stack([r[0] for r in rows]),
-            "vision": torch.randn(batch, g.num_vis_tokens, cfg.mistral.hidden_size,
-                                  generator=generator, device=device, dtype=cfg.mistral.dtype),
+            "vision": torch.randn(batch, *shape, generator=generator, device=device, dtype=dtype),
             "padvals": np.stack([r[2] for r in rows]),
             "vis_weights": rng.uniform(0, 0.3, (batch, g.num_ds_frames)).astype(np.float32),
             "lang_weights": rng.uniform(0, 0.3, (batch, g.onsets_width)).astype(np.float32),

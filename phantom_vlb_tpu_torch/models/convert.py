@@ -2,27 +2,34 @@
 
 :func:`from_flax_params` maps the parameter tree of the JAX
 ``VideoLLaMA2VLB`` (numpy leaves) onto this package's state-dict names. It
-reads the unrolled ``model/layers_{i}`` form and the stacked ``layers_scan``
-form, grouped (``sub_{g}``, leading axis L/G, layer ``j*G + g``) or not
-(leading axis L), as ``phantom_vlb_tpu/models/convert.py:stack_layer_params``
-writes them:
+reads the decoder's unrolled ``model/layers_{i}`` form and its stacked
+``layers_scan`` form, grouped (``sub_{g}``, leading axis L/G, layer ``j*G +
+g``) or not (leading axis L), as
+``phantom_vlb_tpu/models/convert.py:stack_layer_params`` writes them, and
+the vision tower's ``layers_{i}`` and ``layers_scan`` (leading axis L)
+forms; ``mm_projector`` is the STC connector:
 
 - Dense ``kernel`` (in, out) -> ``nn.Linear`` ``weight`` (out, in);
+- Conv ``kernel`` HWIO -> OIHW (the depthwise (3, 3, 1, C) -> (C, 1, 3, 3))
+  and Conv3d DHWIO -> OIDHW;
 - a quantized base's ``kernel_q`` int8 (in, out) -> ``weight_q`` (out, in)
   and ``kernel_scale`` (out,) -> ``weight_scale`` (``ops/quant.py``
-  ``quantize_tree``'s leaves);
+  ``quantize_tree``'s leaves); the tower's ``bias`` beside them as it is;
 - LoRA ``lora_a`` (in, r) and ``lora_b`` (r, out) -> as they are (the port
   stores them in the reference's orientation);
-- ``embed_tokens/embedding``, RMSNorm ``weight`` -> as they are;
-- Flax LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
-- ``vision_tower`` and ``mm_projector`` are set aside for the vision slice;
+- ``embed_tokens/embedding``, RMSNorm ``weight``, ``class_embedding`` and
+  ``position_embedding`` -> as they are;
+- Flax LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (the STC's
+  ``norm*/LayerNorm_0/`` level dropped);
 - anything else raises.
 
-:func:`init_params` makes a random full-width state dict on the device, in
-the backbone's dtype (bf16 at full width) with the head and any adapters in
-f32, from an explicit generator, without a host copy of the backbone. With
-``base_quant`` each projection is drawn in that dtype and quantized on the
-device at once (``quantize_int8``), so the bf16 model is never whole.
+:func:`init_params` makes a random full-width state dict on the device,
+each tensor in its :func:`~phantom_vlb_tpu_torch.models.videollama2.stored_dtype`
+(bf16 at full width, with the head, any adapters and the vision path's
+LayerNorms in f32), from an explicit generator, without a host copy. With
+``base_quant`` each projection of the decoder and of the tower is drawn in
+that dtype and quantized on the device at once (``quantize_int8``), so the
+bf16 model is never whole.
 :func:`~phantom_vlb_tpu_torch.ops.quant.quantize_state_dict` quantizes an
 existing state dict in place, projection by projection, on its device.
 """
@@ -37,30 +44,45 @@ import torch
 
 from phantom_vlb_tpu_torch.core.device import resolve_device
 from phantom_vlb_tpu_torch.models.lora import is_lora_path
-from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB
+from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB, is_norm, stored_dtype
 from phantom_vlb_tpu_torch.ops.quant import quantize_int8
 
-__all__ = ["from_flax_params", "init_params", "DEFERRED_SUBTREES"]
+__all__ = ["from_flax_params", "init_params"]
 
-INIT_STD = 0.02  # HF Mistral's initializer_range
-# Vision-path subtrees: not used on the cached-token path.
-DEFERRED_SUBTREES = ("vision_tower", "mm_projector")
+INIT_STD = 0.02  # HF Mistral's initializer_range (and CLIP's)
 
 _DENSE = {("self_attn", n) for n in ("q_proj", "k_proj", "v_proj", "o_proj")} | {
     ("mlp", n) for n in ("gate_proj", "up_proj", "down_proj")
 }
 _NORMS = ("input_layernorm", "post_attention_layernorm")
-# Flax path -> (state-dict key, transpose).
+# Flax path -> state-dict key.
 _FIXED = {
-    ("model", "embed_tokens", "embedding"): ("model.embed_tokens.weight", False),
-    ("model", "norm", "weight"): ("model.norm.weight", False),
-    ("head", "layer_norm1", "scale"): ("head.layer_norm1.weight", False),
-    ("head", "layer_norm1", "bias"): ("head.layer_norm1.bias", False),
-    ("head", "layer_norm2", "scale"): ("head.layer_norm2.weight", False),
-    ("head", "layer_norm2", "bias"): ("head.layer_norm2.bias", False),
-    ("head", "ridge", "linear", "kernel"): ("head.ridge.linear.weight", True),
-    ("head", "ridge", "linear", "bias"): ("head.ridge.linear.bias", False),
+    ("model", "embed_tokens", "embedding"): "model.embed_tokens.weight",
+    ("model", "norm", "weight"): "model.norm.weight",
+    ("head", "layer_norm1", "scale"): "head.layer_norm1.weight",
+    ("head", "layer_norm1", "bias"): "head.layer_norm1.bias",
+    ("head", "layer_norm2", "scale"): "head.layer_norm2.weight",
+    ("head", "layer_norm2", "bias"): "head.layer_norm2.bias",
+    ("head", "ridge", "linear", "kernel"): "head.ridge.linear.weight",
+    ("head", "ridge", "linear", "bias"): "head.ridge.linear.bias",
+    ("vision_tower", "patch_embedding", "kernel"): "vision_tower.patch_embedding.weight",
+    ("vision_tower", "class_embedding"): "vision_tower.class_embedding",
+    ("vision_tower", "position_embedding"): "vision_tower.position_embedding",
+    ("vision_tower", "pre_layrnorm", "scale"): "vision_tower.pre_layrnorm.weight",
+    ("vision_tower", "pre_layrnorm", "bias"): "vision_tower.pre_layrnorm.bias",
+    ("mm_projector", "sampler_conv", "kernel"): "mm_projector.sampler_conv.weight",
+    ("mm_projector", "sampler_conv", "bias"): "mm_projector.sampler_conv.bias",
 }
+# The vision tower's projections, and a bottleneck's convolutions and
+# LayerNorms in the STC connector.
+_CLIP_DENSE = {("self_attn", n) for n in ("q_proj", "k_proj", "v_proj", "out_proj")} | {
+    ("mlp", n) for n in ("fc1", "fc2")
+}
+_STC_CONVS = ("conv1", "conv2", "conv3", "downsample_conv")
+_STC_NORMS = ("norm1", "norm2", "norm3", "downsample_norm")
+# Flax leaf name -> PyTorch's.
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias", "kernel_q": "weight_q",
+               "kernel_scale": "weight_scale", "weight": "weight", "lora_a": "lora_a", "lora_b": "lora_b"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple[tuple, object]]:
@@ -75,51 +97,98 @@ def _unconsumed(path: tuple) -> ValueError:
     return ValueError(f"unconsumed Flax parameter {'/'.join(path)}")
 
 
-def _layer_leaf(path: tuple, within: tuple) -> tuple[str, bool]:
-    """Path inside one decoder layer -> (key suffix, transpose)."""
-    if len(within) == 3 and within[:2] in _DENSE and within[2] == "kernel":
-        return f"{within[0]}.{within[1]}.weight", True
-    if len(within) == 3 and within[:2] in _DENSE and within[2] == "kernel_q":
-        return f"{within[0]}.{within[1]}.weight_q", True
-    if len(within) == 3 and within[:2] in _DENSE and within[2] in ("lora_a", "lora_b", "kernel_scale"):
-        name = "weight_scale" if within[2] == "kernel_scale" else within[2]
-        return f"{within[0]}.{within[1]}.{name}", False
+def _layout(a: np.ndarray, name: str) -> np.ndarray:
+    """A Flax leaf in PyTorch's layout: Dense ``kernel`` and ``kernel_q``
+    (in, out) transposed; Conv HWIO / DHWIO -> OIHW / OIDHW; the rest (LoRA
+    factors, scales, biases, norms, embeddings) as it is."""
+    if name in ("kernel", "kernel_q") and a.ndim == 2:
+        return a.T
+    if name == "kernel" and a.ndim >= 4:
+        return a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+    return a
+
+
+def _layer_leaf(path: tuple, within: tuple) -> str:
+    """Path inside one decoder layer -> key suffix."""
+    if len(within) == 3 and within[:2] in _DENSE and within[2] in (
+            "kernel", "kernel_q", "kernel_scale", "lora_a", "lora_b"):
+        return f"{within[0]}.{within[1]}.{_LEAF_NAMES[within[2]]}"
     if len(within) == 2 and within[0] in _NORMS and within[1] == "weight":
-        return f"{within[0]}.weight", False
+        return f"{within[0]}.weight"
     raise _unconsumed(path)
+
+
+def _clip_layer_leaf(path: tuple, within: tuple) -> str:
+    """Path inside one tower layer -> key suffix."""
+    if len(within) == 3 and within[:2] in _CLIP_DENSE and within[2] in (
+            "kernel", "bias", "kernel_q", "kernel_scale"):
+        return f"{within[0]}.{within[1]}.{_LEAF_NAMES[within[2]]}"
+    if len(within) == 2 and within[0] in ("layer_norm1", "layer_norm2") and within[1] in ("scale", "bias"):
+        return f"{within[0]}.{_LEAF_NAMES[within[1]]}"
+    raise _unconsumed(path)
+
+
+def _numbered(name: str, prefix: str) -> int | None:
+    rest = name[len(prefix):] if name.startswith(prefix) else ""
+    return int(rest) if rest.isdigit() else None
+
+
+def _stc_key(path: tuple) -> str:
+    """``mm_projector/...`` below the top level -> key."""
+    p = path[1:]
+    if len(p) == 2 and _numbered(p[0], "readout_") is not None and p[1] in ("kernel", "bias"):
+        return f"mm_projector.readout.{_numbered(p[0], 'readout_')}.{_LEAF_NAMES[p[1]]}"
+    if len(p) >= 4 and p[0] in ("s1", "s2") and _numbered(p[1], "b") is not None:
+        block, within = f"mm_projector.{p[0]}.{p[1]}", p[2:]
+        if len(within) == 2 and within[0] in _STC_CONVS and within[1] == "kernel":
+            return f"{block}.{within[0]}.weight"
+        if len(within) == 3 and within[0] in _STC_NORMS and within[1] == "LayerNorm_0" \
+                and within[2] in ("scale", "bias"):
+            return f"{block}.{within[0]}.{_LEAF_NAMES[within[2]]}"
+        if len(within) == 3 and within[:2] in (("se", "fc1"), ("se", "fc2")) \
+                and within[2] in ("kernel", "bias"):
+            return f"{block}.se.{within[1]}.{_LEAF_NAMES[within[2]]}"
+    raise _unconsumed(path)
+
+
+def _layer_keys(path: tuple, group: int, n: int) -> list[str]:
+    """Keys of a ``layers_{i}`` leaf (one) or of a stacked ``layers_scan``
+    leaf of ``n`` layers, of the decoder (``model``; grouped ``sub_{g}``
+    when ``group``, layer ``j*G + g``) or of the tower (``vision_tower``)."""
+    root = path[0]
+    leaf_of = _layer_leaf if root == "model" else _clip_layer_leaf
+    layer = _numbered(path[1], "layers_")
+    if layer is not None:
+        return [f"{root}.layers.{layer}.{leaf_of(path, path[2:])}"]
+    if path[1] != "layers_scan":
+        raise _unconsumed(path)
+    g, within = (_numbered(path[2], "sub_"), path[3:]) if group else (0, path[2:])
+    if g is None:
+        raise _unconsumed(path)
+    suffix = leaf_of(path, within)
+    return [f"{root}.layers.{j * max(group, 1) + g}.{suffix}" for j in range(n)]
 
 
 def from_flax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``params`` tree of ``VideoLLaMA2VLB`` -> this package's state dict (CPU)."""
     sd: dict[str, torch.Tensor] = {}
 
-    def put(key: str, leaf, transpose: bool) -> None:
+    def put(key: str, a: np.ndarray, name: str) -> None:
         if key in sd:
             raise ValueError(f"{key} given twice")
-        a = np.asarray(leaf)
-        sd[key] = torch.from_numpy(np.array(a.T if transpose else a, order="C"))  # own copy
+        sd[key] = torch.from_numpy(np.array(_layout(a, name), order="C"))      # own copy
 
-    scan = tree.get("model", {}).get("layers_scan", {})
-    group = sum(1 for k in scan if k.startswith("sub_"))
     for path, leaf in _flatten(tree):
-        if path[0] in DEFERRED_SUBTREES:
-            continue
+        a = np.asarray(leaf)
         if path in _FIXED:
-            key, transpose = _FIXED[path]
-            put(key, leaf, transpose)
-        elif path[0] != "model" or len(path) < 3:
-            raise _unconsumed(path)
-        elif path[1] == "layers_scan":
-            if group:                                   # layers_scan/sub_{g}/...
-                g, within = int(path[2][len("sub_"):]), path[3:]
-            else:
-                g, within = 0, path[2:]
-            suffix, transpose = _layer_leaf(path, within)
-            for j, a in enumerate(np.asarray(leaf)):
-                put(f"model.layers.{j * max(group, 1) + g}.{suffix}", a, transpose)
-        elif path[1].startswith("layers_") and path[1][len("layers_"):].isdigit():
-            suffix, transpose = _layer_leaf(path, path[2:])
-            put(f"model.layers.{int(path[1][len('layers_'):])}.{suffix}", leaf, transpose)
+            put(_FIXED[path], a, path[-1])
+        elif path[0] == "mm_projector":
+            put(_stc_key(path), a, path[-1])
+        elif path[0] in ("model", "vision_tower") and len(path) >= 3:
+            group = sum(1 for k in tree[path[0]].get("layers_scan", {}) if k.startswith("sub_"))
+            keys = _layer_keys(path, group, len(a))
+            for key, x in zip(keys, a if path[1] == "layers_scan" else [a]):
+                put(key, x, path[-1])
         else:
             raise _unconsumed(path)
     return sd
@@ -130,12 +199,14 @@ def init_params(
     device: str | torch.device = "cuda",
     generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Random state dict made on ``device``: N(0, INIT_STD) projections and
-    embeddings in ``cfg.mistral.dtype``, unit norms, an f32 head whose
-    ridge weight is N(0, 1/hidden), and f32 adapters as the reference
+    """Random state dict made on ``device``, each tensor in its
+    :func:`stored_dtype`: N(0, INIT_STD) projections, convolutions, biases
+    and embeddings, unit norm weights and zero norm biases, an f32 head
+    whose ridge weight is N(0, 1/hidden), and f32 adapters as the reference
     initialises them (``lora_a`` he-uniform over its fan-in, ``lora_b`` 0).
-    With ``cfg.mistral.base_quant`` each projection is drawn as above and
-    quantized at once into ``weight_q`` / ``weight_scale``."""
+    With ``base_quant`` (the decoder's, or the tower's) each projection is
+    drawn as above and quantized at once into ``weight_q`` /
+    ``weight_scale``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -158,16 +229,18 @@ def init_params(
                 sd[key] = t.mul_(2.0 * bound).sub_(bound)
             else:
                 sd[key] = torch.zeros(meta.shape, device=device)
-        elif key.endswith("norm.weight"):
-            sd[key] = torch.ones(meta.shape, dtype=cfg.mistral.dtype, device=device)
+        elif is_norm(key):
+            fill = torch.ones if key.endswith(".weight") else torch.zeros
+            sd[key] = fill(meta.shape, dtype=stored_dtype(key, cfg), device=device)
         elif key.endswith(".weight_scale"):
             continue                                     # made with its weight_q
         elif key.endswith(".weight_q"):
-            t = torch.randn(meta.shape, generator=generator, device=device, dtype=cfg.mistral.dtype)
             base = key[: -len("weight_q")]
+            t = torch.randn(meta.shape, generator=generator, device=device,
+                            dtype=stored_dtype(base + "weight", cfg))
             sd[key], sd[base + "weight_scale"] = quantize_int8(t.mul_(INIT_STD), axis=1)
             del t
         else:
-            t = torch.randn(meta.shape, generator=generator, device=device, dtype=cfg.mistral.dtype)
+            t = torch.randn(meta.shape, generator=generator, device=device, dtype=stored_dtype(key, cfg))
             sd[key] = t.mul_(INIT_STD)
     return sd

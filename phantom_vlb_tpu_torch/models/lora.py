@@ -2,7 +2,7 @@
 
 Counterpart of ``phantom_vlb_tpu/models/lora.py`` (``LoRAConfig`` :37-78,
 ``adapter_dropout`` :80-98, ``LoRADense`` :101-221, ``FrozenQuantDense``
-:224-272, ``is_lora_path``, ``lora_merge``)::
+:224-272 with its optional bias, ``is_lora_path``, ``lora_merge``)::
 
     y = x @ W^T  (frozen)  +  scaling * (dropout(x) @ A) @ B
 
@@ -178,19 +178,25 @@ class LoRALinear(_QuantBase):
 
 class FrozenQuantDense(_QuantBase):
     """The adapter-free frozen int8 base (the frozen-baseline regime with
-    ``base_quant``): no trainable parameter."""
+    ``base_quant``, and the vision tower's projections): no trainable
+    parameter. With ``bias`` a frozen ``bias`` (out,) in ``dtype`` is added
+    after the product in ``dtype``, as the reference adds
+    ``bias.astype(dtype)``."""
 
     def __init__(self, in_features: int, out_features: int, base_quant: str,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = False):
         super().__init__()
         if base_quant is None:
             raise ValueError("FrozenQuantDense needs a base_quant mode")
         _check_base_quant(base_quant)
         self.dtype = dtype
         self._init_quant_base(in_features, out_features, base_quant)
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype), requires_grad=False)
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._base(x, self.dtype)
+        y = self._base(x, self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def is_lora_path(path: str) -> bool:

@@ -1,23 +1,30 @@
-"""VideoLLaMA2-VLB over cached video tokens: the forward, served or trained.
+"""VideoLLaMA2-VLB: the forward, served or trained, from raw frames or cached tokens.
 
-Counterpart of ``phantom_vlb_tpu/models/videollama2.py`` on its rank-3 path
-(precomputed video tokens, :183-186)::
+Counterpart of ``phantom_vlb_tpu/models/videollama2.py``::
 
+  frames (B, T, 3, H, W) -> CLIP ViT-L/14-336 (frozen) -> (B, T, 24, 24, 1024)
+    -> STC connector (frozen) -> (B, 1183, 4096) video tokens
   text ids (B, Lt) with one <video> sentinel (id -201)
     -> embed -> splice the (B, V, E) video tokens in at the sentinel
     -> (B, Lt - 1 + V, E) -> Mistral decoder -> post-norm hidden states
     -> HRF weight mask + brain readout head -> (preds (B, P), l2 penalty)
 
-Training follows the reference's two regimes (:176-199, :237-242): the text
-embeddings and the cached video tokens are always cut from the graph; in
-the frozen-baseline regime (``freeze_backbone``) the whole backbone runs
-without recording gradients, so only the head trains; with LoRA the
-adapters train too. :func:`trainable_predicate` names what trains. In train
-mode the head's dropout and the adapters' dropout are live, with masks from
-the step seed passed to :meth:`VideoLLaMA2VLB.forward`.
+``video`` is raw frames (rank 5, through :meth:`VideoLLaMA2VLB.encode_video`,
+:150-162) or precomputed video tokens (rank 3, the token cache's, :183-186).
 
-Raw frames (rank-5 ``video``) need the CLIP + STC vision towers, which are
-not ported yet.
+Training follows the reference's two regimes (:176-199, :237-242): the
+vision tower and connector always run without recording gradients (the
+counterpart of ``stop_gradient``), and the text embeddings and video tokens
+enter cut from the graph; in the frozen-baseline regime
+(``freeze_backbone``) the whole backbone runs without recording gradients,
+so only the head trains; with LoRA the adapters train too.
+:func:`trainable_predicate` names what trains. In train mode the head's
+dropout and the adapters' dropout are live, with masks from the step seed
+passed to :meth:`VideoLLaMA2VLB.forward`.
+
+A model loaded from a state dict without the towers' tensors (a Flax tree
+initialised on cached tokens has none, as the reference's towers are
+created lazily) has no towers and takes cached tokens only.
 """
 
 from __future__ import annotations
@@ -29,17 +36,24 @@ from torch import nn
 
 from phantom_vlb_tpu_torch.core.geometry import VIDEO_TOKEN_ID, VLBGeometry
 from phantom_vlb_tpu_torch.data.synthetic import TEST_GEOMETRY
+from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig, CLIPVisionTower
 from phantom_vlb_tpu_torch.models.heads import BrainReadoutHead
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig, is_lora_path, site_seed
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, MistralModel
+from phantom_vlb_tpu_torch.models.stc_connector import STCConfig, STCConnector
 from phantom_vlb_tpu_torch.ops.weight_mask import build_weight_mask
 
 __all__ = ["VLBConfig", "VideoLLaMA2VLB", "splice_multimodal", "trainable_predicate",
-           "trainable_parameters"]
+           "trainable_parameters", "stored_dtype", "is_norm", "VISION_PREFIXES"]
+
+# State-dict prefixes of the frozen vision path: the tower and the connector.
+VISION_PREFIXES = ("vision_tower.", "mm_projector.")
 
 
 @dataclasses.dataclass(frozen=True)
 class VLBConfig:
+    clip: CLIPVisionConfig = dataclasses.field(default_factory=CLIPVisionConfig)
+    stc: STCConfig = dataclasses.field(default_factory=STCConfig)
     mistral: MistralConfig = dataclasses.field(default_factory=MistralConfig)
     geometry: VLBGeometry = dataclasses.field(default_factory=VLBGeometry)
     num_target: int = 1000
@@ -47,30 +61,47 @@ class VLBConfig:
     dropout_rate: float = 0.1
     freeze_backbone: bool = True    # baseline regime: only the head trains
 
+    def validate(self) -> None:
+        g = self.geometry
+        g.validate()
+        if (self.clip.image_size, self.clip.patch_size) != (g.image_size, g.patch_size):
+            raise ValueError(f"the tower's {self.clip.image_size} px / {self.clip.patch_size} "
+                             f"patches do not match the geometry's {g.image_size} / {g.patch_size}")
+        if self.stc.encoder_hidden_size != self.clip.hidden_size:
+            raise ValueError("the connector's input width must be the tower's")
+        if self.stc.output_hidden_size != self.mistral.hidden_size:
+            raise ValueError("the connector's output width must be the decoder's")
+
     @staticmethod
     def full(use_lora: bool = False, base_quant: str | None = None, **overrides) -> "VLBConfig":
-        """The production VideoLLaMA2-7B geometry, bf16 backbone; with
+        """The production VideoLLaMA2-7B geometry, bf16 throughout; with
         ``use_lora`` the reference's adapters (r 16, alpha 32, dropout 0.1);
-        ``base_quant`` stores the frozen projections int8."""
+        ``base_quant`` stores the frozen projections of the decoder and of
+        the vision tower int8 (``phantom_vlb_tpu/train/builder.py:122-131``)."""
         base = dict(mistral=MistralConfig(lora=LoRAConfig() if use_lora else None,
                                           base_quant=base_quant),
+                    clip=CLIPVisionConfig(base_quant=base_quant), stc=STCConfig(),
                     freeze_backbone=not use_lora)
         base.update(overrides)
         cfg = VLBConfig(**base)
-        cfg.geometry.validate()
+        cfg.validate()
         return cfg
 
     @staticmethod
     def tiny(use_lora: bool = False, base_quant: str | None = None, **overrides) -> "VLBConfig":
-        """The reference's ``VLBConfig.tiny``: TEST_GEOMETRY, 64-token
-        sequences; with ``use_lora`` rank-4 adapters without dropout."""
+        """The reference's ``VLBConfig.tiny``: TEST_GEOMETRY (56 px frames,
+        64-token sequences), the tiny tower and connector in f32; with
+        ``use_lora`` rank-4 adapters without dropout."""
         g = TEST_GEOMETRY
         lora = LoRAConfig(rank=4, alpha=8.0, dropout=0.0) if use_lora else None
+        clip = CLIPVisionConfig.tiny(image_size=g.image_size, base_quant=base_quant)
         base = dict(mistral=MistralConfig.tiny(vocab_size=1000, lora=lora, base_quant=base_quant),
-                    geometry=g,
-                    num_target=g.num_parcels, freeze_backbone=not use_lora)
+                    clip=clip, stc=STCConfig.tiny(encoder_hidden_size=clip.hidden_size),
+                    geometry=g, num_target=g.num_parcels, freeze_backbone=not use_lora)
         base.update(overrides)
-        return VLBConfig(**base)
+        cfg = VLBConfig(**base)
+        cfg.validate()
+        return cfg
 
 
 def trainable_predicate(name: str) -> bool:
@@ -78,11 +109,24 @@ def trainable_predicate(name: str) -> bool:
     return name.startswith("head.") or is_lora_path(name)
 
 
-def _stored_dtype(key: str, cfg: VLBConfig) -> torch.dtype:
+def is_norm(key: str) -> bool:
+    """A norm's weight or bias: its module's name holds "norm"."""
+    return key.count(".") >= 2 and "norm" in key.rsplit(".", 2)[-2]
+
+
+def stored_dtype(key: str, cfg: VLBConfig) -> torch.dtype:
+    """The dtype a state-dict tensor is kept in: int8 codes; f32 scales,
+    trainable tensors and the vision path's LayerNorms (Flax's f32
+    ``param_dtype``, applied in f32); otherwise its module's compute dtype."""
     if key.endswith(".weight_q"):
         return torch.int8
-    if key.endswith(".weight_scale") or trainable_predicate(key):
+    if (key.endswith(".weight_scale") or trainable_predicate(key)
+            or (key.startswith(VISION_PREFIXES) and is_norm(key))):
         return torch.float32
+    if key.startswith("vision_tower."):
+        return cfg.clip.dtype
+    if key.startswith("mm_projector."):
+        return cfg.stc.dtype
     return cfg.mistral.dtype
 
 
@@ -127,9 +171,13 @@ def splice_multimodal(
 
 
 class VideoLLaMA2VLB(nn.Module):
-    def __init__(self, cfg: VLBConfig):
+    def __init__(self, cfg: VLBConfig, vision: bool = True):
+        """``vision``: build the CLIP tower and the STC connector (without
+        them the model takes cached video tokens only)."""
         super().__init__()
         self.cfg = cfg
+        self.vision_tower = CLIPVisionTower(cfg.clip) if vision else None
+        self.mm_projector = STCConnector(cfg.stc) if vision else None
         self.model = MistralModel(cfg.mistral)
         self.head = BrainReadoutHead(
             cfg.mistral.hidden_size, cfg.num_target, cfg.l2_lambda, cfg.dropout_rate
@@ -140,23 +188,40 @@ class VideoLLaMA2VLB(nn.Module):
         """A frozen eval-mode model holding ``state_dict``'s tensors.
 
         The module is built on the meta device and the tensors are assigned,
-        not copied: backbone tensors already in ``cfg.mistral.dtype``, head
-        and adapter tensors already in f32 and an int8 base's ``weight_q``
-        (int8) and ``weight_scale`` (f32), on ``device``, are used as they
-        are. A trainer sets ``requires_grad`` on what
-        :func:`trainable_predicate` selects.
+        not copied: tensors already in their :func:`stored_dtype` on
+        ``device`` are used as they are. The towers are built when the state
+        dict holds any of their tensors, and then must hold all of them. A
+        trainer sets ``requires_grad`` on what :func:`trainable_predicate`
+        selects.
         """
+        vision = any(k.startswith(VISION_PREFIXES) for k in state_dict)
         with torch.device("meta"):
-            model = cls(cfg)
-        sd = {k: t.to(device=device, dtype=_stored_dtype(k, cfg)) for k, t in state_dict.items()}
+            model = cls(cfg, vision=vision)
+        sd = {k: t.to(device=device, dtype=stored_dtype(k, cfg)) for k, t in state_dict.items()}
         model.load_state_dict(sd, strict=True, assign=True)
         return model.eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def encode_video(self, video: torch.Tensor) -> torch.Tensor:
+        """(B, T, 3, H, W) normalised frames -> (B, num_vis_tokens, E) video
+        tokens, always frozen: no gradient is recorded."""
+        if self.vision_tower is None:
+            raise ValueError("this model holds no vision towers (its state dict had none): "
+                             "pass cached video tokens (B, num_vis_tokens, hidden)")
+        cfg = self.cfg
+        b, t = video.shape[:2]
+        with torch.profiler.record_function("vision"):
+            feats = self.vision_tower(video.reshape(b * t, *video.shape[2:]))      # (B*T, P, C)
+            g = cfg.clip.grid
+            return self.mm_projector(feats.reshape(b, t, g, g, cfg.clip.hidden_size))
 
     def backbone(self, language: torch.Tensor, video: torch.Tensor, seed: int | None = None):
         """Returns (post-norm hidden (B, S, E), valid mask (B, S)).
 
-        The embeddings and video tokens enter cut from the graph; with
-        ``freeze_backbone`` no gradient is recorded below the head at all.
+        ``video`` is raw frames (B, T, 3, H, W) or cached video tokens
+        (B, num_vis_tokens, E). The embeddings and video tokens enter cut
+        from the graph; with ``freeze_backbone`` no gradient is recorded
+        below the head at all.
         """
         if self.cfg.freeze_backbone:
             with torch.no_grad():
@@ -165,12 +230,11 @@ class VideoLLaMA2VLB(nn.Module):
 
     def _backbone(self, language, video, seed):
         cfg = self.cfg.mistral
-        if video.dim() != 3:
-            raise NotImplementedError(
-                "raw video frames need the CLIP + STC vision towers, which come "
-                "with the vision slice of the port; pass cached video tokens "
-                "(B, num_vis_tokens, hidden)"
-            )
+        if video.dim() == 5:
+            video = self.encode_video(video)
+        elif video.dim() != 3:
+            raise ValueError(f"video must be frames (B, T, 3, H, W) or tokens (B, V, E), "
+                             f"not {tuple(video.shape)}")
         ids = language.long()
         safe_ids = torch.where(ids == VIDEO_TOKEN_ID, 0, ids).clamp(0, cfg.vocab_size - 1)
         text_embeds = self.model.embed(safe_ids).detach()

@@ -45,6 +45,13 @@ Numerics carried over from the reference:
 
 The statistics come back as (B, H, S) f32; the reference's (B, H, 8, S)
 layout is TPU lane padding and has no counterpart here.
+
+:func:`attention_noncausal` is the vision tower's attention, the counterpart
+of ``attention(q, k, v, causal=False, impl="xla")`` (reference
+``xla_attention`` :58-83, called from ``models/clip_vit.py:121``): XLA, not
+a Pallas kernel, in the reference, so on the card it is PyTorch's
+``scaled_dot_product_attention`` and the packed kernels above keep taking
+causal attention only.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ __all__ = [
     "MASK_VALUE", "attention_packed", "attention_packed_plain", "attention_packed_bwd",
     "attention_packed_bwd_plain", "attention_with_stats", "kv_bias", "BwdInputs", "bwd_padded_len",
     "flash_bwd_prep", "flash_bwd_prep_plain", "flash_bwd_post", "flash_bwd_post_plain", "FLASH_FWD",
-    "FLASH_BWD", "FLASH_BWD_PREP", "FLASH_BWD_POST",
+    "FLASH_BWD", "FLASH_BWD_PREP", "FLASH_BWD_POST", "attention_noncausal",
+    "attention_noncausal_plain",
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -473,3 +481,24 @@ def attention_packed_bwd(
         raise ValueError(f"out {tuple(out.shape)} / lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
     return _flash_bwd_cuda(q, k, v, kv_bias(kv_mask), out.contiguous(), lse.contiguous(), do,
                            num_heads, num_kv_heads, sm_scale, causal_offset)
+
+
+def attention_noncausal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tower's attention on (B, H, S, D), as the
+    reference's ``xla_attention`` computes it without a mask: f32 scores
+    times 1/sqrt(D), an f32 softmax, P cast to v's dtype before P V, whose
+    sums are f32; the result in v's dtype."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def attention_noncausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Softmax(q k^T / sqrt(D)) v over every key, (B, H, S, D) in and out:
+    ``F.scaled_dot_product_attention`` on CUDA tensors, the plain version
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_noncausal_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention for device {q.device}")
+    return F.scaled_dot_product_attention(q, k, v)

@@ -32,12 +32,15 @@ from phantom_vlb_tpu_torch.ops.rowquant import over_127, row_quant, row_quant_sc
 __all__ = [
     "quantize_int8", "int8_matmul", "int8_matmul_w8a8", "int8_matmul_w8a8g8", "quant_matmul",
     "quantize_state_dict", "is_base_projection", "BASE_QUANT_MODES", "BASE_PROJECTIONS",
+    "TOWER_PROJECTIONS",
 ]
 
 BASE_QUANT_MODES = ("int8", "w8a8", "w8a8g8")
 # The projections a quantized config stores as int8: the targets of the JAX
-# package's ``load_pretrained_params`` for a quantized Mistral.
+# package's ``load_pretrained_params`` for a quantized Mistral, and for the
+# vision tower (``phantom_vlb_tpu/train/builder.py:216-229``).
 BASE_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+TOWER_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 
 
 def quantize_int8(w: torch.Tensor, axis: int = 0):
@@ -143,8 +146,13 @@ def quant_matmul(mode: str, x, q, scale, dtype):
 
 
 def is_base_projection(key: str, w: torch.Tensor) -> bool:
-    """The JAX weight loader's predicate: a 2-D projection weight of the decoder."""
-    return key.endswith(".weight") and w.dim() == 2 and any(t in key for t in BASE_PROJECTIONS)
+    """The JAX weight loader's predicate: a 2-D projection weight of the
+    decoder (``model.``) or of the vision tower (``vision_tower.``)."""
+    if not (key.endswith(".weight") and w.dim() == 2):
+        return False
+    if key.startswith("vision_tower."):
+        return any(f".{t}." in key for t in TOWER_PROJECTIONS)
+    return key.startswith("model.") and any(t in key for t in BASE_PROJECTIONS)
 
 
 def quantize_state_dict(sd: dict, should_quantize=is_base_projection) -> dict:

@@ -71,7 +71,8 @@ def eval_step(
     """One eval batch -> (updated Pearson state, {"brain_loss", "n", "pred"}).
 
     ``batch`` holds tensors on the model's device: language, vision (cached
-    video tokens), padvals, vis_weights, lang_weights, timeseries, row_mask.
+    video tokens or raw frames), padvals, vis_weights, lang_weights,
+    timeseries, row_mask.
     """
     pred, l2_reg = model(
         batch["language"], batch["vision"], batch["padvals"],

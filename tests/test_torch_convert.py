@@ -65,9 +65,15 @@ def test_scan_tree_gives_the_same_state_dict(flax_tree, group):
 
 
 def test_vision_subtrees_are_set_aside(flax_tree):
-    tree = dict(flax_tree, vision_tower={"x": {"kernel": np.zeros((2, 2))}},
-                mm_projector={"y": {"bias": np.zeros(2)}})
-    assert from_flax_params(tree).keys() == from_flax_params(flax_tree).keys()
+    """Nothing of the vision path is set aside any more: a tree made on
+    cached tokens has no vision subtree and gives no vision key, and a leaf
+    under ``vision_tower`` or ``mm_projector`` that the towers do not have
+    raises like any other."""
+    assert not any(k.startswith(("vision_tower.", "mm_projector.")) for k in from_flax_params(flax_tree))
+    for subtree in ("vision_tower", "mm_projector"):
+        tree = dict(flax_tree, **{subtree: {"x": {"kernel": np.zeros((2, 2))}}})
+        with pytest.raises(ValueError, match="unconsumed"):
+            from_flax_params(tree)
 
 
 @pytest.mark.parametrize(
@@ -219,12 +225,15 @@ def test_lora_merge_leaves_a_quantized_base_unmerged(lora_pair):
 
 
 def test_init_params_dtypes_and_shapes():
+    """A bf16 decoder with the tiny f32 towers: the head and the towers in
+    f32, the decoder in bf16."""
     cfg = tv.VLBConfig.tiny(mistral=tv.MistralConfig.tiny(vocab_size=1000, dtype=torch.bfloat16))
     sd = init_params(cfg, "cpu", torch.Generator().manual_seed(0))
     again = init_params(cfg, "cpu", torch.Generator().manual_seed(0))
     model = tv.VideoLLaMA2VLB.from_state_dict(cfg, sd)
     for name, p in model.named_parameters():
-        assert p.dtype == (torch.float32 if name.startswith("head.") else torch.bfloat16), name
+        f32 = name.startswith(("head.", "vision_tower.", "mm_projector."))
+        assert p.dtype == (torch.float32 if f32 else torch.bfloat16), name
         assert p.data_ptr() == sd[name].data_ptr(), name      # assigned, not copied
         assert torch.equal(sd[name], again[name]), name       # seeded
     assert torch.all(sd["model.norm.weight"] == 1)

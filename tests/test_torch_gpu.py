@@ -7,10 +7,17 @@ harness in conftest.py is left out)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing
+from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
+from phantom_vlb_tpu_torch.models.convert import init_params
+from phantom_vlb_tpu_torch.models.mistral import MistralConfig
+from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
+from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB, VLBConfig
 from phantom_vlb_tpu_torch.ops.context_parallel import ring_attention
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     FLASH_BWD,
@@ -676,3 +683,64 @@ def test_ring_fwd_raises_on_what_it_does_not_take(cuda):
         ring_fwd(q, k, v, 4, 2, SequenceRing([cuda] * 3))                      # 256 % 3
     with pytest.raises(ValueError):
         ring_fwd(q, k, v, 4, 2, SequenceRing([cuda, "cpu"]))                   # a CPU rank
+
+
+# The vision path: narrow towers at the serving geometry (336 px, 12 frames
+# -> 1183 tokens: 2 CLIP layers 256 wide, an STC of depth 1, 256 -> 512 ->
+# 256) before a 2-layer decoder 256 wide (head dim 128, as the kernels take).
+# bf16 on the card against the same weights in f32 on the CPU, the video
+# tokens as max|err| / max|ref|: bf16 activations (2^-8 relative each)
+# through the patch conv, 2 layers and a block of four convolutions, each
+# after a LayerNorm rounded to bf16.
+TOWER_TOKENS_TOL = 5e-2
+TOWER_ROWS = 3 * 12 * 577          # the tower's projection rows at batch 3
+
+
+def _narrow_vision_config(dtype):
+    return VLBConfig.full(
+        mistral=MistralConfig.tiny(vocab_size=32000, hidden_size=256, intermediate_size=512,
+                                   num_attention_heads=2, num_key_value_heads=1, head_dim=D, dtype=dtype),
+        clip=CLIPVisionConfig(hidden_size=256, intermediate_size=1024, num_attention_heads=4,
+                              num_hidden_layers=3, dtype=dtype),
+        stc=STCConfig(encoder_hidden_size=256, hidden_size=512, output_hidden_size=256, depth=1, dtype=dtype))
+
+
+def _narrow_vision_model(dev):
+    cfg = _narrow_vision_config(torch.bfloat16)
+    sd = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    return VideoLLaMA2VLB.from_state_dict(cfg, sd), sd
+
+
+def test_tower_bf16_matches_f32_plain_at_narrow_width(cuda):
+    model, sd = _narrow_vision_model(cuda)
+    cpu = VideoLLaMA2VLB.from_state_dict(_narrow_vision_config(torch.float32), sd, device="cpu")
+    frames = torch.randn(1, 12, 3, 336, 336, generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    got = model.encode_video(frames)
+    want = cpu.encode_video(frames.cpu())
+    assert got.shape == want.shape == (1, 1183, 256) and got.dtype == torch.bfloat16
+    assert _rel(got.cpu(), want) <= TOWER_TOKENS_TOL
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_row_quant_at_the_tower_shapes(cuda, n):
+    """(20772, n) bf16: rows not a multiple of 8; q and s bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = (3 * torch.randn(TOWER_ROWS, n, generator=g, device=cuda)).to(torch.bfloat16)
+    got, want = row_quant(x), row_quant_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_frames_path_equals_the_token_path_on_the_card(cuda):
+    """Served from frames, and fed the tokens ``encode_video`` gives for the
+    same frames: the same kernels on the same inputs, bit for bit."""
+    model, _ = _narrow_vision_model(cuda)
+    batches = synthetic_batches(model.cfg, 1, 2, np.random.default_rng(0),
+                                torch.Generator(device=cuda).manual_seed(2), cuda, frames=True)
+    before = FLASH_FWD.launches
+    from_frames = predict_batches(model, batches, cuda)["predicted"]
+    assert FLASH_FWD.launches == before + 2                      # the decoder's two layers
+    tokens = model.encode_video(batches[0]["vision"])
+    from_tokens = predict_batches(model, [dict(batches[0], vision=tokens)], cuda)["predicted"]
+    assert np.isfinite(from_frames).all() and np.array_equal(from_frames, from_tokens)

@@ -15,7 +15,8 @@ from phantom_vlb_tpu_torch.models import videollama2 as tv
 from phantom_vlb_tpu_torch.models.convert import init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu", "transformers", "timm",
+           "PIL")
 
 # Blocks the modules (a None entry in sys.modules makes their import fail),
 # then imports every module of the port and chip_smoke without running it.
@@ -33,6 +34,9 @@ assert not leaked, leaked
 ring = {{"phantom_vlb_tpu_torch.core.mesh", "phantom_vlb_tpu_torch.ops.context_parallel",
         "phantom_vlb_tpu_torch.ops.ring_fused"}}
 assert ring <= set(names), sorted(ring - set(names))
+vision = {{"phantom_vlb_tpu_torch.models.clip_vit", "phantom_vlb_tpu_torch.models.stc_connector",
+          "phantom_vlb_tpu_torch.ops.preprocess"}}
+assert vision <= set(names), sorted(vision - set(names))
 print(len(names))
 """
 

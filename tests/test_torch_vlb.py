@@ -27,7 +27,7 @@ from phantom_vlb_tpu_torch.cli.predict import predict_batches
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY, VIDEO_TOKEN_ID
 from phantom_vlb_tpu_torch.data.synthetic import TEST_GEOMETRY, synth_language_row
 from phantom_vlb_tpu_torch.models import videollama2 as tv
-from phantom_vlb_tpu_torch.models.convert import from_flax_params
+from phantom_vlb_tpu_torch.models.convert import from_flax_params, init_params
 from phantom_vlb_tpu_torch.models.heads import BrainReadoutHead
 from phantom_vlb_tpu_torch.ops.weight_mask import build_weight_mask
 from phantom_vlb_tpu_torch.train import metrics as tmetrics
@@ -205,8 +205,18 @@ def test_predict_batches_matches_jax(tiny_pair):
 
 
 def test_raw_frames_wait_for_the_vision_slice(tiny_pair):
+    """Raw frames need the vision towers: a model loaded from a tree made on
+    cached tokens (which holds none, as the reference creates them lazily)
+    refuses them by name, and one that holds the towers takes them."""
     _, _, port = tiny_pair
     batch = _torch(_batch(np.random.default_rng(14), 1))
     frames = torch.zeros(1, G.num_frames, 3, G.image_size, G.image_size)
-    with pytest.raises(NotImplementedError, match="vision slice"):
-        port(batch["language"], frames, batch["padvals"], batch["vis_weights"], batch["lang_weights"])
+    args = (batch["language"], frames, batch["padvals"], batch["vis_weights"], batch["lang_weights"])
+    assert port.vision_tower is None
+    with pytest.raises(ValueError, match="no vision towers"):
+        port(*args)
+    cfg = tv.VLBConfig.tiny()
+    with_towers = tv.VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, "cpu", torch.Generator().manual_seed(0)))
+    with torch.no_grad():
+        pred, _ = with_towers(*args)
+    assert pred.shape == (1, G.num_parcels) and torch.isfinite(pred).all()
