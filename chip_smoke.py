@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving and training paths, and its trainer, on one
+NVIDIA card and check them.
 
 Both paths run from cached video tokens and from raw frames through the
 vision towers.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --trainer DIR     # phase 9t alone, under DIR
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -74,6 +76,26 @@ Phases, each printed with its wall time; any failure exits non-zero:
    ``torch.profiler`` (with the epilogue group's device time and
    ``epi_fwd``'s);
 9. the frozen-baseline regime: 3 steps at batch 5, only the head trains;
+9t. the trainer users run (``vlb-train`` through the port), in a process of
+   its own (``--trainer DIR``; its peak host RSS held to the same bound):
+   ``experiment=vlb_friends_lora subject=sub-01`` composed by the port's
+   config reader with ``trainer.max_epochs=2 trainer.val_check_interval=0.5
+   trainer.log_every_n_steps=2`` and a temporary ``output_dir``, through
+   ``build_trainer`` at full width and ``VLBTrainer.fit`` over 4 train and
+   2 val batches of 3 from frames made on the card (8 steps, 4
+   validations): metrics.csv (train rows at steps 2/4/6/8, 4 val rows of
+   1000 ROI columns, ``lr-AdamW`` = ``learning_rate(cfg, step)``), the best
+   checkpoint at the least val loss, ``last``, the adapters (head and
+   ``lora_*`` only), the flash launches the code implies (none of another
+   kernel), step, validation and save ms, save bytes and peak device
+   memory; a fresh trainer with ``max_epochs=3`` resumed from ``last``
+   (tensors and AdamW state bit-equal) that ends at step 12;
+   ``vlb_friends_baseline`` at batch 5, 1 epoch of 3 batches (head tensors
+   only in ``last`` and the adapters); at narrow width the NaN-streak abort
+   at step 5 with the state of step 2, and HF-keyed safetensors shards
+   (written by ``write_safetensors``) through ``load_pretrained_params``,
+   their predictions bit-equal to the same weights' through
+   ``from_state_dict``;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -115,13 +137,17 @@ device JSON record. Without a card it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import ctypes
 import dataclasses
 import gc
 import json
 import resource
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,10 +157,11 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
+from phantom_vlb_tpu_torch.core.config import load_config
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
-from phantom_vlb_tpu_torch.models.convert import init_params
+from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
@@ -201,11 +228,15 @@ from phantom_vlb_tpu_torch.ops.rowquant import (
     row_quant_plain,
     row_quant_scaled,
 )
-from phantom_vlb_tpu_torch.train.loop import train_batches
-from phantom_vlb_tpu_torch.train.optim import AdamWCosine
+from phantom_vlb_tpu_torch.train.builder import build_model_config, build_trainer, load_pretrained_params
+from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
+from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
+from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
+from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
 ROOT = Path(__file__).resolve().parent
+BUILD_ROOT = ROOT / "build"          # ignored by git: the kernels' libraries and scratch output
 SEED = 0
 BATCH = 5                 # configs/experiment/vlb_friends_baseline.yaml
 LORA_BATCH = 3            # configs/experiment/vlb_friends_lora.yaml:14
@@ -1781,12 +1812,354 @@ def time_int_mm(gen, dev) -> None:
     del x8, g8, w_oi, w_io, xb, gb, wb
 
 
+# ---------------------------------------------------------------------------
+# Phase 9t: the trainer users run (vlb-train through the port), in a process
+# of its own (``--trainer DIR``), so its host memory stands apart from the
+# phases before it; it holds the same RSS bound and prints its peak.
+
+CONFIGS = ROOT / "configs"
+# The phase's overrides of the LoRA config of record; nothing else changes.
+LORA_TRAIN_OVERRIDES = ("trainer.max_epochs=2", "trainer.val_check_interval=0.5",
+                        "trainer.log_every_n_steps=2")
+TRAIN_BATCHES, VAL_BATCHES = 4, 2          # LoRA run: 8 steps, 4 validations
+BASELINE_TRAIN_BATCHES = 3
+NAN_STEPS = (2, 3, 4)                      # 0-based: steps 3-5 have NaN targets
+SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+                     torch.int8: "I8", torch.int32: "I32"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """A safetensors file: an 8-byte little-endian header length, a JSON
+    header (dtype, shape and byte offsets of each tensor), then the bytes."""
+    header, blobs, offset = {}, [], 0
+    for key, t in tensors.items():
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[key] = {"dtype": SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text)
+        for raw in blobs:
+            f.write(raw)
+
+
+def compose(experiment: str, out: Path, *overrides: str):
+    return load_config(CONFIGS, "base", [f"experiment={experiment}", "subject=sub-01", *overrides,
+                                         f"output_dir={out}"])
+
+
+def frame_loaders(config, n_train: int, n_val: int, gen, dev) -> tuple[list, list]:
+    """Train and val batches of the config's batch size from frames made on
+    the card from seed 0, as dicts of device tensors."""
+    cfg = build_model_config(config.model)
+    batches = synthetic_batches(cfg, n_train + n_val, int(config.datamodule.batch_size),
+                                np.random.default_rng(SEED), gen, dev, frames=True)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()} for b in batches]
+    return batches[:n_train], batches[n_train:]
+
+
+def timed_calls(obj, name: str) -> list:
+    """Wrap ``obj.name`` so each call's host time, the card waited for
+    before and after, is appended (ms) to the returned list."""
+    fn, times = getattr(obj, name), []
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapper)
+    return times
+
+
+def expected_fit_launches(layers: int, steps: int, val_batches: int, lora: bool) -> dict[str, int]:
+    """A fit's flash launches: a LoRA step runs every layer's forward twice
+    (the pass and its replay under remat) and one backward of three kernels;
+    a baseline step and a validation batch one forward; nothing else."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_fwd"] = layers * ((2 if lora else 1) * steps + val_batches)
+    for name in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post"):
+        want[name] = layers * steps if lora else 0
+    return want
+
+
+def read_csv(path: Path) -> list[dict]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def check_lora_run(trainer, out: Path, num_target: int) -> None:
+    rows = read_csv(trainer.csv_logger.path)
+    train_rows = [r for r in rows if r.get("train/brain_loss")]
+    val_rows = [r for r in rows if r.get("val/brain_loss")]
+    roi = [c for c in rows[0] if c.startswith("val_corr_ROI_")]
+    print(f"  metrics.csv: {len(rows)} rows, train rows at steps {[int(r['step']) for r in train_rows]}, "
+          f"val rows at steps {[int(r['step']) for r in val_rows]}, {len(roi)} ROI columns, "
+          f"val/brain_loss {[round(float(r['val/brain_loss']), 5) for r in val_rows]}, "
+          f"val_corr_avg {[round(float(r['val_corr_avg']), 5) for r in val_rows]}")
+    if [int(r["step"]) for r in train_rows] != [2, 4, 6, 8] or len(val_rows) != 4 or len(roi) != num_target:
+        raise AssertionError("metrics.csv lacks the train rows at steps 2/4/6/8, the 4 val rows or their ROIs")
+    if not all(r[c] != "" for r in val_rows for c in roi) or not all(
+            np.isfinite(float(r["val_corr_avg"])) for r in val_rows):
+        raise AssertionError("a val row has an empty ROI cell or a non-finite val_corr_avg")
+    for r in train_rows:
+        if float(r["lr-AdamW"]) != learning_rate(trainer.optimizer.config, int(r["step"])):
+            raise AssertionError(f"lr-AdamW at step {r['step']} is not learning_rate(cfg, step)")
+    losses = [float(r["val/brain_loss"]) for r in val_rows]
+    best = val_rows[losses.index(min(losses))]
+    (best_dir,) = out.glob("best_brainloss_*")
+    want = f"best_brainloss_{best['epoch']}-{best['step']}"
+    print(f"  {best_dir.name} (minimum val/brain_loss {min(losses):.6f}), last: "
+          f"{(out / 'last' / STATE_FILE).stat().st_size / 1e6:.1f} MB")
+    if best_dir.name != want or not (out / "last" / STATE_FILE).exists():
+        raise AssertionError(f"best checkpoint {best_dir.name}, want {want}; or no last")
+    adapters = torch.load(out / "adapters" / ADAPTERS_FILE, map_location="cpu", weights_only=True)
+    if set(adapters) != set(trainer.trainable) or not all(is_adapter(k) for k in adapters):
+        raise AssertionError("the adapters export holds other tensors than the head and lora_*")
+    print(f"  adapters: {len(adapters)} tensors (head + lora_a/lora_b), "
+          f"{sum(t.numel() for t in adapters.values()) / 1e6:.3f} M values")
+
+
+def snapshot(trainer) -> tuple[dict, dict]:
+    """Copies of the trainable tensors and of the AdamW state."""
+    params = {k: p.detach().clone() for k, p in trainer.trainable.items()}
+    opt = trainer.optimizer.state_dict()
+    state = {i: {k: v.clone() for k, v in s.items()} for i, s in opt["adamw"]["state"].items()}
+    return params, {"step": opt["step"], "state": state}
+
+
+def same_state(trainer, params: dict, opt: dict) -> bool:
+    now_params, now_opt = snapshot(trainer)
+    return (now_params.keys() == params.keys() and all(torch.equal(now_params[k], params[k]) for k in params)
+            and now_opt["step"] == opt["step"] and now_opt["state"].keys() == opt["state"].keys()
+            and all(torch.equal(now_opt["state"][i][k], opt["state"][i][k])
+                    for i in opt["state"] for k in opt["state"][i]))
+
+
+def fit_and_count(trainer, train: list, val: list) -> tuple[dict, list, list, list]:
+    """``trainer.fit`` with the launch counts set to 0 just before and read
+    just after, and each step's, validation's and save's host ms."""
+    step_ms = timed_calls(trainer, "train_one")
+    val_ms = timed_calls(trainer, "validate")
+    save_ms = timed_calls(trainer.ckpt, "save")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer.fit(train, val)
+    torch.cuda.synchronize()
+    return read_launches(), step_ms, val_ms, save_ms
+
+
+def report_fit(label: str, trainer, launches: dict, step_ms: list, val_ms: list, save_ms: list,
+               want: dict) -> None:
+    ckpt = trainer.ckpt
+    print(f"  {label}: step ms {[round(x, 3) for x in step_ms]}, validation ms (with its best save) "
+          f"{[round(x, 3) for x in val_ms]}, checkpoint saves ms {[round(x, 3) for x in save_ms]} "
+          f"({ckpt.bytes_written / 1e6:.1f} MB in {len(save_ms)} saves, "
+          f"{ckpt.bytes_written / max(len(save_ms), 1) / 1e6:.1f} MB each), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"{label}: launched {launches}, want {want}")
+
+
+def trainer_lora_and_resume(out: Path, gen, dev) -> dict:
+    """The LoRA config of record from frames, 2 epochs of 4 batches with a
+    validation every 2 (8 steps, 4 validations); then a fresh trainer with
+    max_epochs 3 resumed from last (bit-equal tensors and AdamW state),
+    which runs epoch 3 alone."""
+    config = compose("vlb_friends_lora", out, *LORA_TRAIN_OVERRIDES)
+    train, val = frame_loaders(config, TRAIN_BATCHES, VAL_BATCHES, gen, dev)
+    t0 = time.perf_counter()
+    trainer, train, val = build_trainer(config, device=dev, loaders=(train, val))
+    torch.cuda.synchronize()
+    model_cfg = trainer.model.cfg
+    layers = model_cfg.mistral.num_hidden_layers
+    lora = model_cfg.mistral.lora
+    print(f"  built in {time.perf_counter() - t0:.2f} s: {layers} layers, LoRA r {lora.rank} alpha "
+          f"{lora.alpha} dropout {lora.dropout} ({lora.dropout_bits}-bit, fused {lora.fused_dropout}), "
+          f"remat {model_cfg.mistral.remat}, batch {config.datamodule.batch_size}, "
+          f"{sum(p.numel() for p in trainer.trainable.values()) / 1e6:.3f} M trainable")
+    launches, step_ms, val_ms, save_ms = fit_and_count(trainer, train, val)
+    report_fit("LoRA fit", trainer, launches, step_ms, val_ms, save_ms,
+               expected_fit_launches(layers, TRAIN_BATCHES * 2, VAL_BATCHES * 4, lora=True))
+    if trainer.global_step != 8:
+        raise AssertionError(f"the LoRA fit ended at step {trainer.global_step}, want 8")
+    check_lora_run(trainer, out, model_cfg.num_target)
+    record = {"lora_step_ms": step_ms, "lora_val_ms": val_ms, "lora_save_ms": save_ms,
+              "lora_save_bytes": trainer.ckpt.bytes_written / max(len(save_ms), 1),
+              "lora_peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "lora_launches": launches}
+    params, opt = snapshot(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    config3 = compose("vlb_friends_lora", out, *LORA_TRAIN_OVERRIDES, "trainer.max_epochs=3")
+    trainer, train, val = build_trainer(config3, device=dev, loaders=(train, val))
+    if not trainer.maybe_resume() or trainer.global_step != 8:
+        raise AssertionError(f"the resumed trainer is at step {trainer.global_step}, want 8")
+    last = torch.load(out / "last" / STATE_FILE, map_location=dev, weights_only=True)
+    bit_equal = same_state(trainer, params, opt) and all(
+        torch.equal(trainer.trainable[k], t) for k, t in last["params"].items())
+    print(f"  resumed at step {trainer.global_step}: trainable tensors and AdamW state bit-equal to "
+          f"last: {bit_equal}")
+    if not bit_equal:
+        raise AssertionError("the resumed state differs from last")
+    del last, params, opt
+    launches, step_ms, val_ms, save_ms = fit_and_count(trainer, train, val)
+    report_fit("resumed fit (epoch 3)", trainer, launches, step_ms, val_ms, save_ms,
+               expected_fit_launches(layers, TRAIN_BATCHES, VAL_BATCHES * 2, lora=True))
+    if trainer.global_step != 12:
+        raise AssertionError(f"the resumed fit ended at step {trainer.global_step}, want 12")
+    record["resume_launches"] = launches
+    del trainer, train, val
+    torch.cuda.empty_cache()
+    return record
+
+
+def trainer_baseline(out: Path, gen, dev) -> dict:
+    """The frozen-baseline config of record from frames: batch 5, 1 epoch of
+    3 batches (validations every batch, as 0.2 of 3 rounds to 1)."""
+    config = compose("vlb_friends_baseline", out, "trainer.max_epochs=1")
+    train, val = frame_loaders(config, BASELINE_TRAIN_BATCHES, 1, gen, dev)
+    trainer, train, val = build_trainer(config, device=dev, loaders=(train, val))
+    layers = trainer.model.cfg.mistral.num_hidden_layers
+    launches, step_ms, val_ms, save_ms = fit_and_count(trainer, train, val)
+    report_fit("baseline fit", trainer, launches, step_ms, val_ms, save_ms,
+               expected_fit_launches(layers, BASELINE_TRAIN_BATCHES, BASELINE_TRAIN_BATCHES, lora=False))
+    saved = torch.load(out / "last" / STATE_FILE, map_location="cpu", weights_only=True)["params"]
+    adapters = torch.load(out / "adapters" / ADAPTERS_FILE, map_location="cpu", weights_only=True)
+    print(f"  last holds {sorted(saved)}; adapters {sorted(adapters)}")
+    if not (saved and adapters and all(k.startswith("head.") for k in [*saved, *adapters])):
+        raise AssertionError("the baseline's checkpoint or adapters hold more than the head")
+    record = {"baseline_step_ms": step_ms, "baseline_val_ms": val_ms, "baseline_save_ms": save_ms,
+              "baseline_launches": launches}
+    del trainer, train, val
+    torch.cuda.empty_cache()
+    return record
+
+
+def trainer_nan_abort(out: Path, gen, dev) -> None:
+    """A narrow LoRA model whose targets are NaN at steps 3-5: the trainer
+    raises at step 5 (the streak reaches 3 there, logging every step) with
+    the tensors and AdamW state of step 2."""
+    cfg = VLBConfig.full(use_lora=True, mistral=narrow_mistral(torch.bfloat16, LoRAConfig()),
+                         **narrow_towers(torch.bfloat16))
+    model = VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, dev, gen))
+    batches = synthetic_batches(cfg, 6, 2, np.random.default_rng(SEED), gen, dev)
+    for i in NAN_STEPS:
+        batches[i]["timeseries"] = np.full_like(batches[i]["timeseries"], np.nan)
+    loop = TrainLoopConfig(max_epochs=1, val_check_interval=0.0, log_every_n_steps=1, checkpoint=False,
+                           num_target=cfg.num_target)
+    trainer = VLBTrainer(model, OptimConfig(), loop, device=dev, csv_logger=CSVMetricsLogger(out, "nan"))
+    after_two = []
+
+    class AfterStepTwo:
+        def log_metrics(self, metrics, step, epoch):
+            if step == 2:
+                after_two.append(snapshot(trainer))
+
+    trainer.extra_loggers.append(AfterStepTwo())
+    try:
+        trainer.fit(batches, batches[:1])
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("the NaN streak did not abort the fit")
+    unchanged = same_state(trainer, *after_two[0])
+    print(f"  NaN abort: {message.split(';')[0]}; {trainer.optimizer.step} updates applied; state as "
+          f"after step 2: {unchanged}")
+    if trainer.global_step != 5 or trainer.optimizer.step != 2 or not unchanged:
+        raise AssertionError("the NaN abort came at the wrong step or the state moved")
+
+
+def trainer_safetensors(out: Path, gen, dev) -> None:
+    """Narrow weights (decoder, towers, connector) written under their HF
+    keys in two shards by ``write_safetensors``, loaded through
+    ``load_pretrained_params`` into other random weights: every tensor the
+    checkpoint holds is taken, the head keeps its own, and the predictions
+    are bit-equal to those of the same tensors through ``from_state_dict``."""
+    cfg = VLBConfig.full(mistral=narrow_mistral(torch.bfloat16), **narrow_towers(torch.bfloat16))
+    written = init_params(cfg, dev, gen)
+    hf = {hf_key(k): t for k, t in written.items() if hf_key(k) is not None}
+    ckpt = out / "hf"
+    ckpt.mkdir(parents=True)
+    vision = {k: t for k, t in hf.items() if not k.startswith("model.layers.")}
+    write_safetensors(ckpt / "model-00001-of-00002.safetensors",
+                      {k: t for k, t in hf.items() if k not in vision})
+    write_safetensors(ckpt / "model-00002-of-00002.safetensors", vision)
+    params = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(SEED + 1))
+    loaded = load_pretrained_params(cfg, ckpt, params)
+    reference = {k: written[k] if hf_key(k) is not None else params[k] for k in params}
+    taken = all(torch.equal(loaded[k], reference[k]) for k in reference)
+    batch = synthetic_batches(cfg, 1, 1, np.random.default_rng(SEED), gen, dev, frames=True)
+    got = predict_batches(VideoLLaMA2VLB.from_state_dict(cfg, loaded), batch, dev)["predicted"]
+    want = predict_batches(VideoLLaMA2VLB.from_state_dict(cfg, reference), batch, dev)["predicted"]
+    size = sum(p.stat().st_size for p in ckpt.iterdir())
+    print(f"  HF safetensors: {len(hf)} tensors in 2 shards ({size / 1e6:.1f} MB, bf16), every one taken: "
+          f"{taken}; predictions from frames bit-equal: {np.array_equal(got, want)}")
+    if not (taken and np.array_equal(got, want)):
+        raise AssertionError("weights loaded from HF safetensors differ from the ones written")
+
+
+def trainer_child(out: str) -> int:
+    """``--trainer DIR``: phase 9t in this process, under DIR; prints one
+    JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    record = {}
+    with phase("9t LoRA trainer (vlb_friends_lora) from frames at full width, then resume"):
+        record.update(trainer_lora_and_resume(root / "lora", gen, dev))
+    with phase("9t baseline trainer (vlb_friends_baseline) from frames at full width"):
+        record.update(trainer_baseline(root / "baseline", gen, dev))
+    with phase("9t narrow NaN abort and HF safetensors"):
+        trainer_nan_abort(root / "nan", gen, dev)
+        trainer_safetensors(root, gen, dev)
+    record["peak_rss_gb"] = peak_rss_gb()
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"the trainer phase's peak host RSS {record['peak_rss_gb']:.2f} GB is over "
+                             f"{HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+def run_trainer_phase() -> dict:
+    """Phase 9t in a process of its own, under a temporary directory of the
+    (ignored) build tree, deleted after; its output is passed on. Returns
+    its JSON record."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="trainer-", dir=BUILD_ROOT)
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--trainer", out],
+                              capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for line in proc.stdout.splitlines()[:-1]:
+        print(f"  | {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"the trainer phase failed (exit {proc.returncode}):\n{proc.stderr[-6000:]}")
+    record = json.loads(proc.stdout.splitlines()[-1])
+    print(f"  the trainer process's peak host RSS {record['peak_rss_gb']:.2f} GB (limit {HOST_RSS_LIMIT_GB})")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--ring-issue"]:
         return compare_ring_issue(sys.argv[2:])
+    if sys.argv[1:2] == ["--trainer"]:
+        return trainer_child(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1873,6 +2246,8 @@ def main() -> int:
     with phase("9 frozen-baseline train at full width"):
         train_baseline_full(gen, dev)
         torch.cuda.empty_cache()
+    with phase("9t the trainer (vlb-train) at full width, in a process of its own"):
+        run_trainer_phase()
     with phase("9v w8a8g8 serve from frames"):
         serve_w8a8g8_from_frames(gen, dev)
         torch.cuda.empty_cache()

@@ -6,9 +6,13 @@ The JAX package stays the reference; this package mirrors its module paths
 the frozen-baseline serving forward (raw frames through the frozen CLIP
 ViT-L/14-336 tower and STC connector, or cached video tokens, + text ids ->
 32-layer Mistral-7B -> HRF head -> predictions, masked MSE and streaming
-Pearson) and the training step in both regimes (the head alone, or head +
-LoRA adapters; AdamW on the cosine schedule with clipping). Attention and
-the fused adapter-dropout matmul run through hand-written CUDA kernels
+Pearson), the training step in both regimes (the head alone, or head +
+LoRA adapters; AdamW on the cosine schedule with clipping), and the trainer
+users run (``vlb-train-torch``: config composition over ``configs/``, the
+native lazy-load loader, validation with the per-ROI Pearson in
+metrics.csv, best and last checkpoints, resume, early stopping, the
+NaN-streak abort, the adapters export, HF safetensors weights). Attention
+and the fused adapter-dropout matmul run through hand-written CUDA kernels
 (``csrc/``) on the card, and through their plain PyTorch versions on CPU
 tensors.
 

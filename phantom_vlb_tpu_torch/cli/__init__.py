@@ -1,1 +1,1 @@
-"""Serving entry points."""
+"""Entry points: serving and training."""

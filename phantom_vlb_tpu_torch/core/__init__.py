@@ -1,1 +1,1 @@
-"""Geometry and device helpers."""
+"""Configuration, geometry, device and mesh helpers."""

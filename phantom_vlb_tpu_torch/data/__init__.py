@@ -1,1 +1,1 @@
-"""Synthetic inputs (numpy only)."""
+"""Synthetic inputs, and the lazy-load data pipeline (h5py imported on use)."""

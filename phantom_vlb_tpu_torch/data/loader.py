@@ -1,0 +1,236 @@
+"""Host data pipeline: lazy HDF5 reading, the train/val split, batching, prefetch.
+
+Counterpart of ``phantom_vlb_tpu/data/loader.py``, with the same outputs
+byte for byte:
+
+- :func:`expand_lazyload_glob` expands ``$SCRATCH_PATH`` and the ``s*``
+  wildcard per season; per-season lists are sorted, then concatenated;
+- :func:`split_train_val`: validation is one file chosen by
+  ``np.random.RandomState(random_state).choice``, training the rest;
+- :class:`LazyDataset` opens its files lazily per thread, so prefetch
+  threads never share an h5py handle;
+- :class:`Batch` is a fixed-shape numpy batch; a partial last batch repeats
+  its last row and ``row_mask`` marks the real rows;
+- :class:`BatchLoader` shuffles with ``default_rng(seed + epoch)`` and
+  collates ahead of the step on a bounded pool of threads, in order.
+
+The trainer moves each batch to the device (``train/loop.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob as globlib
+import os
+import queue
+import threading
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+from phantom_vlb_tpu_torch.data.schemas import LazySample, open_h5
+
+__all__ = ["LazyDataset", "Batch", "BatchLoader", "expand_lazyload_glob", "split_train_val"]
+
+
+def expand_lazyload_glob(pattern: str, seasons: list[str]) -> list[str]:
+    """Expand a ``.../friends_llFile_{subject}_s*_n*.h5`` pattern per season."""
+    f_list: list[str] = []
+    for s in seasons:
+        pat = pattern
+        if "$SCRATCH_PATH" in pat:
+            pat = pat.replace("$SCRATCH_PATH", os.environ["SCRATCH_PATH"])
+        pat = pat.replace("s*", f"{s}")
+        f_list += sorted(globlib.glob(pat))
+    return f_list
+
+
+def split_train_val(files: list[str], random_state: int) -> tuple[list[str], list[str]]:
+    """val = 1 RandomState-chosen file, train = the rest."""
+    r = np.random.RandomState(random_state)
+    val_file = r.choice(files, 1).tolist()
+    train_files = [x for x in files if x not in val_file]
+    return train_files, val_file
+
+
+class LazyDataset:
+    """Concatenated view over lazy-load HDF5 files with thread-local handles."""
+
+    def __init__(self, paths: list[str]):
+        if not paths:
+            raise ValueError("no lazy-load files given")
+        self.paths = [str(Path(p)) for p in paths]
+        self._local = threading.local()
+        self.ranges: list[tuple[int, int]] = []
+        self.length = 0
+        for p in self.paths:
+            with open_h5(p) as f:
+                n = int(np.asarray(f["dset_len"])[0])
+            self.ranges.append((self.length, self.length + n))
+            self.length += n
+
+    def _files(self) -> list:
+        if not hasattr(self._local, "files"):
+            self._local.files = [open_h5(p) for p in self.paths]
+        return self._local.files
+
+    def close(self) -> None:
+        """Close this thread's handles (other threads' close when collected)."""
+        for f in getattr(self._local, "files", []):
+            f.close()
+        if hasattr(self._local, "files"):
+            del self._local.files
+
+    def __len__(self) -> int:
+        return self.length
+
+    def _locate(self, idx: int) -> tuple[int, int]:
+        for i, (lo, hi) in enumerate(self.ranges):
+            if lo <= idx < hi:
+                return i, idx - lo
+        raise IndexError(idx)
+
+    def __getitem__(self, idx: int) -> LazySample:
+        i, local_idx = self._locate(idx)
+        g = self._files()[i][f"{local_idx}"]
+        return LazySample(**{field: np.asarray(g[f"{local_idx}_{field}"])
+                             for field in LazySample.FIELDS})
+
+
+@dataclasses.dataclass
+class Batch:
+    """Fixed-shape host batch. ``row_mask`` marks real (non-padding) rows."""
+
+    timeseries: np.ndarray    # (B, num_parcels) f32
+    vision: np.ndarray        # (B, F, 3, H, W) f32
+    language: np.ndarray      # (B, L) i32
+    vis_weights: np.ndarray   # (B, D) f32
+    lang_weights: np.ndarray  # (B, W) f32
+    padvals: np.ndarray       # (B, 3) i32
+    row_mask: np.ndarray      # (B,) f32
+
+    def as_dict(self) -> dict[str, np.ndarray]:
+        return dataclasses.asdict(self)
+
+
+def _collate(samples: list[LazySample], batch_size: int) -> Batch:
+    n = len(samples)
+    pad = batch_size - n
+
+    def stack(field: str, dtype) -> np.ndarray:
+        arr = np.stack([np.asarray(getattr(s, field)) for s in samples]).astype(dtype)
+        if pad:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
+        return arr
+
+    return Batch(
+        timeseries=stack("timeseries", np.float32),
+        vision=stack("vision", samples[0].vision.dtype),
+        language=stack("language", np.int32),
+        vis_weights=stack("vis_weights", np.float32),
+        lang_weights=stack("lang_weights", np.float32),
+        padvals=stack("padvals", np.int32),
+        row_mask=np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)]),
+    )
+
+
+class BatchLoader:
+    """Shuffling, prefetching batch iterator over a :class:`LazyDataset`."""
+
+    def __init__(
+        self,
+        dataset: LazyDataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = False,
+        prefetch: int = 4,
+        num_threads: int = 4,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.num_threads = max(1, num_threads)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_indices(self) -> list[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self._epoch).shuffle(idx)
+        n_full = len(idx) // self.batch_size
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(n_full)]
+        rem = idx[n_full * self.batch_size:]
+        if len(rem) and not self.drop_last:
+            batches.append(rem)
+        return batches
+
+    def __iter__(self) -> Iterator[Batch]:
+        batches = self._batch_indices()
+        self._epoch += 1
+        if self.prefetch <= 0:
+            for b in batches:
+                yield _collate([self.dataset[int(i)] for i in b], self.batch_size)
+            return
+        yield from self._prefetch_iter(batches)
+
+    def _prefetch_iter(self, batches: list[np.ndarray]) -> Iterator[Batch]:
+        """Ordered multi-threaded prefetch with a bounded number in flight."""
+        results: dict[int, Batch] = {}
+        errors: list[BaseException] = []
+        results_lock = threading.Condition()
+        task_q: queue.Queue = queue.Queue()
+        stop = threading.Event()
+        inflight = threading.Semaphore(self.prefetch + self.num_threads)
+
+        for item in enumerate(batches):
+            task_q.put(item)
+        for _ in range(self.num_threads):
+            task_q.put(None)
+
+        def worker():
+            while not stop.is_set():
+                item = task_q.get()
+                if item is None:
+                    return
+                bi, indices = item
+                inflight.acquire()
+                if stop.is_set():
+                    return
+                try:
+                    batch = _collate([self.dataset[int(i)] for i in indices], self.batch_size)
+                except BaseException as e:                  # handed to the consumer
+                    with results_lock:
+                        errors.append(e)
+                        results_lock.notify_all()
+                    return
+                with results_lock:
+                    results[bi] = batch
+                    results_lock.notify_all()
+
+        threads = [threading.Thread(target=worker, daemon=True) for _ in range(self.num_threads)]
+        for t in threads:
+            t.start()
+        try:
+            for bi in range(len(batches)):
+                with results_lock:
+                    while bi not in results and not errors:
+                        results_lock.wait(timeout=60.0)
+                    if errors:
+                        raise errors[0]
+                    batch = results.pop(bi)
+                inflight.release()
+                yield batch
+        finally:
+            stop.set()
+            for _ in threads:
+                inflight.release()

@@ -1,4 +1,5 @@
-"""Weights for the port: from the JAX package's Flax tree, or random on the device.
+"""Weights for the port: from the JAX package's Flax tree, from HF safetensors
+shards, or random on the device.
 
 :func:`from_flax_params` maps the parameter tree of the JAX
 ``VideoLLaMA2VLB`` (numpy leaves) onto this package's state-dict names. It
@@ -32,11 +33,27 @@ that dtype and quantized on the device at once (``quantize_int8``), so the
 bf16 model is never whole.
 :func:`~phantom_vlb_tpu_torch.ops.quant.quantize_state_dict` quantizes an
 existing state dict in place, projection by projection, on its device.
+
+:class:`SafetensorsDir` reads the ``*.safetensors`` shards of a directory
+(VideoLLaMA2's HF keys) on demand: the 8-byte header length, the JSON
+header, then ``torch.frombuffer`` over a private ``mmap`` of the file, one
+tensor at a time, copied to the target device (BF16, F16, F32, I8 and I32).
+The pages a tensor was read from are handed back after its copy, so host
+RSS stays near one tensor. :func:`hf_key` names the HF key a state-dict
+key is read from, the mapping that ``convert_mistral`` (:130),
+``convert_clip_vision`` (:169) and ``convert_stc_connector`` (:224) of
+``phantom_vlb_tpu/models/convert.py`` define; HF's layout is PyTorch's, so
+it is renames only.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import mmap
+import re
+import struct
+from pathlib import Path
 from typing import Iterator, Mapping
 
 import numpy as np
@@ -47,7 +64,8 @@ from phantom_vlb_tpu_torch.models.lora import is_lora_path
 from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB, is_norm, stored_dtype
 from phantom_vlb_tpu_torch.ops.quant import quantize_int8
 
-__all__ = ["from_flax_params", "init_params"]
+__all__ = ["from_flax_params", "init_params", "SafetensorsDir", "hf_key", "HF_VISION_PREFIX",
+           "HF_STC_PREFIX"]
 
 INIT_STD = 0.02  # HF Mistral's initializer_range (and CLIP's)
 
@@ -244,3 +262,123 @@ def init_params(
             t = torch.randn(meta.shape, generator=generator, device=device, dtype=stored_dtype(key, cfg))
             sd[key] = t.mul_(INIT_STD)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# HF safetensors
+
+SAFETENSORS_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
+                      "I8": torch.int8, "I32": torch.int32}
+HF_VISION_PREFIX = "model.vision_tower.vision_tower.vision_model."
+HF_STC_PREFIX = "model.mm_projector."
+
+
+class SafetensorsDir(Mapping):
+    """Read-on-demand mapping over the ``*.safetensors`` shards under
+    ``path``: HF key -> tensor on ``device``, read when asked for."""
+
+    def __init__(self, path: str | Path, device: str | torch.device = "cpu"):
+        self.device = torch.device(device)
+        self._maps: list[mmap.mmap] = []
+        self._index: dict[str, tuple] = {}     # key -> (shard, dtype, shape, begin, end)
+        shards = sorted(Path(path).glob("*.safetensors"))
+        if not shards:
+            raise FileNotFoundError(f"no *.safetensors shards under {path}")
+        for shard in shards:
+            with open(shard, "rb") as f:
+                (n,) = struct.unpack("<Q", f.read(8))
+                header = json.loads(f.read(n))
+                size = f.seek(0, 2)
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+            for key, info in header.items():
+                if key == "__metadata__":
+                    continue
+                if info["dtype"] not in SAFETENSORS_DTYPES:
+                    raise ValueError(f"{shard.name}: {key} has dtype {info['dtype']}, not one of "
+                                     f"{sorted(SAFETENSORS_DTYPES)}")
+                dtype = SAFETENSORS_DTYPES[info["dtype"]]
+                shape = tuple(int(d) for d in info["shape"])
+                begin, end = (8 + n + int(o) for o in info["data_offsets"])
+                if end - begin != math.prod(shape) * dtype.itemsize or end > size or begin < 8 + n:
+                    raise ValueError(f"{shard.name}: {key}'s offsets do not fit its shape and dtype")
+                if key in self._index:
+                    raise ValueError(f"{key} is in two shards")
+                self._index[key] = (len(self._maps), dtype, shape, begin, end)
+            self._maps.append(mm)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        i, dtype, shape, begin, end = self._index[key]
+        mm = self._maps[i]
+        if end == begin:
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        if begin % dtype.itemsize == 0:
+            host = torch.frombuffer(mm, dtype=dtype, count=(end - begin) // dtype.itemsize,
+                                    offset=begin)
+            out = host.reshape(shape).to(self.device, copy=True)
+        else:                                       # unaligned: copy the bytes out first
+            host = torch.frombuffer(mm, dtype=torch.uint8, count=end - begin, offset=begin)
+            out = host.clone().view(dtype).reshape(shape).to(self.device)
+        del host
+        page = mmap.PAGESIZE
+        start = begin - begin % page
+        mm.madvise(mmap.MADV_DONTNEED, start, end - start)
+        return out
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def __contains__(self, key) -> bool:
+        return key in self._index
+
+    def close(self) -> None:
+        for mm in self._maps:
+            mm.close()
+        self._maps = []
+
+
+_HF_TOWER_FIXED = {
+    "patch_embedding.weight": "embeddings.patch_embedding.weight",
+    "class_embedding": "embeddings.class_embedding",
+    "position_embedding": "embeddings.position_embedding.weight",
+    "pre_layrnorm.weight": "pre_layrnorm.weight",
+    "pre_layrnorm.bias": "pre_layrnorm.bias",
+}
+_STC_BLOCK = re.compile(r"^(s[12]\.b\d+)\.(.+)$")
+_STC_WITHIN = {f"conv{i}.weight": f"conv{i}.conv.weight" for i in (1, 2, 3)} | {
+    f"norm{i}.{x}": f"conv{i}.bn.{x}" for i in (1, 2, 3) for x in ("weight", "bias")} | {
+    f"se.fc{i}.{x}": f"se.fc{i}.{x}" for i in (1, 2) for x in ("weight", "bias")} | {
+    "downsample_conv.weight": "downsample.conv.weight",
+    "downsample_norm.weight": "downsample.bn.weight", "downsample_norm.bias": "downsample.bn.bias"}
+
+
+def hf_key(key: str) -> str | None:
+    """The HF checkpoint key (VideoLLaMA2's names) that state-dict ``key``
+    is read from; a quantized base's ``weight_q`` and ``weight_scale`` are
+    made from its ``weight``. None for what no HF checkpoint holds: the
+    head and the LoRA factors."""
+    if key.startswith("head.") or is_lora_path(key):
+        return None
+    if key.endswith((".weight_q", ".weight_scale")):
+        key = key.rsplit(".", 1)[0] + ".weight"
+    if key.startswith("model."):
+        return key
+    if key.startswith("vision_tower."):
+        rest = key[len("vision_tower."):]
+        if rest in _HF_TOWER_FIXED:
+            return HF_VISION_PREFIX + _HF_TOWER_FIXED[rest]
+        if rest.startswith("layers."):
+            return HF_VISION_PREFIX + "encoder." + rest
+    if key.startswith("mm_projector."):
+        rest = key[len("mm_projector."):]
+        m = _STC_BLOCK.match(rest)
+        if m and m.group(2) in _STC_WITHIN:
+            return f"{HF_STC_PREFIX}{m.group(1)}.{_STC_WITHIN[m.group(2)]}"
+        if rest in ("sampler_conv.weight", "sampler_conv.bias"):
+            return f"{HF_STC_PREFIX}sampler.0.{rest.rsplit('.', 1)[1]}"
+        m = re.match(r"^readout\.(\d+)\.(weight|bias)$", rest)
+        if m:
+            return f"{HF_STC_PREFIX}readout.{2 * int(m.group(1))}.{m.group(2)}"
+    raise ValueError(f"no HF key is known for {key}")

@@ -1,1 +1,1 @@
-"""Train and eval steps, the optimizer, the train loop and streaming metrics."""
+"""Train and eval steps, the optimizer, the trainer with its checkpoints and CSV log, and the builder."""

@@ -1,0 +1,277 @@
+"""Assembly: config tree -> loaders, model, trainer (the reference's train.py).
+
+Counterpart of ``phantom_vlb_tpu/train/builder.py``: seed, the native
+loaders over the lazy-load files (:40-80), the model config of the selected
+regime (:85-133), random weights with HF-keyed pretrained weights merged in
+(:147), the trainer with its CSV, console and optional Comet loggers and
+the hyperparameters logged twice (:301-399), and ``run_training`` (:485).
+
+Branches of the reference that are not ported raise by name:
+``model.cache_features=true``, ``datamodule.vision_token_cache``,
+``datamodule.loader=grain``, an Orbax directory as
+``model.checkpoint_path``, and a ``mesh`` that spans more than one device.
+:func:`build_trainer` also takes ready ``loaders`` (any sized iterables of
+batches), in which case it builds none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from phantom_vlb_tpu_torch.core.config import Config, to_dict
+from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset, expand_lazyload_glob, split_train_val
+from phantom_vlb_tpu_torch.models.convert import HF_STC_PREFIX, SafetensorsDir, hf_key, init_params
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig
+from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB, VLBConfig
+from phantom_vlb_tpu_torch.ops.quant import quantize_int8
+from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
+from phantom_vlb_tpu_torch.train.optim import OptimConfig
+from phantom_vlb_tpu_torch.utils.logging import CometLoggerSink, ConsoleLogger
+
+__all__ = ["build_loaders", "build_model_config", "load_pretrained_params", "build_trainer",
+           "run_training"]
+
+
+def build_loaders(dm: Config) -> tuple[BatchLoader, BatchLoader, dict]:
+    """The train and val loaders over the lazy-load files, and their file names."""
+    if str(dm.get("loader", "native")) == "grain":
+        raise NotImplementedError("datamodule.loader=grain is not ported; use the native loader")
+    files = expand_lazyload_glob(dm.lazyload_path, list(dm.seasons))
+    if not files:
+        raise FileNotFoundError(
+            f"no lazy-load files match {dm.lazyload_path!r} for seasons {dm.seasons}")
+    train_files, val_files = split_train_val(files, int(dm.random_state))
+    dset_names = {"val_set": [f.rsplit("/", 1)[-1] for f in val_files],
+                  "train_set": [f.rsplit("/", 1)[-1] for f in train_files]}
+    common = dict(batch_size=int(dm.batch_size), seed=int(dm.random_state),
+                  prefetch=int(dm.get("prefetch", 4)), num_threads=int(dm.get("num_workers", 4)))
+    train_loader = BatchLoader(LazyDataset(train_files), shuffle=True, **common)
+    val_loader = BatchLoader(LazyDataset(val_files), shuffle=bool(dm.get("shuffle_val_data", False)),
+                             **common)
+    return train_loader, val_loader, dset_names
+
+
+def build_model_config(m: Config) -> VLBConfig:
+    """The model's config from the ``model`` node: preset ``tiny`` or
+    ``full``, LoRA from ``lora_*``, ``base_quant`` for the decoder and the
+    tower alike."""
+    use_lora = bool(m.get("use_lora", False))
+    lora = None
+    if use_lora:
+        lora = LoRAConfig(
+            rank=int(m.lora_r),
+            alpha=float(m.lora_alpha),
+            dropout=float(m.lora_dropout),
+            shared_dropout=bool(m.get("lora_shared_dropout", False)),
+            dropout_bits=int(m.get("lora_dropout_bits", 32)),
+            fused_dropout=bool(m.get("lora_fused_dropout", False)),
+        )
+    common = dict(
+        l2_lambda=float(m.l2_lambda),
+        dropout_rate=float(m.dropout_rate),
+        freeze_backbone=bool(m.get("freeze_backbone", True)),
+    )
+    base_quant = m.get("base_quant", None) or None
+    preset = m.get("preset", "full")
+    if preset == "tiny":
+        cfg = VLBConfig.tiny(use_lora=use_lora, base_quant=base_quant)
+        if use_lora:
+            cfg = dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, lora=lora))
+        return dataclasses.replace(cfg, **common)
+    if preset == "full":
+        cfg = VLBConfig.full(use_lora=use_lora, base_quant=base_quant)
+        cfg = dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, lora=lora),
+                                  num_target=int(m.num_target), **common)
+        cfg.validate()
+        return cfg
+    raise ValueError(f"unknown model preset {preset!r}")
+
+
+def _stc_expected_keys(stc_cfg) -> set[str]:
+    """The exact HF key set (under ``model.mm_projector.``) of the STC
+    connector the port builds."""
+    keys = set()
+    # A block has a 1x1-conv shortcut only where its in/out widths differ
+    # (timm's Bottleneck rule): stage s1's first block only.
+    downsample_blocks = {"s1.b1"} if stc_cfg.encoder_hidden_size != stc_cfg.hidden_size else set()
+    for stage in ("s1", "s2"):
+        for j in range(stc_cfg.depth):
+            p = f"{stage}.b{j + 1}"
+            for conv in ("conv1", "conv2", "conv3"):
+                keys |= {f"{p}.{conv}.conv.weight", f"{p}.{conv}.bn.weight", f"{p}.{conv}.bn.bias"}
+            keys |= {f"{p}.se.fc1.weight", f"{p}.se.fc1.bias", f"{p}.se.fc2.weight", f"{p}.se.fc2.bias"}
+            if p in downsample_blocks:
+                keys |= {f"{p}.downsample.conv.weight", f"{p}.downsample.bn.weight",
+                         f"{p}.downsample.bn.bias"}
+    keys |= {"sampler.0.weight", "sampler.0.bias", "readout.0.weight", "readout.0.bias"}
+    for i in range(1, stc_cfg.mlp_depth):
+        keys |= {f"readout.{2 * i}.weight", f"readout.{2 * i}.bias"}
+    return keys
+
+
+def _assert_keys_consumed(sd: Mapping, prefix: str, expected: set[str]) -> None:
+    """A checkpoint's keys under ``prefix`` must be exactly ``expected``
+    (none at all is fine: a shard set without that subtree); anything else
+    means the reconstructed architecture does not hold for it."""
+    present = {k[len(prefix):] for k in sd if k.startswith(prefix)}
+    if not present:
+        return
+    unconsumed, missing = present - expected, expected - present
+    if unconsumed or missing:
+        raise ValueError(
+            f"checkpoint/{prefix}* does not match the reconstructed architecture: unconsumed keys "
+            f"{sorted(unconsumed)[:8]}..., missing keys {sorted(missing)[:8]}... — the STC "
+            "connector's reconstruction does not hold for this checkpoint.")
+
+
+def _is_orbax_dir(p: Path) -> bool:
+    return (p / "_METADATA").exists() or (p / "manifest.ocdbt").exists() or (p / "d").exists()
+
+
+def load_pretrained_params(model_cfg: VLBConfig, checkpoint_path: str | Path,
+                           params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``params`` (a state dict) with the tensors of the HF safetensors shards
+    under ``checkpoint_path`` (VideoLLaMA2's keys) in place of their own.
+
+    Each tensor is read from the shards straight to its parameter's device
+    and cast to its dtype; under ``base_quant`` the HF weight of a base
+    projection is quantized there (:func:`quantize_int8`). The decoder's
+    tensors must all be present; the tower's and the connector's are taken
+    when the shards hold that subtree, the connector's only when its keys
+    match the connector exactly. The head and the adapters keep their
+    values. Shapes must match.
+    """
+    p = Path(checkpoint_path)
+    if _is_orbax_dir(p):
+        raise NotImplementedError(f"{p} is an Orbax checkpoint directory; the port reads HF "
+                                  "safetensors shards only")
+    if not list(p.glob("*.safetensors")):
+        raise FileNotFoundError(f"no checkpoint found at {checkpoint_path}")
+    sd = SafetensorsDir(p, next(iter(params.values())).device)
+    try:
+        _assert_keys_consumed(sd, HF_STC_PREFIX, _stc_expected_keys(model_cfg.stc))
+        subtrees = {"vision_tower.": any(k.startswith("model.vision_tower") for k in sd),
+                    "mm_projector.": any(k.startswith(HF_STC_PREFIX) for k in sd)}
+        out = dict(params)
+        for key, base in params.items():
+            src = hf_key(key)
+            if src is None or key.endswith(".weight_scale") or not subtrees.get(
+                    key.split(".", 1)[0] + ".", True):
+                continue
+            if src not in sd:
+                raise KeyError(f"{src} (for {key}) is not in the checkpoint at {p}")
+            w = sd[src]
+            if key.endswith(".weight_q"):
+                scale_key = key[: -len("weight_q")] + "weight_scale"
+                w, scale = quantize_int8(w, axis=1)
+                _check_shape(scale_key, params[scale_key], scale)
+                out[scale_key] = scale.to(params[scale_key].dtype)
+            _check_shape(key, base, w)
+            out[key] = w.to(base.dtype)
+            del w
+    finally:
+        sd.close()
+    return out
+
+
+def _check_shape(key: str, base: torch.Tensor, w: torch.Tensor) -> None:
+    if tuple(base.shape) != tuple(w.shape):
+        raise ValueError(f"pretrained weight shape {tuple(w.shape)} does not match the "
+                         f"initialized parameter shape {tuple(base.shape)} of {key}")
+
+
+def _mesh_devices(mesh_cfg: Mapping, n_devices: int) -> int:
+    """How many devices ``mesh`` spans; ``-1`` on one axis takes the rest."""
+    sizes = [int(mesh_cfg.get(axis, default))
+             for axis, default in (("data", 1), ("fsdp", -1), ("tensor", 1), ("sequence", 1))]
+    if sum(s == -1 for s in sizes) > 1:
+        raise ValueError("at most one mesh axis may be -1")
+    fixed = int(np.prod([s for s in sizes if s != -1]))
+    return fixed * (max(1, n_devices // fixed) if -1 in sizes else 1)
+
+
+def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None):
+    """Full assembly on ``device`` -> (trainer, train_loader, val_loader).
+
+    ``loaders``: an optional (train, val) pair of sized iterables of batches
+    (e.g. lists of dicts of tensors); without it the native loaders are
+    built over the lazy-load files.
+    """
+    device = resolve_device(device)
+    seed = int(config.random_state)
+    np.random.seed(seed)
+    dm = config.datamodule
+    if dm.get("vision_token_cache"):
+        raise NotImplementedError("datamodule.vision_token_cache is not ported; set it to null")
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    spans = _mesh_devices(config.get("mesh", Config()), n_devices)
+    if spans > 1:
+        raise NotImplementedError(f"the mesh spans {spans} devices; sharded training is not ported "
+                                  "(set mesh.fsdp=1 for one device)")
+
+    if loaders is None:
+        train_loader, val_loader, dset_names = build_loaders(dm)
+    else:
+        (train_loader, val_loader), dset_names = loaders, {"val_set": [], "train_set": []}
+
+    model_cfg = build_model_config(config.model)
+    params = init_params(model_cfg, device, torch.Generator(device=device).manual_seed(seed))
+    ckpt_path = config.model.get("checkpoint_path")
+    if ckpt_path:
+        params = load_pretrained_params(model_cfg, ckpt_path, params)
+    model = VideoLLaMA2VLB.from_state_dict(model_cfg, params)
+    del params
+
+    optim = config.optim
+    optim_cfg = OptimConfig(
+        lr=float(optim.lr),
+        betas=tuple(float(b) for b in optim.betas),
+        eps=float(optim.eps),
+        weight_decay=float(optim.weight_decay),
+        lr_scheduler_name=str(optim.lr_scheduler_name),
+        t_max=int(optim.t_max),
+        grad_clip=float(optim.get("grad_clip", 1.0)),
+    )
+    tr = config.trainer
+    loop_cfg = TrainLoopConfig(
+        max_epochs=int(tr.max_epochs),
+        val_check_interval=float(tr.val_check_interval),
+        log_every_n_steps=int(tr.log_every_n_steps),
+        seed=seed,
+        output_dir=str(config.output_dir),
+        run_name=str(config.get("run_name", "vlb")),
+        num_target=model_cfg.num_target,
+        early_stop_patience=int(tr.get("early_stop_patience", 0)),
+        early_stop_min_delta=float(tr.get("early_stop_min_delta", 0.0)),
+    )
+    # The CSV log (the brain maps' input) always; Comet when configured;
+    # the console for interactive runs.
+    extra_loggers: list = [ConsoleLogger()]
+    comet_cfg = config.get("comet", None)
+    if comet_cfg and comet_cfg.get("enabled", False):
+        extra_loggers.append(CometLoggerSink(
+            api_key=comet_cfg.get("api_key"), workspace=comet_cfg.get("workspace"),
+            project=comet_cfg.get("project", "phantom_mm"), name=config.get("run_name")))
+    trainer = VLBTrainer(model, optim_cfg, loop_cfg, device=device, extra_loggers=extra_loggers)
+    # Hyperparameters logged twice, as the reference does: the whole config,
+    # then the train and val file lists.
+    trainer.csv_logger.log_hyperparams(to_dict(config))
+    trainer.csv_logger.log_hyperparams(dset_names)
+    return trainer, train_loader, val_loader
+
+
+def run_training(config: Config, device: str | torch.device = "cuda") -> dict:
+    """Build, resume when ``trainer.resume`` is set and a ``last`` exists, fit."""
+    if bool(config.get("model", {}).get("cache_features", False)):
+        raise NotImplementedError("model.cache_features=true (training the head over a "
+                                  "precomputed feature cache) is not ported")
+    trainer, train_loader, val_loader = build_trainer(config, device)
+    if bool(config.get("trainer", {}).get("resume", False)) and trainer.maybe_resume():
+        print(f"resumed from step {trainer.global_step}")
+    return trainer.fit(train_loader, val_loader)

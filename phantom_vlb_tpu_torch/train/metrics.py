@@ -1,17 +1,30 @@
-"""Streaming per-ROI Pearson r (running moments, batch-merged on the device).
+"""Streaming per-ROI Pearson r (running moments, batch-merged on the device)
+and the CSV metrics log.
 
-Counterpart of ``pearson_init/update/compute`` in
-``phantom_vlb_tpu/train/metrics.py`` (:45-99): a Welford-style batch merge in
-f32, aware of padded rows, so no activation-sized host transfer is needed.
+Counterpart of ``phantom_vlb_tpu/train/metrics.py``: ``pearson_init/update/
+compute`` (:45-99) are a Welford-style batch merge in f32, aware of padded
+rows, so no activation-sized host transfer is needed. :class:`CSVMetricsLogger`
+(:106-156) writes Lightning's CSVLogger layout, which the brain maps read
+(``postprocessing/brainmaps.py``): ``<save_dir>/<name>/version_<k>/metrics.csv``,
+one row per logging event, the union of keys as header, empty cells for
+absent metrics, and ``val/brain_loss`` + ``val_corr_ROI_%06d`` +
+``val_corr_avg`` in each validation's row.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+from pathlib import Path
+from typing import Any, Mapping
 
+import numpy as np
 import torch
 
-__all__ = ["PearsonState", "pearson_init", "pearson_update", "pearson_compute"]
+from phantom_vlb_tpu_torch.core.config import dump_yaml
+
+__all__ = ["PearsonState", "pearson_init", "pearson_update", "pearson_compute",
+           "CSVMetricsLogger", "roi_metric_names"]
 
 
 @dataclasses.dataclass
@@ -77,3 +90,60 @@ def pearson_update(
 def pearson_compute(state: PearsonState, eps: float = 1e-12) -> torch.Tensor:
     """Per-ROI correlation r (P,)."""
     return state.cxy / torch.sqrt((state.m2x * state.m2y).clamp_min(eps))
+
+
+def roi_metric_names(num_target: int) -> list[str]:
+    """``val_corr_ROI_%06d`` names."""
+    return [f"val_corr_ROI_{i:06d}" for i in range(num_target)]
+
+
+class CSVMetricsLogger:
+    """Lightning-CSVLogger-compatible metrics.csv writer.
+
+    Appends rows; the file is rewritten only when a new column appears
+    (typically once, at the first validation), so logging stays O(row) with
+    the 1002 per-ROI columns.
+    """
+
+    def __init__(self, save_dir: str | Path, name: str, version: int | None = None):
+        base = Path(save_dir) / name
+        if version is None:
+            version = 0
+            while (base / f"version_{version}").exists():
+                version += 1
+        self.log_dir = base / f"version_{version}"
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.log_dir / "metrics.csv"
+        self._rows: list[dict[str, Any]] = []
+        self._columns: list[str] = []
+        self._rows_flushed = 0
+
+    def log_metrics(self, metrics: Mapping[str, Any], step: int, epoch: int) -> None:
+        row = {"epoch": epoch, "step": step}
+        for k, v in metrics.items():
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                v = v.item()
+            row[k] = v
+        new_cols = [k for k in row if k not in self._columns]
+        self._columns.extend(new_cols)
+        self._rows.append(row)
+        self._flush(rewrite=bool(new_cols) and self._rows_flushed > 0)
+
+    def _flush(self, rewrite: bool) -> None:
+        if rewrite or not self.path.exists():
+            with open(self.path, "w", newline="") as f:
+                writer = csv.DictWriter(f, fieldnames=self._columns)
+                writer.writeheader()
+                writer.writerows(self._rows)
+        else:
+            with open(self.path, "a", newline="") as f:
+                writer = csv.DictWriter(f, fieldnames=self._columns)
+                if self._rows_flushed == 0:
+                    writer.writeheader()
+                writer.writerows(self._rows[self._rows_flushed:])
+        self._rows_flushed = len(self._rows)
+
+    def log_hyperparams(self, params: Mapping[str, Any]) -> None:
+        """Append ``params`` to ``hparams.yaml`` in ``yaml.safe_dump``'s layout."""
+        with open(self.log_dir / "hparams.yaml", "a") as f:
+            f.write(dump_yaml(dict(params)))

@@ -85,3 +85,13 @@ class AdamWCosine:
         self.adamw.step()
         self.step += 1
         return lr
+
+    def state_dict(self) -> dict:
+        """The update count and AdamW's state (moments and per-tensor step
+        counts), so that a resumed run continues the schedule and the
+        moments."""
+        return {"step": self.step, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self.adamw.load_state_dict(state["adamw"])

@@ -7,6 +7,8 @@ harness in conftest.py is left out)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,8 @@ import torch
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
-from phantom_vlb_tpu_torch.models.convert import init_params
+from phantom_vlb_tpu_torch.models.convert import SafetensorsDir, init_params
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
 from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB, VLBConfig
@@ -74,6 +77,9 @@ from phantom_vlb_tpu_torch.ops.rowquant import (
     row_quant_plain,
     row_quant_scaled,
 )
+
+from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
+from phantom_vlb_tpu_torch.train.optim import OptimConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -744,3 +750,56 @@ def test_frames_path_equals_the_token_path_on_the_card(cuda):
     tokens = model.encode_video(batches[0]["vision"])
     from_tokens = predict_batches(model, [dict(batches[0], vision=tokens)], cuda)["predicted"]
     assert np.isfinite(from_frames).all() and np.array_equal(from_frames, from_tokens)
+
+
+def _narrow_lora_model(dev):
+    mistral = dataclasses.replace(_narrow_vision_config(torch.bfloat16).mistral, lora=LoRAConfig(), remat=True)
+    cfg = dataclasses.replace(_narrow_vision_config(torch.bfloat16), mistral=mistral, freeze_backbone=False)
+    sd = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    return VideoLLaMA2VLB.from_state_dict(cfg, sd)
+
+
+def test_trainer_fits_saves_and_resumes_on_the_card(cuda, tmp_path):
+    """A narrow LoRA model from cached tokens: 1 epoch of 2 steps with one
+    validation, best and last saved; a fresh trainer resumed from last
+    holds the same tensors and AdamW state bit for bit, and its fit over 2
+    epochs runs the second alone."""
+    model = _narrow_lora_model(cuda)
+    batches = synthetic_batches(model.cfg, 3, 2, np.random.default_rng(0),
+                                torch.Generator(device=cuda).manual_seed(3), cuda)
+
+    def trainer(epochs):
+        loop = TrainLoopConfig(max_epochs=epochs, val_check_interval=0.0, log_every_n_steps=1,
+                               output_dir=str(tmp_path), run_name="gpu", num_target=model.cfg.num_target)
+        return VLBTrainer(model if epochs == 1 else _narrow_lora_model(cuda), OptimConfig(), loop, device=cuda)
+
+    first = trainer(1)
+    before = FLASH_FWD.launches
+    first.fit(batches[:2], batches[2:])
+    assert FLASH_FWD.launches - before == 2 * (2 * 2) + 2        # 2 steps under remat, 1 val batch
+    assert first.global_step == 2 and (tmp_path / "last" / "state.pt").exists()
+    assert [p.name for p in tmp_path.glob("best_brainloss_*")] == ["best_brainloss_0-2"]
+    resumed = trainer(2)
+    assert resumed.maybe_resume() and resumed.global_step == 2
+    for name, p in first.trainable.items():
+        assert torch.equal(resumed.trainable[name], p), name
+    a, b = first.optimizer.state_dict()["adamw"]["state"], resumed.optimizer.state_dict()["adamw"]["state"]
+    assert all(torch.equal(a[i][k], b[i][k]) for i in a for k in a[i])
+    resumed.fit(batches[:2], batches[2:])
+    assert resumed.global_step == 4 and np.isfinite(resumed.last_val_metrics["val/brain_loss"])
+
+
+def test_safetensors_reader_on_a_bf16_file(cuda, tmp_path):
+    """A bf16 (and an int8) tensor written in the safetensors layout, read
+    straight to the card bit for bit."""
+    from chip_smoke import write_safetensors
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    tensors = {"w": torch.randn(1000, 257, generator=g, device=cuda).to(torch.bfloat16),
+               "q": torch.randint(-127, 128, (33,), generator=g, device=cuda, dtype=torch.int8)}
+    write_safetensors(tmp_path / "m.safetensors", tensors)
+    sd = SafetensorsDir(tmp_path, cuda)
+    for key, t in tensors.items():
+        got = sd[key]
+        assert got.device == t.device and got.dtype == t.dtype and torch.equal(got, t), key
+    sd.close()

@@ -1,5 +1,10 @@
 """Port: what the card's machine lacks is never imported, and entry points
-raise rather than fall back when there is no card."""
+raise rather than fall back when there is no card.
+
+The card's machine has no jax, flax, optax, h5py, yaml, safetensors, orbax
+or comet_ml; every module of the port and ``chip_smoke.py`` import with
+them blocked (the trainer's modules among them).
+"""
 
 import os
 import pathlib
@@ -16,7 +21,7 @@ from phantom_vlb_tpu_torch.models.convert import init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu", "transformers", "timm",
-           "PIL")
+           "PIL", "safetensors", "orbax", "comet_ml")
 
 # Blocks the modules (a None entry in sys.modules makes their import fail),
 # then imports every module of the port and chip_smoke without running it.
@@ -37,6 +42,11 @@ assert ring <= set(names), sorted(ring - set(names))
 vision = {{"phantom_vlb_tpu_torch.models.clip_vit", "phantom_vlb_tpu_torch.models.stc_connector",
           "phantom_vlb_tpu_torch.ops.preprocess"}}
 assert vision <= set(names), sorted(vision - set(names))
+trainer = {{"phantom_vlb_tpu_torch.core.config", "phantom_vlb_tpu_torch.data.loader",
+           "phantom_vlb_tpu_torch.data.schemas", "phantom_vlb_tpu_torch.train.builder",
+           "phantom_vlb_tpu_torch.train.checkpoint", "phantom_vlb_tpu_torch.train.loop",
+           "phantom_vlb_tpu_torch.utils.logging", "phantom_vlb_tpu_torch.cli.train"}}
+assert trainer <= set(names), sorted(trainer - set(names))
 print(len(names))
 """
 
