@@ -7,6 +7,7 @@ vision towers.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --trainer DIR     # phase 9t alone, under DIR
+    python3 chip_smoke.py --after-train DIR # phase 9p alone, on 9t's DIR
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -96,6 +97,26 @@ Phases, each printed with its wall time; any failure exits non-zero:
    (written by ``write_safetensors``) through ``load_pretrained_params``,
    their predictions bit-equal to the same weights' through
    ``from_state_dict``;
+9p. the stages after the trainer, in a process of its own (``--after-train
+   DIR``, on 9t's DIR; its peak host RSS held to the same bound), from
+   frames made on the card from seed 0, at full width, only batch counts
+   cut: (a) ``predict_split`` composed like ``vlb-predict-torch
+   experiment=vlb_friends_lora subject=sub-01 predict.checkpoint=<9t's
+   last>`` over 9t's 2 val batches of 3 (32 flash forwards a batch, no
+   other kernel; per-ROI r against 9t's val row at the step ``last``
+   holds); (b) ``build_cached_trainer`` for ``vlb_friends_baseline
+   model.cache_features=true`` at batch 5 over 3 train and 1 val batches
+   into in-memory stores (128 flash forwards in the build, none while the
+   head trains; 1247 x 4096 f16 a sample; one batch's cached-head
+   predictions against the full forward), then the head trained 2 epochs
+   with its validations; (c) ``vlb_friends_lora``'s clips through
+   ``encode_tokens`` (bit-equal to ``encode_video``), then 2 LoRA steps
+   from the cached tokens against 2 from the frames on the same weights
+   and seeds (first loss bit-equal; gradients and second loss within
+   tolerance; launch counts); (d) ``vlb-brainmaps-torch`` over 9t's
+   metrics.csv with an atlas of one label per ROI written by
+   ``save_nifti`` (an HTML and a volume a val row, each parcel its r²).
+   Where ``h5py`` imports, (a)-(c) also write and read the files;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -156,10 +177,14 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
+from phantom_vlb_tpu_torch.cli.brainmaps import main as brainmaps_main
+from phantom_vlb_tpu_torch.cli.predict import predict_batches, predict_split, synthetic_batches, write_predictions
 from phantom_vlb_tpu_torch.core.config import load_config
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
+from phantom_vlb_tpu_torch.data.loader import BatchLoader
+from phantom_vlb_tpu_torch.data.schemas import LazySample
+from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
@@ -228,11 +253,19 @@ from phantom_vlb_tpu_torch.ops.rowquant import (
     row_quant_plain,
     row_quant_scaled,
 )
-from phantom_vlb_tpu_torch.train.builder import build_model_config, build_trainer, load_pretrained_params
+from phantom_vlb_tpu_torch.postprocessing.nifti import NiftiImage, load_nifti, save_nifti
+from phantom_vlb_tpu_torch.train.builder import (
+    build_cached_trainer,
+    build_model,
+    build_model_config,
+    build_trainer,
+    load_pretrained_params,
+)
 from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
 from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
+from phantom_vlb_tpu_torch.train.precompute import head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
 ROOT = Path(__file__).resolve().parent
@@ -344,6 +377,25 @@ FRAMES_TOKENS_TOL = 1e-6
 # four convolutions, each after a LayerNorm whose output is rounded to
 # bf16, then the 2-layer readout. The predictions keep PRED_TOL.
 NARROW_TOKENS_TOL = 5e-2
+# Phase 9p's predict sweep against 9t's validation at the step ``last``
+# holds, per-ROI r absolute: the same weights, batches, shapes and kernels,
+# so bit-equal is expected (the CSV's text holds an f32 value whole); 1e-6
+# would still catch another checkpoint or other batches.
+PREDICT_CORR_TOL = 1e-6
+# The head over the feature cache against the full forward on the same
+# batch: the bound of tests/test_precompute.py:110 for the f16 cache (at
+# full width the backbone's bf16 hidden states convert to f16 exactly, so
+# only the head's f32 sums over 1247 against 2048 positions differ).
+CACHED_HEAD_TOL = 2e-2
+# 2 LoRA steps from cached tokens against 2 from the same frames, the same
+# weights and dropout seeds: the first loss bit-equal (the forward sees the
+# same bits); step 1's adapter gradients, all of them as one vector, as
+# |err| / |ref| (2-norms), and step 2's loss as |err| / |ref|, because the
+# flash backward's dq reduce-adds sum in a run-dependent order and bf16
+# roundings of the 32 layers' gradients then flip (RING_STEP_TOL's reason,
+# without another attention). Single elements flip by bf16 ulps: the
+# largest per-tensor max|err| / max|ref| is printed, not held.
+TOKEN_GRAD_TOL, TOKEN_LOSS_TOL = 2e-2, 1e-3
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 QUEUE_FULL = "Command Buffer Full"
@@ -2132,23 +2184,336 @@ def trainer_child(out: str) -> int:
     return 0
 
 
-def run_trainer_phase() -> dict:
-    """Phase 9t in a process of its own, under a temporary directory of the
-    (ignored) build tree, deleted after; its output is passed on. Returns
-    its JSON record."""
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    out = tempfile.mkdtemp(prefix="trainer-", dir=BUILD_ROOT)
-    try:
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--trainer", out],
-                              capture_output=True, text=True, timeout=900)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+# ---------------------------------------------------------------------------
+# Phase 9p: the stages after the trainer (vlb-predict, the feature and token
+# caches, vlb-brainmaps), in a process of its own (``--after-train DIR``) on
+# phase 9t's DIR. Stores are in memory (the card's machine has no h5py);
+# where h5py imports, the files are written and read as well.
+
+CACHE_TRAIN_BATCHES, CACHE_EPOCHS = 3, 2  # baseline at batch 5: 3 train + 1 val batch
+TOKEN_STEPS = 2                           # LoRA at batch 3 from cached tokens and from frames
+ATLAS_SHAPE = (20, 20, 10)                # 4000 voxels for 1000 labels and background
+
+
+class MemoryStore(dict):
+    """An in-memory store with the part of h5py's interface the feature
+    cache uses (``create_group``, ``create_dataset``, ``[]``, ``in``)."""
+
+    def create_group(self, name):
+        self[name] = MemoryStore()
+        return self[name]
+
+    def create_dataset(self, name, data):
+        self[name] = np.array(data)
+        return self[name]
+
+
+def h5py_present() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def metrics_rows(root: Path, version: int) -> list[dict]:
+    (path,) = root.glob(f"*/version_{version}/metrics.csv")
+    return read_csv(path)
+
+
+def after_train_predict(root: Path, dev, files: bool) -> dict:
+    """(a) ``vlb-predict-torch experiment=vlb_friends_lora subject=sub-01
+    predict.checkpoint=<9t's last>`` over the 2 val batches 9t validated on
+    (the frames remade from seed 0): per-ROI r against 9t's val row at the
+    step ``last`` holds (its resumed run's CSV, version_1), 32 flash
+    forwards a batch and no other kernel."""
+    last = root / "lora" / "last"
+    config = compose("vlb_friends_lora", root / "predict", f"predict.checkpoint={last}", f"predict.out={root / 'predictions.h5'}")
+    train, val = frame_loaders(config, TRAIN_BATCHES, VAL_BATCHES, torch.Generator(device=dev).manual_seed(SEED),
+                               dev)
+    step = torch.load(last / STATE_FILE, map_location="cpu", weights_only=True)["step"]
+    (row,) = [r for r in metrics_rows(root / "lora", 1) if r.get("val/brain_loss") and int(r["step"]) == step]
+    torch.cuda.synchronize()
+    reset_launches()
+    res = predict_split(config, dev, loaders=(train, val))
+    launches = read_launches()
+    layers = build_model_config(config.model).mistral.num_hidden_layers
+    want = {n: layers * VAL_BATCHES if n == "flash_fwd" else 0 for n in KERNELS}
+    num_target = res["val_corr_roi"].shape[0]
+    check_predictions(res, VAL_BATCHES * LORA_BATCH, num_target)
+    csv_r = np.array([float(row[f"val_corr_ROI_{i:06d}"]) for i in range(num_target)])
+    err = float(np.abs(res["val_corr_roi"] - csv_r).max())
+    print(f"  predict from last (step {step}): {res['predicted'].shape[0]} rows, batch ms "
+          f"{[round(float(x), 3) for x in res['batch_ms']]}, corr avg {float(np.nanmean(res['val_corr_roi'])):.6f} "
+          f"against 9t's val row at step {step} {float(row['val_corr_avg']):.6f}, max|r - CSV r| {err:.3e} "
+          f"(tol {PREDICT_CORR_TOL}), launches { {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"predict launched {launches}, want {want}")
+    if err > PREDICT_CORR_TOL:
+        raise AssertionError("the predict sweep's per-ROI r differs from 9t's validation at the same step")
+    if files:
+        write_predictions(res, root / "predictions.h5")
+        import h5py
+
+        with h5py.File(root / "predictions.h5", "r") as f:
+            shapes = {k: f[k].shape for k in f}
+            same = all(np.array_equal(f[k][...], res[k]) for k in f)
+        print(f"  wrote and read {root / 'predictions.h5'}: {shapes}, equal to the sweep's: {same}")
+        if not same or sorted(shapes) != ["actual", "predicted", "val_corr_roi"]:
+            raise AssertionError("the predictions file does not hold the sweep's arrays")
+    return {"predict_batch_ms": res["batch_ms"].tolist(), "predict_launches": launches,
+            "predict_corr_err": err}
+
+
+def cache_sample(source, i: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sample ``i``'s (features, weights) of a feature cache (store or file)."""
+    if isinstance(source, Path):
+        import h5py
+
+        with h5py.File(source, "r") as f:
+            return f[f"{i}/{i}_features"][...], f[f"{i}/{i}_weights"][...]
+    return source[f"{i}"][f"{i}_features"], source[f"{i}"][f"{i}_weights"]
+
+
+def after_train_feature_cache(root: Path, dev, files: bool) -> dict:
+    """(b) ``vlb_friends_baseline model.cache_features=true`` at batch 5
+    over 3 train and 1 val batches from frames: 32 flash forwards a batch
+    in the build and none while the head trains; 1247 x 4096 f16 values a
+    sample; one batch's cached-head predictions against the full forward;
+    the head trained 2 epochs with its validations over the cache."""
+    config = compose("vlb_friends_baseline", root / "cached", "model.cache_features=true",
+                     f"trainer.max_epochs={CACHE_EPOCHS}")
+    batch = int(config.datamodule.batch_size)
+    train, val = frame_loaders(config, CACHE_TRAIN_BATCHES, 1, torch.Generator(device=dev).manual_seed(SEED), dev)
+    stores = None if files else {"train": MemoryStore(), "val": MemoryStore()}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, cached_train, cached_val = build_cached_trainer(config, dev, loaders=(train, val), caches=stores)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches()
+    model_cfg = build_model_config(config.model)
+    layers, geom = model_cfg.mistral.num_hidden_layers, model_cfg.geometry
+    want = {n: layers * (CACHE_TRAIN_BATCHES + 1) if n == "flash_fwd" else 0 for n in KERNELS}
+    k = geom.num_vis_tokens + geom.onsets_width
+    shapes = set()
+    for source, n in ((cached_train.source, cached_train.length), (cached_val.source, cached_val.length)):
+        for i in range(n):
+            feats, weights = cache_sample(source, i)
+            shapes.add((feats.shape, str(feats.dtype), weights.shape))
+    sample_bytes = k * model_cfg.mistral.hidden_size * 2
+    print(f"  cache built in {build_s:.2f} s (the model, then 4 backbone batches): {cached_train.length} train + "
+          f"{cached_val.length} val samples in {'files' if files else 'memory stores'}, each {shapes}: "
+          f"{sample_bytes / 1e6:.2f} MB a sample, {sample_bytes * (cached_train.length + cached_val.length) / 1e6:.1f} "
+          f"MB in all; launches {build_launches}")
+    if build_launches != want:
+        raise AssertionError(f"the cache build launched {build_launches}, want {want}")
+    if (cached_train.length, cached_val.length) != (CACHE_TRAIN_BATCHES * batch, batch) or shapes != {
+            ((k, model_cfg.mistral.hidden_size), "float16", (k,))}:
+        raise AssertionError(f"the caches hold {shapes}, want ({k}, {model_cfg.mistral.hidden_size}) f16 a sample")
+
+    model = build_model(config.model, int(config.random_state), dev)
+    full = predict_batches(model, val, dev)["predicted"]
+    del model
+    torch.cuda.empty_cache()
+    head = trainer.model.eval()
+    cb = next(iter(cached_val))
+    with torch.no_grad():
+        cached, _ = head_forward(head, {k_: torch.as_tensor(v).to(dev) for k_, v in cb.items()})
+    cached = cached.cpu().numpy()
+    err = float(np.abs(cached - full).max())
+    print(f"  cached head against the full forward on the val batch: max|err| {err:.3e} "
+          f"(tol {CACHED_HEAD_TOL} + {CACHED_HEAD_TOL} |ref|)")
+    if not np.allclose(cached, full, atol=CACHED_HEAD_TOL, rtol=CACHED_HEAD_TOL):
+        raise AssertionError("the head over the cache differs from the full forward")
+
+    step_ms = timed_calls(trainer, "train_one")
+    val_ms = timed_calls(trainer, "validate")
+    torch.cuda.synchronize()
+    reset_launches()
+    trainer.fit(cached_train, cached_val)
+    launches = read_launches()
+    rows = read_csv(trainer.csv_logger.path)
+    n_val = sum(1 for r in rows if r.get("val/brain_loss"))
+    saved = torch.load(root / "cached" / "last" / STATE_FILE, map_location="cpu", weights_only=True)["params"]
+    print(f"  head trained {CACHE_EPOCHS} epochs over the cache: step ms {[round(x, 3) for x in step_ms]}, "
+          f"validation ms {[round(x, 3) for x in val_ms]}, {n_val} val rows, last holds {sorted(saved)}, "
+          f"launches { {k_: v for k_, v in launches.items() if v} }")
+    if any(launches.values()) or trainer.global_step != CACHE_EPOCHS * CACHE_TRAIN_BATCHES or not n_val:
+        raise AssertionError("the head's training over the cache launched a kernel or ran other steps")
+    if not saved or not all(k_.startswith("head.") for k_ in saved):
+        raise AssertionError("the cached trainer's checkpoint holds more than the head")
+    del trainer
+    return {"cache_build_s": build_s, "cache_build_launches": build_launches, "cache_sample_bytes": sample_bytes,
+            "cached_head_err": err, "cached_step_ms": step_ms, "cached_val_ms": val_ms}
+
+
+def clip_samples(cfg: VLBConfig, n_batches: int, batch: int, dev) -> list:
+    """``n_batches`` x ``batch`` samples whose frames are made on the card
+    from seed 0 (``synthetic_batches``'), one ``LazySample`` each."""
+    batches = synthetic_batches(cfg, n_batches, batch, np.random.default_rng(SEED),
+                                torch.Generator(device=dev).manual_seed(SEED), dev, frames=True)
+    return [LazySample(**{f: b[f][r] for f in LazySample.FIELDS}) for b in batches for r in range(batch)]
+
+
+def two_lora_steps(model, start: dict, loader, dev) -> dict:
+    """``TOKEN_STEPS`` steps of ``train_batches`` from ``start``'s adapters
+    and a fresh AdamW, dropout seeds from seed 0; step 1's adapter
+    gradients are kept."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, t in start.items():
+            params[name].copy_(t)
+    optimizer = AdamWCosine(trainable_parameters(model))
+    seeds = torch.Generator().manual_seed(SEED)
+    batches = [b.as_dict() for b in loader]
+    first = train_batches(model, batches[:1], device=dev, generator=seeds, optimizer=optimizer)
+    grads = {name: p.grad.detach().clone() for name, p in params.items() if "lora_" in name}
+    rest = train_batches(model, batches[1:], device=dev, generator=seeds, optimizer=optimizer)
+    return {"loss": [float(x) for x in (*first["brain_loss"], *rest["brain_loss"])],
+            "step_ms": [float(x) for x in (*first["step_ms"], *rest["step_ms"])], "grads": grads}
+
+
+def after_train_token_cache(root: Path, dev, files: bool) -> dict:
+    """(c) ``vlb_friends_lora`` with the token cache at batch 3: the tokens
+    bit-equal to ``encode_video`` of the same frames; 2 LoRA steps from the
+    cached tokens against 2 from the frames on the same weights and seeds."""
+    config = compose("vlb_friends_lora", root / "tokens")
+    batch = int(config.datamodule.batch_size)
+    model = build_model(config.model, int(config.random_state), dev)
+    cfg = model.cfg
+    samples = clip_samples(cfg, TOKEN_STEPS, batch, dev)
+    shape = (len(samples), cfg.geometry.num_vis_tokens, cfg.mistral.hidden_size)
+    tokens = np.zeros(shape, np.uint16)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    encode_tokens(model, samples, tokens, batch_size=batch)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    encode_launches = {k: v for k, v in read_launches().items() if v}
+    with torch.no_grad():
+        want = torch.cat([model.encode_video(torch.stack([s.vision for s in samples[i:i + batch]]))
+                          for i in range(0, len(samples), batch)]).to(torch.bfloat16)
+    equal = np.array_equal(tokens, want.view(torch.int16).cpu().numpy().view(np.uint16))
+    source = tokens
+    if files:
+        import h5py
+
+        path = root / "vision_tokens.h5"
+        with h5py.File(path, "w") as f:
+            out = f.create_dataset("tokens", shape=shape, dtype=np.uint16, chunks=(1, *shape[1:]))
+            encode_tokens(model, samples, out, batch_size=batch)
+        with h5py.File(path, "r") as f:
+            equal = equal and np.array_equal(f["tokens"][...], tokens)
+        source = path
+    print(f"  {len(samples)} clips' tokens {shape[1:]} ({tokens.nbytes / 1e6:.1f} MB as uint16 bf16 bits"
+          f"{', in a file too' if files else ''}) in {encode_ms:.1f} ms, launches {encode_launches}; bit-equal to "
+          f"encode_video of the same frames: {equal}")
+    if not equal or encode_launches:
+        raise AssertionError("the cached tokens differ from encode_video's, or the sweep launched a kernel")
+
+    start = {name: p.detach().clone() for name, p in model.named_parameters() if trainable_predicate(name)}
+    frames = two_lora_steps(model, start, BatchLoader(samples, batch, shuffle=False, prefetch=0), dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    cached = two_lora_steps(model, start, BatchLoader(TokenCachedDataset(samples, source), batch, shuffle=False,
+                                                      prefetch=0), dev)
+    launches = read_launches()
+    layers = cfg.mistral.num_hidden_layers
+    want = expected_fit_launches(layers, TOKEN_STEPS, 0, lora=True)
+    names = sorted(frames["grads"])
+    want_g = torch.cat([frames["grads"][k].flatten() for k in names])
+    grad_err = ((torch.cat([cached["grads"][k].flatten() for k in names]) - want_g).norm() / want_g.norm()).item()
+    tensor_err = max(rel_err(cached["grads"][k], frames["grads"][k]) for k in names)
+    loss_err = abs(cached["loss"][1] - frames["loss"][1]) / abs(frames["loss"][1])
+    print(f"  LoRA steps from frames: brain_loss {frames['loss']}, ms {[round(x, 3) for x in frames['step_ms']]}; "
+          f"from cached tokens: brain_loss {cached['loss']}, ms {[round(x, 3) for x in cached['step_ms']]}; "
+          f"step 1 loss bit-equal: {cached['loss'][0] == frames['loss'][0]}, adapter grads |err| / |ref| "
+          f"{grad_err:.3e} (tol {TOKEN_GRAD_TOL}; per tensor max|err| / max|ref| up to {tensor_err:.3e}), "
+          f"step 2 loss |err| / |ref| {loss_err:.3e} (tol {TOKEN_LOSS_TOL}); "
+          f"launches from tokens { {k: v for k, v in launches.items() if v} }")
+    if cached["loss"][0] != frames["loss"][0] or grad_err > TOKEN_GRAD_TOL or loss_err > TOKEN_LOSS_TOL:
+        raise AssertionError("the LoRA steps from cached tokens differ from those from frames")
+    if launches != want:
+        raise AssertionError(f"the steps from cached tokens launched {launches}, want {want}")
+    del model
+    torch.cuda.empty_cache()
+    return {"token_encode_ms": encode_ms, "frames_step_ms": frames["step_ms"], "tokens_step_ms": cached["step_ms"],
+            "token_grad_err": grad_err, "token_tensor_err": tensor_err, "token_launches": launches}
+
+
+def after_train_brainmaps(root: Path) -> dict:
+    """(d) ``vlb-brainmaps-torch`` over 9t's first metrics.csv (4 val rows)
+    with an atlas of one label per ROI column (1000), 3 voxels each,
+    written by ``save_nifti``: one HTML and one ``.nii.gz`` a row, each
+    parcel holding r² of its row."""
+    (csv_path,) = (root / "lora").glob("*/version_0/metrics.csv")
+    rows = read_csv(csv_path)
+    val_rows = [r for r in rows if r.get("val/brain_loss")]
+    n_roi = sum(c.startswith("val_corr_ROI_") for c in rows[0])
+    rng = np.random.default_rng(SEED)
+    n_voxels = int(np.prod(ATLAS_SHAPE))
+    labels = np.concatenate([np.repeat(np.arange(1, n_roi + 1), 3), np.zeros(n_voxels - 3 * n_roi, np.int64)])
+    atlas = rng.permutation(labels).reshape(ATLAS_SHAPE).astype(np.int32)
+    save_nifti(NiftiImage(atlas, np.diag([2.0, 2.0, 2.0, 1.0])), root / "atlas.nii.gz")
+    (root / "maps").mkdir()
+    t0 = time.perf_counter()
+    if brainmaps_main(["--metrics_path", str(csv_path.parent), "--atlas_path", str(root / "atlas.nii.gz"),
+                       "--out_path", str(root / "maps" / "sub-01"), "--export_nii", "True"]) != 0:
+        raise AssertionError("vlb-brainmaps-torch failed")
+    wall_s = time.perf_counter() - t0
+    html = sorted((root / "maps").glob("*.html"))
+    nii = sorted((root / "maps").glob("*.nii.gz"))
+    exact = True
+    for i, row in enumerate(val_rows):
+        volume = load_nifti(root / "maps" / f"sub-01_val-{i}.nii.gz").data
+        r2 = np.array([float(row[f"val_corr_ROI_{k:06d}"]) for k in range(n_roi)]) ** 2
+        exact = exact and all((volume[atlas == k + 1] == np.float32(r2[k])).all() for k in range(n_roi)) and \
+            (volume[atlas == 0] == 0).all()
+    print(f"  {n_roi}-label atlas {ATLAS_SHAPE}; {len(val_rows)} val rows -> {len(html)} HTML ({sum(p.stat().st_size for p in html) / 1e6:.2f} MB) and "
+          f"{len(nii)} .nii.gz in {wall_s:.2f} s; every parcel holds its row's r²: {exact}")
+    if len(val_rows) != 4 or len(html) != 4 or len(nii) != 4 or not exact:
+        raise AssertionError("the brain maps are not one HTML and one volume of r² per val row")
+    return {"brainmaps_s": wall_s}
+
+
+def after_train_child(out: str) -> int:
+    """``--after-train DIR``: phase 9p in this process, on phase 9t's DIR;
+    prints one JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    files = h5py_present()
+    print(f"{card_name_and_power()}; h5py {'imports: files are written and read too' if files else 'is absent: the caches and predictions stay in memory'}")
+    record = {"h5py": files}
+    with phase("9p predict (vlb-predict-torch) from 9t's last"):
+        record.update(after_train_predict(root, dev, files))
+    with phase("9p feature cache (vlb_friends_baseline model.cache_features=true)"):
+        record.update(after_train_feature_cache(root, dev, files))
+    with phase("9p vision-token cache (vlb_friends_lora) against frames"):
+        record.update(after_train_token_cache(root, dev, files))
+    with phase("9p brain maps (vlb-brainmaps-torch) over 9t's metrics.csv"):
+        record.update(after_train_brainmaps(root))
+    record["peak_rss_gb"] = peak_rss_gb()
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"the after-train phase's peak host RSS {record['peak_rss_gb']:.2f} GB is over "
+                             f"{HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+def run_child(flag: str, out: str, label: str, timeout: int) -> dict:
+    """``chip_smoke.py flag out`` in a process of its own; its output is
+    passed on. Returns its JSON record."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag, out],
+                          capture_output=True, text=True, timeout=timeout)
     for line in proc.stdout.splitlines()[:-1]:
         print(f"  | {line}")
     if proc.returncode != 0:
-        raise RuntimeError(f"the trainer phase failed (exit {proc.returncode}):\n{proc.stderr[-6000:]}")
+        raise RuntimeError(f"{label} failed (exit {proc.returncode}):\n{proc.stderr[-6000:]}")
     record = json.loads(proc.stdout.splitlines()[-1])
-    print(f"  the trainer process's peak host RSS {record['peak_rss_gb']:.2f} GB (limit {HOST_RSS_LIMIT_GB})")
+    print(f"  {label}'s process: peak host RSS {record['peak_rss_gb']:.2f} GB (limit {HOST_RSS_LIMIT_GB})")
     return record
 
 
@@ -2160,6 +2525,8 @@ def main() -> int:
         return compare_ring_issue(sys.argv[2:])
     if sys.argv[1:2] == ["--trainer"]:
         return trainer_child(sys.argv[2])
+    if sys.argv[1:2] == ["--after-train"]:
+        return after_train_child(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2246,8 +2613,21 @@ def main() -> int:
     with phase("9 frozen-baseline train at full width"):
         train_baseline_full(gen, dev)
         torch.cuda.empty_cache()
-    with phase("9t the trainer (vlb-train) at full width, in a process of its own"):
-        run_trainer_phase()
+    # Phases 9t and 9p, each in a process of its own, under a temporary
+    # directory of the (ignored) build tree, deleted after.
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="trainer-", dir=BUILD_ROOT)
+    try:
+        with phase("9t the trainer (vlb-train) at full width, in a process of its own"):
+            trained = run_child("--trainer", out, "the trainer phase", 900)
+        with phase("9p after the trainer (predict, feature and token caches, brain maps), in a process of its own"):
+            after = run_child("--after-train", out, "the after-train phase", 600)
+            print(f"  head step over the feature cache ms {[round(x, 3) for x in after['cached_step_ms']]} against "
+                  f"9t's baseline step from frames {[round(x, 3) for x in trained['baseline_step_ms']]}; LoRA step "
+                  f"from cached tokens {[round(x, 3) for x in after['tokens_step_ms']]} against from frames "
+                  f"{[round(x, 3) for x in after['frames_step_ms']]} ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
     with phase("9v w8a8g8 serve from frames"):
         serve_w8a8g8_from_frames(gen, dev)
         torch.cuda.empty_cache()

@@ -11,7 +11,9 @@ LoRA adapters; AdamW on the cosine schedule with clipping), and the trainer
 users run (``vlb-train-torch``: config composition over ``configs/``, the
 native lazy-load loader, validation with the per-ROI Pearson in
 metrics.csv, best and last checkpoints, resume, early stopping, the
-NaN-streak abort, the adapters export, HF safetensors weights). Attention
+NaN-streak abort, the adapters export, HF safetensors weights), and the
+stages around it (``vlb-predict-torch``, the frozen baseline's feature
+cache, the vision-token cache, ``vlb-brainmaps-torch``). Attention
 and the fused adapter-dropout matmul run through hand-written CUDA kernels
 (``csrc/``) on the card, and through their plain PyTorch versions on CPU
 tensors.

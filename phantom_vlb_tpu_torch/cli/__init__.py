@@ -1,1 +1,1 @@
-"""Entry points: serving and training."""
+"""Entry points: training, prediction and brain maps."""

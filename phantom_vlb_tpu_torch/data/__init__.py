@@ -1,1 +1,1 @@
-"""Synthetic inputs, and the lazy-load data pipeline (h5py imported on use)."""
+"""Synthetic inputs, the lazy-load data pipeline and the vision-token cache (h5py imported on use)."""

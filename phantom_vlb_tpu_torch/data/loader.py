@@ -9,8 +9,9 @@ byte for byte:
   ``np.random.RandomState(random_state).choice``, training the rest;
 - :class:`LazyDataset` opens its files lazily per thread, so prefetch
   threads never share an h5py handle;
-- :class:`Batch` is a fixed-shape numpy batch; a partial last batch repeats
-  its last row and ``row_mask`` marks the real rows;
+- :class:`Batch` is a fixed-shape numpy batch (a field that the samples
+  hold as tensors, such as cached video tokens, stays a tensor); a partial
+  last batch repeats its last row and ``row_mask`` marks the real rows;
 - :class:`BatchLoader` shuffles with ``default_rng(seed + epoch)`` and
   collates ahead of the step on a bounded pool of threads, in order.
 
@@ -28,10 +29,11 @@ from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from phantom_vlb_tpu_torch.data.schemas import LazySample, open_h5
 
-__all__ = ["LazyDataset", "Batch", "BatchLoader", "expand_lazyload_glob", "split_train_val"]
+__all__ = ["LazyDataset", "Batch", "batch_fields", "BatchLoader", "expand_lazyload_glob", "split_train_val"]
 
 
 def expand_lazyload_glob(pattern: str, seasons: list[str]) -> list[str]:
@@ -91,11 +93,14 @@ class LazyDataset:
                 return i, idx - lo
         raise IndexError(idx)
 
-    def __getitem__(self, idx: int) -> LazySample:
+    def read(self, idx: int, fields=LazySample.FIELDS) -> dict[str, np.ndarray]:
+        """The named fields of sample ``idx``; the others are not read."""
         i, local_idx = self._locate(idx)
         g = self._files()[i][f"{local_idx}"]
-        return LazySample(**{field: np.asarray(g[f"{local_idx}_{field}"])
-                             for field in LazySample.FIELDS})
+        return {field: np.asarray(g[f"{local_idx}_{field}"]) for field in fields}
+
+    def __getitem__(self, idx: int) -> LazySample:
+        return LazySample(**self.read(idx))
 
 
 @dataclasses.dataclass
@@ -103,7 +108,7 @@ class Batch:
     """Fixed-shape host batch. ``row_mask`` marks real (non-padding) rows."""
 
     timeseries: np.ndarray    # (B, num_parcels) f32
-    vision: np.ndarray        # (B, F, 3, H, W) f32
+    vision: np.ndarray        # (B, F, 3, H, W) f32, or (B, V, E) bf16 cached tokens
     language: np.ndarray      # (B, L) i32
     vis_weights: np.ndarray   # (B, D) f32
     lang_weights: np.ndarray  # (B, W) f32
@@ -114,19 +119,32 @@ class Batch:
         return dataclasses.asdict(self)
 
 
+def batch_fields(batch) -> dict:
+    """A loader's batch as a dict of its fields: those of a batch with an
+    ``as_dict`` (a :class:`Batch`), or the mapping's (e.g. ready batches of
+    tensors)."""
+    return batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
+
+
 def _collate(samples: list[LazySample], batch_size: int) -> Batch:
     n = len(samples)
     pad = batch_size - n
 
-    def stack(field: str, dtype) -> np.ndarray:
-        arr = np.stack([np.asarray(getattr(s, field)) for s in samples]).astype(dtype)
+    def stack(field: str, dtype=None):
+        """The field's values stacked, cast to ``dtype`` (None: kept)."""
+        values = [getattr(s, field) for s in samples]
+        if isinstance(values[0], torch.Tensor):          # e.g. cached bf16 video tokens
+            arr = torch.stack(values)
+            return torch.cat([arr, arr[-1:].expand(pad, *arr.shape[1:])]) if pad else arr
+        arr = np.stack([np.asarray(v) for v in values])
+        arr = arr if dtype is None else arr.astype(dtype)
         if pad:
             arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
         return arr
 
     return Batch(
         timeseries=stack("timeseries", np.float32),
-        vision=stack("vision", samples[0].vision.dtype),
+        vision=stack("vision"),
         language=stack("language", np.int32),
         vis_weights=stack("vis_weights", np.float32),
         lang_weights=stack("lang_weights", np.float32),

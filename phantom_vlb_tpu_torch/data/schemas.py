@@ -8,8 +8,8 @@ image, image), ``{idx}_vis_weights`` (num_ds_frames,), ``{idx}_language``
 (max_lang_tokens,), ``{idx}_lang_weights`` (onsets_width,),
 ``{idx}_padvals`` (3,), and a root dataset ``dset_len`` = [n].
 
-``h5py`` is imported where a file is opened, so the module imports on a
-machine without it.
+``h5py`` is imported where a file is opened (:func:`import_h5py`), so the
+module imports on a machine without it.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["LazySample", "open_h5", "read_lazy_sample", "lazyload_len"]
+__all__ = ["LazySample", "import_h5py", "open_h5", "read_lazy_sample", "lazyload_len"]
 
 
 @dataclasses.dataclass
@@ -36,14 +36,19 @@ class LazySample:
     FIELDS = ("timeseries", "vision", "vis_weights", "language", "lang_weights", "padvals")
 
 
-def open_h5(path: str | Path):
-    """``h5py.File(path, "r")``; raises an ImportError that names h5py when
-    it is not installed."""
+def import_h5py(purpose: str):
+    """The ``h5py`` module; raises an ImportError that names h5py when it is
+    not installed."""
     try:
         import h5py
     except ImportError as e:
-        raise ImportError("reading lazy-load HDF5 files needs h5py, which is not installed") from e
-    return h5py.File(path, "r")
+        raise ImportError(f"{purpose} needs h5py, which is not installed") from e
+    return h5py
+
+
+def open_h5(path: str | Path, mode: str = "r"):
+    """``h5py.File(path, mode)`` (see :func:`import_h5py`)."""
+    return import_h5py(f"opening the HDF5 file {path}").File(path, mode)
 
 
 def read_lazy_sample(f, idx: int) -> LazySample:

@@ -1,1 +1,2 @@
-"""Train and eval steps, the optimizer, the trainer with its checkpoints and CSV log, and the builder."""
+"""Train and eval steps, the optimizer, the trainer with its checkpoints and CSV log, the builder,
+and the feature cache."""

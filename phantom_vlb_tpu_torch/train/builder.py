@@ -3,20 +3,24 @@
 Counterpart of ``phantom_vlb_tpu/train/builder.py``: seed, the native
 loaders over the lazy-load files (:40-80), the model config of the selected
 regime (:85-133), random weights with HF-keyed pretrained weights merged in
-(:147), the trainer with its CSV, console and optional Comet loggers and
-the hyperparameters logged twice (:301-399), and ``run_training`` (:485).
+(:147), the vision-token cache (:327-343), the trainer with its CSV,
+console and optional Comet loggers and the hyperparameters logged twice
+(:301-399), the feature-cache path of the frozen baseline
+(``run_cached_training``, :402-482) and ``run_training`` (:485).
 
 Branches of the reference that are not ported raise by name:
-``model.cache_features=true``, ``datamodule.vision_token_cache``,
 ``datamodule.loader=grain``, an Orbax directory as
 ``model.checkpoint_path``, and a ``mesh`` that spans more than one device.
-:func:`build_trainer` also takes ready ``loaders`` (any sized iterables of
-batches), in which case it builds none.
+:func:`build_trainer` and :func:`build_cached_trainer` also take ready
+``loaders`` (any sized iterables of batches), in which case they build
+none; the vision-token cache needs the native loaders (it swaps their
+datasets).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
 from typing import Mapping
 
@@ -26,16 +30,23 @@ import torch
 from phantom_vlb_tpu_torch.core.config import Config, to_dict
 from phantom_vlb_tpu_torch.core.device import resolve_device
 from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset, expand_lazyload_glob, split_train_val
+from phantom_vlb_tpu_torch.data.token_cache import attach_token_cache
 from phantom_vlb_tpu_torch.models.convert import HF_STC_PREFIX, SafetensorsDir, hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB, VLBConfig
 from phantom_vlb_tpu_torch.ops.quant import quantize_int8
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
 from phantom_vlb_tpu_torch.train.optim import OptimConfig
+from phantom_vlb_tpu_torch.train.precompute import (
+    CachedFeatureLoader,
+    build_feature_cache,
+    cache_present,
+    head_forward,
+)
 from phantom_vlb_tpu_torch.utils.logging import CometLoggerSink, ConsoleLogger
 
-__all__ = ["build_loaders", "build_model_config", "load_pretrained_params", "build_trainer",
-           "run_training"]
+__all__ = ["build_loaders", "build_model_config", "load_pretrained_params", "build_model",
+           "build_trainer", "build_cached_trainer", "run_cached_training", "run_training"]
 
 
 def build_loaders(dm: Config) -> tuple[BatchLoader, BatchLoader, dict]:
@@ -196,38 +207,19 @@ def _mesh_devices(mesh_cfg: Mapping, n_devices: int) -> int:
     return fixed * (max(1, n_devices // fixed) if -1 in sizes else 1)
 
 
-def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None):
-    """Full assembly on ``device`` -> (trainer, train_loader, val_loader).
-
-    ``loaders``: an optional (train, val) pair of sized iterables of batches
-    (e.g. lists of dicts of tensors); without it the native loaders are
-    built over the lazy-load files.
-    """
-    device = resolve_device(device)
-    seed = int(config.random_state)
-    np.random.seed(seed)
-    dm = config.datamodule
-    if dm.get("vision_token_cache"):
-        raise NotImplementedError("datamodule.vision_token_cache is not ported; set it to null")
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    spans = _mesh_devices(config.get("mesh", Config()), n_devices)
-    if spans > 1:
-        raise NotImplementedError(f"the mesh spans {spans} devices; sharded training is not ported "
-                                  "(set mesh.fsdp=1 for one device)")
-
-    if loaders is None:
-        train_loader, val_loader, dset_names = build_loaders(dm)
-    else:
-        (train_loader, val_loader), dset_names = loaders, {"val_set": [], "train_set": []}
-
-    model_cfg = build_model_config(config.model)
+def build_model(m: Config, seed: int, device: torch.device) -> VideoLLaMA2VLB:
+    """The model of the ``model`` node on ``device``: random weights from a
+    generator on ``device`` seeded with ``seed``, with the HF weights of
+    ``model.checkpoint_path`` in place of their own."""
+    model_cfg = build_model_config(m)
     params = init_params(model_cfg, device, torch.Generator(device=device).manual_seed(seed))
-    ckpt_path = config.model.get("checkpoint_path")
+    ckpt_path = m.get("checkpoint_path")
     if ckpt_path:
         params = load_pretrained_params(model_cfg, ckpt_path, params)
-    model = VideoLLaMA2VLB.from_state_dict(model_cfg, params)
-    del params
+    return VideoLLaMA2VLB.from_state_dict(model_cfg, params)
 
+
+def _loop_configs(config: Config, num_target: int, seed: int) -> tuple[OptimConfig, TrainLoopConfig]:
     optim = config.optim
     optim_cfg = OptimConfig(
         lr=float(optim.lr),
@@ -246,10 +238,52 @@ def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=N
         seed=seed,
         output_dir=str(config.output_dir),
         run_name=str(config.get("run_name", "vlb")),
-        num_target=model_cfg.num_target,
+        num_target=num_target,
         early_stop_patience=int(tr.get("early_stop_patience", 0)),
         early_stop_min_delta=float(tr.get("early_stop_min_delta", 0.0)),
     )
+    return optim_cfg, loop_cfg
+
+
+def _loaders(dm: Config, loaders) -> tuple[object, object, dict]:
+    if loaders is None:
+        return build_loaders(dm)
+    return (*loaders, {"val_set": [], "train_set": []})
+
+
+def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None):
+    """Full assembly on ``device`` -> (trainer, train_loader, val_loader).
+
+    ``loaders``: an optional (train, val) pair of sized iterables of batches
+    (e.g. lists of dicts of tensors); without it the native loaders are
+    built over the lazy-load files. With ``datamodule.vision_token_cache``
+    the frozen vision path runs once per clip into a sidecar under that
+    directory (``$VARS`` expanded) and the loaders read its tokens.
+    """
+    device = resolve_device(device)
+    seed = int(config.random_state)
+    np.random.seed(seed)
+    dm = config.datamodule
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    spans = _mesh_devices(config.get("mesh", Config()), n_devices)
+    if spans > 1:
+        raise NotImplementedError(f"the mesh spans {spans} devices; sharded training is not ported "
+                                  "(set mesh.fsdp=1 for one device)")
+
+    train_loader, val_loader, dset_names = _loaders(dm, loaders)
+    model = build_model(config.model, seed, device)
+
+    # Vision-token cache (data/token_cache.py): the frozen CLIP + STC forward
+    # once per clip; epochs then read (V, E) bf16 tokens.
+    cache_dir = dm.get("vision_token_cache")
+    if cache_dir:
+        if str(dm.get("loader", "native")) == "grain":
+            raise ValueError("vision_token_cache requires the native loader "
+                             "(datamodule.loader=grain builds its own dataset views)")
+        attach_token_cache(model, [train_loader, val_loader], os.path.expandvars(str(cache_dir)),
+                           batch_size=int(dm.get("batch_size", 6)), log=lambda m: print(f"[build] {m}"))
+
+    optim_cfg, loop_cfg = _loop_configs(config, model.cfg.num_target, seed)
     # The CSV log (the brain maps' input) always; Comet when configured;
     # the console for interactive runs.
     extra_loggers: list = [ConsoleLogger()]
@@ -266,11 +300,62 @@ def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=N
     return trainer, train_loader, val_loader
 
 
+def build_cached_trainer(config: Config, device: str | torch.device = "cuda", loaders=None,
+                         caches: Mapping[str, object] | None = None):
+    """The frozen baseline's feature-cache path on ``device`` -> (trainer,
+    cached train loader, cached val loader): the backbone runs once per
+    sample of each split into its cache, then the trainer trains the head
+    alone over the caches (its checkpoints hold ``head.*``).
+
+    ``caches``: an optional store per split ("train", "val"; see
+    ``train/precompute.py``), filled here unless it holds a cache already;
+    a split without one caches into ``output_dir/feature_cache_{split}.h5``,
+    which is reused when present. ``loaders`` as for :func:`build_trainer`.
+    """
+    m = config.model
+    if not bool(m.get("freeze_backbone", True)) or bool(m.get("use_lora", False)):
+        raise ValueError("cache_features requires the frozen-baseline regime")
+    device = resolve_device(device)
+    seed = int(config.random_state)
+    np.random.seed(seed)
+    dm = config.datamodule
+    train_loader, val_loader, dset_names = _loaders(dm, loaders)
+    model = build_model(m, seed, device)
+
+    out_dir = Path(str(config.output_dir))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stores = dict(caches or {})
+    for split, loader in (("train", train_loader), ("val", val_loader)):
+        store = stores.setdefault(split, out_dir / f"feature_cache_{split}.h5")
+        if not cache_present(store):
+            if isinstance(store, Path):
+                print(f"building {split} feature cache -> {store}")
+            build_feature_cache(model, loader, store)
+
+    batch_size = int(dm.batch_size)
+    cached_train = CachedFeatureLoader(stores["train"], batch_size, shuffle=True, seed=seed)
+    cached_val = CachedFeatureLoader(stores["val"], batch_size,
+                                     shuffle=bool(dm.get("shuffle_val_data", False)))
+    head = torch.nn.ModuleDict({"head": model.head})
+    optim_cfg, loop_cfg = _loop_configs(config, model.cfg.num_target, seed)
+    del model
+    trainer = VLBTrainer(head, optim_cfg, loop_cfg, forward=head_forward, device=device)
+    trainer.csv_logger.log_hyperparams(dset_names)
+    return trainer, cached_train, cached_val
+
+
+def run_cached_training(config: Config, device: str | torch.device = "cuda", loaders=None,
+                        caches: Mapping[str, object] | None = None) -> dict:
+    """:func:`build_cached_trainer`, then fit the head over the caches."""
+    trainer, cached_train, cached_val = build_cached_trainer(config, device, loaders, caches)
+    return trainer.fit(cached_train, cached_val)
+
+
 def run_training(config: Config, device: str | torch.device = "cuda") -> dict:
-    """Build, resume when ``trainer.resume`` is set and a ``last`` exists, fit."""
+    """The feature-cache path under ``model.cache_features``; otherwise
+    build, resume when ``trainer.resume`` is set and a ``last`` exists, fit."""
     if bool(config.get("model", {}).get("cache_features", False)):
-        raise NotImplementedError("model.cache_features=true (training the head over a "
-                                  "precomputed feature cache) is not ported")
+        return run_cached_training(config, device)
     trainer, train_loader, val_loader = build_trainer(config, device)
     if bool(config.get("trainer", {}).get("resume", False)) and trainer.maybe_resume():
         print(f"resumed from step {trainer.global_step}")

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.data.loader import batch_fields
 from phantom_vlb_tpu_torch.models.videollama2 import (
     VideoLLaMA2VLB,
     trainable_parameters,
@@ -124,8 +125,7 @@ class VLBTrainer:
 
     # ------------------------------------------------------------------
     def _put(self, batch) -> dict[str, torch.Tensor]:
-        arrays = batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
-        return {k: torch.as_tensor(v).to(self.device) for k, v in arrays.items()}
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch_fields(batch).items()}
 
     def _log(self, metrics: Mapping[str, float]) -> None:
         self.csv_logger.log_metrics(metrics, self.global_step, self.epoch)
@@ -139,6 +139,16 @@ class VLBTrainer:
                 "params": {name: p.detach() for name, p in self.trainable.items()},
                 "optimizer": self.optimizer.state_dict()}
 
+    def load_params(self, params: Mapping[str, torch.Tensor], source: str = "the tensors given") -> None:
+        """Copy ``params`` (a checkpoint's ``params``) into the trainable
+        tensors; raises when a name is missing or stray."""
+        if set(params) != set(self.trainable):
+            raise ValueError(f"{source} holds other tensors than the trainable ones: "
+                             f"{sorted(set(params) ^ set(self.trainable))[:8]}")
+        with torch.no_grad():
+            for key, t in params.items():
+                self.trainable[key].copy_(t)
+
     # ------------------------------------------------------------------
     def maybe_resume(self, name: str = "last") -> bool:
         """Resume from checkpoint ``name`` if present: the trainable
@@ -149,12 +159,7 @@ class VLBTrainer:
         # Read to the host: AdamW keeps its per-tensor step counts there (and
         # moves the moments to their tensors' device itself).
         state = self.ckpt.restore(name, "cpu")
-        if set(state["params"]) != set(self.trainable):
-            raise ValueError(f"checkpoint {name!r} holds other tensors than the trainable ones: "
-                             f"{sorted(set(state['params']) ^ set(self.trainable))[:8]}")
-        with torch.no_grad():
-            for key, t in state["params"].items():
-                self.trainable[key].copy_(t)
+        self.load_params(state["params"], f"checkpoint {name!r}")
         self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(state["step"])
         meta = self.ckpt.load_metadata()

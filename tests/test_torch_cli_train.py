@@ -3,7 +3,8 @@
 The lazy-load files are built by the JAX package's own stages (synthetic
 features + BOLD -> ``vlb-build-lazyload``), as ``tests/test_cli_e2e.py``
 builds them; the port's ``cli.train.main`` then trains on them with that
-test's arguments, less the vision-token cache and the 8-device mesh, plus
+test's arguments, less the vision-token cache (run by
+``tests/test_torch_token_cache.py``) and the 8-device mesh, plus
 ``--device cpu``: the CSV with a validation row of per-ROI columns, the
 best and last checkpoints, the adapters and ``hparams.yaml`` (the composed
 config, then the file lists) are written. Each branch the port does not
@@ -78,8 +79,6 @@ def test_train_cli_on_the_cpu(lazy_pattern, tmp_path):
 
 
 UNPORTED = {
-    "cache_features": (["experiment=vlb_friends_baseline", "model.cache_features=true"], "cache_features"),
-    "token_cache": (["datamodule.vision_token_cache=/tmp/cache"], "vision_token_cache"),
     "grain": (["datamodule.loader=grain"], "grain"),
     "mesh": (["mesh.fsdp=4"], "mesh spans 4 devices"),
     "orbax": (["model.checkpoint_path={orbax}"], "Orbax"),

@@ -803,3 +803,49 @@ def test_safetensors_reader_on_a_bf16_file(cuda, tmp_path):
         got = sd[key]
         assert got.device == t.device and got.dtype == t.dtype and torch.equal(got, t), key
     sd.close()
+
+
+def test_support_gather_on_the_card_matches_the_cpu(cuda):
+    """The feature cache's gather at the production geometry (bf16 hidden
+    states of a served batch of 5): the same values on the card and on the
+    CPU, bit for bit."""
+    from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY as G
+    from phantom_vlb_tpu_torch.train.precompute import support_gather
+
+    batch = synthetic_batches(VLBConfig.full(), 1, 5, np.random.default_rng(0),
+                              torch.Generator(device=cuda).manual_seed(5), cuda)[0]
+    hidden = torch.randn(5, G.feature_len, 4096, generator=torch.Generator(device=cuda).manual_seed(6),
+                         device=cuda, dtype=torch.bfloat16)
+    args = [torch.as_tensor(batch[k]) for k in ("padvals", "vis_weights", "lang_weights")]
+    got = support_gather(hidden, *(a.to(cuda) for a in args), G)
+    want = support_gather(hidden.cpu(), *args, G)
+    assert got[0].shape == (5, G.num_vis_tokens + G.onsets_width, 4096)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_narrow_cached_head_matches_the_full_forward(cuda):
+    """A narrow frozen model from frames: the feature cache (an in-memory
+    store) built with 2 flash forwards a batch, the head over it against
+    the full forward within the bound of tests/test_precompute.py:110."""
+    from chip_smoke import MemoryStore
+    from phantom_vlb_tpu_torch.train.precompute import CachedFeatureLoader, build_feature_cache, head_forward
+
+    model, _ = _narrow_vision_model(cuda)
+    batches = synthetic_batches(model.cfg, 2, 2, np.random.default_rng(0),
+                                torch.Generator(device=cuda).manual_seed(7), cuda, frames=True)
+    store = MemoryStore()
+    before = FLASH_FWD.launches
+    assert build_feature_cache(model, batches, store) == 4
+    assert FLASH_FWD.launches == before + 2 * 2
+    k = model.cfg.geometry.num_vis_tokens + model.cfg.geometry.onsets_width
+    assert store["3"]["3_features"].shape == (k, 256) and store["3"]["3_features"].dtype == np.float16
+    full = predict_batches(model, batches, cuda)["predicted"]
+    before = FLASH_FWD.launches
+    cached = []
+    for cb in CachedFeatureLoader(store, 2, shuffle=False):
+        with torch.no_grad():
+            pred, _ = head_forward(torch.nn.ModuleDict({"head": model.head}),
+                                   {key: torch.as_tensor(v).to(cuda) for key, v in cb.items()})
+        cached.append(pred.cpu().numpy())
+    assert FLASH_FWD.launches == before
+    np.testing.assert_allclose(np.concatenate(cached), full, atol=2e-2, rtol=2e-2)

@@ -1,9 +1,11 @@
 """Port: what the card's machine lacks is never imported, and entry points
 raise rather than fall back when there is no card.
 
-The card's machine has no jax, flax, optax, h5py, yaml, safetensors, orbax
-or comet_ml; every module of the port and ``chip_smoke.py`` import with
-them blocked (the trainer's modules among them).
+The card's machine has no jax, flax, optax, h5py, yaml, pandas, ml_dtypes,
+safetensors, orbax or comet_ml; every module of the port and
+``chip_smoke.py`` import with them blocked (the trainer's modules among
+them, and those of the stages around it: predict, the feature and token
+caches, the brain maps).
 """
 
 import os
@@ -21,7 +23,7 @@ from phantom_vlb_tpu_torch.models.convert import init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu", "transformers", "timm",
-           "PIL", "safetensors", "orbax", "comet_ml")
+           "PIL", "safetensors", "orbax", "comet_ml", "pandas", "ml_dtypes")
 
 # Blocks the modules (a None entry in sys.modules makes their import fail),
 # then imports every module of the port and chip_smoke without running it.
@@ -47,6 +49,10 @@ trainer = {{"phantom_vlb_tpu_torch.core.config", "phantom_vlb_tpu_torch.data.loa
            "phantom_vlb_tpu_torch.train.checkpoint", "phantom_vlb_tpu_torch.train.loop",
            "phantom_vlb_tpu_torch.utils.logging", "phantom_vlb_tpu_torch.cli.train"}}
 assert trainer <= set(names), sorted(trainer - set(names))
+stages = {{"phantom_vlb_tpu_torch.cli.predict", "phantom_vlb_tpu_torch.train.precompute",
+          "phantom_vlb_tpu_torch.data.token_cache", "phantom_vlb_tpu_torch.postprocessing.nifti",
+          "phantom_vlb_tpu_torch.postprocessing.brainmaps", "phantom_vlb_tpu_torch.cli.brainmaps"}}
+assert stages <= set(names), sorted(stages - set(names))
 print(len(names))
 """
 
