@@ -112,8 +112,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
    with its validations; (c) ``vlb_friends_lora``'s clips through
    ``encode_tokens`` (bit-equal to ``encode_video``), then 2 LoRA steps
    from the cached tokens against 2 from the frames on the same weights
-   and seeds (first loss bit-equal; gradients and second loss within
-   tolerance; launch counts); (d) ``vlb-brainmaps-torch`` over 9t's
+   and seeds, beside 2 more from the frames (first loss bit-equal;
+   gradients and second loss within tolerance, each gap printed beside
+   frames against frames; launch counts); (d) ``vlb-brainmaps-torch`` over 9t's
    metrics.csv with an atlas of one label per ROI written by
    ``save_nifti`` (an HTML and a volume a val row, each parcel its r²).
    Where ``h5py`` imports, (a)-(c) also write and read the files;
@@ -265,7 +266,7 @@ from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
 from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
-from phantom_vlb_tpu_torch.train.precompute import head_forward
+from phantom_vlb_tpu_torch.train.precompute import MemoryStore, head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
 ROOT = Path(__file__).resolve().parent
@@ -383,19 +384,24 @@ NARROW_TOKENS_TOL = 5e-2
 # would still catch another checkpoint or other batches.
 PREDICT_CORR_TOL = 1e-6
 # The head over the feature cache against the full forward on the same
-# batch: the bound of tests/test_precompute.py:110 for the f16 cache (at
-# full width the backbone's bf16 hidden states convert to f16 exactly, so
-# only the head's f32 sums over 1247 against 2048 positions differ).
-CACHED_HEAD_TOL = 2e-2
+# batch, max|err| / max|ref|: at full width the backbone's bf16 hidden
+# states convert to f16 exactly, so only the head's f32 pooling sums (1247
+# against 2048 terms, the rest weighted 0) may run in another order, ~2^-24
+# sqrt(2048) ~ 3e-6 relative (runs t1, f1, fx read 0.0). One cached
+# position of the 1247 misplaced or misweighted moves the pool by ~1e-3.
+CACHED_HEAD_TOL = 1e-5
 # 2 LoRA steps from cached tokens against 2 from the same frames, the same
-# weights and dropout seeds: the first loss bit-equal (the forward sees the
-# same bits); step 1's adapter gradients, all of them as one vector, as
-# |err| / |ref| (2-norms), and step 2's loss as |err| / |ref|, because the
-# flash backward's dq reduce-adds sum in a run-dependent order and bf16
-# roundings of the 32 layers' gradients then flip (RING_STEP_TOL's reason,
-# without another attention). Single elements flip by bf16 ulps: the
-# largest per-tensor max|err| / max|ref| is printed, not held.
-TOKEN_GRAD_TOL, TOKEN_LOSS_TOL = 2e-2, 1e-3
+# weights and dropout seeds, beside 2 more from the frames (the floor): the
+# first loss bit-equal in all three (the forward sees the same bits); step
+# 1's adapter gradients, all of them as one vector, as |err| / |ref|
+# (2-norms), and step 2's loss as |err| / |ref|. The flash backward's dq
+# reduce-adds sum in a run-dependent order and bf16 roundings of the 32
+# layers' gradients then flip, so frames against frames differ too: on an
+# H100 both gaps read 6.79e-3 and 6.81e-3 by 2-norm, and single flips put
+# the largest per-tensor max|err| / max|ref| at 1.86e-2 for the floor and
+# 1.73e-2 for the tokens (printed, not held). Each gap is held within
+# TOKEN_GRAD_TOL, and the tokens' within TOKEN_FLOOR_RATIO times the floor.
+TOKEN_GRAD_TOL, TOKEN_FLOOR_RATIO, TOKEN_LOSS_TOL = 1e-2, 1.25, 1e-3
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 QUEUE_FULL = "Command Buffer Full"
@@ -2195,19 +2201,6 @@ TOKEN_STEPS = 2                           # LoRA at batch 3 from cached tokens a
 ATLAS_SHAPE = (20, 20, 10)                # 4000 voxels for 1000 labels and background
 
 
-class MemoryStore(dict):
-    """An in-memory store with the part of h5py's interface the feature
-    cache uses (``create_group``, ``create_dataset``, ``[]``, ``in``)."""
-
-    def create_group(self, name):
-        self[name] = MemoryStore()
-        return self[name]
-
-    def create_dataset(self, name, data):
-        self[name] = np.array(data)
-        return self[name]
-
-
 def h5py_present() -> bool:
     import importlib.util
 
@@ -2320,10 +2313,10 @@ def after_train_feature_cache(root: Path, dev, files: bool) -> dict:
     with torch.no_grad():
         cached, _ = head_forward(head, {k_: torch.as_tensor(v).to(dev) for k_, v in cb.items()})
     cached = cached.cpu().numpy()
-    err = float(np.abs(cached - full).max())
-    print(f"  cached head against the full forward on the val batch: max|err| {err:.3e} "
-          f"(tol {CACHED_HEAD_TOL} + {CACHED_HEAD_TOL} |ref|)")
-    if not np.allclose(cached, full, atol=CACHED_HEAD_TOL, rtol=CACHED_HEAD_TOL):
+    err = float(np.abs(cached - full).max() / np.abs(full).max())
+    print(f"  cached head against the full forward on the val batch: max|err| / max|ref| {err:.3e} "
+          f"(tol {CACHED_HEAD_TOL})")
+    if not err <= CACHED_HEAD_TOL:
         raise AssertionError("the head over the cache differs from the full forward")
 
     step_ms = timed_calls(trainer, "train_one")
@@ -2414,6 +2407,7 @@ def after_train_token_cache(root: Path, dev, files: bool) -> dict:
 
     start = {name: p.detach().clone() for name, p in model.named_parameters() if trainable_predicate(name)}
     frames = two_lora_steps(model, start, BatchLoader(samples, batch, shuffle=False, prefetch=0), dev)
+    again = two_lora_steps(model, start, BatchLoader(samples, batch, shuffle=False, prefetch=0), dev)
     torch.cuda.synchronize()
     reset_launches()
     cached = two_lora_steps(model, start, BatchLoader(TokenCachedDataset(samples, source), batch, shuffle=False,
@@ -2421,25 +2415,40 @@ def after_train_token_cache(root: Path, dev, files: bool) -> dict:
     launches = read_launches()
     layers = cfg.mistral.num_hidden_layers
     want = expected_fit_launches(layers, TOKEN_STEPS, 0, lora=True)
-    names = sorted(frames["grads"])
-    want_g = torch.cat([frames["grads"][k].flatten() for k in names])
-    grad_err = ((torch.cat([cached["grads"][k].flatten() for k in names]) - want_g).norm() / want_g.norm()).item()
-    tensor_err = max(rel_err(cached["grads"][k], frames["grads"][k]) for k in names)
-    loss_err = abs(cached["loss"][1] - frames["loss"][1]) / abs(frames["loss"][1])
+
+    def gaps(run: dict) -> dict:
+        """``run`` against the first run from frames: step 1's adapter
+        gradients per tensor (the largest max|err| / max|ref|) and as one
+        vector by 2-norm, step 2's loss relative, step 1's loss bit-equal."""
+        names = sorted(frames["grads"])
+        want_g = torch.cat([frames["grads"][k].flatten() for k in names])
+        got_g = torch.cat([run["grads"][k].flatten() for k in names])
+        return {"tensor": max(rel_err(run["grads"][k], frames["grads"][k]) for k in names),
+                "norm": ((got_g - want_g).norm() / want_g.norm()).item(),
+                "loss2": abs(run["loss"][1] - frames["loss"][1]) / abs(frames["loss"][1]),
+                "loss1_equal": run["loss"][0] == frames["loss"][0]}
+
+    floor, gap = gaps(again), gaps(cached)
     print(f"  LoRA steps from frames: brain_loss {frames['loss']}, ms {[round(x, 3) for x in frames['step_ms']]}; "
-          f"from cached tokens: brain_loss {cached['loss']}, ms {[round(x, 3) for x in cached['step_ms']]}; "
-          f"step 1 loss bit-equal: {cached['loss'][0] == frames['loss'][0]}, adapter grads |err| / |ref| "
-          f"{grad_err:.3e} (tol {TOKEN_GRAD_TOL}; per tensor max|err| / max|ref| up to {tensor_err:.3e}), "
-          f"step 2 loss |err| / |ref| {loss_err:.3e} (tol {TOKEN_LOSS_TOL}); "
-          f"launches from tokens { {k: v for k, v in launches.items() if v} }")
-    if cached["loss"][0] != frames["loss"][0] or grad_err > TOKEN_GRAD_TOL or loss_err > TOKEN_LOSS_TOL:
-        raise AssertionError("the LoRA steps from cached tokens differ from those from frames")
+          f"again from frames: brain_loss {again['loss']}, ms {[round(x, 3) for x in again['step_ms']]}; "
+          f"from cached tokens: brain_loss {cached['loss']}, ms {[round(x, 3) for x in cached['step_ms']]}")
+    for label, g in (("frames against frames (the floor)", floor), ("tokens against frames", gap)):
+        print(f"  {label}: step 1 loss bit-equal {g['loss1_equal']}, adapter grads |err| / |ref| {g['norm']:.3e} "
+              f"(tol {TOKEN_GRAD_TOL}; per tensor max|err| / max|ref| up to {g['tensor']:.3e}), step 2 loss "
+              f"|err| / |ref| {g['loss2']:.3e} (tol {TOKEN_LOSS_TOL})")
+    print(f"  tokens' gradient gap / the floor's {gap['norm'] / max(floor['norm'], 1e-30):.3f} (tol "
+          f"{TOKEN_FLOOR_RATIO}); launches from tokens { {k: v for k, v in launches.items() if v} }")
+    if not all(g["loss1_equal"] and g["norm"] <= TOKEN_GRAD_TOL and g["loss2"] <= TOKEN_LOSS_TOL
+               for g in (floor, gap)) or gap["norm"] > TOKEN_FLOOR_RATIO * floor["norm"]:
+        raise AssertionError("the LoRA steps from cached tokens differ from those from frames more than frames "
+                             "from frames may")
     if launches != want:
         raise AssertionError(f"the steps from cached tokens launched {launches}, want {want}")
     del model
     torch.cuda.empty_cache()
     return {"token_encode_ms": encode_ms, "frames_step_ms": frames["step_ms"], "tokens_step_ms": cached["step_ms"],
-            "token_grad_err": grad_err, "token_tensor_err": tensor_err, "token_launches": launches}
+            "frames_again_step_ms": again["step_ms"], "token_gap": gap, "token_floor": floor,
+            "token_launches": launches}
 
 
 def after_train_brainmaps(root: Path) -> dict:

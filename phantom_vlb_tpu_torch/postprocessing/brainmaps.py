@@ -11,11 +11,11 @@ validation row and optionally a ``.nii.gz``. The CSV is read with the
 standard library's ``csv``, where the JAX package uses pandas; the cells
 pandas reads as missing read as NaN.
 
-The default viewer is interactive (three orthogonal planes with slice
-sliders and click-to-navigate crosshairs, a seismic colormap with vmax 1.0,
-a colorbar and an underlay drawn from the atlas), self-contained: the volume
+The viewer is interactive (three orthogonal planes with slice sliders and
+click-to-navigate crosshairs, a seismic colormap with vmax ``VMAX``, a
+colorbar and an underlay drawn from the atlas), self-contained: the volume
 is embedded uint8-quantized (256 levels over [-vmax, vmax]) and rendered in
-the page. ``viewer='mosaic'`` writes a static axial mosaic (needs PIL).
+the page. The JAX package's static ``viewer='mosaic'`` (PIL) is not copied.
 """
 
 from __future__ import annotations
@@ -23,15 +23,15 @@ from __future__ import annotations
 import base64
 import csv
 import dataclasses
-import io
 from pathlib import Path
 
 import numpy as np
 
 from phantom_vlb_tpu_torch.postprocessing.nifti import NiftiImage, load_nifti, save_nifti
 
-__all__ = ["BrainmapConfig", "labels_inverse_transform", "read_val_r2", "make_brainmaps",
-           "seismic_rgb"]
+__all__ = ["BrainmapConfig", "labels_inverse_transform", "read_val_r2", "make_brainmaps"]
+
+VMAX = 1.0   # r² colormap range [-VMAX, VMAX]
 
 
 @dataclasses.dataclass
@@ -40,8 +40,6 @@ class BrainmapConfig:
     atlas_path: str         # atlas .nii(.gz): integer labels, 0 = background
     out_path: str           # output prefix
     export_nii: bool = False
-    vmax: float = 1.0
-    viewer: str = "interactive"   # 'interactive' (view_img-style) | 'mosaic'
 
 
 def labels_inverse_transform(atlas: np.ndarray, values: np.ndarray) -> np.ndarray:
@@ -62,51 +60,6 @@ def labels_inverse_transform(atlas: np.ndarray, values: np.ndarray) -> np.ndarra
     ranks = np.searchsorted(labels, atlas[mask])
     out[mask] = np.asarray(values, np.float32)[ranks]
     return out
-
-
-def seismic_rgb(x: np.ndarray, vmax: float) -> np.ndarray:
-    """Matplotlib-'seismic'-like diverging colormap, (..., 3) uint8."""
-    # blue (-1) -> white (0) -> red (+1)
-    t = np.clip(x / vmax, -1.0, 1.0)
-    pos = np.clip(t, 0, 1)
-    neg = np.clip(-t, 0, 1)
-    rgb = np.stack([1.0 - neg, 1.0 - np.abs(t), 1.0 - pos], axis=-1)
-    return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-
-
-def _mosaic_html(volume: np.ndarray, vmax: float, title: str) -> str:
-    """Axial slice mosaic as an embedded-PNG HTML page."""
-    from PIL import Image
-
-    z_slices = np.linspace(0, volume.shape[2] - 1, min(volume.shape[2], 24))
-    tiles = []
-    for z in z_slices.astype(int):
-        sl = volume[:, :, z].T[::-1]  # radiological-ish orientation
-        tiles.append(seismic_rgb(sl, vmax))
-    cols = 6
-    rows = (len(tiles) + cols - 1) // cols
-    h, w, _ = tiles[0].shape
-    canvas = np.zeros((rows * h, cols * w, 3), np.uint8)
-    for i, tile in enumerate(tiles):
-        r, c = divmod(i, cols)
-        canvas[r * h : (r + 1) * h, c * w : (c + 1) * w] = tile
-    buf = io.BytesIO()
-    scale = max(1, 768 // canvas.shape[1])
-    img = Image.fromarray(canvas)
-    if scale > 1:
-        img = img.resize((canvas.shape[1] * scale, canvas.shape[0] * scale),
-                         Image.NEAREST)
-    img.save(buf, format="PNG")
-    b64 = base64.b64encode(buf.getvalue()).decode()
-    return (
-        "<!doctype html><html><head><meta charset='utf-8'>"
-        f"<title>{title}</title></head><body style='background:#111;color:#eee;"
-        "font-family:sans-serif'>"
-        f"<h3>{title}</h3>"
-        f"<p>axial mosaic — seismic colormap, vmax={vmax}</p>"
-        f"<img src='data:image/png;base64,{b64}'/>"
-        "</body></html>"
-    )
 
 
 _VIEWER_JS = r"""
@@ -271,13 +224,7 @@ def make_brainmaps(config: BrainmapConfig) -> list[str]:
                 NiftiImage(volume, atlas_img.affine),
                 f"{config.out_path}_val-{i}.nii.gz",
             )
-        if config.viewer == "interactive":
-            html = _interactive_html(
-                volume, atlas, atlas_img.affine, config.vmax,
-                f"val epoch {i} — r²",
-            )
-        else:
-            html = _mosaic_html(volume, config.vmax, f"val epoch {i} — r²")
+        html = _interactive_html(volume, atlas, atlas_img.affine, VMAX, f"val epoch {i} — r²")
         out = f"{config.out_path}_val-{i}.html"
         Path(out).write_text(html)
         written.append(out)

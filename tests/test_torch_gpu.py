@@ -827,8 +827,12 @@ def test_narrow_cached_head_matches_the_full_forward(cuda):
     """A narrow frozen model from frames: the feature cache (an in-memory
     store) built with 2 flash forwards a batch, the head over it against
     the full forward within the bound of tests/test_precompute.py:110."""
-    from chip_smoke import MemoryStore
-    from phantom_vlb_tpu_torch.train.precompute import CachedFeatureLoader, build_feature_cache, head_forward
+    from phantom_vlb_tpu_torch.train.precompute import (
+        CachedFeatureLoader,
+        MemoryStore,
+        build_feature_cache,
+        head_forward,
+    )
 
     model, _ = _narrow_vision_model(cuda)
     batches = synthetic_batches(model.cfg, 2, 2, np.random.default_rng(0),

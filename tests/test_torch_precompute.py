@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MemoryStore
 from phantom_vlb_tpu.data.lazyload_build import LazyloadBuildConfig, build_lazyload_dsets
 from phantom_vlb_tpu.data.loader import BatchLoader as JBatchLoader
 from phantom_vlb_tpu.data.loader import LazyDataset as JLazyDataset
@@ -126,7 +125,7 @@ def test_cached_head_matches_the_full_forward(setup):
     """The head over the cache (an in-memory store) against the full
     forward, and the store's cache equal to the file's."""
     port, loader = setup["port"], setup["loader"]
-    store = MemoryStore()
+    store = tpre.MemoryStore()
     assert not tpre.cache_present(store)
     assert tpre.build_feature_cache(port, loader, store) == N and tpre.cache_present(store)
     _, from_file = _read(setup["tpath"])
