@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, and its trainer, on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's serving and training paths, its trainer, and the
+stages before and after it, on one NVIDIA card and check them.
 
 Both paths run from cached video tokens and from raw frames through the
 vision towers.
@@ -8,6 +8,7 @@ vision towers.
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
     python3 chip_smoke.py --trainer DIR     # phase 9t alone, under DIR
     python3 chip_smoke.py --after-train DIR # phase 9p alone, on 9t's DIR
+    python3 chip_smoke.py --extract DIR     # phase 9e alone, under DIR
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -118,6 +119,26 @@ Phases, each printed with its wall time; any failure exits non-zero:
    metrics.csv with an atlas of one label per ROI written by
    ``save_nifti`` (an HTML and a volume a val row, each parcel its r²).
    Where ``h5py`` imports, (a)-(c) also write and read the files;
+9e. the first two stages users run, in a process of its own (``--extract
+   DIR``; its peak host RSS held to the same bound), at the geometry of
+   record (TR 1.49 s, 4 frames a TR, window 3, 336 px, 866 text ids, 64
+   onsets), only the episodes and TRs cut: (a) a season of 2 episodes (11
+   and 8 TRs; transcript and scene TSVs written under DIR and read by
+   ``read_tsv``; 720x480 frames at 29.97 fps made from the seed when asked
+   for) through ``extract_episode`` with ``DevicePreprocessor`` on the card
+   and the ``SentencePieceTestTokenizer`` (joiner counts validated), each
+   episode checked and written into an in-memory features store as
+   ``extract_features`` writes it, a second pass writing nothing; the
+   card's preprocessed frames against ``preprocess`` on the CPU; (b) a
+   1000-parcel BOLD store and ``build_lazyload_dsets`` into 2 in-memory
+   lazy-load stores (every sample's rows bit-equal to its source rows);
+   (c) the features store released, ``vlb_friends_lora`` at batch 3 with
+   ``trainer.max_epochs=1``: ``build_trainer`` over ``BatchLoader``s of
+   those stores, 2 steps and 2 validations with the flash launches the
+   code implies, the first step's loss bit-equal to the same batch
+   collated from the source arrays and fed to ``train_batches`` from the
+   same adapters and seed. The native libav decoder is not built there
+   (the card's machine has no libav headers); the CPU tests hold it;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -183,8 +204,20 @@ from phantom_vlb_tpu_torch.cli.predict import predict_batches, predict_split, sy
 from phantom_vlb_tpu_torch.core.config import load_config
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
-from phantom_vlb_tpu_torch.data.loader import BatchLoader
-from phantom_vlb_tpu_torch.data.schemas import LazySample
+from phantom_vlb_tpu_torch.data.extract import extract_episode
+from phantom_vlb_tpu_torch.data.hrf import get_hrf_weights
+from phantom_vlb_tpu_torch.data.lazyload_build import LazyloadBuildConfig, build_lazyload_dsets, infer_geometry
+from phantom_vlb_tpu_torch.data.loader import BatchLoader, split_train_val
+from phantom_vlb_tpu_torch.data.schemas import (
+    LazySample,
+    MemoryStore,
+    bold_episode_keys,
+    lazyload_len,
+    list_feature_episodes,
+    write_feature_episode,
+)
+from phantom_vlb_tpu_torch.data.synthetic import write_synthetic_bold_file
+from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer, read_tsv, validate_joiner_counts
 from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
@@ -245,6 +278,7 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     fused_dropout_matmul_plain,
     hash_bytes,
 )
+from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor, preprocess
 from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
 from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, RING_STATS, ring_fwd, ring_fwd_plain, ring_send_plan
 from phantom_vlb_tpu_torch.ops.rowquant import (
@@ -261,12 +295,13 @@ from phantom_vlb_tpu_torch.train.builder import (
     build_model_config,
     build_trainer,
     load_pretrained_params,
+    split_loaders,
 )
 from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
 from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
-from phantom_vlb_tpu_torch.train.precompute import MemoryStore, head_forward
+from phantom_vlb_tpu_torch.train.precompute import head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
 
 ROOT = Path(__file__).resolve().parent
@@ -2512,6 +2547,347 @@ def after_train_child(out: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 9e: the first two stages users run (vlb-extract, vlb-build-lazyload)
+# through the port, in a process of its own (``--extract DIR``), then a LoRA
+# step from what they built. The stores are in memory (the card's machine
+# has no h5py) and the libav decoder is not built there (no libav headers):
+# frames come from a seeded VideoSource, and go through the card's
+# preprocessor.
+
+# The season, cut to two episodes: s01e01a trains (11 TRs: 6 samples, 2
+# batches of 3), s01e01b validates (8 TRs: 3 samples); split_train_val at
+# random_state 1234 takes the second of the two split stores for val.
+EXTRACT_EPISODES = {"s01e01a": 11, "s01e01b": 8}
+EXTRACT_SPLITS = 2
+FRAME_SIZE, FRAME_FPS = (480, 720), 29.97        # DVD-sized NTSC frames (height, width), not square
+EXTRACT_STEPS = 2
+# The card's preprocessed frames against the port's preprocess on the CPU
+# for the same frames: the CPU tests' bound against the JAX device path,
+# kept after a reading of 5.15e-5 on an NVIDIA H100 80GB HBM3 (700 W; f32
+# sums of the antialiased bicubic taps in another order).
+PREPROCESS_TOL = 1e-4
+SEASON_WORDS = ("hey oh okay you know I just really think that Ross Rachel Monica Chandler Joey Phoebe "
+                "couch coffee pivot we were on a break how you doin").split()
+
+
+class SeededFrames:
+    """A ``VideoSource`` whose frame ``i`` is made from (seed, i) when asked
+    for, so no episode's frames are all held at once."""
+
+    def __init__(self, seed: int, num_frames: int, size: tuple[int, int] = FRAME_SIZE, fps: float = FRAME_FPS):
+        self.seed, self._n, self.size, self._fps = seed, num_frames, size, fps
+
+    @property
+    def fps(self) -> float:
+        return self._fps
+
+    @property
+    def num_frames(self) -> int:
+        return self._n
+
+    def get_batch(self, indices) -> np.ndarray:
+        return np.stack([np.random.default_rng([self.seed, int(i)]).integers(0, 256, (*self.size, 3), np.uint8)
+                         for i in indices])
+
+
+class TimedPreprocessor:
+    """A ``preprocess_batch`` that times each call of ``pre`` with CUDA
+    events (upload, resize and normalise, download) and counts frames."""
+
+    def __init__(self, pre):
+        self.pre, self.ms, self.frames = pre, [], 0
+
+    def __call__(self, images) -> np.ndarray:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.pre(images)
+        end.record()
+        end.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        self.frames += len(out)
+        return out
+
+
+def episode_frames(geom, n_tr: int) -> int:
+    """Frames of an episode whose video gives ``n_tr`` TR windows."""
+    return int(n_tr * geom.tr * FRAME_FPS) + 5
+
+
+def write_season(root: Path, geom, seed: int = SEED) -> None:
+    """Each episode's transcript (a few words a TR, every third TR silent)
+    and scene TSVs, written with the csv module."""
+    rng = np.random.default_rng(seed)
+    for sub in ("transcripts", "segs"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for ep, n_tr in EXTRACT_EPISODES.items():
+        with open(root / "transcripts" / f"friends_{ep}.tsv", "w", newline="") as f:
+            w = csv.writer(f, delimiter="\t", lineterminator="\n")
+            w.writerow(["text_per_tr", "words_per_tr", "onsets_per_tr"])
+            for i in range(n_tr):
+                if i % 3 == 2:
+                    w.writerow(["", "", ""])
+                    continue
+                words = [str(x) for x in rng.choice(SEASON_WORDS, size=int(rng.integers(2, 7)))]
+                onsets = sorted(round(i * geom.tr + float(x), 3) for x in rng.uniform(0, geom.tr, len(words)))
+                w.writerow([" ".join(words) + " ", str(words), str(onsets)])
+        with open(root / "segs" / f"friends_{ep.replace('s0', 's')}_manualseg.tsv", "w", newline="") as f:
+            w = csv.writer(f, delimiter="\t", lineterminator="\n")
+            w.writerow(["scene", "onset"])
+            w.writerows([[1, 0.0], [2, round(n_tr * geom.tr * 0.4, 3)], [3, round(n_tr * geom.tr * 0.7, 3)]])
+
+
+def extract_season(root: Path, geom, dev) -> tuple:
+    """(a) Each episode not yet in an in-memory features store through
+    ``extract_episode`` with the card's preprocessor, checked and written
+    as ``extract_features`` writes it; a second pass writes nothing
+    (resume). Then the preprocessor's output against ``preprocess`` on the
+    CPU for 16 frames. Returns the store and the record."""
+    tok = SentencePieceTestTokenizer()
+    validate_joiner_counts(tok)
+    pre = TimedPreprocessor(DevicePreprocessor(geom.image_size, device=dev))
+    store = MemoryStore()
+
+    def one_pass() -> list[str]:
+        done, written = set(list_feature_episodes(store)), []
+        for k, (ep, n_tr) in enumerate(EXTRACT_EPISODES.items()):
+            if ep in done:
+                continue
+            transcript = read_tsv(root / "transcripts" / f"friends_{ep}.tsv")
+            seg = read_tsv(root / "segs" / f"friends_{ep.replace('s0', 's')}_manualseg.tsv")
+            episode = extract_episode(transcript, seg, SeededFrames(SEED + k, episode_frames(geom, n_tr)), geom,
+                                      tok, preprocess_batch=pre)
+            episode.validate(geom)
+            if episode.video_features.shape[0] != n_tr or episode.transcript_features.shape[0] != n_tr:
+                raise AssertionError(f"{ep}: {episode.video_features.shape[0]} video and "
+                                     f"{episode.transcript_features.shape[0]} text TRs, want {n_tr}")
+            write_feature_episode(store, ep, episode)
+            written.append(ep)
+        return written
+
+    t0 = time.perf_counter()
+    written = one_pass()
+    extract_s = time.perf_counter() - t0
+    calls = len(pre.ms)
+    again = one_pass()
+    n_tr = sum(EXTRACT_EPISODES.values())
+    if written != list(EXTRACT_EPISODES) or again or len(pre.ms) != calls:
+        raise AssertionError(f"extraction wrote {written}, then {again} on resume; want all, then none")
+
+    frames = SeededFrames(SEED, 64).get_batch(range(0, 64, 4))
+    card = pre.pre(frames)
+    host = preprocess(frames, geom.image_size, device="cpu").numpy()
+    err = float(np.abs(card - host).max())
+    ms_frame = sum(pre.ms) / pre.frames
+    sizes = {ep: store[ep]["video_features"].shape for ep in store}
+    print(f"  {len(written)} episodes, {n_tr} TRs of {FRAME_SIZE[1]}x{FRAME_SIZE[0]} frames at {FRAME_FPS} fps: "
+          f"{extract_s:.3f} s, {extract_s / n_tr:.4f} s a TR; the card's preprocessor {pre.frames} frames in "
+          f"{calls} calls, {ms_frame:.4f} ms a frame (CUDA events); video_features {sizes} f32, "
+          f"{store['s01e01a']['video_features'][0].nbytes / 1e6:.2f} MB a TR; resume wrote {again}; "
+          f"card against the CPU's preprocess max|err| {err:.3e} (tol {PREPROCESS_TOL})")
+    if not err <= PREPROCESS_TOL:
+        raise AssertionError("the card's preprocessed frames differ from the CPU's")
+    return store, {"extract_s": extract_s, "extract_s_per_tr": extract_s / n_tr, "preprocess_ms_per_frame": ms_frame,
+                   "preprocess_calls_ms": pre.ms, "preprocess_err": err}
+
+
+def build_season(features, geom) -> tuple:
+    """(b) A 1000-parcel BOLD store and ``build_lazyload_dsets`` into
+    ``EXTRACT_SPLITS`` in-memory lazy-load stores; the sample count and
+    every sample's rows against the source rows, bit-equal. Returns the
+    container, each split's (episode, row) per sample, and the record."""
+    inferred = infer_geometry(features, window=geom.window, delay=geom.delay, tr=geom.tr)
+    if dataclasses.replace(inferred, num_parcels=geom.num_parcels) != geom:
+        raise AssertionError("the geometry inferred from the features store is not the extraction's")
+    bold = MemoryStore()
+    write_synthetic_bold_file(bold, EXTRACT_EPISODES, geom, seed=SEED + 1)
+    container = MemoryStore()
+    t0 = time.perf_counter()
+    stores = build_lazyload_dsets(LazyloadBuildConfig(features, bold, container, "sub-01", "s1",
+                                                      n_split=EXTRACT_SPLITS, geometry=geom))
+    build_s = time.perf_counter() - t0
+    keys = bold_episode_keys(bold)
+    vis = get_hrf_weights(geom.vision_onset_deltas())
+    episodes = sorted(EXTRACT_EPISODES)
+    chunk = np.floor(np.arange(len(episodes)) / (len(episodes) / EXTRACT_SPLITS)).astype(int)
+    sources, n_samples = [], 0
+    for i, store in enumerate(stores):
+        rows = []
+        for ep in [e for e, c in zip(episodes, chunk) if c == i]:
+            src = features[ep]
+            ses, run = keys[ep]
+            ts = bold[ses][run]
+            n_rows = min(len(ts) - geom.bold_offset, len(src["video_features"]) - geom.window_offset,
+                         len(src["transcript_features"]) - geom.window_offset)
+            onsets = geom.target_tr_onsets(len(ts) - geom.bold_offset)
+            for n in range(n_rows):
+                g, idx, row = store[f"{len(rows)}"], len(rows), geom.window_offset + n
+                diag = int(src["masking_params"][row][2])
+                lang = src["transcript_onsets"][row].copy()
+                lang[:diag] = get_hrf_weights(onsets[n] - lang[:diag])
+                want = {"vision": src["video_features"][row], "language": src["transcript_features"][row],
+                        "padvals": src["masking_params"][row], "timeseries": ts[geom.bold_offset + n],
+                        "vis_weights": vis, "lang_weights": lang}
+                for field, value in want.items():
+                    if not np.array_equal(g[f"{idx}_{field}"], value):
+                        raise AssertionError(f"split {i} sample {idx} ({ep} row {row}): {field} differs from "
+                                             f"its source")
+                rows.append((ep, n))
+        if lazyload_len(store) != len(rows):
+            raise AssertionError(f"split {i} holds {lazyload_len(store)} samples, want {len(rows)}")
+        sources.append(rows)
+        n_samples += len(rows)
+    want_n = sum(n - geom.bold_offset for n in EXTRACT_EPISODES.values())
+    sample_bytes = sum(v.nbytes for v in stores[0]["0"].values())
+    print(f"  {len(stores)} lazy-load stores {[lazyload_len(s) for s in stores]} samples ({n_samples}, want "
+          f"{want_n}), every row bit-equal to its source; {sample_bytes / 1e6:.2f} MB a sample; built in "
+          f"{build_s:.3f} s, {build_s / n_samples:.4f} s a sample")
+    if n_samples != want_n:
+        raise AssertionError(f"the build made {n_samples} samples, want {want_n}")
+    return container, sources, bold, {"build_s": build_s, "build_s_per_sample": build_s / n_samples,
+                                      "samples": n_samples}
+
+
+def source_batch(features, bold, geom, rows: list) -> dict:
+    """The samples at (episode, n) ``rows`` collated from the features and
+    BOLD stores' source arrays, with the loader's dtypes, without the
+    lazy-load stores."""
+    from phantom_vlb_tpu_torch.data.hrf import get_hrf_weights
+    keys = bold_episode_keys(bold)
+    vis = get_hrf_weights(geom.vision_onset_deltas())
+    out = {f: [] for f in ("timeseries", "vision", "language", "vis_weights", "lang_weights", "padvals")}
+    for ep, n in rows:
+        src, (ses, run) = features[ep], keys[ep]
+        row = geom.window_offset + n
+        onsets = geom.target_tr_onsets(len(bold[ses][run]) - geom.bold_offset)
+        diag = int(src["masking_params"][row][2])
+        lang = src["transcript_onsets"][row].copy()
+        lang[:diag] = get_hrf_weights(onsets[n] - lang[:diag])
+        for field, value in (("timeseries", bold[ses][run][geom.bold_offset + n]),
+                             ("vision", src["video_features"][row]), ("language", src["transcript_features"][row]),
+                             ("vis_weights", vis), ("lang_weights", lang), ("padvals", src["masking_params"][row])):
+            out[field].append(np.array(value))
+    dtypes = {"timeseries": np.float32, "vision": np.float32, "language": np.int32, "vis_weights": np.float32,
+              "lang_weights": np.float32, "padvals": np.int32}
+    batch = {f: np.stack(v).astype(dtypes[f]) for f, v in out.items()}
+    batch["row_mask"] = np.ones(len(rows), np.float32)
+    return batch
+
+
+def stage_loaders(config, container) -> tuple:
+    """The train and val loaders over the lazy-load stores, split as
+    ``build_loaders`` splits the files; and the train splits' indices."""
+    names = sorted(container)
+    train_names, val_names = split_train_val(names, int(config.datamodule.random_state))
+    train, val = split_loaders(config.datamodule, [container[n] for n in train_names],
+                               [container[n] for n in val_names])
+    return train, val, [names.index(n) for n in train_names]
+
+
+def first_batch_rows(train: BatchLoader, sources: list, train_splits: list) -> list:
+    """The (episode, n) of the samples in the first batch of ``train``'s
+    first epoch: its shuffle is ``default_rng(seed)`` over the indices."""
+    order = np.arange(len(train.dataset))
+    np.random.default_rng(train.seed).shuffle(order)
+    flat = [r for i in train_splits for r in sources[i]]
+    return [flat[int(i)] for i in order[:train.batch_size]]
+
+
+def train_from_stores(config, train, val, arrays: dict, dev) -> dict:
+    """(c) ``VLBTrainer`` of the config over the stores' loaders, 2 steps
+    with its validations; the first step's loss against the same batch fed
+    as arrays (from the sources) to ``train_batches`` from the same
+    starting adapters and dropout seed."""
+    t0 = time.perf_counter()
+    trainer, train, val = build_trainer(config, device=dev, loaders=(train, val))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    model_cfg = trainer.model.cfg
+    print(f"  trainer built in {time.perf_counter() - t0:.2f} s: {model_cfg.mistral.num_hidden_layers} layers, "
+          f"batch {train.batch_size}, {len(train)} train and {len(val)} val batches from the stores")
+    start = {k: p.detach().clone() for k, p in trainer.trainable.items()}
+    seen, losses = [], []
+    train_one = trainer.train_one
+
+    def recording(batch):
+        if not seen:
+            seen.append({k: np.array(v) for k, v in batch.as_dict().items()})
+        out = train_one(batch)
+        losses.append(float(out["brain_loss"]))
+        return out
+
+    trainer.train_one = recording
+    if dev.type == "cuda":
+        launches, step_ms, val_ms, save_ms = fit_and_count(trainer, train, val)
+        peak_device_gb = torch.cuda.max_memory_allocated() / 1e9
+    else:
+        trainer.fit(train, val)
+        launches, step_ms, val_ms, save_ms, peak_device_gb = {}, [], [], [], 0.0
+    if trainer.global_step != EXTRACT_STEPS or len(losses) != EXTRACT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"the fit took {trainer.global_step} steps with losses {losses}, want "
+                             f"{EXTRACT_STEPS} finite")
+    same_batch = seen[0].keys() == arrays.keys() and all(
+        seen[0][k].dtype == arrays[k].dtype and np.array_equal(seen[0][k], arrays[k]) for k in arrays)
+    if not same_batch:
+        raise AssertionError("the trainer's first batch is not the one collated from the sources")
+    params = dict(trainer.model.named_parameters())
+    with torch.no_grad():
+        for name, t in start.items():
+            params[name].copy_(t)
+    again = train_batches(trainer.model, [arrays], device=dev,
+                          generator=torch.Generator().manual_seed(trainer.config.seed),
+                          optimizer=None)
+    array_loss = float(again["brain_loss"][0])
+    print(f"  LoRA fit over the stores: losses {losses}; the same first batch fed as arrays: {array_loss} "
+          f"(bit-equal: {array_loss == losses[0]}); step ms {[round(x, 3) for x in step_ms]}, validation ms "
+          f"{[round(x, 3) for x in val_ms]}, saves ms {[round(x, 3) for x in save_ms]}, peak device memory "
+          f"{peak_device_gb:.2f} GB, launches { {k: v for k, v in launches.items() if v} }")
+    if array_loss != losses[0]:
+        raise AssertionError("the first step's loss from the stores differs from the same batch fed as arrays")
+    return {"losses": losses, "array_loss": array_loss, "step_ms": step_ms, "val_ms": val_ms, "save_ms": save_ms,
+            "launches": launches, "validations": len(val_ms), "val_batches": len(val),
+            "layers": model_cfg.mistral.num_hidden_layers, "peak_device_gb": peak_device_gb}
+
+
+def extract_child(out: str) -> int:
+    """``--extract DIR``: phase 9e in this process, under DIR; prints one
+    JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    card = card_name_and_power()
+    geom = REFERENCE_GEOMETRY
+    print(f"{card}; {len(EXTRACT_EPISODES)} episodes {EXTRACT_EPISODES} TRs (cut), geometry of record: TR {geom.tr} s, "
+          f"{geom.frames_per_tr} frames a TR, window {geom.window} ({geom.num_frames} frames a sample), "
+          f"{geom.image_size} px, {geom.max_lang_tokens} text ids, {geom.onsets_width} onsets")
+    record = {}
+    with phase("9e (a) extract (vlb-extract) with the card's preprocessor into a features store"):
+        write_season(root, geom)
+        features, rec = extract_season(root, geom, dev)
+        record.update(rec)
+    with phase("9e (b) build (vlb-build-lazyload) into lazy-load stores"):
+        container, sources, bold, rec = build_season(features, geom)
+        record.update(rec)
+        config = compose("vlb_friends_lora", root / "train", "trainer.max_epochs=1")
+        train, val, train_splits = stage_loaders(config, container)
+        arrays = source_batch(features, bold, geom, first_batch_rows(train, sources, train_splits))
+        del features                       # released before the model is made
+    with phase("9e (c) LoRA steps (vlb_friends_lora) from the stores at full width"):
+        rec = train_from_stores(config, train, val, arrays, dev)
+        want = expected_fit_launches(rec["layers"], EXTRACT_STEPS, rec["validations"] * rec["val_batches"], lora=True)
+        if rec["launches"] != want:
+            raise AssertionError(f"the fit launched {rec['launches']}, want {want}")
+        record.update(rec)
+    record["peak_rss_gb"] = peak_rss_gb()
+    print(f"  peak host RSS {record['peak_rss_gb']:.2f} GB ({card})")
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"the extract phase's peak host RSS {record['peak_rss_gb']:.2f} GB is over "
+                             f"{HOST_RSS_LIMIT_GB}")
+    return 0
+
+
 def run_child(flag: str, out: str, label: str, timeout: int) -> dict:
     """``chip_smoke.py flag out`` in a process of its own; its output is
     passed on. Returns its JSON record."""
@@ -2536,6 +2912,8 @@ def main() -> int:
         return trainer_child(sys.argv[2])
     if sys.argv[1:2] == ["--after-train"]:
         return after_train_child(sys.argv[2])
+    if sys.argv[1:2] == ["--extract"]:
+        return extract_child(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2635,6 +3013,16 @@ def main() -> int:
                   f"9t's baseline step from frames {[round(x, 3) for x in trained['baseline_step_ms']]}; LoRA step "
                   f"from cached tokens {[round(x, 3) for x in after['tokens_step_ms']]} against from frames "
                   f"{[round(x, 3) for x in after['frames_step_ms']]} ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="extract-", dir=BUILD_ROOT)
+    try:
+        with phase("9e the first two stages (vlb-extract, vlb-build-lazyload) and LoRA steps from what they "
+                   "built, in a process of its own"):
+            staged = run_child("--extract", out, "the extract phase", 600)
+            print(f"  extraction {staged['extract_s_per_tr']:.4f} s a TR, the card's preprocessor "
+                  f"{staged['preprocess_ms_per_frame']:.4f} ms a frame, build {staged['build_s_per_sample']:.4f} s "
+                  f"a sample, LoRA steps from the stores ms {[round(x, 3) for x in staged['step_ms']]} ({card})")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     with phase("9v w8a8g8 serve from frames"):

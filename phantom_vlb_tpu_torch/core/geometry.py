@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
+
 __all__ = ["VLBGeometry", "REFERENCE_GEOMETRY", "VIDEO_TOKEN_ID"]
 
 # Sentinel id of the <video> modal token in the tokenized text stream.
@@ -69,6 +71,32 @@ class VLBGeometry:
     def feature_len(self) -> int:
         """Multimodal sequence length after the <video> splice."""
         return self.num_vis_tokens + self.max_lang_tokens - 1
+
+    @property
+    def window_offset(self) -> int:
+        """TRs dropped from the head of the feature arrays (window - 1)."""
+        return self.window - 1
+
+    @property
+    def bold_offset(self) -> int:
+        """TRs dropped from the head of the BOLD timeseries."""
+        return self.window_offset + self.delay
+
+    @property
+    def abs_tr_delay(self) -> float:
+        """Window onset -> target-TR midpoint distance, in TRs (= 5.5)."""
+        return self.bold_offset + 0.5
+
+    def target_tr_onsets(self, n: int) -> np.ndarray:
+        """Target-TR midpoints (s, from episode onset) for n samples."""
+        return (self.bold_offset + 0.5 + np.arange(n, dtype=np.float64)) * self.tr
+
+    def vision_onset_deltas(self) -> np.ndarray:
+        """Time (s) from each downsampled frame to the target-TR midpoint:
+        ``num_ds_frames`` values stepping back ``window / (num_ds_frames - 1)``
+        TRs from ``abs_tr_delay``."""
+        step = self.window / (self.num_ds_frames - 1)
+        return self.tr * (self.abs_tr_delay - step * np.arange(self.num_ds_frames))
 
     def validate(self) -> None:
         if self.feature_len != self.model_max_length:

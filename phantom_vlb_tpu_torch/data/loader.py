@@ -8,7 +8,8 @@ byte for byte:
 - :func:`split_train_val`: validation is one file chosen by
   ``np.random.RandomState(random_state).choice``, training the rest;
 - :class:`LazyDataset` opens its files lazily per thread, so prefetch
-  threads never share an h5py handle;
+  threads never share an h5py handle; it also reads open stores, such as
+  the in-memory ones the builder writes;
 - :class:`Batch` is a fixed-shape numpy batch (a field that the samples
   hold as tensors, such as cached video tokens, stays a tensor); a partial
   last batch repeats its last row and ``row_mask`` marks the real rows;
@@ -31,7 +32,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from phantom_vlb_tpu_torch.data.schemas import LazySample, open_h5
+from phantom_vlb_tpu_torch.data.schemas import LazySample, is_path, lazyload_len, open_h5
 
 __all__ = ["LazyDataset", "Batch", "batch_fields", "BatchLoader", "expand_lazyload_glob", "split_train_val"]
 
@@ -57,30 +58,33 @@ def split_train_val(files: list[str], random_state: int) -> tuple[list[str], lis
 
 
 class LazyDataset:
-    """Concatenated view over lazy-load HDF5 files with thread-local handles."""
+    """Concatenated view over lazy-load files with thread-local handles, or
+    over open stores (``data/schemas.py``, e.g. ``MemoryStore``s the builder
+    wrote), which every thread reads as they are."""
 
-    def __init__(self, paths: list[str]):
-        if not paths:
+    def __init__(self, sources: list):
+        if not sources:
             raise ValueError("no lazy-load files given")
-        self.paths = [str(Path(p)) for p in paths]
+        self.sources = [str(Path(s)) if is_path(s) else s for s in sources]
+        self.paths = [s for s in self.sources if isinstance(s, str)]
         self._local = threading.local()
         self.ranges: list[tuple[int, int]] = []
         self.length = 0
-        for p in self.paths:
-            with open_h5(p) as f:
-                n = int(np.asarray(f["dset_len"])[0])
+        for s in self.sources:
+            n = lazyload_len(s)
             self.ranges.append((self.length, self.length + n))
             self.length += n
 
     def _files(self) -> list:
         if not hasattr(self._local, "files"):
-            self._local.files = [open_h5(p) for p in self.paths]
+            self._local.files = [open_h5(s) if isinstance(s, str) else s for s in self.sources]
         return self._local.files
 
     def close(self) -> None:
         """Close this thread's handles (other threads' close when collected)."""
-        for f in getattr(self._local, "files", []):
-            f.close()
+        for s, f in zip(self.sources, getattr(self._local, "files", [])):
+            if isinstance(s, str):
+                f.close()
         if hasattr(self._local, "files"):
             del self._local.files
 
@@ -215,15 +219,20 @@ class BatchLoader:
         for _ in range(self.num_threads):
             task_q.put(None)
 
+        # A worker takes its slot before it takes a batch, so every batch
+        # taken holds a slot: the batches the consumer waits for are never
+        # starved of one by later batches (taking the batch first let a
+        # worker hold batch 0 without a slot while others filled them all).
         def worker():
             while not stop.is_set():
-                item = task_q.get()
-                if item is None:
-                    return
-                bi, indices = item
                 inflight.acquire()
                 if stop.is_set():
                     return
+                item = task_q.get()
+                if item is None:
+                    inflight.release()
+                    return
+                bi, indices = item
                 try:
                     batch = _collate([self.dataset[int(i)] for i in indices], self.batch_size)
                 except BaseException as e:                  # handed to the consumer

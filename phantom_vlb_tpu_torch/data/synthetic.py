@@ -1,8 +1,9 @@
-"""Synthetic language rows (numpy only).
+"""Synthetic stage inputs and outputs (numpy only).
 
-Counterpart of ``synth_language_row`` and ``TEST_GEOMETRY`` in
-``phantom_vlb_tpu/data/synthetic.py`` (:55); the same ``rng`` state gives the
-same row. Token layout of a row::
+Counterpart of ``phantom_vlb_tpu/data/synthetic.py`` (:55-153): the same
+``rng`` state or seed gives the same rows, episodes and files (each a path
+or an open store, as ``data/schemas.py`` takes them). Token layout of a
+language row::
 
     [prefix] [<video>=-201] [2 joiner + inst_len] [diag_len] [4 joiner] [pad_len zeros]
     |-------------------------- total = max_lang_tokens --------------------------|
@@ -13,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 
 from phantom_vlb_tpu_torch.core.geometry import VIDEO_TOKEN_ID, VLBGeometry
+from phantom_vlb_tpu_torch.data.schemas import FeatureEpisode, opened, write_feature_episode
 
-__all__ = ["TEST_GEOMETRY", "synth_language_row"]
+__all__ = ["TEST_GEOMETRY", "synth_language_row", "synth_feature_episode", "write_synthetic_features_file",
+           "write_synthetic_bold_file"]
 
 # Tiny geometry obeying all production invariants: 27 vision tokens
 # (3 ds-frames x 9 tokens), 38 text tokens, multimodal seq 64.
@@ -66,3 +69,51 @@ def synth_language_row(
     )
     maskvals = np.array([pad_len, inst_len, diag_len], dtype=np.int64)
     return ids, onsets, maskvals
+
+
+def synth_feature_episode(
+    geom: VLBGeometry,
+    n_tr: int,
+    rng: np.random.Generator,
+    vocab_size: int = 1000,
+) -> FeatureEpisode:
+    """An episode of ``n_tr`` language rows and standard-normal frames."""
+    rows = [synth_language_row(geom, rng, (i + 1) * geom.tr, vocab_size) for i in range(n_tr)]
+    video = rng.standard_normal(
+        (n_tr, geom.num_frames, 3, geom.image_size, geom.image_size)
+    ).astype(np.float32)
+    return FeatureEpisode(
+        transcript_features=np.stack([r[0] for r in rows]),
+        transcript_onsets=np.stack([r[1] for r in rows]),
+        masking_params=np.stack([r[2] for r in rows]),
+        video_features=video,
+    )
+
+
+def write_synthetic_features_file(
+    target,
+    episodes: dict[str, int],
+    geom: VLBGeometry,
+    seed: int = 0,
+    vocab_size: int = 1000,
+) -> None:
+    rng = np.random.default_rng(seed)
+    for ep_name, n_tr in episodes.items():
+        write_feature_episode(target, ep_name, synth_feature_episode(geom, n_tr, rng, vocab_size))
+
+
+def write_synthetic_bold_file(
+    target,
+    episodes: dict[str, int],
+    geom: VLBGeometry,
+    seed: int = 1,
+) -> None:
+    """A subject's BOLD file (a path is created anew) with run keys shaped
+    like the CNeuroMod layout: run ``ses-XXX_task-<episode>`` parses back to
+    the episode, each run as long as its episode's stimulus."""
+    rng = np.random.default_rng(seed)
+    with opened(target, "w") as f:
+        for i, (ep_name, n_tr) in enumerate(episodes.items()):
+            ses = f.require_group(f"ses-{i + 1:03d}")
+            data = rng.standard_normal((n_tr, geom.num_parcels)).astype(np.float32)
+            ses.create_dataset(f"ses-{i + 1:03d}_task-{ep_name}", data=data)

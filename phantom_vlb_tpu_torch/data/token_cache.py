@@ -76,7 +76,10 @@ def _file_stats(paths: Sequence[str]) -> list[list]:
 
 def dataset_fingerprint(dataset: LazyDataset, num_vis_tokens: int, hidden_size: int,
                         weights: str = "") -> str:
-    """The key of a sidecar over the lazy-load files of ``dataset``."""
+    """The key of a sidecar over the lazy-load files of ``dataset`` (a
+    dataset over stores has no files to key it by, and raises)."""
+    if len(dataset.paths) != len(dataset.sources):
+        raise ValueError("the vision-token cache is keyed by lazy-load files; the dataset reads stores")
     payload = json.dumps(
         {
             "paths": [Path(p).name for p in dataset.paths],

@@ -21,12 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.data.video import CLIP_MEAN, CLIP_STD
 
-__all__ = ["CLIP_MEAN", "CLIP_STD", "preprocess"]
-
-# OpenAI CLIP normalisation (phantom_vlb_tpu/data/video.py:47-48).
-CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
-CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+__all__ = ["CLIP_MEAN", "CLIP_STD", "preprocess", "DevicePreprocessor"]
 
 
 def preprocess(frames, image_size: int, device: str | torch.device = "cuda") -> torch.Tensor:
@@ -49,3 +46,24 @@ def preprocess(frames, image_size: int, device: str | torch.device = "cuda") -> 
         x = F.interpolate(x, size=(image_size, image_size), mode="bicubic", antialias=True,
                           align_corners=False)
     return ((x - mean[:, None, None]) / std[:, None, None]).contiguous()
+
+
+class DevicePreprocessor:
+    """The extraction pipeline's frame preprocessor on ``device`` (default
+    the card; raises without one): a ``preprocess_batch`` for
+    ``data/video.py``'s ``extract_video_features`` and a ``preprocessor``
+    for its ``extract_video_chunk``. Takes uint8 (N, H, W, 3) frames (an
+    array or a list of frames), returns host (N, 3, S, S) f32.
+
+    Unlike the JAX package's, it pads no batch to a size bucket: the
+    buckets there only spare XLA a recompile per unique-frame count, and
+    eager PyTorch compiles nothing.
+    """
+
+    def __init__(self, image_size: int, device: str | torch.device = "cuda"):
+        self.image_size = image_size
+        self.device = resolve_device(device)
+
+    def __call__(self, images) -> np.ndarray:
+        batch = np.stack([np.asarray(img) for img in images])
+        return preprocess(batch, self.image_size, self.device).cpu().numpy()

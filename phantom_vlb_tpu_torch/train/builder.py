@@ -45,7 +45,7 @@ from phantom_vlb_tpu_torch.train.precompute import (
 )
 from phantom_vlb_tpu_torch.utils.logging import CometLoggerSink, ConsoleLogger
 
-__all__ = ["build_loaders", "build_model_config", "load_pretrained_params", "build_model",
+__all__ = ["build_loaders", "split_loaders", "build_model_config", "load_pretrained_params", "build_model",
            "build_trainer", "build_cached_trainer", "run_cached_training", "run_training"]
 
 
@@ -60,12 +60,18 @@ def build_loaders(dm: Config) -> tuple[BatchLoader, BatchLoader, dict]:
     train_files, val_files = split_train_val(files, int(dm.random_state))
     dset_names = {"val_set": [f.rsplit("/", 1)[-1] for f in val_files],
                   "train_set": [f.rsplit("/", 1)[-1] for f in train_files]}
+    return (*split_loaders(dm, train_files, val_files), dset_names)
+
+
+def split_loaders(dm: Config, train_sources: list, val_sources: list) -> tuple[BatchLoader, BatchLoader]:
+    """The train and val loaders of the datamodule config over lazy-load
+    files or open stores (e.g. the in-memory ones the builder writes)."""
     common = dict(batch_size=int(dm.batch_size), seed=int(dm.random_state),
                   prefetch=int(dm.get("prefetch", 4)), num_threads=int(dm.get("num_workers", 4)))
-    train_loader = BatchLoader(LazyDataset(train_files), shuffle=True, **common)
-    val_loader = BatchLoader(LazyDataset(val_files), shuffle=bool(dm.get("shuffle_val_data", False)),
+    train_loader = BatchLoader(LazyDataset(train_sources), shuffle=True, **common)
+    val_loader = BatchLoader(LazyDataset(val_sources), shuffle=bool(dm.get("shuffle_val_data", False)),
                              **common)
-    return train_loader, val_loader, dset_names
+    return train_loader, val_loader
 
 
 def build_model_config(m: Config) -> VLBConfig:

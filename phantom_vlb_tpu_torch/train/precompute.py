@@ -20,7 +20,7 @@ The cache's layout is the JAX package's: per sample a group ``{i}`` with
 (K,) f32 and ``{i}_timeseries`` (P,) f32, and a root ``dset_len`` = [n].
 Where it is kept is the caller's choice: a path (an HDF5 file, through
 ``h5py``) or any store with h5py's ``create_group`` / ``create_dataset`` /
-``__getitem__`` / ``__contains__``, such as :class:`MemoryStore`.
+``__getitem__`` / ``__contains__``, such as ``data/schemas.py``'s ``MemoryStore``.
 """
 
 from __future__ import annotations
@@ -40,21 +40,7 @@ from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB
 from phantom_vlb_tpu_torch.ops.weight_mask import JOINER_POST, JOINER_PRE
 
 __all__ = ["support_gather", "build_feature_cache", "cache_present", "CachedFeatureLoader",
-           "head_forward", "MemoryStore"]
-
-
-class MemoryStore(dict):
-    """An in-memory store with the part of h5py's interface the feature
-    cache uses (``create_group``, ``create_dataset``, ``[]``, ``in``), for a
-    caller that keeps the cache in host memory instead of an HDF5 file."""
-
-    def create_group(self, name):
-        self[name] = MemoryStore()
-        return self[name]
-
-    def create_dataset(self, name, data):
-        self[name] = np.array(data)
-        return self[name]
+           "head_forward"]
 
 
 def support_gather(hidden: torch.Tensor, padvals: torch.Tensor, vis_weights: torch.Tensor,

@@ -827,12 +827,8 @@ def test_narrow_cached_head_matches_the_full_forward(cuda):
     """A narrow frozen model from frames: the feature cache (an in-memory
     store) built with 2 flash forwards a batch, the head over it against
     the full forward within the bound of tests/test_precompute.py:110."""
-    from phantom_vlb_tpu_torch.train.precompute import (
-        CachedFeatureLoader,
-        MemoryStore,
-        build_feature_cache,
-        head_forward,
-    )
+    from phantom_vlb_tpu_torch.data.schemas import MemoryStore
+    from phantom_vlb_tpu_torch.train.precompute import CachedFeatureLoader, build_feature_cache, head_forward
 
     model, _ = _narrow_vision_model(cuda)
     batches = synthetic_batches(model.cfg, 2, 2, np.random.default_rng(0),
@@ -853,3 +849,26 @@ def test_narrow_cached_head_matches_the_full_forward(cuda):
         cached.append(pred.cpu().numpy())
     assert FLASH_FWD.launches == before
     np.testing.assert_allclose(np.concatenate(cached), full, atol=2e-2, rtol=2e-2)
+
+
+def test_extraction_with_the_card_preprocessor(cuda):
+    """An episode through extract_episode with the card's preprocessor
+    against the same preprocessor on the CPU: the text rows equal, the
+    frames within the CPU tests' 1e-4 of each other."""
+    from phantom_vlb_tpu_torch.data.extract import extract_episode
+    from phantom_vlb_tpu_torch.data.synthetic import TEST_GEOMETRY
+    from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer
+    from phantom_vlb_tpu_torch.data.video import ArrayVideoSource
+    from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor
+
+    geom = dataclasses.replace(TEST_GEOMETRY, model_max_length=256)
+    frames = np.random.default_rng(0).integers(0, 256, (int(6 * geom.tr * 30) + 9, 48, 80, 3), np.uint8)
+    transcript = {"text_per_tr": ["hey Ross ", float("nan")] * 3, "words_per_tr": ["['hey', 'Ross']", ""] * 3,
+                  "onsets_per_tr": ["[0.5, 1.0]", ""] * 3}
+    seg = {"scene": [1, 2], "onset": [0.0, 4.0]}
+    eps = [extract_episode(transcript, seg, ArrayVideoSource(frames, 30.0), geom, SentencePieceTestTokenizer(),
+                           preprocess_batch=DevicePreprocessor(geom.image_size, device=dev))
+           for dev in (cuda, "cpu")]
+    np.testing.assert_array_equal(eps[0].transcript_features, eps[1].transcript_features)
+    assert eps[0].video_features.shape == (6, geom.num_frames, 3, geom.image_size, geom.image_size)
+    np.testing.assert_allclose(eps[0].video_features, eps[1].video_features, atol=1e-4, rtol=0)

@@ -1,11 +1,13 @@
 """Port: what the card's machine lacks is never imported, and entry points
 raise rather than fall back when there is no card.
 
-The card's machine has no jax, flax, optax, h5py, yaml, pandas, ml_dtypes,
-safetensors, orbax or comet_ml; every module of the port and
-``chip_smoke.py`` import with them blocked (the trainer's modules among
-them, and those of the stages around it: predict, the feature and token
-caches, the brain maps).
+The card's machine has no jax, h5py or libav development files; every
+module of the port and ``chip_smoke.py`` import with those and the other
+optional packages (flax, optax, yaml, pandas, PIL, transformers,
+tokenizers, ml_dtypes, safetensors, orbax, comet_ml) blocked: the
+trainer's modules among them, those of the stages around it (predict, the
+feature and token caches, the brain maps) and those of the first two
+stages (extraction and the lazy-load builder, with their CLIs).
 """
 
 import os
@@ -23,7 +25,7 @@ from phantom_vlb_tpu_torch.models.convert import init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "h5py", "yaml", "phantom_vlb_tpu", "transformers", "timm",
-           "PIL", "safetensors", "orbax", "comet_ml", "pandas", "ml_dtypes")
+           "PIL", "safetensors", "orbax", "comet_ml", "pandas", "ml_dtypes", "tokenizers")
 
 # Blocks the modules (a None entry in sys.modules makes their import fail),
 # then imports every module of the port and chip_smoke without running it.
@@ -53,6 +55,12 @@ stages = {{"phantom_vlb_tpu_torch.cli.predict", "phantom_vlb_tpu_torch.train.pre
           "phantom_vlb_tpu_torch.data.token_cache", "phantom_vlb_tpu_torch.postprocessing.nifti",
           "phantom_vlb_tpu_torch.postprocessing.brainmaps", "phantom_vlb_tpu_torch.cli.brainmaps"}}
 assert stages <= set(names), sorted(stages - set(names))
+first = {{"phantom_vlb_tpu_torch.data.hrf", "phantom_vlb_tpu_torch.data.text",
+         "phantom_vlb_tpu_torch.data.hf_tokenizer", "phantom_vlb_tpu_torch.data.video",
+         "phantom_vlb_tpu_torch.data.video_reader", "phantom_vlb_tpu_torch.data.extract",
+         "phantom_vlb_tpu_torch.data.lazyload_build", "phantom_vlb_tpu_torch.cli.extract",
+         "phantom_vlb_tpu_torch.cli.build_lazyload"}}
+assert first <= set(names), sorted(first - set(names))
 print(len(names))
 """
 

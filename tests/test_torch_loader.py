@@ -9,6 +9,8 @@ Without h5py the dataset raises an ImportError that names it.
 """
 
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -94,3 +96,43 @@ def test_without_h5py_the_dataset_names_it(lazy_dir, monkeypatch):
     monkeypatch.setitem(sys.modules, "h5py", None)
     with pytest.raises(ImportError, match="h5py"):
         tloader.LazyDataset(files)
+
+
+_SEMAPHORE = threading.Semaphore          # the real one, before a test patches it
+
+
+class _LateFirstSlot:
+    """A semaphore whose first acquire waits before taking its slot: the
+    worker that calls it first is overtaken by the others."""
+
+    def __init__(self, value):
+        self._sem = _SEMAPHORE(value)
+        self._lock = threading.Lock()
+        self._first = True
+
+    def acquire(self, *args, **kwargs):
+        with self._lock:
+            late, self._first = self._first, False
+        if late:
+            time.sleep(0.5)
+        return self._sem.acquire(*args, **kwargs)
+
+    def release(self, n=1):
+        self._sem.release(n)
+
+
+def test_prefetch_never_starves_the_batch_awaited(lazy_dir, monkeypatch):
+    """A worker overtaken between taking a batch and taking its slot must not
+    leave the consumer waiting for that batch while the others fill every
+    slot (a deadlock the loader had: it took the batch first)."""
+    files = _files(lazy_dir, monkeypatch, tloader)
+    monkeypatch.setattr(tloader.threading, "Semaphore", _LateFirstSlot)
+    loader = tloader.BatchLoader(tloader.LazyDataset(files), batch_size=1, shuffle=False, prefetch=1,
+                                 num_threads=2)
+    got = []
+    consumer = threading.Thread(target=lambda: got.extend(loader), daemon=True)
+    consumer.start()
+    consumer.join(timeout=30)
+    assert not consumer.is_alive(), "the prefetching loader deadlocked"
+    want = tloader.BatchLoader(tloader.LazyDataset(files), batch_size=1, shuffle=False, prefetch=0)
+    assert [b.timeseries.tobytes() for b in got] == [b.timeseries.tobytes() for b in want]

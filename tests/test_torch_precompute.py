@@ -39,6 +39,7 @@ from phantom_vlb_tpu.models.videollama2 import VideoLLaMA2VLB as JVLB
 from phantom_vlb_tpu.models.videollama2 import VLBConfig as JVLBConfig
 from phantom_vlb_tpu.train import precompute as jpre
 from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset
+from phantom_vlb_tpu_torch.data.schemas import MemoryStore
 from phantom_vlb_tpu_torch.models import videollama2 as tv
 from phantom_vlb_tpu_torch.models.convert import from_flax_params
 from phantom_vlb_tpu_torch.train import precompute as tpre
@@ -125,7 +126,7 @@ def test_cached_head_matches_the_full_forward(setup):
     """The head over the cache (an in-memory store) against the full
     forward, and the store's cache equal to the file's."""
     port, loader = setup["port"], setup["loader"]
-    store = tpre.MemoryStore()
+    store = MemoryStore()
     assert not tpre.cache_present(store)
     assert tpre.build_feature_cache(port, loader, store) == N and tpre.cache_present(store)
     _, from_file = _read(setup["tpath"])
