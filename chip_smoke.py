@@ -9,6 +9,8 @@ vision towers.
     python3 chip_smoke.py --trainer DIR     # phase 9t alone, under DIR
     python3 chip_smoke.py --after-train DIR # phase 9p alone, on 9t's DIR
     python3 chip_smoke.py --extract DIR     # phase 9e alone, under DIR
+    python -m torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR
+        # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -27,8 +29,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
    its split backward), GQA groups 1, 2, 4 and 8, and a batch row with every
    key masked, with the prep's q_s and the post's dq bit for bit; the
    three LoRA dropout kernels at M = 6144, K = 4096 and 14336,
-   in bits mode and in hash mode (dx exactly 0 where the mask drops; both
-   masks read back exactly through dx; keep rate, seed determinism); the row quant (both entry points) at
+   in bits mode and in hash mode, the hash also from a global first row
+   ``row0`` (a rank's rows of a split batch; dx exactly 0 where the mask
+   drops; all three masks read back exactly through dx; keep rate, seed
+   determinism); the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8, and at the vision tower's (20772, 1024) and
    (20772, 4096) (q and s bit for bit); the LoRA epilogue's
@@ -139,6 +143,22 @@ Phases, each printed with its wall time; any failure exits non-zero:
    collated from the source arrays and fed to ``train_batches`` from the
    same adapters and seed. The native libav decoder is not built there
    (the card's machine has no libav headers); the CPU tests hold it;
+9d. the trainer of record across processes: ``torch.distributed.run
+   --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR`` (NCCL,
+   one process a card): (a) ``vlb_friends_lora subject=sub-01
+   mesh.fsdp=-1`` from frames at full width, 1 epoch of 2 steps and a
+   validation, FSDP2 over the world (59 units), against the unsharded
+   trainer on the same weights, frames and seeds: the first loss bit-equal,
+   the step-1 adapter gradients bit-equal or at the floor of two unsharded
+   runs (printed beside it), the flash launches of the fit, the units'
+   parameters plain, contiguous and 16-byte aligned while they run; (b)
+   each trainer's ``last`` restored by the other, bit-equal; (c) one
+   sharded step with ``model.lora_fused_dropout=true`` (its LoRA kernels'
+   launches); the 32-bit masks' cost a step as a rank's draw of the
+   global batch; step ms, peak device memory and each rank's peak host
+   RSS. (d) with 2 cards, ``--sharded-pair`` on 2 processes at
+   ``datamodule.batch_size=4`` against one card at 4; otherwise it prints
+   that (d) was skipped;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -183,27 +203,35 @@ import contextlib
 import csv
 import ctypes
 import dataclasses
+import faulthandler
 import gc
 import json
+import os
 import resource
 import shutil
+import signal
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.fsdp import FSDPModule
 from torch.profiler import ProfilerActivity, profile
 
 from phantom_vlb_tpu_torch.cli.brainmaps import main as brainmaps_main
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, predict_split, synthetic_batches, write_predictions
 from phantom_vlb_tpu_torch.core.config import load_config
+from phantom_vlb_tpu_torch.core.distributed import (
+    MULTI_CARD_OPT_IN, maybe_initialize_distributed, shutdown_distributed)
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
-from phantom_vlb_tpu_torch.core.mesh import SequenceRing, set_sequence_ring
+from phantom_vlb_tpu_torch.core.mesh import AXIS_NAMES, MeshEnv, SequenceRing, set_sequence_ring
 from phantom_vlb_tpu_torch.data.extract import extract_episode
 from phantom_vlb_tpu_torch.data.hrf import get_hrf_weights
 from phantom_vlb_tpu_torch.data.lazyload_build import LazyloadBuildConfig, build_lazyload_dsets, infer_geometry
@@ -221,7 +249,7 @@ from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer, read_tsv
 from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
-from phantom_vlb_tpu_torch.models.lora import LoRAConfig
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig, adapter_dropout
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
 from phantom_vlb_tpu_torch.models.videollama2 import (
@@ -288,6 +316,7 @@ from phantom_vlb_tpu_torch.ops.rowquant import (
     row_quant_plain,
     row_quant_scaled,
 )
+from phantom_vlb_tpu_torch.parallel.sharding import whole
 from phantom_vlb_tpu_torch.postprocessing.nifti import NiftiImage, load_nifti, save_nifti
 from phantom_vlb_tpu_torch.train.builder import (
     build_cached_trainer,
@@ -312,6 +341,7 @@ LORA_BATCH = 3            # configs/experiment/vlb_friends_lora.yaml:14
 N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
+LORA_ROW0 = 2 * 2048 + 77      # a global first row for the hash mask, off every tile edge
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
 # The vision tower's projections at batch 3: 12 frames of 577 tokens (not a
 # multiple of 8 rows), at its two input widths.
@@ -713,21 +743,24 @@ def lora_inputs(k: int, gen, dev):
 
 def check_lora(k: int, gen, dev) -> dict[str, float]:
     """The three kernels vs plain at (6144, k), r 16, p 0.1, in bits mode and
-    in hash mode; returns each kernel's max abs error (bits mode)."""
+    in hash mode, from row 0 and from global row LORA_ROW0 (a rank's rows of
+    a batch split over ranks); returns each kernel's max abs error (bits
+    mode)."""
     thr, keep = dropout_threshold(LORA_P)
     x, a, dmid = lora_inputs(k, gen, dev)
     bits = torch.randint(0, 256, x.shape, generator=gen, device=dev, dtype=torch.uint8)
     errs = {}
-    for mode, b, seed in (("bits", bits, 0), ("hash", None, 1234)):
-        mid = fused_dropout_matmul(x, a, seed, LORA_P, bits=b)
-        dx, da = fused_dropout_bwd(x, a, dmid, seed, LORA_P, bits=b)
+    for mode, b, seed, row0 in (("bits", bits, 0, 0), ("hash", None, 1234, 0),
+                                (f"hash from row {LORA_ROW0}", None, 1234, LORA_ROW0)):
+        mid = fused_dropout_matmul(x, a, seed, LORA_P, bits=b, row0=row0)
+        dx, da = fused_dropout_bwd(x, a, dmid, seed, LORA_P, bits=b, row0=row0)
         torch.cuda.synchronize()
-        mid_ref = fused_dropout_matmul_plain(x, a, seed, thr, b)
-        dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, seed, thr, b)
+        mid_ref = fused_dropout_matmul_plain(x, a, seed, thr, b, row0)
+        dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, seed, thr, b, row0)
         rels = (rel_err(mid, mid_ref), rel_err(dx, dx_ref), rel_err(da, da_ref))
         # dx is exactly 0 wherever the mask drops (bits or hash bytes below
         # thr); both masks are also read back exactly below.
-        drops = (hash_bytes(seed, LORA_M, k, dev) if b is None else b) < thr
+        drops = (hash_bytes(seed, LORA_M, k, dev, row0) if b is None else b) < thr
         zero_drops = bool((dx[drops] == 0).all())
         print(f"  lora K={k} {mode}: max|err|/max|ref| fwd {rels[0]:.3e} (tol {MID_REL_TOL}), "
               f"dx {rels[1]:.3e} (tol {DX_REL_TOL}), dA {rels[2]:.3e} (tol {DA_REL_TOL}); "
@@ -755,11 +788,16 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
     rate = masks[1234][0].float().mean().item()
     same = bool(torch.equal(masks[1234][0], masks[1234][1]))
     differ = (masks[1234][0] != masks[99][0]).float().mean().item()
+    # From global row LORA_ROW0: the rows [LORA_ROW0, LORA_ROW0 + M) of the
+    # hash mask, which rows [LORA_ROW0 - 5, ...) of a longer draw hold too.
+    dx, _ = fused_dropout_bwd(x, e_a, e_d, 1234, LORA_P, need_da=False, row0=LORA_ROW0)
+    longer = hash_bytes(1234, LORA_M + 5, k, dev, LORA_ROW0 - 5)[5:] >= thr
+    row0_mismatches = int(((dx != 0) != longer).sum())
     print(f"  lora K={k} hash mask via dx: {mismatches} mismatches with the plain hash, keep rate "
           f"{rate:.6f} (want {keep:.6f} +- {KEEP_RATE_TOL}), same seed same mask {same}, "
           f"another seed differs in {differ:.4f} of elements; bits mask via dx: "
-          f"{bits_mismatches} mismatches")
-    if (mismatches or bits_mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same
+          f"{bits_mismatches} mismatches; from row {LORA_ROW0}: {row0_mismatches} mismatches")
+    if (mismatches or bits_mismatches or row0_mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same
             or differ < 0.1):
         raise AssertionError(f"LoRA dropout mask is not exact, at its rate or deterministic (K={k})")
     return errs
@@ -1411,25 +1449,49 @@ def time_fwd_probes(dev) -> None:
 
 def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> dict[str, float]:
     """Device time per call of every kernel ``fn`` launches, by kernel name
-    (``torch.profiler``). A session that recorded no device time for the
-    kernels whose name holds ``kernel`` (the tracer does drop sessions now
-    and then) is measured again, and after ``tries`` such sessions this
-    raises."""
+    (``torch.profiler``). The tracer drops sessions, or some of a session's
+    records, now and then, so up to ``tries`` sessions are taken. With
+    ``kernel`` named, the first whose records of the kernels whose name
+    holds it number a nonzero multiple of ``iters`` (each call launches
+    the same) is returned; when none does, each kernel's mean over what the
+    sessions recorded times the most launches a call made in any of them
+    (at least 1), which is printed; when none recorded those kernels, this
+    raises. With none named, the session with the most device time is
+    returned (dropped records only lower it), or, when no session recorded
+    any, the call's time by CUDA events (host gaps included), printed."""
     for _ in range(warmup):
         fn()
+    sessions = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        times = {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        events = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
         del prof
         release_host_memory()
-        if kernel_ms(times, kernel) > 0:
-            return times
-    raise RuntimeError(f"torch.profiler recorded no device time for {kernel or 'the call'} in {tries} sessions")
+        count = sum(n for key, _, n in events if kernel and kernel in key)
+        if count and count % iters == 0:
+            return {key: t / iters for key, t, _ in events}
+        if events:
+            sessions.append(events)
+    if not kernel:
+        if not sessions:
+            print("  (no trace of the call recorded: its time by CUDA events)")
+            return {"the call, by CUDA events": cuda_ms(fn, iters, warmup=0)}
+        return max(({key: t / iters for key, t, _ in ev} for ev in sessions), key=lambda t: sum(t.values()))
+    totals: dict[str, list[float]] = {}                  # key: [time, records, most records]
+    for events in sessions:
+        for key, t, n in events:
+            acc = totals.setdefault(key, [0.0, 0, 0])
+            acc[0], acc[1], acc[2] = acc[0] + t, acc[1] + n, max(acc[2], n)
+    times = {key: t / n * max(1, round(most / iters)) for key, (t, n, most) in totals.items()}
+    if kernel_ms(times, kernel) <= 0:
+        raise RuntimeError(f"torch.profiler recorded no device time for {kernel} in {tries} sessions")
+    print(f"  (no whole trace of {kernel} in {tries} sessions: per-launch means of what was recorded)")
+    return times
 
 
 def kernel_ms(times: dict[str, float], name: str) -> float:
@@ -1517,7 +1579,7 @@ def time_flash(gen, dev) -> dict[str, dict]:
         return attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask, causal_offset=s)
 
     bwd_ms = cuda_ms(ring_step_bwd, 20)
-    parts = traced_kernels(ring_step_bwd, 20)
+    parts = traced_kernels(ring_step_bwd, 20, "flash_bwd")
     print(f"  flash_fwd / flash_bwd B={b} S={s} causal_offset={s}: {fwd_ms:.4f} / {bwd_ms:.4f} ms per "
           f"call (CUDA events, wrappers included); backward device time: "
           + ", ".join(f"{name} {kernel_ms(parts, kernel):.4f}" for name, kernel in BWD_PARTS.items())
@@ -1555,7 +1617,7 @@ def time_flash_bwd(b: int, s: int, gen, dev, keep_mask, iters: int,
     def whole():
         return attention_packed_bwd(q, k, v, o, lse, do, HQ, HKV, kv_mask=kv_mask)
 
-    parts = traced_kernels(whole, iters)
+    parts = traced_kernels(whole, iters, "flash_bwd")
     ms = {name: kernel_ms(parts, kernel) for name, kernel in BWD_PARTS.items()}
     s_pad = bwd_padded_len(s)
     inp = flash_bwd_prep(q, o, do, lse, HQ)
@@ -2888,6 +2950,363 @@ def extract_child(out: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 9d: the trainer of record across processes (``mesh.fsdp=-1`` through
+# ``torchrun`` on FSDP2), each rank a process of its own
+# (``python -m torch.distributed.run --standalone --nproc_per_node=N
+# chip_smoke.py --sharded DIR``), with NCCL. On one card the mesh is one
+# process: the sharded step is held against the unsharded trainer's on the
+# same weights, batches and seeds; (d) runs where the machine has 2 cards.
+
+SHARDED_OVERRIDES = ("mesh.fsdp=-1", "trainer.max_epochs=1", "trainer.val_check_interval=1.0",
+                     "trainer.log_every_n_steps=1")
+SHARDED_STEPS = 2                         # 1 epoch of 2 steps and a validation
+SHARDED_LIMIT_S = 600                     # each launch of the phase's ranks
+SHARDED_COLLECTIVE_S = 240                # a collective's time limit in a rank
+PAIR_BATCH = 4                            # (d): 2 ranks of 2 rows against one card at 4
+# (d)'s first loss against one card's, |err| / |ref|: the same function, the
+# squared errors of each rank's rows summed apart (f32, then added), and
+# each card's GEMMs over 2 rows where one card's run over 4, whose bf16
+# roundings differ wherever cuBLAS picks another kernel for the shape
+# (9p's bound for a loss after bf16 roundings moved: TOKEN_LOSS_TOL).
+PAIR_LOSS_TOL = TOKEN_LOSS_TOL
+
+
+def one_device_mesh() -> MeshEnv:
+    return MeshEnv(dict.fromkeys(AXIS_NAMES, 1))
+
+
+def first_seed(trainer) -> int:
+    """The dropout seed of a fresh trainer's first step (``train_one``'s draw)."""
+    return int(torch.randint(0, 2**32, (), generator=torch.Generator().manual_seed(trainer.config.seed)))
+
+
+def recorded_fit(trainer, train: list, val: list) -> dict:
+    """``trainer.fit`` with each step's output and host ms (the card waited
+    for before and after), the gradients of step 1 before the clip (whole),
+    the launch counts set to 0 just before and read just after, and the
+    peak device memory."""
+    outs, step_ms, grads = [], [], {}
+    train_one, clip = trainer.train_one, trainer.optimizer.clip_
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_one(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        return out
+
+    def clip_after_snapshot():
+        if not grads:
+            grads.update({k: whole(p.grad).detach().clone() for k, p in trainer.trainable.items()
+                          if "lora_" in k})
+        return clip()
+
+    trainer.train_one, trainer.optimizer.clip_ = timed_step, clip_after_snapshot
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer.fit(train, val)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    trainer.train_one, trainer.optimizer.clip_ = train_one, clip
+    return {"loss": [float(o["brain_loss"]) for o in outs], "step_ms": step_ms, "grads": grads,
+            "launches": launches, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def grad_gap(got: dict, want: dict) -> dict:
+    """Adapter gradients against ``want``'s: as one vector by 2-norm, and
+    the largest per-tensor max|err| / max|ref|; bit-equal or not."""
+    names = sorted(want)
+    w = torch.cat([want[k].flatten() for k in names])
+    g = torch.cat([got[k].flatten() for k in names])
+    return {"norm": ((g - w).norm() / w.norm()).item(),
+            "tensor": max(rel_err(got[k], want[k]) for k in names),
+            "equal": all(torch.equal(got[k], want[k]) for k in names)}
+
+
+def unsharded_floor(trainer, batch: dict) -> dict:
+    """Step 1's adapter gradients (before the clip) of the unsharded trainer
+    once more, without an update: the gap two unsharded runs leave."""
+    model = trainer.model.train()
+    trainer.optimizer.zero_grad()
+    dev_batch = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
+    loss_fn(model, dev_batch, first_seed(trainer))[0].backward()
+    grads = {k: p.grad.detach().clone() for k, p in trainer.trainable.items() if "lora_" in k}
+    trainer.optimizer.zero_grad()
+    return grads
+
+
+def saved_state(path: Path, dev) -> dict:
+    """``last`` under ``path``, read onto the card (host RSS stays apart)."""
+    return torch.load(path / "last" / STATE_FILE, map_location=dev, weights_only=True)
+
+
+def state_equal(state: dict, saved: dict) -> bool:
+    """A trainer's state() against a saved one, tensor for tensor (on the
+    saved one's device)."""
+    a, b = state["optimizer"]["adamw"]["state"], saved["optimizer"]["adamw"]["state"]
+
+    def same(x, y):
+        return torch.equal(x.to(y.device), y)
+
+    return (state["step"] == saved["step"] and state["params"].keys() == saved["params"].keys()
+            and all(same(t, saved["params"][k]) for k, t in state["params"].items())
+            and state["optimizer"]["step"] == saved["optimizer"]["step"] and a.keys() == b.keys()
+            and all(same(a[i][k], b[i][k]) for i in a for k in a[i]))
+
+
+def rss_note() -> str:
+    release_host_memory(collect=True)
+    return f"host RSS now {host_rss_gb():.2f} GB, peak {peak_rss_gb():.2f} GB"
+
+
+def unsharded_buffers_check(model) -> dict:
+    """Hooks inside FSDP2 units (a decoder layer's q_proj, a CLIP layer's
+    q_proj): whether, while the unit runs, each of the module's parameters
+    is a plain, contiguous, 16-byte-aligned tensor (what the kernels and
+    their TMA descriptors take)."""
+    seen = {}
+
+    def hook(name):
+        def record(module, args):
+            seen[name] = all(not hasattr(p, "to_local") and p.is_contiguous() and p.data_ptr() % 16 == 0
+                             for p in module.parameters())
+        return record
+
+    handles = [model.model.layers[0].self_attn.q_proj.register_forward_pre_hook(hook("decoder layer 0 q_proj")),
+               model.vision_tower.layers[0].self_attn.q_proj.register_forward_pre_hook(hook("CLIP layer 0 q_proj"))]
+    return {"seen": seen, "handles": handles}
+
+
+def dropout_draw_ms(cfg: VLBConfig, dev) -> dict:
+    """One layer's 7 adapter-input masks of the 32-bit path at batch 3 (6
+    reading K = 4096, the down projection 14336), drawn for this rank's
+    rows alone and for rank 0 of a batch split over 2 ranks (the global
+    batch of 6 drawn, its rows kept), by CUDA events; a step draws each
+    twice a layer (remat), so x 64."""
+    lora, s = cfg.mistral.lora, cfg.geometry.feature_len
+    xs = [torch.randn(LORA_BATCH, s, k, device=dev, dtype=torch.bfloat16) for k in (4096, 14336)]
+
+    def layer(rows):
+        for i in range(7):
+            adapter_dropout(xs[i == 6], lora, 1000 + i, rows)
+
+    return {"local_ms": cuda_ms(lambda: layer(None), 5), "global2_ms": cuda_ms(lambda: layer((0, 2 * LORA_BATCH)), 5)}
+
+
+def sharded_lora(root: Path, dev) -> dict:
+    """(a)-(c) on this launch's mesh of one process."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    config_s = compose("vlb_friends_lora", root / "sharded", *SHARDED_OVERRIDES)
+    config_u = compose("vlb_friends_lora", root / "unsharded", *SHARDED_OVERRIDES)
+    train, val = frame_loaders(config_s, SHARDED_STEPS, 1, gen, dev)
+    print(f"  frames made: {rss_note()}")
+    unsharded, _, _ = build_trainer(config_u, device=dev, loaders=(train, val), mesh=one_device_mesh())
+    layers = unsharded.model.cfg.mistral.num_hidden_layers
+    floor_grads = unsharded_floor(unsharded, train[0])
+    u = recorded_fit(unsharded, train, val)
+    print(f"  unsharded fit: {rss_note()}")
+    del unsharded                              # each fit's peak device memory its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded, _, _ = build_trainer(config_s, device=dev, loaders=(train, val))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mesh = sharded.mesh
+    if mesh is None or not mesh.sharded:
+        raise AssertionError("the launch's mesh did not shard the trainer")
+    units = sum(isinstance(m, FSDPModule) for m in sharded.model.modules())
+    print(f"  sharded trainer built in {build_s:.2f} s: mesh {mesh.shape} over {mesh.n_devices} process(es), "
+          f"{units} FSDP2 units, {len(sharded.trainable)} trainable tensors")
+    buffers = unsharded_buffers_check(sharded.model)
+    s = recorded_fit(sharded, train, val)
+    for h in buffers["handles"]:
+        h.remove()
+    print(f"  inside the units, parameters plain, contiguous and 16-byte aligned: {buffers['seen']}")
+    if len(buffers["seen"]) != 2 or not all(buffers["seen"].values()):
+        raise AssertionError("an FSDP2 unit ran on parameters that are not plain, contiguous, aligned tensors")
+    want = expected_fit_launches(layers, SHARDED_STEPS, 1, lora=True)
+    floor, gap = grad_gap(u["grads"], floor_grads), grad_gap(s["grads"], u["grads"])
+    loss_equal = s["loss"][0] == u["loss"][0]
+    print(f"  (a) unsharded: brain_loss {u['loss']}, step ms {[round(x, 3) for x in u['step_ms']]}, peak device "
+          f"memory {u['peak_gb']:.2f} GB; sharded (FSDP2, NCCL): brain_loss {s['loss']}, step ms "
+          f"{[round(x, 3) for x in s['step_ms']]}, peak device memory {s['peak_gb']:.2f} GB, launches "
+          f"{ {k: v for k, v in s['launches'].items() if v} }")
+    for label, g in (("unsharded against unsharded (the floor)", floor), ("sharded against unsharded", gap)):
+        print(f"  {label}: step-1 adapter gradients bit-equal {g['equal']}, |err| / |ref| {g['norm']:.3e}, "
+              f"per tensor max|err| / max|ref| up to {g['tensor']:.3e}")
+    print(f"  first loss bit-equal: {loss_equal}")
+    if not loss_equal:
+        raise AssertionError(f"the sharded first loss {s['loss'][0]!r} is not the unsharded {u['loss'][0]!r}")
+    if not gap["equal"] and (gap["norm"] > TOKEN_FLOOR_RATIO * floor["norm"] or gap["norm"] > TOKEN_GRAD_TOL):
+        raise AssertionError("the sharded step-1 gradients differ from the unsharded ones more than two unsharded "
+                             "runs do")
+    if s["launches"] != want or u["launches"] != want:
+        raise AssertionError(f"the fits launched {s['launches']} and {u['launches']}, want {want}")
+    rows = read_csv(sharded.csv_logger.path)
+    if len([r for r in rows if r.get("val_corr_avg")]) != 1 or len([r for r in rows if r.get("train/brain_loss")]) != 2:
+        raise AssertionError("the sharded metrics.csv lacks its 2 train rows or its validation row")
+
+    print(f"  after (a): {rss_note()}")
+    u_saved = saved_state(root / "unsharded", dev)
+    sharded.ckpt.directory = root / "unsharded"
+    into_sharded = sharded.maybe_resume() and state_equal(sharded.state(), u_saved)
+    del sharded, u_saved
+    torch.cuda.empty_cache()
+    print(f"  after the sharded trainer's resume: {rss_note()}")
+    s_saved = saved_state(root / "sharded", dev)
+    unsharded, _, _ = build_trainer(config_u, device=dev, loaders=(train, val), mesh=one_device_mesh())
+    unsharded.ckpt.directory = root / "sharded"
+    restored = (unsharded.maybe_resume() and state_equal(unsharded.state(), s_saved), into_sharded)
+    print(f"  (b) the sharded last restored by the unsharded trainer bit-equal: {restored[0]}; the unsharded "
+          f"last restored by the sharded trainer bit-equal: {restored[1]}; {rss_note()}")
+    if not all(restored):
+        raise AssertionError("a last checkpoint did not restore bit for bit across the mesh")
+    record = {"unsharded_step_ms": u["step_ms"], "sharded_step_ms": s["step_ms"],
+              "unsharded_peak_gb": u["peak_gb"], "sharded_peak_gb": s["peak_gb"],
+              "grad_gap": gap["norm"], "grad_floor": floor["norm"], "launches": s["launches"]}
+    del unsharded, s_saved, floor_grads, u, s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    config_f = compose("vlb_friends_lora", root / "fused", *SHARDED_OVERRIDES, "model.lora_fused_dropout=true")
+    fused, _, _ = build_trainer(config_f, device=dev, loaders=(train, val))
+    fused.model.train()
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fused.train_one(train[0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = expected_train_launches(layers, 1)
+    print(f"  (c) one sharded step with model.lora_fused_dropout=true: brain_loss {float(out['brain_loss'])}, "
+          f"launches { {k: v for k, v in launches.items() if v} }; {rss_note()}")
+    if not out["finite"] or launches != want:
+        raise AssertionError(f"the fused-dropout sharded step launched {launches}, want {want}")
+    record["fused_launches"] = launches
+    draws = dropout_draw_ms(fused.model.cfg, dev)
+    print(f"  the 32-bit path's masks a step (x 64 one layer's 7): {64 * draws['local_ms']:.3f} ms for a batch of "
+          f"{LORA_BATCH} rows, {64 * draws['global2_ms']:.3f} ms as rank 0 of 2 (the global batch of "
+          f"{2 * LORA_BATCH} drawn, its rows kept)")
+    record.update(draw_local_ms=64 * draws["local_ms"], draw_global2_ms=64 * draws["global2_ms"])
+    del fused
+    torch.cuda.empty_cache()
+    return record
+
+
+def sharded_pair(root: Path, dev) -> dict:
+    """(d): 2 ranks at datamodule.batch_size=4 (2 rows each) against one
+    card at batch 4 on the same global batches and seeds; rank 0 runs the
+    one-card trainer after the sharded fit."""
+    rank = dist.get_rank()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    overrides = (*SHARDED_OVERRIDES, f"datamodule.batch_size={PAIR_BATCH}")
+    config = compose("vlb_friends_lora", root / "pair", *overrides)
+    train, val = frame_loaders(config, SHARDED_STEPS, 1, gen, dev)
+    sharded, _, _ = build_trainer(config, device=dev, loaders=(train, val))
+    print(f"  [rank {rank}] sharded trainer built on {dev}; {rss_note()}")
+    s = recorded_fit(sharded, train, val)
+    print(f"  [rank {rank}] sharded fit done: brain_loss {s['loss']}")
+    del sharded
+    torch.cuda.empty_cache()
+    record = {"pair_step_ms": s["step_ms"], "pair_peak_gb": s["peak_gb"]}
+    # Rank 0 compares while rank 1 waits at the barrier: a failure is
+    # recorded, not raised, so that no rank leaves a collective unmatched.
+    if rank == 0:
+        one, _, _ = build_trainer(compose("vlb_friends_lora", root / "one", *overrides), device=dev,
+                                  loaders=(train, val), mesh=one_device_mesh())
+        u = recorded_fit(one, train, val)
+        gap = grad_gap(s["grads"], u["grads"])
+        loss_gap = abs(s["loss"][0] - u["loss"][0]) / abs(u["loss"][0])
+        print(f"  (d) 2 ranks: brain_loss {s['loss']}, step ms {[round(x, 3) for x in s['step_ms']]}; one card at "
+              f"batch {PAIR_BATCH}: brain_loss {u['loss']}, step ms {[round(x, 3) for x in u['step_ms']]}; first "
+              f"loss |err| / |ref| {loss_gap:.3e} (tol {PAIR_LOSS_TOL}), step-1 adapter gradients |err| / |ref| "
+              f"{gap['norm']:.3e} (tol {TOKEN_GRAD_TOL})")
+        if loss_gap > PAIR_LOSS_TOL or gap["norm"] > TOKEN_GRAD_TOL:
+            record["error"] = "2 ranks' step differs from one card's on the same global batch"
+        record.update(one_card_step_ms=u["step_ms"], pair_grad_gap=gap["norm"], pair_loss_gap=loss_gap)
+    dist.barrier()
+    return record
+
+
+def sharded_child(out: str, pair: bool) -> int:
+    """``--sharded DIR`` (or ``--sharded-pair DIR``) under torchrun: this
+    rank's part of phase 9d; rank 0 prints one JSON line of its numbers,
+    every rank's peak host RSS among them, last."""
+    if not maybe_initialize_distributed("cuda", timeout_s=SHARDED_COLLECTIVE_S):
+        raise RuntimeError("--sharded runs under torch.distributed.run (torchrun)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    rank = dist.get_rank()
+    # Where each thread stands, dumped before the launcher is killed, should
+    # the rank stall outside a collective (inside one, the watchdog ends it).
+    stacks = open(root / f"stacks.rank{rank}.txt", "w")
+    faulthandler.dump_traceback_later(SHARDED_LIMIT_S - 60, file=stacks)
+    # On an error the process exits with its group as it stands: leaving a
+    # group while a peer waits in a collective can block.
+    record = sharded_pair(root, dev) if pair else sharded_lora(root, dev)
+    rss = [None] * dist.get_world_size()
+    dist.all_gather_object(rss, peak_rss_gb())
+    shutdown_distributed()
+    faulthandler.cancel_dump_traceback_later()
+    record["peak_rss_gb"] = max(rss)
+    record["rank_peak_rss_gb"] = rss
+    if rank == 0:
+        print(json.dumps(record))
+    if "error" in record:
+        raise AssertionError(record["error"])
+    if max(rss) > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"a rank's peak host RSS ({rss} GB) is over {HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+def run_sharded(out: str, nproc: int, flag: str, label: str, timeout: int) -> dict:
+    """``chip_smoke.py flag out`` on ``nproc`` processes through
+    ``torch.distributed.run --standalone``; the ranks' output is passed on
+    line by line as it comes. Returns rank 0's JSON record. Past
+    ``timeout`` the launcher and its ranks (a session of their own) are
+    killed; on a failure each rank's stacks, if it dumped them
+    (``sharded_child``), are printed."""
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), flag, out],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1", MULTI_CARD_OPT_IN: "1"})
+    lines: list[str] = []
+
+    def pass_on():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            print(f"  | {lines[-1]}", flush=True)
+
+    reader = threading.Thread(target=pass_on, daemon=True)
+    reader.start()
+    try:
+        proc.wait(timeout=timeout)
+        failure = None if proc.returncode == 0 else f"failed (exit {proc.returncode})"
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        failure = f"ran past {timeout} s and was killed"
+    reader.join(timeout=30)
+    # Rank 0's record: the last line of the ranks' merged output that holds one.
+    records = [line for line in lines if line.startswith("{") and "rank_peak_rss_gb" in line]
+    if failure is None and not records:
+        failure = "printed no record"
+    if failure is not None:
+        for stacks in sorted(Path(out).glob("stacks.rank*.txt")):
+            print(f"  {stacks.name}:\n{stacks.read_text()[-6000:]}")
+        raise RuntimeError(f"{label} {failure}")
+    record = json.loads(records[-1])
+    print(f"  {label}: peak host RSS of each rank {[round(x, 2) for x in record['rank_peak_rss_gb']]} GB "
+          f"(limit {HOST_RSS_LIMIT_GB})")
+    return record
+
+
 def run_child(flag: str, out: str, label: str, timeout: int) -> dict:
     """``chip_smoke.py flag out`` in a process of its own; its output is
     passed on. Returns its JSON record."""
@@ -2914,6 +3333,8 @@ def main() -> int:
         return after_train_child(sys.argv[2])
     if sys.argv[1:2] == ["--extract"]:
         return extract_child(sys.argv[2])
+    if sys.argv[1:2] in (["--sharded"], ["--sharded-pair"]):
+        return sharded_child(sys.argv[2], pair=sys.argv[1] == "--sharded-pair")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3023,6 +3444,24 @@ def main() -> int:
             print(f"  extraction {staged['extract_s_per_tr']:.4f} s a TR, the card's preprocessor "
                   f"{staged['preprocess_ms_per_frame']:.4f} ms a frame, build {staged['build_s_per_sample']:.4f} s "
                   f"a sample, LoRA steps from the stores ms {[round(x, 3) for x in staged['step_ms']]} ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="sharded-", dir=BUILD_ROOT)
+    try:
+        with phase("9d the trainer of record across processes (torchrun, FSDP2, NCCL), in processes of "
+                   "their own"):
+            sharded = run_sharded(out, 1, "--sharded", "the sharded phase on 1 process", SHARDED_LIMIT_S)
+            print(f"  step ms sharded {[round(x, 3) for x in sharded['sharded_step_ms']]} against unsharded "
+                  f"{[round(x, 3) for x in sharded['unsharded_step_ms']]}, peak device memory "
+                  f"{sharded['sharded_peak_gb']:.2f} GB against {sharded['unsharded_peak_gb']:.2f} GB ({card})")
+            n_cards = torch.cuda.device_count()
+            if n_cards >= 2:
+                pair = run_sharded(out, 2, "--sharded-pair", "(d) on 2 processes", SHARDED_LIMIT_S)
+                print(f"  (d) step ms on 2 cards {[round(x, 3) for x in pair['pair_step_ms']]} against one card "
+                      f"{[round(x, 3) for x in pair['one_card_step_ms']]} at batch {PAIR_BATCH} ({card})")
+            else:
+                print(f"  (d) skipped: the machine has {n_cards} card (2 ranks at batch {PAIR_BATCH} against one "
+                      "card need 2)")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     with phase("9v w8a8g8 serve from frames"):

@@ -8,6 +8,20 @@ Usage (the arguments of ``vlb-train``, plus ``--device``)::
 
 It runs on the card (``--device cuda``, the default) and raises when there
 is none; ``--device cpu`` runs on the CPU.
+
+One process trains on one card. To shard over a node's cards (the configs
+of record set ``mesh.fsdp: -1``), launch one process per card::
+
+    VLB_NCCL_MULTI_CARD=1 torchrun --nproc_per_node=4 -m phantom_vlb_tpu_torch.cli.train \
+        experiment=vlb_friends_lora subject=sub-01 datamodule.batch_size=4
+
+Each process joins the group (NCCL; gloo with ``--device cpu``) before the
+run is built, as ``phantom_vlb_tpu/cli/train.py:31-34`` initialises JAX's
+distributed runtime, and trains on its card (``LOCAL_RANK``). Over more
+than one card the launch is refused without ``VLB_NCCL_MULTI_CARD=1``: the
+path has run to its end on one card only, and its one launch over 2 cards
+stalled for a cause not found (``core/distributed.py``; ROADMAP Queue 1
+#4). A collective stalled past its time limit ends the ranks, naming it.
 """
 
 from __future__ import annotations
@@ -34,10 +48,16 @@ def main(argv=None) -> int:
     if not config.get("experiment") and "datamodule" not in config:
         parser.error("select an experiment, e.g. experiment=vlb_friends_lora")
 
+    from phantom_vlb_tpu_torch.core.distributed import maybe_initialize_distributed, process_info, shutdown_distributed
     from phantom_vlb_tpu_torch.train.builder import run_training
 
+    maybe_initialize_distributed(args.device)
+    rank = process_info()["process_index"]
+    # Left only after a run that ended well: leaving a group while a peer
+    # waits in a collective can block (the launcher ends the others).
     final = run_training(config, args.device)
-    if final:
+    shutdown_distributed()
+    if final and rank == 0:
         print(f"final val/brain_loss={final.get('val/brain_loss'):.6f} "
               f"val_corr_avg={final.get('val_corr_avg'):.6f}")
     return 0

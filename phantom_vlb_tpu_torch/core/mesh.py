@@ -1,11 +1,25 @@
-"""The sequence ring: the ranks that context-parallel attention splits S over.
+"""The mesh of processes that shard training, and the sequence ring.
 
-Counterpart of the ``sequence`` axis of ``phantom_vlb_tpu/core/mesh.py``
-(:30-34) and of ``set_sequence_mesh`` / ``get_sequence_mesh``
-(``phantom_vlb_tpu/ops/context_parallel.py:41-51``). Rank i holds the i-th
+Counterpart of ``phantom_vlb_tpu/core/mesh.py`` (:37-111): :class:`MeshConfig`
+with the same axes (``data``, ``fsdp``, ``tensor``, ``sequence``), the same
+``sizes`` and the same errors; :class:`MeshEnv` with ``n_devices``,
+``batch_divisor`` and this rank's rows of a global batch; :func:`build_mesh`
+on ``init_device_mesh``. A device of the mesh is a process (one card each,
+``core/distributed.py``), so ``-1`` absorbs the world size. The batch is
+split over (``data``, ``fsdp``), rank r taking the r-th block of rows
+(:meth:`MeshEnv.local_rows`, the one place that rule is written; the
+loader and the dropout masks read it);
+``data`` > 1 is HSDP, a 2-D mesh handed to ``fully_shard``
+(``parallel/sharding.py``). ``tensor`` or ``sequence`` > 1 across processes
+is not ported (ROADMAP Queue 1).
+
+The ``sequence`` axis within one process is :class:`SequenceRing`, the
+ranks that context-parallel attention splits S over (the counterpart of
+``set_sequence_mesh`` / ``get_sequence_mesh``,
+``phantom_vlb_tpu/ops/context_parallel.py:41-51``). Rank i holds the i-th
 contiguous chunk of the sequence and sends to rank i + 1 (mod n).
 
-A rank is a device, and entries may repeat: n ranks on one card are n
+A ring rank is a device, and entries may repeat: n ranks on one card are n
 chunks with their own landing slots and streams, moved between by real
 asynchronous copies, so the ring's kernels, transport and synchronisation
 run on one card as they would over n. Ranks on distinct cards copy into
@@ -14,11 +28,155 @@ each other's memory.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["SequenceRing", "set_sequence_ring", "get_sequence_ring"]
+from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN
+
+__all__ = ["MeshConfig", "MeshEnv", "build_mesh", "AXIS_NAMES", "BATCH_AXES",
+           "SequenceRing", "set_sequence_ring", "get_sequence_ring"]
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+TENSOR_AXIS = "tensor"
+SEQUENCE_AXIS = "sequence"
+AXIS_NAMES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS)
+# Axes over which a batch is split.
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
+_NOT_PORTED = ("the {axis} axis across processes is not ported (ROADMAP Queue 1: `tensor` > 1 and "
+               "the multi-process ring wait); set mesh.{axis}=1")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh shape; ``-1`` on one axis absorbs the remaining devices."""
+
+    data: int = 1
+    fsdp: int = -1
+    tensor: int = 1
+    sequence: int = 1
+
+    def sizes(self, n_devices: int) -> tuple[int, int, int, int]:
+        sizes = [self.data, self.fsdp, self.tensor, self.sequence]
+        n_auto = sum(1 for s in sizes if s == -1)
+        if n_auto > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        fixed = math.prod(s for s in sizes if s != -1)
+        if n_auto == 1:
+            if n_devices % fixed:
+                raise ValueError(f"{n_devices} devices not divisible by fixed axes {fixed}")
+            sizes = [n_devices // fixed if s == -1 else s for s in sizes]
+        elif fixed != n_devices:
+            raise ValueError(f"mesh {sizes} needs {fixed} devices, have {n_devices}")
+        return tuple(sizes)  # type: ignore[return-value]
+
+    @staticmethod
+    def from_config(node) -> "MeshConfig":
+        """The ``mesh`` node of a run's config (absent axes at their defaults)."""
+        node = node or {}
+        return MeshConfig(**{f.name: int(node.get(f.name, f.default)) for f in dataclasses.fields(MeshConfig)})
+
+
+@dataclasses.dataclass
+class MeshEnv:
+    """A built mesh: its axis sizes, this process's rank, and the
+    ``DeviceMesh`` over the batch axes that ``fully_shard`` takes (None in a
+    process outside any group, which shards nothing)."""
+
+    shape: dict[str, int]
+    rank: int = 0
+    device_mesh: object | None = None
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def batch_divisor(self) -> int:
+        return math.prod(self.shape.get(a, 1) for a in BATCH_AXES)
+
+    @property
+    def sharded(self) -> bool:
+        return self.device_mesh is not None
+
+    @property
+    def is_writer(self) -> bool:
+        """The process that writes files and logs (rank 0)."""
+        return self.rank == 0
+
+    def local_rows(self, global_rows: int) -> slice:
+        """This rank's rows of a global batch of ``global_rows``; raises when
+        the batch axes do not divide it (as ``jax.device_put`` does)."""
+        if global_rows % self.batch_divisor:
+            raise ValueError(f"a global batch of {global_rows} rows does not split over the mesh's "
+                             f"batch axes of {self.batch_divisor} devices")
+        n = global_rows // self.batch_divisor
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+    def rows(self, local_rows: int) -> tuple[int, int]:
+        """(first global row, global rows) of a batch whose rank-local part
+        has ``local_rows`` rows: what dropout masks are drawn over."""
+        global_rows = local_rows * self.batch_divisor
+        return self.local_rows(global_rows).start, global_rows
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks of the batch axes (itself alone
+        when unsharded); a new tensor."""
+        t = t.clone()
+        if self.sharded:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t
+
+    def shard_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ``fsdp`` axis alone: the parameters'
+        shards (their ``data`` replicas hold the same values)."""
+        t = t.clone()
+        if self.sharded:
+            group = (self.device_mesh.get_group(FSDP_AXIS) if self.shape[DATA_AXIS] > 1
+                     else self.device_mesh.get_group())
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t`` (same shape on all), in rank order."""
+        if not self.sharded:
+            return [t]
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t.contiguous())
+        return out
+
+
+def build_mesh(config: MeshConfig | None = None, device: str | torch.device = "cuda") -> MeshEnv:
+    """The mesh over this process group's ranks (one device each), or a
+    one-device mesh that shards nothing when the process is in no group.
+    ``device`` names the devices' type (``cuda`` or ``cpu``)."""
+    config = config or MeshConfig()
+    if not dist.is_initialized():
+        try:
+            return MeshEnv(dict(zip(AXIS_NAMES, config.sizes(1))))
+        except ValueError as e:
+            n = math.prod(max(s, 1) for s in dataclasses.astuple(config))
+            raise ValueError(f"{e}: a process is one device; launch one process per device, e.g. "
+                             f"torchrun --nproc_per_node={n} -m phantom_vlb_tpu_torch.cli.train ... (over "
+                             f"cards, with {MULTI_CARD_OPT_IN}=1: ROADMAP Queue 1 #4)") from e
+    world = dist.get_world_size()
+    shape = dict(zip(AXIS_NAMES, config.sizes(world)))
+    for axis in (TENSOR_AXIS, SEQUENCE_AXIS):
+        if shape[axis] > 1:
+            raise NotImplementedError(_NOT_PORTED.format(axis=axis))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = torch.device(device).type
+    if shape[DATA_AXIS] > 1:
+        mesh = init_device_mesh(device_type, (shape[DATA_AXIS], shape[FSDP_AXIS]),
+                                mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
+    else:
+        mesh = init_device_mesh(device_type, (shape[FSDP_AXIS],), mesh_dim_names=(FSDP_AXIS,))
+    return MeshEnv(shape, dist.get_rank(), mesh)
 
 
 class SequenceRing:

@@ -14,7 +14,12 @@ byte for byte:
   hold as tensors, such as cached video tokens, stays a tensor); a partial
   last batch repeats its last row and ``row_mask`` marks the real rows;
 - :class:`BatchLoader` shuffles with ``default_rng(seed + epoch)`` and
-  collates ahead of the step on a bounded pool of threads, in order.
+  collates ahead of the step on a bounded pool of threads, in order. Given
+  a mesh (``core/mesh.py``) it yields this rank's rows of each global
+  batch, the block ``MeshEnv.local_rows`` names: every rank draws the same
+  global order, the last global batch is padded to ``batch_size`` before
+  the split, and a rank reads only the samples of its own rows (a rank
+  whose rows are all padding reads the sample they repeat).
 
 The trainer moves each batch to the device (``train/loop.py``).
 """
@@ -34,7 +39,8 @@ import torch
 
 from phantom_vlb_tpu_torch.data.schemas import LazySample, is_path, lazyload_len, open_h5
 
-__all__ = ["LazyDataset", "Batch", "batch_fields", "BatchLoader", "expand_lazyload_glob", "split_train_val"]
+__all__ = ["LazyDataset", "Batch", "batch_fields", "BatchLoader", "RankRows", "expand_lazyload_glob",
+           "split_train_val"]
 
 
 def expand_lazyload_glob(pattern: str, seasons: list[str]) -> list[str]:
@@ -130,9 +136,11 @@ def batch_fields(batch) -> dict:
     return batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
 
 
-def _collate(samples: list[LazySample], batch_size: int) -> Batch:
-    n = len(samples)
-    pad = batch_size - n
+def _collate(samples: list[LazySample], batch_size: int, n_real: int | None = None) -> Batch:
+    """``samples`` stacked and padded to ``batch_size`` by repeating the
+    last; the first ``n_real`` (default: all) rows are marked real."""
+    pad = batch_size - len(samples)
+    n = len(samples) if n_real is None else n_real
 
     def stack(field: str, dtype=None):
         """The field's values stacked, cast to ``dtype`` (None: kept)."""
@@ -153,12 +161,15 @@ def _collate(samples: list[LazySample], batch_size: int) -> Batch:
         vis_weights=stack("vis_weights", np.float32),
         lang_weights=stack("lang_weights", np.float32),
         padvals=stack("padvals", np.int32),
-        row_mask=np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)]),
+        row_mask=np.concatenate([np.ones(n, np.float32), np.zeros(batch_size - n, np.float32)]),
     )
 
 
 class BatchLoader:
-    """Shuffling, prefetching batch iterator over a :class:`LazyDataset`."""
+    """Shuffling, prefetching batch iterator over a :class:`LazyDataset`;
+    with a ``mesh``, over this rank's rows (``mesh.local_rows``, which
+    raises unless the mesh's batch axes divide ``batch_size``) of each
+    global batch of ``batch_size``."""
 
     def __init__(
         self,
@@ -169,6 +180,7 @@ class BatchLoader:
         drop_last: bool = False,
         prefetch: int = 4,
         num_threads: int = 4,
+        mesh=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -177,6 +189,8 @@ class BatchLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_threads = max(1, num_threads)
+        self.rows = slice(0, batch_size) if mesh is None else mesh.local_rows(batch_size)
+        self.local_batch_size = self.rows.stop - self.rows.start
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -196,12 +210,24 @@ class BatchLoader:
             batches.append(rem)
         return batches
 
+    def _rank_rows(self, indices: np.ndarray) -> tuple[np.ndarray, int]:
+        """(samples to read, how many of them are real rows) for this rank's
+        block of a global batch padded to ``batch_size``."""
+        lo, hi = self.rows.start, min(self.rows.stop, len(indices))
+        if hi > lo:
+            return indices[lo:hi], hi - lo
+        return indices[-1:], 0                   # every row padding: the sample they repeat
+
+    def _read(self, indices: np.ndarray) -> Batch:
+        rows, n_real = self._rank_rows(indices)
+        return _collate([self.dataset[int(i)] for i in rows], self.local_batch_size, n_real)
+
     def __iter__(self) -> Iterator[Batch]:
         batches = self._batch_indices()
         self._epoch += 1
         if self.prefetch <= 0:
             for b in batches:
-                yield _collate([self.dataset[int(i)] for i in b], self.batch_size)
+                yield self._read(b)
             return
         yield from self._prefetch_iter(batches)
 
@@ -234,7 +260,7 @@ class BatchLoader:
                     return
                 bi, indices = item
                 try:
-                    batch = _collate([self.dataset[int(i)] for i in indices], self.batch_size)
+                    batch = self._read(indices)
                 except BaseException as e:                  # handed to the consumer
                     with results_lock:
                         errors.append(e)
@@ -261,3 +287,20 @@ class BatchLoader:
             stop.set()
             for _ in threads:
                 inflight.release()
+
+
+class RankRows:
+    """A loader of global batches seen by one rank of a mesh: each batch's
+    fields cut to the rows ``mesh.local_rows`` gives that rank."""
+
+    def __init__(self, loader, mesh):
+        self.loader, self.mesh = loader, mesh
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            fields = batch_fields(batch)
+            rows = self.mesh.local_rows(len(fields["row_mask"]))
+            yield {k: v[rows] for k, v in fields.items()}

@@ -3,13 +3,17 @@
 Counterpart of ``phantom_vlb_tpu/models/heads.py``. The head runs in f32
 whatever the backbone's dtype. Dropout is live in train mode, with its mask
 drawn from the seed the caller passes (the VLB model passes one derived
-from the step's seed), and the identity otherwise.
+from the step's seed), over the global batch when the input holds a rank's
+rows of it (``rows``, :func:`~phantom_vlb_tpu_torch.models.lora.keep_rows`),
+and the identity otherwise.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from phantom_vlb_tpu_torch.models.lora import keep_rows
 
 __all__ = ["BrainReadoutHead", "RidgeHead"]
 
@@ -39,7 +43,7 @@ class BrainReadoutHead(nn.Module):
         self.ridge = RidgeHead(hidden_size, num_target, l2_lambda)
 
     def forward(self, hidden_states: torch.Tensor, weight_mask: torch.Tensor,
-                seed: int | None = None):
+                seed: int | None = None, rows: tuple[int, int] | None = None):
         """(B, S, E) hidden states, (B, S) HRF weights -> (preds (B, P), l2)."""
         h = self.layer_norm1(hidden_states.float())
         pooled = torch.einsum("bse,bs->be", h, weight_mask.float())
@@ -47,6 +51,7 @@ class BrainReadoutHead(nn.Module):
         p = self.dropout_rate
         if self.training and p > 0 and seed is not None:
             gen = torch.Generator(device=pooled.device).manual_seed(seed)
-            keep = torch.rand(pooled.shape, generator=gen, device=pooled.device) < 1.0 - p
+            keep = keep_rows(pooled, rows, lambda shape: torch.rand(
+                shape, generator=gen, device=pooled.device) < 1.0 - p)
             pooled = torch.where(keep, pooled / (1.0 - p), 0.0)
         return self.ridge(pooled)

@@ -25,6 +25,10 @@ Dropout masks come only from an explicit per-site seed (an int the caller
 derives from the step, the layer and the site), never from a global RNG
 state: a per-layer ``torch.utils.checkpoint`` replays the layer in the
 backward, and a mask drawn from generator state would differ on the replay.
+``rows`` = (first global row, global rows) names the part of a batch split
+over ranks that the input holds: the generator paths draw the global
+batch's mask and keep these rows, the fused path hashes the global row
+indices, so each rank drops what the one-card step drops on its rows.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from phantom_vlb_tpu_torch.ops.lora_epilogue import lora_epilogue
 from phantom_vlb_tpu_torch.ops.lora_fused import dropout_threshold, fused_dropout_matmul
 from phantom_vlb_tpu_torch.ops.quant import BASE_QUANT_MODES, quant_matmul
 
-__all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "is_lora_path",
+__all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "keep_rows", "is_lora_path",
            "lora_merge", "site_seed"]
 
 _U32 = 0xFFFFFFFF
@@ -93,19 +97,33 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int) -> torch.Tensor:
+def keep_rows(x: torch.Tensor, rows: tuple[int, int] | None, draw) -> torch.Tensor:
+    """``draw(shape)`` over x's shape, or, when x holds rows [r0, r0 + B) of
+    a global batch of ``rows`` = (r0, n) rows, over the global shape with
+    x's rows kept: the draw of the one-card step, row for row."""
+    if rows is None:
+        return draw(x.shape)
+    r0, n = rows
+    return draw((n, *x.shape[1:]))[r0:r0 + x.shape[0]]
+
+
+def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int,
+                    rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Adapter-input dropout from the site ``seed`` (training path).
 
     ``dropout_bits=32``: keep ~ Bernoulli(1 - p), survivors / (1 - p);
     ``dropout_bits=8``: u8 bytes, keep iff byte >= round(256 p), survivors /
     (1 - round(256 p)/256). The scale is in x's dtype, as the reference's.
+    ``rows``: see :func:`keep_rows`.
     """
     gen = _generator(seed, x.device)
     if cfg.dropout_bits >= 32:
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < cfg.dropout_keep_prob
+        keep = keep_rows(x, rows, lambda shape: torch.rand(
+            shape, generator=gen, device=x.device) < cfg.dropout_keep_prob)
     elif cfg.dropout_bits == 8:
-        bits = torch.randint(0, 256, x.shape, generator=gen, device=x.device, dtype=torch.uint8)
-        keep = bits >= dropout_threshold(cfg.dropout)[0]
+        thr = dropout_threshold(cfg.dropout)[0]
+        keep = keep_rows(x, rows, lambda shape: torch.randint(
+            0, 256, shape, generator=gen, device=x.device, dtype=torch.uint8) >= thr)
     else:
         raise ValueError(f"dropout_bits must be 8 or 32, not {cfg.dropout_bits}")
     return torch.where(keep, x / _in_dtype(cfg.dropout_keep_prob, x.dtype), 0.0)
@@ -154,20 +172,23 @@ class LoRALinear(_QuantBase):
             nn.init.uniform_(self.lora_a, -bound, bound)
 
     def forward(self, x: torch.Tensor, seed: int | None = None,
-                adapter_x: torch.Tensor | None = None) -> torch.Tensor:
+                adapter_x: torch.Tensor | None = None, rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``seed`` is the site's dropout seed (None: no dropout);
-        ``adapter_x`` a pre-dropped adapter input (shared dropout)."""
+        ``adapter_x`` a pre-dropped adapter input (shared dropout); ``rows``
+        the global batch rows x holds (:func:`keep_rows`)."""
         lora, dtype = self.lora, self.dtype
         y = F.linear(x, self.weight) if self.base_quant is None else self._base(x, dtype)
         a = self.lora_a.to(dtype)
         live = self.training and lora.dropout > 0 and seed is not None
         if adapter_x is None and live and lora.fused_dropout:
             x2d = x.reshape(-1, x.shape[-1])
-            z = fused_dropout_matmul(x2d, a, seed, lora.dropout).reshape(*x.shape[:-1], lora.rank)
+            row0 = 0 if rows is None else rows[0] * (x2d.shape[0] // x.shape[0])
+            z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0).reshape(
+                *x.shape[:-1], lora.rank)
         else:
             z = x if adapter_x is None else adapter_x
             if adapter_x is None and live:
-                z = adapter_dropout(z, lora, seed)
+                z = adapter_dropout(z, lora, seed, rows)
             z = z @ a
         if lora.fused_epilogue:
             return lora_epilogue(y, z, self.lora_b.to(dtype), lora.scaling,

@@ -153,19 +153,19 @@ def _proj(cfg: MistralConfig, in_features: int, out_features: int) -> nn.Module:
     return nn.Linear(in_features, out_features, bias=False)
 
 
-def _call_proj(module: nn.Module, name: str, x, seed, adapter_x=None):
+def _call_proj(module: nn.Module, name: str, x, seed, adapter_x=None, rows=None):
     """A projection, with its site's seed when it carries adapters."""
     if isinstance(module, LoRALinear):
-        return module(x, None if seed is None else site_seed(seed, SITES[name]), adapter_x)
+        return module(x, None if seed is None else site_seed(seed, SITES[name]), adapter_x, rows)
     return module(x)
 
 
-def _shared_adapter_input(cfg: MistralConfig, training: bool, x, seed, site: str):
+def _shared_adapter_input(cfg: MistralConfig, training: bool, x, seed, site: str, rows=None):
     """One dropout mask for every adapter reading ``x`` (shared_dropout)."""
     lora = cfg.lora
     if lora is None or not lora.shared_dropout or not lora.dropout or not training or seed is None:
         return None
-    return adapter_dropout(x, lora, site_seed(seed, SITES[site]))
+    return adapter_dropout(x, lora, site_seed(seed, SITES[site]), rows)
 
 
 class MistralAttention(nn.Module):
@@ -178,19 +178,19 @@ class MistralAttention(nn.Module):
         self.v_proj = _proj(cfg, cfg.hidden_size, hkv * d)
         self.o_proj = _proj(cfg, h * d, cfg.hidden_size)
 
-    def forward(self, x, rope, kv_mask=None, seed=None):
+    def forward(self, x, rope, kv_mask=None, seed=None, rows=None):
         cfg = self.cfg
         h, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-        xa = _shared_adapter_input(cfg, self.training, x, seed, "attn_input")
-        q = apply_rope_packed(_call_proj(self.q_proj, "q_proj", x, seed, xa), rope, h)
-        k = apply_rope_packed(_call_proj(self.k_proj, "k_proj", x, seed, xa), rope, hkv)
-        v = _call_proj(self.v_proj, "v_proj", x, seed, xa)
+        xa = _shared_adapter_input(cfg, self.training, x, seed, "attn_input", rows)
+        q = apply_rope_packed(_call_proj(self.q_proj, "q_proj", x, seed, xa, rows), rope, h)
+        k = apply_rope_packed(_call_proj(self.k_proj, "k_proj", x, seed, xa, rows), rope, hkv)
+        v = _call_proj(self.v_proj, "v_proj", x, seed, xa, rows)
         if cfg.attention_impl == "auto":
             out, _ = attention_packed(q, k, v, h, hkv, kv_mask=kv_mask)
         else:
             ring = RING_ATTENTION[cfg.attention_impl]
             out = ring(q, k, v, h, hkv, get_sequence_ring(), kv_mask=kv_mask)
-        return _call_proj(self.o_proj, "o_proj", out, seed)
+        return _call_proj(self.o_proj, "o_proj", out, seed, rows=rows)
 
 
 class MistralMLP(nn.Module):
@@ -201,11 +201,11 @@ class MistralMLP(nn.Module):
         self.up_proj = _proj(cfg, cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = _proj(cfg, cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x, seed=None):
-        xa = _shared_adapter_input(self.cfg, self.training, x, seed, "mlp_input")
-        gate = _call_proj(self.gate_proj, "gate_proj", x, seed, xa)
-        up = _call_proj(self.up_proj, "up_proj", x, seed, xa)
-        return _call_proj(self.down_proj, "down_proj", F.silu(gate) * up, seed)
+    def forward(self, x, seed=None, rows=None):
+        xa = _shared_adapter_input(self.cfg, self.training, x, seed, "mlp_input", rows)
+        gate = _call_proj(self.gate_proj, "gate_proj", x, seed, xa, rows)
+        up = _call_proj(self.up_proj, "up_proj", x, seed, xa, rows)
+        return _call_proj(self.down_proj, "down_proj", F.silu(gate) * up, seed, rows=rows)
 
 
 class MistralDecoderLayer(nn.Module):
@@ -216,10 +216,11 @@ class MistralDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = MistralMLP(cfg)
 
-    def forward(self, x, rope, kv_mask=None, seed=None):
-        """``seed``: this layer's dropout seed (None: no adapter dropout)."""
-        h = x + self.self_attn(self.input_layernorm(x), rope, kv_mask, seed)
-        return h + self.mlp(self.post_attention_layernorm(h), seed)
+    def forward(self, x, rope, kv_mask=None, seed=None, rows=None):
+        """``seed``: this layer's dropout seed (None: no adapter dropout);
+        ``rows``: the global batch rows x holds (``models/lora.py``)."""
+        h = x + self.self_attn(self.input_layernorm(x), rope, kv_mask, seed, rows)
+        return h + self.mlp(self.post_attention_layernorm(h), seed, rows)
 
 
 class MistralModel(nn.Module):
@@ -238,11 +239,12 @@ class MistralModel(nn.Module):
         return self.embed_tokens(input_ids)
 
     def forward(self, inputs_embeds: torch.Tensor, kv_mask: torch.Tensor | None = None,
-                seed: int | None = None):
+                seed: int | None = None, rows: tuple[int, int] | None = None):
         """(B, S, E) embeddings + (B, S) kv mask -> post-final-norm (B, S, E).
 
         ``seed``: the step's dropout seed; layer i draws from
         ``site_seed(seed, i)``. None (or eval mode) means no adapter dropout.
+        ``rows``: the global batch rows the input holds (``models/lora.py``).
         """
         cfg = self.cfg
         s = inputs_embeds.shape[1]
@@ -254,9 +256,9 @@ class MistralModel(nn.Module):
         for i, layer in enumerate(self.layers):
             layer_seed = None if seed is None else site_seed(seed, i)
             if remat:
-                x = checkpoint(layer, x, rope, kv_mask, layer_seed, use_reentrant=False)
+                x = checkpoint(layer, x, rope, kv_mask, layer_seed, rows, use_reentrant=False)
             else:
-                x = layer(x, rope, kv_mask, layer_seed)
+                x = layer(x, rope, kv_mask, layer_seed, rows)
         return self.norm(x)
 
 

@@ -215,20 +215,22 @@ class VideoLLaMA2VLB(nn.Module):
             g = cfg.clip.grid
             return self.mm_projector(feats.reshape(b, t, g, g, cfg.clip.hidden_size))
 
-    def backbone(self, language: torch.Tensor, video: torch.Tensor, seed: int | None = None):
+    def backbone(self, language: torch.Tensor, video: torch.Tensor, seed: int | None = None,
+                 rows: tuple[int, int] | None = None):
         """Returns (post-norm hidden (B, S, E), valid mask (B, S)).
 
         ``video`` is raw frames (B, T, 3, H, W) or cached video tokens
         (B, num_vis_tokens, E). The embeddings and video tokens enter cut
         from the graph; with ``freeze_backbone`` no gradient is recorded
-        below the head at all.
+        below the head at all. ``rows``: the global batch rows this batch
+        holds (dropout masks, ``models/lora.py``).
         """
         if self.cfg.freeze_backbone:
             with torch.no_grad():
-                return self._backbone(language, video, seed)
-        return self._backbone(language, video, seed)
+                return self._backbone(language, video, seed, rows)
+        return self._backbone(language, video, seed, rows)
 
-    def _backbone(self, language, video, seed):
+    def _backbone(self, language, video, seed, rows):
         cfg = self.cfg.mistral
         if video.dim() == 5:
             video = self.encode_video(video)
@@ -239,17 +241,21 @@ class VideoLLaMA2VLB(nn.Module):
         safe_ids = torch.where(ids == VIDEO_TOKEN_ID, 0, ids).clamp(0, cfg.vocab_size - 1)
         text_embeds = self.model.embed(safe_ids).detach()
         embeds, valid = splice_multimodal(text_embeds, ids, video.detach().to(cfg.dtype))
-        return self.model(embeds, kv_mask=valid, seed=seed), valid
+        return self.model(embeds, kv_mask=valid, seed=seed, rows=rows), valid
 
-    def forward(self, language, video, padvals, vis_weights, lang_weights, seed: int | None = None):
+    def forward(self, language, video, padvals, vis_weights, lang_weights, seed: int | None = None,
+                rows: tuple[int, int] | None = None):
         """-> (predictions (B, num_target) f32, l2 penalty).
 
         ``seed``: the step's dropout seed, which train mode needs; the
-        backbone and the head each derive their own from it.
+        backbone and the head each derive their own from it. ``rows`` =
+        (first global row, global rows) when the batch is a rank's part of
+        a global batch: each dropout mask is then the global batch's, on
+        these rows.
         """
         if self.training and seed is None:
             raise ValueError("train mode draws its dropout masks from a seed: pass the step's seed")
         layers = self.cfg.mistral.num_hidden_layers
-        hidden, _ = self.backbone(language, video, seed)
+        hidden, _ = self.backbone(language, video, seed, rows)
         weight_mask = build_weight_mask(padvals, vis_weights, lang_weights, self.cfg.geometry)
-        return self.head(hidden, weight_mask, None if seed is None else site_seed(seed, layers))
+        return self.head(hidden, weight_mask, None if seed is None else site_seed(seed, layers), rows)

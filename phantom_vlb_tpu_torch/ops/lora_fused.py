@@ -15,9 +15,11 @@ plain product. Dtypes follow the reference: the forward and dA scale x by
 f32 ``dmid @ A^T`` by the f32 ``1/keep``.
 
 The bytes come from ``bits`` (an (M, K) uint8 tensor, the test mode) or from
-a counter-based hash of (seed, row, col >> 2) alone: one 32-bit word masks 4
-neighbouring elements, byte ``col & 3`` each, as the reference's
-``_keep_planes`` spreads one word over 4 elements. A GPU cannot reproduce
+a counter-based hash of (seed, row0 + row, col >> 2) alone: one 32-bit word
+masks 4 neighbouring elements, byte ``col & 3`` each, as the reference's
+``_keep_planes`` spreads one word over 4 elements. ``row0`` is the global
+index of x's first row, so a rank that holds rows [row0, row0 + M) of a
+batch split over ranks draws those rows of the one-card mask. A GPU cannot reproduce
 the TPU's hardware stream, so the hash is this port's own; because it does
 not depend on tile shapes, forward, dx and dA see the same mask by
 construction, and :func:`hash_bytes` (torch int64, masked to 32 bits)
@@ -50,18 +52,18 @@ _U32 = 0xFFFFFFFF
 _SRC = "lora_dropout.cu"
 LORA_FWD = CudaKernel(
     _SRC, "lora_fwd_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_float, ctypes.c_void_p],
 )
 LORA_DX = CudaKernel(
     _SRC, "lora_dx_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_float, ctypes.c_void_p],
 )
 LORA_DA = CudaKernel(
     _SRC, "lora_da_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_float,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_float, ctypes.c_void_p],
 )
 
 
@@ -87,13 +89,14 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def hash_bytes(seed: int, m: int, k: int, device=None) -> torch.Tensor:
-    """(m, k) uint8 mask bytes of ``seed``, the kernels' exact stream:
-    word(row, w) = fmix32(fmix32(seed ^ row * 0x9E3779B1) ^ w) for w = col >> 2,
-    byte ``col & 3`` of it for element (row, col)."""
+def hash_bytes(seed: int, m: int, k: int, device=None, row0: int = 0) -> torch.Tensor:
+    """(m, k) uint8 mask bytes of ``seed`` for global rows [row0, row0 + m),
+    the kernels' exact stream: word(row, w) = fmix32(fmix32(seed ^ row *
+    0x9E3779B1) ^ w) for w = col >> 2, byte ``col & 3`` of it for element
+    (row, col)."""
     if k % 4:
         raise ValueError(f"k = {k} is not a multiple of 4")
-    rows = torch.arange(m, dtype=torch.int64, device=device)
+    rows = torch.arange(row0, row0 + m, dtype=torch.int64, device=device)
     words = torch.arange(k // 4, dtype=torch.int64, device=device)
     row_key = _fmix32((seed & _U32) ^ _mul32(rows, _GOLDEN))
     h = _fmix32(row_key[:, None] ^ words[None, :])
@@ -101,8 +104,8 @@ def hash_bytes(seed: int, m: int, k: int, device=None) -> torch.Tensor:
     return ((h[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(m, k)
 
 
-def _keep_mask(x, seed, thr, bits):
-    b = hash_bytes(seed, x.shape[0], x.shape[1], x.device) if bits is None else bits
+def _keep_mask(x, seed, thr, bits, row0):
+    b = hash_bytes(seed, x.shape[0], x.shape[1], x.device, row0) if bits is None else bits
     return b >= thr
 
 
@@ -120,15 +123,15 @@ def _dropped(x, keep, thr):
     return torch.where(keep, x * _scale_in_dtype(thr, x.dtype), 0.0)
 
 
-def fused_dropout_matmul_plain(x, a, seed: int, thr: int, bits=None) -> torch.Tensor:
+def fused_dropout_matmul_plain(x, a, seed: int, thr: int, bits=None, row0: int = 0) -> torch.Tensor:
     """Plain forward: (M, r) in x's dtype, f32 sums."""
-    z = _dropped(x, _keep_mask(x, seed, thr, bits), thr)
+    z = _dropped(x, _keep_mask(x, seed, thr, bits, row0), thr)
     return (z.float() @ a.to(x.dtype).float()).to(x.dtype)
 
 
-def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None):
+def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: int = 0):
     """Plain backward: (dx in x's dtype, dA f32)."""
-    keep = _keep_mask(x, seed, thr, bits)
+    keep = _keep_mask(x, seed, thr, bits, row0)
     dmid = dmid.to(x.dtype).float()
     g = dmid @ a.to(x.dtype).float().T
     dx = torch.where(keep, g * _inv_keep(thr), 0.0).to(x.dtype)
@@ -154,7 +157,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_cuda(x, a, seed, thr, bits):
+def _fwd_cuda(x, a, seed, thr, bits, row0):
     m, k = x.shape
     r = a.shape[1]
     m_blocks, chunks = math.ceil(m / CHUNK), k // CHUNK
@@ -162,23 +165,23 @@ def _fwd_cuda(x, a, seed, thr, bits):
     part = torch.empty((split, m, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LORA_FWD.launch(x.data_ptr(), a.data_ptr(), _ptr(bits), part.data_ptr(),
-                        m, k, r, split, seed & _U32, thr, _scale_in_dtype(thr, x.dtype),
+                        m, k, r, split, seed & _U32, row0, thr, _scale_in_dtype(thr, x.dtype),
                         torch.cuda.current_stream().cuda_stream)
     return part.sum(0).to(x.dtype)
 
 
-def _dx_cuda(x, a, dmid, seed, thr, bits):
+def _dx_cuda(x, a, dmid, seed, thr, bits, row0):
     m, k = x.shape
     dmid = dmid.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         LORA_DX.launch(dmid.data_ptr(), a.data_ptr(), _ptr(bits), dx.data_ptr(),
-                       m, k, a.shape[1], seed & _U32, thr, _inv_keep(thr),
+                       m, k, a.shape[1], seed & _U32, row0, thr, _inv_keep(thr),
                        torch.cuda.current_stream().cuda_stream)
     return dx
 
 
-def _da_cuda(x, a, dmid, seed, thr, bits):
+def _da_cuda(x, a, dmid, seed, thr, bits, row0):
     m, k = x.shape
     r = a.shape[1]
     dmid = dmid.to(x.dtype).contiguous()
@@ -187,51 +190,53 @@ def _da_cuda(x, a, dmid, seed, thr, bits):
     part = torch.empty((split, k, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LORA_DA.launch(x.data_ptr(), dmid.data_ptr(), _ptr(bits), part.data_ptr(),
-                       m, k, r, split, seed & _U32, thr, _scale_in_dtype(thr, x.dtype),
+                       m, k, r, split, seed & _U32, row0, thr, _scale_in_dtype(thr, x.dtype),
                        torch.cuda.current_stream().cuda_stream)
     return part.sum(0)
 
 
-def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=True, need_da=True):
+def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=True, need_da=True,
+                      row0: int = 0):
     """(dx, dA f32) of :func:`fused_dropout_matmul` at ``p > 0``: the dx and
     dA kernels on CUDA tensors, :func:`fused_dropout_bwd_plain` on CPU
     tensors. A gradient not asked for comes back as None, unlaunched."""
     thr, _ = dropout_threshold(p)
     if x.device.type == "cpu":
-        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits)
+        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits, row0)
         return (dx if need_dx else None), (da if need_da else None)
     _check_cuda(x, a, bits)
     if dmid.shape != (x.shape[0], a.shape[1]):
         raise ValueError(f"dmid {tuple(dmid.shape)} != ({x.shape[0]}, {a.shape[1]})")
-    return (_dx_cuda(x, a, dmid, seed, thr, bits) if need_dx else None,
-            _da_cuda(x, a, dmid, seed, thr, bits) if need_da else None)
+    return (_dx_cuda(x, a, dmid, seed, thr, bits, row0) if need_dx else None,
+            _da_cuda(x, a, dmid, seed, thr, bits, row0) if need_da else None)
 
 
 class _FusedDropoutMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, a, seed, p, bits):
+    def forward(ctx, x, a, seed, p, bits, row0):
         thr, _ = dropout_threshold(p)
         ctx.save_for_backward(x, a, bits)
-        ctx.seed, ctx.p = seed, p
+        ctx.seed, ctx.p, ctx.row0 = seed, p, row0
         if x.device.type == "cpu":
-            return fused_dropout_matmul_plain(x, a, seed, thr, bits)
-        return _fwd_cuda(x, a, seed, thr, bits)
+            return fused_dropout_matmul_plain(x, a, seed, thr, bits, row0)
+        return _fwd_cuda(x, a, seed, thr, bits, row0)
 
     @staticmethod
     def backward(ctx, dmid):
         x, a, bits = ctx.saved_tensors
         dx, da = fused_dropout_bwd(x, a, dmid, ctx.seed, ctx.p, bits=bits,
                                    need_dx=ctx.needs_input_grad[0],
-                                   need_da=ctx.needs_input_grad[1])
-        return dx, (None if da is None else da.to(a.dtype)), None, None, None
+                                   need_da=ctx.needs_input_grad[1], row0=ctx.row0)
+        return dx, (None if da is None else da.to(a.dtype)), None, None, None, None
 
 
 def fused_dropout_matmul(x: torch.Tensor, a: torch.Tensor, seed: int, p: float, *,
-                         bits: torch.Tensor | None = None) -> torch.Tensor:
+                         bits: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     """``dropout(x; p) @ a`` with the mask fused into the contraction.
 
     x (M, K), a (K, r); ``seed`` an integer (its low 32 bits are used),
-    ignored when ``bits`` (M, K) uint8 is given. Returns (M, r) in x's
+    ignored when ``bits`` (M, K) uint8 is given; ``row0`` the global index
+    of x's first row in the hash mask. Returns (M, r) in x's
     dtype, differentiable in x and a. On CUDA tensors: bf16, K a multiple of
     64, r in (16, 32, 64, 128), contiguous; anything else raises.
     """
@@ -244,4 +249,4 @@ def fused_dropout_matmul(x: torch.Tensor, a: torch.Tensor, seed: int, p: float, 
         _check_cuda(x, a, bits)
     elif x.device.type != "cpu":
         raise ValueError(f"no fused dropout kernel for device {x.device}")
-    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits)
+    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits, int(row0))

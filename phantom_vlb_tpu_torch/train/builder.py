@@ -8,13 +8,20 @@ console and optional Comet loggers and the hyperparameters logged twice
 (:301-399), the feature-cache path of the frozen baseline
 (``run_cached_training``, :402-482) and ``run_training`` (:485).
 
-Branches of the reference that are not ported raise by name:
-``datamodule.loader=grain``, an Orbax directory as
-``model.checkpoint_path``, and a ``mesh`` that spans more than one device.
-:func:`build_trainer` and :func:`build_cached_trainer` also take ready
-``loaders`` (any sized iterables of batches), in which case they build
-none; the vision-token cache needs the native loaders (it swaps their
-datasets).
+The ``mesh`` node spans the processes of a ``torchrun`` launch
+(``core/distributed.py``, one card each; ``-1`` absorbs the world size):
+under it the model is built on each rank's card from the same seed and
+sharded by FSDP2 (``parallel/sharding.py``), and each rank's loaders yield
+its rows of each global batch, which the batch axes must divide. A single
+process trains on one card, whatever the machine holds. Branches of the
+reference that are not ported raise by name: ``datamodule.loader=grain``,
+an Orbax directory as ``model.checkpoint_path``, and under a mesh of more
+than one process ``model.cache_features``, ``datamodule.vision_token_cache``
+(and, in ``parallel/sharding.py``, ``base_quant`` and the ring
+``attention_impl``s). :func:`build_trainer` and :func:`build_cached_trainer`
+also take ready ``loaders`` (any sized iterables of global batches; under a
+mesh each rank keeps its rows), in which case they build none; the
+vision-token cache needs the native loaders (it swaps their datasets).
 """
 
 from __future__ import annotations
@@ -29,7 +36,15 @@ import torch
 
 from phantom_vlb_tpu_torch.core.config import Config, to_dict
 from phantom_vlb_tpu_torch.core.device import resolve_device
-from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset, expand_lazyload_glob, split_train_val
+from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN
+from phantom_vlb_tpu_torch.core.mesh import MeshConfig, MeshEnv, build_mesh
+from phantom_vlb_tpu_torch.data.loader import (
+    BatchLoader,
+    LazyDataset,
+    RankRows,
+    expand_lazyload_glob,
+    split_train_val,
+)
 from phantom_vlb_tpu_torch.data.token_cache import attach_token_cache
 from phantom_vlb_tpu_torch.models.convert import HF_STC_PREFIX, SafetensorsDir, hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
@@ -49,8 +64,9 @@ __all__ = ["build_loaders", "split_loaders", "build_model_config", "load_pretrai
            "build_trainer", "build_cached_trainer", "run_cached_training", "run_training"]
 
 
-def build_loaders(dm: Config) -> tuple[BatchLoader, BatchLoader, dict]:
-    """The train and val loaders over the lazy-load files, and their file names."""
+def build_loaders(dm: Config, mesh: MeshEnv | None = None) -> tuple[BatchLoader, BatchLoader, dict]:
+    """The train and val loaders over the lazy-load files (under a mesh,
+    this rank's rows of each global batch), and the files' names."""
     if str(dm.get("loader", "native")) == "grain":
         raise NotImplementedError("datamodule.loader=grain is not ported; use the native loader")
     files = expand_lazyload_glob(dm.lazyload_path, list(dm.seasons))
@@ -60,14 +76,16 @@ def build_loaders(dm: Config) -> tuple[BatchLoader, BatchLoader, dict]:
     train_files, val_files = split_train_val(files, int(dm.random_state))
     dset_names = {"val_set": [f.rsplit("/", 1)[-1] for f in val_files],
                   "train_set": [f.rsplit("/", 1)[-1] for f in train_files]}
-    return (*split_loaders(dm, train_files, val_files), dset_names)
+    return (*split_loaders(dm, train_files, val_files, mesh), dset_names)
 
 
-def split_loaders(dm: Config, train_sources: list, val_sources: list) -> tuple[BatchLoader, BatchLoader]:
+def split_loaders(dm: Config, train_sources: list, val_sources: list,
+                  mesh: MeshEnv | None = None) -> tuple[BatchLoader, BatchLoader]:
     """The train and val loaders of the datamodule config over lazy-load
     files or open stores (e.g. the in-memory ones the builder writes)."""
     common = dict(batch_size=int(dm.batch_size), seed=int(dm.random_state),
-                  prefetch=int(dm.get("prefetch", 4)), num_threads=int(dm.get("num_workers", 4)))
+                  prefetch=int(dm.get("prefetch", 4)), num_threads=int(dm.get("num_workers", 4)),
+                  mesh=mesh)
     train_loader = BatchLoader(LazyDataset(train_sources), shuffle=True, **common)
     val_loader = BatchLoader(LazyDataset(val_sources), shuffle=bool(dm.get("shuffle_val_data", False)),
                              **common)
@@ -203,14 +221,26 @@ def _check_shape(key: str, base: torch.Tensor, w: torch.Tensor) -> None:
                          f"initialized parameter shape {tuple(base.shape)} of {key}")
 
 
-def _mesh_devices(mesh_cfg: Mapping, n_devices: int) -> int:
-    """How many devices ``mesh`` spans; ``-1`` on one axis takes the rest."""
-    sizes = [int(mesh_cfg.get(axis, default))
-             for axis, default in (("data", 1), ("fsdp", -1), ("tensor", 1), ("sequence", 1))]
-    if sum(s == -1 for s in sizes) > 1:
-        raise ValueError("at most one mesh axis may be -1")
-    fixed = int(np.prod([s for s in sizes if s != -1]))
-    return fixed * (max(1, n_devices // fixed) if -1 in sizes else 1)
+def build_run_mesh(config: Config, device: torch.device) -> MeshEnv:
+    """The ``mesh`` node over this launch's processes; says so when a
+    single process leaves cards idle, and raises for what a mesh of more
+    than one process does not run (ROADMAP Queue 1)."""
+    mesh = build_mesh(MeshConfig.from_config(config.get("mesh")), device)
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if not mesh.sharded and n_cards > 1:
+        print(f"[build] one process trains on {device}; the node's other {n_cards - 1} cards stay idle. "
+              f"Launch one process per card to shard over them: {MULTI_CARD_OPT_IN}=1 torchrun "
+              f"--nproc_per_node={n_cards} -m phantom_vlb_tpu_torch.cli.train ... (not yet run to its end "
+              "on more than one card: ROADMAP Queue 1 #4)")
+    if mesh.n_devices > 1:
+        for flag, on in (("model.cache_features", config.get("model", {}).get("cache_features", False)),
+                         ("datamodule.vision_token_cache",
+                          config.get("datamodule", {}).get("vision_token_cache"))):
+            if on:
+                raise NotImplementedError(f"{flag} under a mesh of {mesh.n_devices} processes is not ported "
+                                          "(ROADMAP Queue 1); run it in one process")
+    mesh.local_rows(int(config.datamodule.batch_size))          # raises unless the batch axes divide it
+    return mesh
 
 
 def build_model(m: Config, seed: int, device: torch.device) -> VideoLLaMA2VLB:
@@ -251,32 +281,34 @@ def _loop_configs(config: Config, num_target: int, seed: int) -> tuple[OptimConf
     return optim_cfg, loop_cfg
 
 
-def _loaders(dm: Config, loaders) -> tuple[object, object, dict]:
+def _loaders(dm: Config, loaders, mesh: MeshEnv | None = None) -> tuple[object, object, dict]:
     if loaders is None:
-        return build_loaders(dm)
+        return build_loaders(dm, mesh)
+    if mesh is not None and mesh.sharded:
+        loaders = [RankRows(loader, mesh) for loader in loaders]
     return (*loaders, {"val_set": [], "train_set": []})
 
 
-def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None):
+def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None,
+                  mesh: MeshEnv | None = None):
     """Full assembly on ``device`` -> (trainer, train_loader, val_loader).
 
-    ``loaders``: an optional (train, val) pair of sized iterables of batches
-    (e.g. lists of dicts of tensors); without it the native loaders are
-    built over the lazy-load files. With ``datamodule.vision_token_cache``
+    ``loaders``: an optional (train, val) pair of sized iterables of global
+    batches (e.g. lists of dicts of tensors); without it the native loaders
+    are built over the lazy-load files. With ``datamodule.vision_token_cache``
     the frozen vision path runs once per clip into a sidecar under that
-    directory (``$VARS`` expanded) and the loaders read its tokens.
+    directory (``$VARS`` expanded) and the loaders read its tokens. Under a
+    mesh of processes (:func:`build_run_mesh`), each rank's loaders yield its
+    rows and the trainer shards the model; ``mesh`` replaces that mesh
+    (e.g. ``MeshEnv`` of one device: unsharded, in a process of a group).
     """
     device = resolve_device(device)
     seed = int(config.random_state)
     np.random.seed(seed)
     dm = config.datamodule
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    spans = _mesh_devices(config.get("mesh", Config()), n_devices)
-    if spans > 1:
-        raise NotImplementedError(f"the mesh spans {spans} devices; sharded training is not ported "
-                                  "(set mesh.fsdp=1 for one device)")
+    mesh = build_run_mesh(config, device) if mesh is None else mesh
 
-    train_loader, val_loader, dset_names = _loaders(dm, loaders)
+    train_loader, val_loader, dset_names = _loaders(dm, loaders, mesh)
     model = build_model(config.model, seed, device)
 
     # Vision-token cache (data/token_cache.py): the frozen CLIP + STC forward
@@ -291,14 +323,15 @@ def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=N
 
     optim_cfg, loop_cfg = _loop_configs(config, model.cfg.num_target, seed)
     # The CSV log (the brain maps' input) always; Comet when configured;
-    # the console for interactive runs.
+    # the console for interactive runs. The trainer drops the loggers on
+    # ranks that do not write; Comet's sink is not even made there.
     extra_loggers: list = [ConsoleLogger()]
     comet_cfg = config.get("comet", None)
-    if comet_cfg and comet_cfg.get("enabled", False):
+    if comet_cfg and comet_cfg.get("enabled", False) and mesh.is_writer:
         extra_loggers.append(CometLoggerSink(
             api_key=comet_cfg.get("api_key"), workspace=comet_cfg.get("workspace"),
             project=comet_cfg.get("project", "phantom_mm"), name=config.get("run_name")))
-    trainer = VLBTrainer(model, optim_cfg, loop_cfg, device=device, extra_loggers=extra_loggers)
+    trainer = VLBTrainer(model, optim_cfg, loop_cfg, device=device, extra_loggers=extra_loggers, mesh=mesh)
     # Hyperparameters logged twice, as the reference does: the whole config,
     # then the train and val file lists.
     trainer.csv_logger.log_hyperparams(to_dict(config))
@@ -324,6 +357,7 @@ def build_cached_trainer(config: Config, device: str | torch.device = "cuda", lo
     device = resolve_device(device)
     seed = int(config.random_state)
     np.random.seed(seed)
+    build_run_mesh(config, device)             # one process only (raises under more)
     dm = config.datamodule
     train_loader, val_loader, dset_names = _loaders(dm, loaders)
     model = build_model(m, seed, device)

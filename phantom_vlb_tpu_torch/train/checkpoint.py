@@ -10,7 +10,9 @@ and read with ``torch.load(weights_only=True)``: ``{"step", "params"
 (trainable tensors by state-dict name), "optimizer"
 (:meth:`AdamWCosine.state_dict`)}``. A run never writes the frozen
 backbone. ``export_adapters`` writes ``adapters.pt``, the selected tensors
-by name.
+by name. Under a mesh of processes the state holds whole tensors (gathered
+by the trainer), so a checkpoint resumes at any world size; only the
+writer (rank 0) writes, and every rank keeps the best/last bookkeeping.
 """
 
 from __future__ import annotations
@@ -39,17 +41,21 @@ def _write(obj: Any, path: Path) -> int:
 
 class CheckpointManager:
     """The best/last policy over ``directory``; ``bytes_written`` counts
-    what the saves wrote."""
+    what the saves wrote. ``writer`` False: the same decisions, no files."""
 
-    def __init__(self, directory: str | Path):
+    def __init__(self, directory: str | Path, writer: bool = True):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.best_metric = float("inf")
         self.best_path: Path | None = None
         self.bytes_written = 0
 
     def save(self, name: str, state: Mapping[str, Any]) -> Path:
         path = self.directory / name
+        if not self.writer:
+            return path
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
@@ -61,7 +67,7 @@ class CheckpointManager:
         """Save ``best_brainloss_<epoch>-<step>`` when the metric improves."""
         improved = metric < self.best_metric
         if improved:
-            if self.best_path is not None and self.best_path.exists():
+            if self.writer and self.best_path is not None and self.best_path.exists():
                 shutil.rmtree(self.best_path)
             self.best_metric = metric
             self.best_path = self.save(f"best_brainloss_{epoch}-{step}", state)
@@ -74,7 +80,8 @@ class CheckpointManager:
         """Persist the host-side trainer state (early-stop window, best
         metric) beside the checkpoints, so a resumed run neither resets its
         patience window nor saves a worse 'best'."""
-        (self.directory / "trainer_state.json").write_text(json.dumps(meta))
+        if self.writer:
+            (self.directory / "trainer_state.json").write_text(json.dumps(meta))
 
     def load_metadata(self) -> dict:
         path = self.directory / "trainer_state.json"

@@ -18,6 +18,15 @@ Each step's dropout seed is drawn from a CPU ``torch.Generator`` seeded
 with ``seed`` when the trainer is made, so a resumed run restarts that
 stream from ``seed``, as the reference's key does. :func:`train_batches` is
 the bare step loop (no validation, no checkpoints).
+
+Under a sharded ``mesh`` (``core/mesh.py``) the trainer shards the model
+with FSDP2 (``parallel/sharding.py``) and each rank's loaders yield its
+rows of each global batch. Every rank computes the same reduced loss,
+validation loss and merged Pearson, so early stopping, the NaN-streak
+abort and the best checkpoint are decided alike on all of them; rank 0
+alone writes ``metrics.csv``, the console and Comet logs and the files,
+from whole tensors gathered by every rank (the one-process layout, so a
+checkpoint resumes at any world size).
 """
 
 from __future__ import annotations
@@ -31,15 +40,19 @@ import numpy as np
 import torch
 
 from phantom_vlb_tpu_torch.core.device import resolve_device
+from phantom_vlb_tpu_torch.core.mesh import MeshEnv
 from phantom_vlb_tpu_torch.data.loader import batch_fields
 from phantom_vlb_tpu_torch.models.videollama2 import (
     VideoLLaMA2VLB,
     trainable_parameters,
     trainable_predicate,
 )
+from phantom_vlb_tpu_torch.parallel.sharding import shard_like, shard_model, whole
 from phantom_vlb_tpu_torch.train.checkpoint import CheckpointManager, export_adapters
 from phantom_vlb_tpu_torch.train.metrics import (
     CSVMetricsLogger,
+    NullMetricsLogger,
+    pearson_all_merge,
     pearson_compute,
     pearson_init,
     roi_metric_names,
@@ -83,7 +96,8 @@ class VLBTrainer:
     ``forward(model, batch, seed)`` gives (predictions, l2 penalty). A
     loader is anything with a length that yields batches: a
     :class:`~phantom_vlb_tpu_torch.data.loader.Batch` or a dict of arrays
-    or tensors.
+    or tensors. Under a sharded ``mesh`` the model is sharded here (after
+    ``requires_grad`` is set) and batches hold this rank's rows.
     """
 
     def __init__(
@@ -97,6 +111,7 @@ class VLBTrainer:
         device: str | torch.device = "cuda",
         csv_logger: CSVMetricsLogger | None = None,
         extra_loggers: Iterable = (),
+        mesh: MeshEnv | None = None,
     ):
         self.device = resolve_device(device)
         param_device = next(model.parameters()).device
@@ -105,15 +120,21 @@ class VLBTrainer:
         self.config = loop_config
         self.model = model
         self.forward = forward
-        self.trainable: dict[str, torch.nn.Parameter] = {}
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        writer = self.mesh is None or self.mesh.is_writer
         for name, p in model.named_parameters():
             p.requires_grad_(trainable(name))
-            if p.requires_grad:
-                self.trainable[name] = p
-        self.optimizer = AdamWCosine(self.trainable.values(), optim_config)
-        self.csv_logger = csv_logger or CSVMetricsLogger(loop_config.output_dir, loop_config.run_name)
-        self.extra_loggers = list(extra_loggers)
-        self.ckpt = CheckpointManager(loop_config.output_dir) if loop_config.checkpoint else None
+        if self.mesh is not None:
+            shard_model(model, self.mesh)
+        self.trainable: dict[str, torch.nn.Parameter] = {
+            name: p for name, p in model.named_parameters() if p.requires_grad}
+        self.optimizer = AdamWCosine(self.trainable.values(), optim_config, self.mesh)
+        if csv_logger is None:
+            csv_logger = (CSVMetricsLogger(loop_config.output_dir, loop_config.run_name) if writer
+                          else NullMetricsLogger())
+        self.csv_logger = csv_logger
+        self.extra_loggers = list(extra_loggers) if writer else []
+        self.ckpt = CheckpointManager(loop_config.output_dir, writer) if loop_config.checkpoint else None
         self._seeds = torch.Generator().manual_seed(loop_config.seed)
         self._nan_streak = 0
         self.global_step = 0
@@ -134,20 +155,26 @@ class VLBTrainer:
 
     def state(self) -> dict:
         """What a checkpoint holds: the applied-update count, the trainable
-        tensors by name and the optimizer's state."""
+        tensors by name and the optimizer's state, whole (under a mesh,
+        gathered on every rank: a collective)."""
         return {"step": self.optimizer.step,
-                "params": {name: p.detach() for name, p in self.trainable.items()},
+                "params": {name: whole(p.detach()) for name, p in self.trainable.items()},
                 "optimizer": self.optimizer.state_dict()}
 
     def load_params(self, params: Mapping[str, torch.Tensor], source: str = "the tensors given") -> None:
-        """Copy ``params`` (a checkpoint's ``params``) into the trainable
-        tensors; raises when a name is missing or stray."""
+        """Copy ``params`` (a checkpoint's whole ``params``) into the
+        trainable tensors, each rank its shard; raises when a name is
+        missing or stray."""
         if set(params) != set(self.trainable):
             raise ValueError(f"{source} holds other tensors than the trainable ones: "
                              f"{sorted(set(params) ^ set(self.trainable))[:8]}")
         with torch.no_grad():
             for key, t in params.items():
-                self.trainable[key].copy_(t)
+                p = self.trainable[key]
+                if hasattr(p, "to_local"):
+                    p.to_local().copy_(shard_like(t, p).to_local())
+                else:
+                    p.copy_(t)
 
     # ------------------------------------------------------------------
     def maybe_resume(self, name: str = "last") -> bool:
@@ -156,9 +183,10 @@ class VLBTrainer:
         state (early-stop window, best metric and path)."""
         if self.ckpt is None or not (self.ckpt.directory / name).exists():
             return False
-        # Read to the host: AdamW keeps its per-tensor step counts there (and
-        # moves the moments to their tensors' device itself).
-        state = self.ckpt.restore(name, "cpu")
+        # Read onto the trainer's device, not the host (whose memory every
+        # rank of a node shares); AdamWCosine moves the step counts to the
+        # host, where AdamW keeps them.
+        state = self.ckpt.restore(name, self.device)
         self.load_params(state["params"], f"checkpoint {name!r}")
         self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(state["step"])
@@ -177,12 +205,12 @@ class VLBTrainer:
         pearson = pearson_init(self.config.num_target, device=self.device)
         total_loss, total_n = 0.0, 0.0
         for batch in val_loader:
-            pearson, out = eval_step(self.model, self._put(batch), pearson, self.forward)
+            pearson, out = eval_step(self.model, self._put(batch), pearson, self.forward, self.mesh)
             n = float(out["n"])
             total_loss += float(out["brain_loss"]) * n
             total_n += n
         self.model.train()
-        corr = pearson_compute(pearson).cpu().numpy()
+        corr = pearson_compute(pearson_all_merge(pearson, self.mesh)).cpu().numpy()
         val_loss = total_loss / max(total_n, 1.0)
 
         row: dict[str, float] = {"val/brain_loss": val_loss}
@@ -220,7 +248,7 @@ class VLBTrainer:
         """One step on ``batch`` with the next dropout seed; counts the
         streak of non-finite losses."""
         seed = int(torch.randint(0, 2**32, (), generator=self._seeds))
-        out = train_step(self.model, self.optimizer, self._put(batch), seed, self.forward)
+        out = train_step(self.model, self.optimizer, self._put(batch), seed, self.forward, self.mesh)
         self._nan_streak = 0 if out["finite"] else self._nan_streak + 1
         return out
 
@@ -269,11 +297,9 @@ class VLBTrainer:
                 break
         if self.ckpt is not None:
             self.ckpt.save_last(self.state())
-            try:
-                export_adapters(self.model.state_dict(), Path(self.config.output_dir) / "adapters",
-                                is_adapter)
-            except ValueError:
-                pass  # no head or adapters (a model other than the VLB)
+            adapters = {k: whole(v) for k, v in self.model.state_dict().items() if is_adapter(k)}
+            if adapters and self.ckpt.writer:       # none: a model other than the VLB
+                export_adapters(adapters, Path(self.config.output_dir) / "adapters", is_adapter)
         return self.last_val_metrics
 
 

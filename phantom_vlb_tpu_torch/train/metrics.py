@@ -3,7 +3,10 @@ and the CSV metrics log.
 
 Counterpart of ``phantom_vlb_tpu/train/metrics.py``: ``pearson_init/update/
 compute`` (:45-99) are a Welford-style batch merge in f32, aware of padded
-rows, so no activation-sized host transfer is needed. :class:`CSVMetricsLogger`
+rows, so no activation-sized host transfer is needed. :func:`pearson_merge`
+is the pairwise (Chan) merge of two states, which a batch update applies to
+the batch's own moments and :func:`pearson_all_merge` applies to the
+ranks' states in rank order (a rank with no rows contributes nothing). :class:`CSVMetricsLogger`
 (:106-156) writes Lightning's CSVLogger layout, which the brain maps read
 (``postprocessing/brainmaps.py``): ``<save_dir>/<name>/version_<k>/metrics.csv``,
 one row per logging event, the union of keys as header, empty cells for
@@ -23,8 +26,8 @@ import torch
 
 from phantom_vlb_tpu_torch.core.config import dump_yaml
 
-__all__ = ["PearsonState", "pearson_init", "pearson_update", "pearson_compute",
-           "CSVMetricsLogger", "roi_metric_names"]
+__all__ = ["PearsonState", "pearson_init", "pearson_update", "pearson_merge", "pearson_all_merge",
+           "pearson_compute", "CSVMetricsLogger", "NullMetricsLogger", "roi_metric_names"]
 
 
 @dataclasses.dataclass
@@ -66,25 +69,47 @@ def pearson_update(
     mean_yb = (y * m).sum(0) / safe_nb
     dxb = (x - mean_xb) * m
     dyb = (y - mean_yb) * m
+    batch = PearsonState(n=nb, mean_x=mean_xb, mean_y=mean_yb, m2x=(dxb * dxb).sum(0),
+                         m2y=(dyb * dyb).sum(0), cxy=(dxb * dyb).sum(0))
+    return pearson_merge(state, batch)
 
-    n_new = state.n + nb
+
+def pearson_merge(a: PearsonState, b: PearsonState) -> PearsonState:
+    """The moments of ``a``'s rows and ``b``'s together (Chan's pairwise
+    update); ``a`` itself when ``b`` holds no rows."""
+    n_new = a.n + b.n
     safe_n_new = n_new.clamp_min(1.0)
-    delta_x = mean_xb - state.mean_x
-    delta_y = mean_yb - state.mean_y
-    corr = state.n * nb / safe_n_new
+    delta_x = b.mean_x - a.mean_x
+    delta_y = b.mean_y - a.mean_y
+    corr = a.n * b.n / safe_n_new
     merged = PearsonState(
         n=n_new,
-        mean_x=state.mean_x + delta_x * nb / safe_n_new,
-        mean_y=state.mean_y + delta_y * nb / safe_n_new,
-        m2x=state.m2x + (dxb * dxb).sum(0) + delta_x * delta_x * corr,
-        m2y=state.m2y + (dyb * dyb).sum(0) + delta_y * delta_y * corr,
-        cxy=state.cxy + (dxb * dyb).sum(0) + delta_x * delta_y * corr,
+        mean_x=a.mean_x + delta_x * b.n / safe_n_new,
+        mean_y=a.mean_y + delta_y * b.n / safe_n_new,
+        m2x=a.m2x + b.m2x + delta_x * delta_x * corr,
+        m2y=a.m2y + b.m2y + delta_y * delta_y * corr,
+        cxy=a.cxy + b.cxy + delta_x * delta_y * corr,
     )
-    keep = nb > 0
+    keep = b.n > 0
     return PearsonState(**{
-        f.name: torch.where(keep, getattr(merged, f.name), getattr(state, f.name))
+        f.name: torch.where(keep, getattr(merged, f.name), getattr(a, f.name))
         for f in dataclasses.fields(PearsonState)
     })
+
+
+def pearson_all_merge(state: PearsonState, mesh) -> PearsonState:
+    """Every rank's state merged in rank order (``mesh.all_gather``, a
+    collective); the state itself on an unsharded mesh."""
+    if mesh is None or not mesh.sharded:
+        return state
+    names = [f.name for f in dataclasses.fields(PearsonState)]
+    flat = torch.cat([getattr(state, k).reshape(-1) for k in names])
+    p = state.mean_x.shape[0]
+    merged = None
+    for part in mesh.all_gather(flat):
+        s = PearsonState(n=part[0], **{k: part[1 + i * p: 1 + (i + 1) * p] for i, k in enumerate(names[1:])})
+        merged = s if merged is None else pearson_merge(merged, s)
+    return merged
 
 
 def pearson_compute(state: PearsonState, eps: float = 1e-12) -> torch.Tensor:
@@ -147,3 +172,13 @@ class CSVMetricsLogger:
         """Append ``params`` to ``hparams.yaml`` in ``yaml.safe_dump``'s layout."""
         with open(self.log_dir / "hparams.yaml", "a") as f:
             f.write(dump_yaml(dict(params)))
+
+
+class NullMetricsLogger:
+    """The log of a rank that does not write (every rank but 0)."""
+
+    def log_metrics(self, metrics: Mapping[str, Any], step: int, epoch: int) -> None:
+        pass
+
+    def log_hyperparams(self, params: Mapping[str, Any]) -> None:
+        pass

@@ -8,6 +8,11 @@ optax's formula (scale ``max / |g|`` when ``|g| >= max``; no ``+1e-6`` as
 ``clip_grad_norm_`` adds). :class:`AdamWCosine` is optax's chain as one
 object; ``torch.optim.AdamW`` does the update (the JAX side has no Pallas
 kernel there).
+
+The global norm is optax's ``sqrt(sum of each tensor's sum of squares)``.
+Under a sharded mesh the gradients are FSDP2 shards (``DTensor``s): each
+rank sums the squares of its shards and the sums are added over the
+``fsdp`` axis, so every rank clips by the one-card norm.
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["OptimConfig", "AdamWCosine", "learning_rate", "clip_by_global_norm_"]
+from phantom_vlb_tpu_torch.core.mesh import MeshEnv
+from phantom_vlb_tpu_torch.parallel.sharding import shard_like, whole
+
+__all__ = ["OptimConfig", "AdamWCosine", "learning_rate", "global_norm", "clip_by_global_norm_", "local_part"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,24 +49,43 @@ def learning_rate(config: OptimConfig, step: int) -> float:
     raise ValueError(f"unknown scheduler {config.lr_scheduler_name!r}")
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (a view that writes through), or
+    the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def global_norm(grads: list[torch.Tensor], mesh: MeshEnv | None = None) -> torch.Tensor:
+    """``sqrt`` of the sum over ``grads`` of each one's f32 sum of squares
+    (its row-major elements in order, whatever its strides); under a mesh,
+    of this rank's shards, summed over the ``fsdp`` axis."""
+    squares = torch.stack([local_part(g).float().contiguous().square().sum() for g in grads]).sum()
+    if mesh is not None:
+        squares = mesh.shard_sum(squares)
+    return squares.sqrt()
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         mesh: MeshEnv | None = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / |g|`` when the global norm
     ``|g| >= max_norm``; returns ``|g|`` (f32, on the grads' device)."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = global_norm(grads, mesh)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        local_part(g).mul_(scale.to(g.dtype))
     return norm
 
 
 class AdamWCosine:
     """Clip, AdamW and the cosine schedule over ``params``; ``step`` counts
     the updates applied (a skipped update leaves it and the state as they
-    were)."""
+    were). ``mesh``: the mesh the parameters are sharded over, if any."""
 
-    def __init__(self, params: Iterable[torch.nn.Parameter], config: OptimConfig = OptimConfig()):
+    def __init__(self, params: Iterable[torch.nn.Parameter], config: OptimConfig = OptimConfig(),
+                 mesh: MeshEnv | None = None):
         self.params = list(params)
         self.config = config
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
         self.step = 0
         self.adamw = torch.optim.AdamW(
             self.params, lr=learning_rate(config, 0), betas=config.betas, eps=config.eps,
@@ -75,7 +102,7 @@ class AdamWCosine:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return clip_by_global_norm_([p.grad for p in self.params], self.config.grad_clip)
+        return clip_by_global_norm_([p.grad for p in self.params], self.config.grad_clip, self.mesh)
 
     def apply(self) -> float:
         """One AdamW update at this step's rate; returns the rate."""
@@ -89,9 +116,21 @@ class AdamWCosine:
     def state_dict(self) -> dict:
         """The update count and AdamW's state (moments and per-tensor step
         counts), so that a resumed run continues the schedule and the
-        moments."""
-        return {"step": self.step, "adamw": self.adamw.state_dict()}
+        moments; sharded moments gathered whole on every rank (a
+        collective), in the one-process layout."""
+        state = self.adamw.state_dict()
+        state["state"] = {i: {k: whole(v) for k, v in s.items()} for i, s in state["state"].items()}
+        return {"step": self.step, "adamw": state}
 
     def load_state_dict(self, state: dict) -> None:
+        """Take :meth:`state_dict`'s layout, written at any world size and
+        read onto any device: each rank keeps its shard of every moment of a
+        sharded parameter, and the per-tensor step counts go to the host,
+        where AdamW keeps them."""
         self.step = int(state["step"])
-        self.adamw.load_state_dict(state["adamw"])
+        adamw = dict(state["adamw"])
+        adamw["state"] = {int(i): {k: v.cpu() if k == "step" else shard_like(v, self.params[int(i)])
+                                   for k, v in s.items()}
+                          for i, s in adamw["state"].items()}
+        self.adamw.load_state_dict(adamw)
+

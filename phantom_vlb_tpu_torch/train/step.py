@@ -8,6 +8,15 @@ step runs the forward in train mode, the backward, the clip and the AdamW
 update on the schedule; a non-finite loss leaves parameters, optimizer state
 and step count untouched (:129-141). ``forward(model, batch, seed)`` gives
 (predictions, l2 penalty); :func:`vlb_forward` is the VLB's, the default.
+
+Under a sharded ``mesh`` (``core/mesh.py``) each rank holds its rows of the
+global batch: its loss is its rows' squared errors over the global count
+of valid rows (summed over the ranks first), with the L2 penalty on rank 0
+alone, so the ranks' losses and gradients sum to the one-card step's
+(``parallel/sharding.py`` has FSDP2 sum the gradients, not average them);
+the dropout masks are the global batch's on the rank's rows. The loss
+reported, and the choice to apply or skip an update, come from the sum
+over the ranks, so every rank makes the same choice.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from typing import Callable, Mapping
 
 import torch
 
+from phantom_vlb_tpu_torch.core.mesh import MeshEnv
 from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB
 from phantom_vlb_tpu_torch.train.metrics import PearsonState, pearson_update
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine
@@ -23,27 +33,44 @@ from phantom_vlb_tpu_torch.train.optim import AdamWCosine
 __all__ = ["masked_mse", "vlb_forward", "loss_fn", "train_step", "eval_step"]
 
 
-def masked_mse(pred: torch.Tensor, y: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, y: torch.Tensor, row_mask: torch.Tensor,
+               n_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The squared errors of the valid rows over ``n_valid`` (default: the
+    batch's valid rows; at least 1) times the targets' width."""
     m = row_mask.to(pred.dtype)[:, None]
-    n_valid = row_mask.to(pred.dtype).sum().clamp_min(1.0)
-    return ((pred - y.to(pred.dtype)).square() * m).sum() / (n_valid * y.shape[1])
+    if n_valid is None:
+        n_valid = row_mask.to(pred.dtype).sum()
+    return ((pred - y.to(pred.dtype)).square() * m).sum() / (n_valid.clamp_min(1.0) * y.shape[1])
 
 
-def vlb_forward(model: VideoLLaMA2VLB, batch: Mapping[str, torch.Tensor], seed: int | None = None):
-    """The VLB's forward on a batch dict -> (predictions, l2 penalty)."""
+def vlb_forward(model: VideoLLaMA2VLB, batch: Mapping[str, torch.Tensor], seed: int | None = None,
+                rows: tuple[int, int] | None = None):
+    """The VLB's forward on a batch dict -> (predictions, l2 penalty);
+    ``rows`` as ``VideoLLaMA2VLB.forward`` takes them."""
     return model(batch["language"], batch["vision"], batch["padvals"],
-                 batch["vis_weights"], batch["lang_weights"], seed=seed)
+                 batch["vis_weights"], batch["lang_weights"], seed=seed, rows=rows)
+
+
+def _sharded(mesh: MeshEnv | None) -> bool:
+    return mesh is not None and mesh.sharded
 
 
 Forward = Callable[[torch.nn.Module, Mapping[str, torch.Tensor], "int | None"], tuple]
 
 
 def loss_fn(model: torch.nn.Module, batch: Mapping[str, torch.Tensor], seed: int | None = None,
-            forward: Forward = vlb_forward):
-    """Forward in the model's current mode -> (loss, mse, l2)."""
-    pred, l2_reg = forward(model, batch, seed)
-    mse = masked_mse(pred, batch["timeseries"], batch["row_mask"])
-    return mse + l2_reg, mse, l2_reg
+            forward: Forward = vlb_forward, mesh: MeshEnv | None = None):
+    """Forward in the model's current mode -> (loss, mse, l2); under a
+    sharded ``mesh``, this rank's part of each (see the module's note)."""
+    if not _sharded(mesh):
+        pred, l2_reg = forward(model, batch, seed)
+        mse = masked_mse(pred, batch["timeseries"], batch["row_mask"])
+        return mse + l2_reg, mse, l2_reg
+    row_mask = batch["row_mask"]
+    pred, l2_reg = forward(model, batch, seed, rows=mesh.rows(row_mask.shape[0]))
+    n_valid = mesh.all_sum(row_mask.to(pred.dtype).sum())
+    mse = masked_mse(pred, batch["timeseries"], row_mask, n_valid)
+    return (mse + l2_reg if mesh.rank == 0 else mse), mse, l2_reg
 
 
 def train_step(
@@ -52,19 +79,25 @@ def train_step(
     batch: Mapping[str, torch.Tensor],
     seed: int,
     forward: Forward = vlb_forward,
+    mesh: MeshEnv | None = None,
 ) -> dict[str, object]:
     """One update of ``optimizer.params`` on ``batch`` with dropout seed ``seed``.
 
     The model must be in train mode with ``requires_grad`` on exactly the
     trainable tensors. Returns {"brain_loss", "mse", "l2_reg", "grad_norm"}
-    as tensors, "finite" and, for an applied update, "lr". The gradients
-    stay in ``.grad`` (clipped) until the next step.
+    as tensors (the global batch's under a sharded ``mesh``), "finite" and,
+    for an applied update, "lr". The gradients stay in ``.grad`` (clipped)
+    until the next step.
     """
     optimizer.zero_grad()
-    loss, mse, l2_reg = loss_fn(model, batch, seed, forward)
+    loss, mse, l2_reg = loss_fn(model, batch, seed, forward, mesh)
     loss.backward()
     grad_norm = optimizer.clip_()
-    out = {"brain_loss": loss.detach(), "mse": mse.detach(), "l2_reg": l2_reg.detach(),
+    loss, mse, l2_reg = loss.detach(), mse.detach(), l2_reg.detach()
+    if _sharded(mesh):
+        mse = mesh.all_sum(mse)
+        loss = mse + l2_reg
+    out = {"brain_loss": loss, "mse": mse, "l2_reg": l2_reg,
            "grad_norm": grad_norm, "finite": bool(torch.isfinite(loss))}
     if out["finite"]:
         out["lr"] = optimizer.apply()
@@ -77,14 +110,23 @@ def eval_step(
     batch: Mapping[str, torch.Tensor],
     pearson: PearsonState,
     forward: Forward = vlb_forward,
+    mesh: MeshEnv | None = None,
 ) -> tuple[PearsonState, dict[str, torch.Tensor]]:
     """One eval batch -> (updated Pearson state, {"brain_loss", "n", "pred"}).
 
     ``batch`` holds tensors on the model's device: language, vision (cached
     video tokens or raw frames), padvals, vis_weights, lang_weights,
-    timeseries, row_mask.
+    timeseries, row_mask. Under a sharded ``mesh``, "brain_loss" and "n"
+    are the global batch's, and the Pearson state holds this rank's rows
+    (``train/metrics.py`` merges the ranks' states).
     """
     pred, l2_reg = forward(model, batch, None)
-    loss = masked_mse(pred, batch["timeseries"], batch["row_mask"]) + l2_reg
-    pearson = pearson_update(pearson, pred, batch["timeseries"], batch["row_mask"])
-    return pearson, {"brain_loss": loss, "n": batch["row_mask"].sum(), "pred": pred}
+    row_mask = batch["row_mask"]
+    if not _sharded(mesh):
+        loss = masked_mse(pred, batch["timeseries"], row_mask) + l2_reg
+        n = row_mask.sum()
+    else:
+        n = mesh.all_sum(row_mask.to(pred.dtype).sum())
+        loss = mesh.all_sum(masked_mse(pred, batch["timeseries"], row_mask, n)) + l2_reg
+    pearson = pearson_update(pearson, pred, batch["timeseries"], row_mask)
+    return pearson, {"brain_loss": loss, "n": n, "pred": pred}

@@ -8,10 +8,17 @@ test's arguments, less the vision-token cache (run by
 ``--device cpu``: the CSV with a validation row of per-ROI columns, the
 best and last checkpoints, the adapters and ``hparams.yaml`` (the composed
 config, then the file lists) are written. Each branch the port does not
-have raises by name, and the default device is the card.
+have raises by name, and the default device is the card. Launched by
+``torchrun`` on 2 gloo ranks with ``mesh.fsdp=-1`` and adapter dropout
+0.1, it writes the one metrics.csv that one process writes (f32 sums of
+each rank's rows added apart: 1e-5 relative).
 """
 
+import csv
 import glob
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +35,7 @@ from phantom_vlb_tpu_torch.cli.train import main
 from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -78,19 +86,21 @@ def test_train_cli_on_the_cpu(lazy_pattern, tmp_path):
     assert len(hparams["train_set"]) == 1 and len(hparams["val_set"]) == 1
 
 
+# A mesh of 4 devices in one process: sharded training runs one process per
+# card, so the error names the launch that would give it 4.
 UNPORTED = {
-    "grain": (["datamodule.loader=grain"], "grain"),
-    "mesh": (["mesh.fsdp=4"], "mesh spans 4 devices"),
-    "orbax": (["model.checkpoint_path={orbax}"], "Orbax"),
+    "grain": (["datamodule.loader=grain"], NotImplementedError, "grain"),
+    "mesh": (["mesh.fsdp=4"], ValueError, "needs 4 devices, have 1.*torchrun --nproc_per_node=4"),
+    "orbax": (["model.checkpoint_path={orbax}"], NotImplementedError, "Orbax"),
 }
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_branches_raise_by_name(lazy_pattern, tmp_path, case):
-    extra, match = UNPORTED[case]
+    extra, error, match = UNPORTED[case]
     (tmp_path / "orbax" / "d").mkdir(parents=True)
     extra = [e.format(orbax=tmp_path / "orbax") for e in extra]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main([*_args(lazy_pattern, tmp_path / "out"), *extra, "--device", "cpu"])
 
 
@@ -134,3 +144,35 @@ def test_model_config_matches_jax(case):
     if wm.lora is not None:
         for field in ("rank", "alpha", "dropout", "shared_dropout", "dropout_bits", "fused_dropout"):
             assert getattr(gm.lora, field) == getattr(wm.lora, field), field
+
+
+def _csv_rows(out):
+    (path,) = glob.glob(str(out / "e2e" / "*" / "metrics.csv"))
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def test_torchrun_two_ranks_write_what_one_process_writes(lazy_pattern, tmp_path):
+    args = [a for a in _args(lazy_pattern, tmp_path / "two") if a != "mesh.fsdp=1"]
+    args = [a.replace("model.lora_dropout=0.0", "model.lora_dropout=0.1") for a in args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                           "-m", "phantom_vlb_tpu_torch.cli.train", *args, "mesh.fsdp=-1", "--device", "cpu"],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("final val/brain_loss") == 1                   # rank 0 alone
+    one = [a.replace(str(tmp_path / "two"), str(tmp_path / "one")) for a in args]
+    assert main([*one, "mesh.fsdp=1", "--device", "cpu"]) == 0
+    got, want = _csv_rows(tmp_path / "two"), _csv_rows(tmp_path / "one")
+    assert [p.name for p in (tmp_path / "two" / "e2e").iterdir()] == ["version_0"]
+    assert len(got) == len(want) and got[0].keys() == want[0].keys()
+    assert any(r["val_corr_avg"] for r in got)
+    for g, w in zip(got, want):
+        for key, value in w.items():
+            if key == "train/steps_per_sec" or value == "":
+                assert (g[key] == "") == (value == ""), key
+            else:
+                np.testing.assert_allclose(float(g[key]), float(value), rtol=1e-5, atol=1e-6, err_msg=key)
+    saved = torch.load(tmp_path / "two" / "last" / STATE_FILE, weights_only=True)
+    assert set(saved["params"]) == set(torch.load(tmp_path / "one" / "last" / STATE_FILE,
+                                                  weights_only=True)["params"])

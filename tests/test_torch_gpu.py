@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, synthetic_batches
-from phantom_vlb_tpu_torch.core.mesh import SequenceRing
+from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN, maybe_initialize_distributed, shutdown_distributed
+from phantom_vlb_tpu_torch.core.mesh import MeshConfig, SequenceRing, build_mesh
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import SafetensorsDir, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
@@ -77,7 +78,7 @@ from phantom_vlb_tpu_torch.ops.rowquant import (
     row_quant_plain,
     row_quant_scaled,
 )
-
+from phantom_vlb_tpu_torch.parallel.sharding import whole
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
 from phantom_vlb_tpu_torch.train.optim import OptimConfig
 
@@ -787,6 +788,67 @@ def test_trainer_fits_saves_and_resumes_on_the_card(cuda, tmp_path):
     assert all(torch.equal(a[i][k], b[i][k]) for i in a for k in a[i])
     resumed.fit(batches[:2], batches[2:])
     assert resumed.global_step == 4 and np.isfinite(resumed.last_val_metrics["val/brain_loss"])
+
+
+def _first_step(model, batch, tmp_path, mesh=None) -> dict:
+    """A fresh trainer's first step on ``batch``: its loss, and its adapter
+    gradients (whole, after the clip) on the CPU."""
+    loop = TrainLoopConfig(max_epochs=1, checkpoint=False, output_dir=str(tmp_path), run_name="step",
+                           num_target=model.cfg.num_target)
+    trainer = VLBTrainer(model, OptimConfig(), loop, device=next(model.parameters()).device, mesh=mesh)
+    out = trainer.train_one(batch)
+    grads = {k: whole(p.grad).float().cpu() for k, p in trainer.trainable.items() if "lora_" in k}
+    return {"loss": float(out["brain_loss"]), "grads": grads}
+
+
+def test_world_one_nccl_step_is_the_unsharded_step(cuda, tmp_path, monkeypatch):
+    """A narrow LoRA model (32-bit adapter dropout 0.1, remat) sharded by
+    FSDP2 over an NCCL group of one process: its first loss bit-equal to
+    the unsharded trainer's on the same weights, batch and seed; its
+    adapter gradients within the flash backward's tolerance of each other
+    (dq's reduce-adds sum in a run-dependent order)."""
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    assert maybe_initialize_distributed("cuda", init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        mesh = build_mesh(MeshConfig(), "cuda")
+        assert mesh.sharded and mesh.n_devices == 1
+        model = _narrow_lora_model(cuda)
+        batch = {k: torch.as_tensor(v).to(cuda) for k, v in synthetic_batches(
+            model.cfg, 1, 2, np.random.default_rng(0), torch.Generator(device=cuda).manual_seed(3), cuda)[0].items()}
+        plain = _first_step(model, batch, tmp_path / "plain")
+        sharded = _first_step(_narrow_lora_model(cuda), batch, tmp_path / "sharded", mesh)
+    finally:
+        shutdown_distributed()
+    assert sharded["loss"] == plain["loss"]
+    assert sharded["grads"].keys() == plain["grads"].keys()
+    for k, g in plain["grads"].items():
+        assert _rel(sharded["grads"][k], g) <= BWD_REL_TOL, k
+
+
+def test_two_cards_step_is_the_one_card_step(cuda, tmp_path, monkeypatch):
+    """2 NCCL ranks (one card each, ``tests/torch_ranks.py``, opted in to a
+    group over more than one card) at a global batch of 4 against one card
+    at 4: the first loss within 1e-3 relative (each card's bf16 activations
+    over its 2 rows) and the adapter gradients within the flash backward's
+    tolerance."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: 2 NCCL ranks wait for a machine that has them")
+    from torch_ranks import run_ranks
+
+    monkeypatch.setenv(MULTI_CARD_OPT_IN, "1")
+    cfg = _narrow_lora_model(cuda).cfg
+    sd = {k: v.cpu() for k, v in init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0)).items()}
+    batch = {k: torch.as_tensor(v).cpu() for k, v in synthetic_batches(
+        cfg, 1, 4, np.random.default_rng(0), torch.Generator(device=cuda).manual_seed(3), cuda)[0].items()}
+    ranks = run_ranks("steps", 2, tmp_path / "ranks", device="cuda", scenarios=[
+        {"name": "narrow", "cfg": cfg, "sd": sd, "batches": [batch], "seeds": [5]}])
+    model = VideoLLaMA2VLB.from_state_dict(cfg, sd, device=cuda)
+    one = _first_step(model, {k: v.to(cuda) for k, v in batch.items()}, tmp_path / "one")
+    for res in (r["narrow"] for r in ranks):
+        assert abs(res["loss"][0] - one["loss"]) <= 1e-3 * abs(one["loss"])
+        for k, g in one["grads"].items():
+            assert _rel(res["grads"][k].float(), g) <= BWD_REL_TOL, k
 
 
 def test_safetensors_reader_on_a_bf16_file(cuda, tmp_path):

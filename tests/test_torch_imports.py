@@ -7,7 +7,9 @@ optional packages (flax, optax, yaml, pandas, PIL, transformers,
 tokenizers, ml_dtypes, safetensors, orbax, comet_ml) blocked: the
 trainer's modules among them, those of the stages around it (predict, the
 feature and token caches, the brain maps) and those of the first two
-stages (extraction and the lazy-load builder, with their CLIs).
+stages (extraction and the lazy-load builder, with their CLIs), and
+those of the multi-process path (the process group, the mesh, FSDP2
+sharding).
 """
 
 import os
@@ -61,6 +63,9 @@ first = {{"phantom_vlb_tpu_torch.data.hrf", "phantom_vlb_tpu_torch.data.text",
          "phantom_vlb_tpu_torch.data.lazyload_build", "phantom_vlb_tpu_torch.cli.extract",
          "phantom_vlb_tpu_torch.cli.build_lazyload"}}
 assert first <= set(names), sorted(first - set(names))
+sharded = {{"phantom_vlb_tpu_torch.core.distributed", "phantom_vlb_tpu_torch.core.mesh",
+           "phantom_vlb_tpu_torch.parallel", "phantom_vlb_tpu_torch.parallel.sharding"}}
+assert sharded <= set(names), sorted(sharded - set(names))
 print(len(names))
 """
 

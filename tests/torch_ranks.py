@@ -1,0 +1,199 @@
+"""Run a function of this module on N gloo ranks of the CPU, one process each.
+
+``run_ranks(case, world, tmp, **kwargs)`` starts ``world`` processes of
+this file with torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``, joined
+through ``file://`` under ``tmp`` (no ports, so parallel test workers never
+collide), each running ``CASES[case](mesh, tmp, **kwargs)``; every process
+has its own time limit, and a rank that fails or outlives it fails the
+caller. Returns each rank's result (``torch.save``d by the rank, on the
+CPU). ``device="cuda"`` runs NCCL ranks, one card each; the default is gloo
+on the CPU.
+
+The cases build a VLB from a config and a state dict the caller saved (no
+JAX here), and report whole tensors, so the caller holds them against the
+one-process step and the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+RANK_TIMEOUT_S = 240
+
+
+def run_ranks(case: str, world: int, tmp: Path, timeout: float = RANK_TIMEOUT_S, **kwargs) -> list:
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    torch.save(kwargs, tmp / f"{case}.args.pt")
+    env_base = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env_base["PYTHONPATH"] = os.pathsep.join([str(ROOT), env_base.get("PYTHONPATH", "")])
+    env_base.setdefault("OMP_NUM_THREADS", "1")
+    procs = []
+    for rank in range(world):
+        env = dict(env_base, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+        log = open(tmp / f"{case}.rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, __file__, case, str(tmp)], env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    failed = []
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                if proc.wait(timeout=timeout):
+                    failed.append(f"rank {rank} exited {proc.returncode}")
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {rank} ran past {timeout} s")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        logs = "\n".join((tmp / f"{case}.rank{r}.log").read_text()[-3000:] for r in range(world))
+        raise AssertionError(f"{case}: {'; '.join(failed)}\n{logs}")
+    return [torch.load(tmp / f"{case}.rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# The rank's side.
+
+def tiny_config(use_lora: bool, dropout: float = 0.0, bits: int = 32, fused: bool = False,
+                remat: bool = False, l2_lambda: float = 0.001):
+    """The tiny VLB's config, with LoRA (rank 4) and head dropout at
+    ``dropout``: 32-bit generator masks, u8 ones, or the fused kernel's hash
+    (its plain version on the CPU)."""
+    from phantom_vlb_tpu_torch.models import videollama2 as tv
+    from phantom_vlb_tpu_torch.models.lora import LoRAConfig
+
+    cfg = tv.VLBConfig.tiny(use_lora=use_lora, dropout_rate=dropout, l2_lambda=l2_lambda)
+    lora = LoRAConfig(rank=4, alpha=8.0, dropout=dropout, dropout_bits=bits, fused_dropout=fused) \
+        if use_lora else None
+    return dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, lora=lora, remat=remat))
+
+
+def make_model(cfg, sd: dict, device="cpu"):
+    """``cfg``'s VLB holding copies of ``sd``'s tensors on ``device``."""
+    from phantom_vlb_tpu_torch.models import videollama2 as tv
+
+    return tv.VideoLLaMA2VLB.from_state_dict(cfg, {k: v.clone() for k, v in sd.items()}, device=device)
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _whole_grads(trainable: dict) -> dict:
+    from phantom_vlb_tpu_torch.parallel.sharding import whole
+
+    return {k: whole(p.grad).cpu() for k, p in trainable.items()}
+
+
+def case_steps(mesh, tmp: Path, scenarios: list) -> dict:
+    """Each scenario: a fresh model and optimizer, then one ``train_step``
+    per batch (this rank's rows of each); the losses, grad norms, whole
+    gradients after the first step, and the whole tensors and AdamW state
+    after the last."""
+    from phantom_vlb_tpu_torch.models import videollama2 as tv
+    from phantom_vlb_tpu_torch.parallel.sharding import shard_model, whole
+    from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig
+    from phantom_vlb_tpu_torch.train.step import train_step
+
+    out = {}
+    device = mesh.device_mesh.device_type
+    for sc in scenarios:
+        model = make_model(sc["cfg"], sc["sd"], device)
+        tv.trainable_parameters(model)
+        shard_model(model, mesh)
+        model.train()
+        trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        optimizer = AdamWCosine(trainable.values(), OptimConfig(), mesh)
+        res = {"loss": [], "grad_norm": [], "finite": [], "l2": []}
+        for i, batch in enumerate(sc["batches"]):
+            rows = mesh.local_rows(len(batch["row_mask"]))
+            local = {k: torch.as_tensor(v)[rows].to(device) for k, v in batch.items()}
+            before = {k: whole(p.detach()).clone() for k, p in trainable.items()}
+            r = train_step(model, optimizer, local, seed=sc["seeds"][i], mesh=mesh)
+            res["loss"].append(r["brain_loss"].item())
+            res["l2"].append(r["l2_reg"].item())
+            res["grad_norm"].append(r["grad_norm"].item())
+            res["finite"].append(r["finite"])
+            if i == 0:
+                res["grads"] = _whole_grads(trainable)
+            if not r["finite"]:
+                res["unchanged"] = all(torch.equal(whole(p.detach()), before[k]) for k, p in trainable.items())
+        res["params"] = {k: whole(p.detach()).cpu() for k, p in trainable.items()}
+        res["optimizer"] = _cpu(optimizer.state_dict())
+        res["placements"] = {n: str(p.placements) for n, p in model.named_parameters()}
+        out[sc["name"]] = res
+    return out
+
+
+def case_fit(mesh, tmp: Path, sd: dict, cfg, train: list, val: list, out_dir: str,
+             max_epochs: int, resume: bool) -> dict:
+    """``VLBTrainer.fit`` over this rank's rows of ``train`` / ``val`` (lists
+    of global batches) into ``out_dir``, after ``maybe_resume`` when
+    ``resume``; the trainer's state at the end (whole tensors)."""
+    from phantom_vlb_tpu_torch.data.loader import RankRows
+
+    return fit_run(sd, cfg, train, val, out_dir, max_epochs, resume, mesh, lambda loader: RankRows(loader, mesh))
+
+
+def fit_run(sd, cfg, train, val, out_dir: str, max_epochs: int, resume: bool, mesh, wrap) -> dict:
+    """The fit of :func:`case_fit` on ``wrap(train)`` / ``wrap(val)``; with
+    ``mesh`` None, in one process."""
+    from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
+    from phantom_vlb_tpu_torch.train.optim import OptimConfig
+
+    model = make_model(cfg, sd)
+    loop = TrainLoopConfig(max_epochs=max_epochs, val_check_interval=0.5, log_every_n_steps=1,
+                           seed=7, output_dir=out_dir, run_name="run", num_target=model.cfg.num_target,
+                           early_stop_patience=0)
+    trainer = VLBTrainer(model, OptimConfig(), loop, device="cpu", mesh=mesh)
+    resumed_state = None
+    if resume:
+        assert trainer.maybe_resume()
+        resumed_state = _copy(trainer.state())     # the tensors train on in place
+    trainer.fit(wrap(train), wrap(val))
+    return {"state": trainer.state(), "resumed": resumed_state, "step": trainer.global_step,
+            "csv": str(getattr(trainer.csv_logger, "path", ""))}
+
+
+def _copy(tree):
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+CASES = {"steps": case_steps, "fit": case_fit}
+
+
+def main() -> int:
+    case, tmp = sys.argv[1], Path(sys.argv[2])
+    torch.manual_seed(0)
+    from phantom_vlb_tpu_torch.core.distributed import maybe_initialize_distributed, shutdown_distributed
+    from phantom_vlb_tpu_torch.core.mesh import MeshConfig, build_mesh
+
+    kwargs = torch.load(tmp / f"{case}.args.pt", weights_only=False)
+    device = kwargs.pop("device", "cpu")
+    # A stuck collective ends the rank with the collective named, well
+    # before the caller's time limit kills it.
+    assert maybe_initialize_distributed(device, init_method=f"file://{tmp}/{case}.rendezvous",
+                                        timeout_s=RANK_TIMEOUT_S / 2)
+    mesh = build_mesh(MeshConfig(**kwargs.pop("mesh", {})), device)
+    result = CASES[case](mesh, tmp, **kwargs)
+    torch.save(result, tmp / f"{case}.rank{mesh.rank}.pt")
+    shutdown_distributed()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
