@@ -9,6 +9,7 @@ vision towers.
     python3 chip_smoke.py --trainer DIR     # phase 9t alone, under DIR
     python3 chip_smoke.py --after-train DIR # phase 9p alone, on 9t's DIR
     python3 chip_smoke.py --extract DIR     # phase 9e alone, under DIR
+    python3 chip_smoke.py --remat DIR       # phase 8r alone (DIR is not written)
     python -m torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR
         # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
@@ -74,6 +75,21 @@ Phases, each printed with its wall time; any failure exits non-zero:
    on 4 ranks of the card (first loss and gradient norm against phase 7's,
    launch counts) and one more under ``torch.profiler``, and 2 steps
    through the per-step flash ring;
+8r. the decoder's checkpoint policies (``remat_policy``) on phase 7's
+   weights: one full-width LoRA model (bf16, r 16, fused u8 dropout, batch
+   3 from cached tokens) switched in place to each of ``'nothing'``
+   (twice), ``'attn'``, ``'mids'``, ``'flash'`` and ``'dots'``, 2 steps
+   each from phase 7's starting adapters and seeds, the second traced
+   (device busy time and idle share): each kernel's launches against what
+   the policy implies (32 flash forwards and 224 ``lora_fwd`` a step under
+   ``'flash'``), the first loss bit-equal across policies, the step-1
+   adapter gradients against the first ``'nothing'`` run's within 1.25
+   times the gap of the two ``'nothing'`` runs (dq's reduce-adds sum in a
+   run-dependent order), step 1's ms (``utils/profiling.StepTimer``) and
+   peak device memory (``device_memory_stats``); then one step each of the
+   trainer's unfused 32-bit dropout under ``'nothing'`` and ``'mids'``:
+   the first loss bit-equal, and the products (``aten.mm``) ``'mids'``
+   keeps, 7 a layer;
 8b. the w8a8g8 LoRA step of record: phase 7's weights quantized to int8 on
    the card in place, projection by projection (the tower's too), then 3
    steps at batch 3
@@ -224,6 +240,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.fsdp import FSDPModule
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from phantom_vlb_tpu_torch.cli.brainmaps import main as brainmaps_main
 from phantom_vlb_tpu_torch.cli.predict import predict_batches, predict_split, synthetic_batches, write_predictions
@@ -232,6 +249,7 @@ from phantom_vlb_tpu_torch.core.distributed import (
     MULTI_CARD_OPT_IN, maybe_initialize_distributed, shutdown_distributed)
 from phantom_vlb_tpu_torch.core.geometry import REFERENCE_GEOMETRY
 from phantom_vlb_tpu_torch.core.mesh import AXIS_NAMES, MeshEnv, SequenceRing, set_sequence_ring
+from phantom_vlb_tpu_torch.core.remat import REMAT_POLICIES
 from phantom_vlb_tpu_torch.data.extract import extract_episode
 from phantom_vlb_tpu_torch.data.hrf import get_hrf_weights
 from phantom_vlb_tpu_torch.data.lazyload_build import LazyloadBuildConfig, build_lazyload_dsets, infer_geometry
@@ -250,7 +268,7 @@ from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, encode_to
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig, adapter_dropout
-from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl
+from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl, set_remat_policy
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
 from phantom_vlb_tpu_torch.models.videollama2 import (
     VISION_PREFIXES,
@@ -332,6 +350,7 @@ from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
 from phantom_vlb_tpu_torch.train.precompute import head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
+from phantom_vlb_tpu_torch.utils.profiling import StepTimer, device_memory_stats
 
 ROOT = Path(__file__).resolve().parent
 BUILD_ROOT = ROOT / "build"          # ignored by git: the kernels' libraries and scratch output
@@ -1054,11 +1073,16 @@ def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str 
 
 
 def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
-                            int8: bool = False, ring: str | None = None) -> dict[str, int]:
+                            int8: bool = False, ring: str | None = None,
+                            remat_policy: str = "nothing") -> dict[str, int]:
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
-    and 2 x 7 LoRA forwards (and, with the int8 base, row quants; with the
-    fused epilogue, epilogue forwards); one flash backward; 7 dA (and 7
+    and 2 x 7 LoRA forwards (and, with the int8 base, row quants: the replay
+    stops before the last projection's base product unless the fused
+    epilogue, which saves z and B after it, follows it; with the fused
+    epilogue, epilogue forwards); ``remat_policy`` 'flash' keeps the flash
+    forward's outputs (1 a layer), 'mids' and 'flash' the LoRA mids (7 LoRA
+    forwards a layer); one flash backward; 7 dA (and 7
     fused epilogue backwards, dz and dB from one launch: the single dz and
     dB entry points never run, as both grads are always needed); and 7 dx
     (7 scaled row quants) except for layer 0's q, k and v,
@@ -1075,9 +1099,13 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
                    "flash_bwd_post": layers, "ring_fwd": 0},
             "ring_fused": {"flash_fwd": 0, **ring_bwd, "ring_fwd": 2 * RING_RANKS * layers},
             "ring_flash": {"flash_fwd": 2 * pairs * layers, **ring_bwd, "ring_fwd": 0}}[ring]
+    kept = REMAT_POLICIES[remat_policy] or set()
+    if "flash_out" in kept:
+        attn["flash_fwd"] = layers
     per_step = {**attn,
-                "lora_fwd": 14 * layers, "lora_dx": 7 * layers - 3, "lora_da": 7 * layers,
-                "row_quant": 14 * layers if int8 else 0,
+                "lora_fwd": (7 if "lora_mid" in kept else 14) * layers, "lora_dx": 7 * layers - 3,
+                "lora_da": 7 * layers,
+                "row_quant": (14 if epilogue else 13) * layers if int8 else 0,
                 "row_quant_scaled": 7 * layers - 3 if int8 else 0,
                 "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
                 "epi_dzdb": 7 * layers if epilogue else 0}
@@ -1238,6 +1266,8 @@ def train_lora_full(gen, dev) -> tuple[dict[str, int], dict[str, int]]:
         del frames, frame_batches, towers
         torch.cuda.empty_cache()
     ring_launches = train_through_the_ring(sd, start, batches, first, dev)
+    with phase("8r the decoder's checkpoint policies (remat_policy) on phase 7's weights"):
+        remat_policies(sd, start, batches, dev, card_name_and_power())
     del start, batches
     with phase("8b w8a8g8 LoRA train at full width"):
         t0 = time.perf_counter()
@@ -2951,6 +2981,170 @@ def extract_child(out: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8r: the decoder's checkpoint policies (``remat_policy``) on phase 7's
+# full-width LoRA weights from cached tokens, one model switched in place
+# (alone, on weights of its own: ``python3 chip_smoke.py --remat DIR``).
+
+REMAT_RUNS = ("nothing", "nothing", "attn", "mids", "flash", "dots")
+REMAT_STEPS = 2
+
+
+class ProductCount(TorchDispatchMode):
+    """Counts the ``aten.mm`` calls dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.mm += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def device_busy(fn) -> tuple[float, float, dict[str, float]]:
+    """``fn()`` under ``torch.profiler`` (the device's activity only): its
+    wall ms, the device's busy ms and ms by kernel group."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.key != QUEUE_FULL:
+            groups[kernel_group(e.key)] = groups.get(kernel_group(e.key), 0.0) + e.device_time_total / 1e3
+    return wall_ms, sum(groups.values()), groups
+
+
+def remat_run(model, start: dict, batches: list, dev, policy: str, steps: int = REMAT_STEPS) -> dict:
+    """``steps`` steps of ``train_batches`` under ``policy`` from ``start``'s
+    adapters and a fresh AdamW, dropout seeds from seed 0: launches, losses,
+    step-1 adapter gradients, the peak device memory, step 1's ms
+    (``StepTimer``) and, of two steps, step 2's wall and device busy ms
+    (traced); of one step, the ``aten.mm`` calls it dispatched."""
+    set_remat_policy(model, policy)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, t in start.items():
+            params[name].copy_(t)
+    optimizer = AdamWCosine(trainable_parameters(model))
+    seeds = torch.Generator().manual_seed(SEED)
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    products = ProductCount()
+
+    def step(i):
+        return train_batches(model, [batches[i]], device=dev, generator=seeds, optimizer=optimizer)
+
+    with timer.stage("step 1"), (products if steps == 1 else contextlib.nullcontext()):
+        loss = [float(step(0)["brain_loss"][0])]
+        torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in params.items() if "lora_" in n}
+    run = {"step_ms": timer.summary(), "mm": products.mm, "grads": grads}
+    if steps > 1:
+        out = {}
+        run["wall_ms"], run["busy_ms"], run["groups"] = device_busy(lambda: out.update(step(1)))
+        loss.append(float(out["brain_loss"][0]))
+    run.update(launches=read_launches(), loss=loss,
+               peak_gb=device_memory_stats()[0]["peak_bytes_in_use"] / 1e9)
+    return run
+
+
+def remat_policies(sd: dict, start: dict, batches: list, dev, card: str) -> dict:
+    """Phase 8r on ``sd``'s full-width LoRA weights (phase 7's), from
+    ``start``'s adapters, over ``batches`` of cached tokens; returns its
+    numbers."""
+    cfg = lora_train_config()
+    layers = cfg.mistral.num_hidden_layers
+    model = VideoLLaMA2VLB.from_state_dict(cfg, sd)
+    print(f"  {layers} layers bf16, LoRA r {cfg.mistral.lora.rank} with the fused u8 dropout {LORA_P}, "
+          f"batch {LORA_BATCH} from cached tokens, {REMAT_STEPS} steps a policy, the second traced")
+    runs = []
+    for policy in REMAT_RUNS:
+        run = remat_run(model, start, batches, dev, policy)
+        want = expected_train_launches(layers, REMAT_STEPS, remat_policy=policy)
+        print(f"  {policy!r}: losses {run['loss']}, step 1 ms {run['step_ms']['step 1']}, step 2 (traced) wall "
+              f"{run['wall_ms']:.3f} ms, device busy {run['busy_ms']:.3f} ms (idle share "
+              f"{1.0 - run['busy_ms'] / run['wall_ms']:.4f}; "
+              + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(run["groups"].items(), key=lambda x: -x[1]))
+              + f"), peak device memory {run['peak_gb']:.3f} GB, launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} }")
+        if run["launches"] != want:
+            raise AssertionError(f"remat_policy {policy!r} launched {run['launches']}, want {want}")
+        runs.append((policy, run))
+    ref = runs[0][1]
+    floor = grad_gap(runs[1][1]["grads"], ref["grads"])
+    print(f"  step-1 adapter gradients of the two 'nothing' runs: |err|/|ref| {floor['norm']:.4e} by 2-norm "
+          f"(the floor), largest per-tensor max|err|/max|ref| {floor['tensor']:.4e}")
+    keys = ("step_ms", "wall_ms", "busy_ms", "peak_gb")
+    record = {"policies": {"nothing": {**{k: [ref[k], runs[1][1][k]] for k in keys},
+                                       "grad_gap": floor["norm"]}}}
+    for policy, run in runs[2:]:
+        gap = grad_gap(run["grads"], ref["grads"])
+        print(f"  {policy!r}: first loss {run['loss'][0]!r} against {ref['loss'][0]!r}; gradients "
+              f"{gap['norm']:.4e} from the first 'nothing' run's (limit {TOKEN_FLOOR_RATIO} x "
+              f"{floor['norm']:.4e}), per tensor {gap['tensor']:.4e}; step 2 wall {run['wall_ms']:.3f} ms, "
+              f"device busy {run['busy_ms']:.3f} ms against {ref['wall_ms']:.3f} and {ref['busy_ms']:.3f}, "
+              f"peak {run['peak_gb']:.3f} GB against {ref['peak_gb']:.3f} ({card})")
+        if run["loss"][0] != ref["loss"][0]:
+            raise AssertionError(f"remat_policy {policy!r}: the first loss differs from 'nothing''s")
+        if not gap["norm"] <= TOKEN_FLOOR_RATIO * floor["norm"]:
+            raise AssertionError(f"remat_policy {policy!r}: the step-1 gradients are {gap['norm']:.4e} from "
+                                 f"'nothing''s, over {TOKEN_FLOOR_RATIO} x the floor {floor['norm']:.4e}")
+        record["policies"][policy] = {**{k: run[k] for k in keys}, "grad_gap": gap["norm"]}
+    del model, runs
+    torch.cuda.empty_cache()                       # 'dots' kept ~34 GB
+    lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P)
+    umodel = VideoLLaMA2VLB.from_state_dict(
+        VLBConfig.full(use_lora=True, mistral=MistralConfig.full(lora=lora, remat=True)), sd)
+    unfused = {policy: remat_run(umodel, start, batches, dev, policy, steps=1) for policy in ("nothing", "mids")}
+    for policy, run in unfused.items():
+        want = {k: (v if k.startswith("flash") else 0)
+                for k, v in expected_train_launches(layers, 1, remat_policy=policy).items()}
+        print(f"  the trainer's unfused 32-bit dropout under {policy!r}: loss {run['loss'][0]!r}, {run['mm']} "
+              f"products (aten.mm), step ms {run['step_ms']}, peak {run['peak_gb']:.3f} GB, launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} }")
+        if run["launches"] != want:
+            raise AssertionError(f"the unfused step under {policy!r} launched {run['launches']}, want {want}")
+    kept = unfused["nothing"]["mm"] - unfused["mids"]["mm"]
+    print(f"  'mids' keeps {kept} products a step (want {7 * layers}: x A, 7 a layer)")
+    if kept != 7 * layers or unfused["mids"]["loss"][0] != unfused["nothing"]["loss"][0]:
+        raise AssertionError("the unfused step under 'mids' did not keep x A's 7 products a layer, or "
+                             "its loss differs from 'nothing''s")
+    record["unfused"] = {p: {"step_ms": r["step_ms"], "peak_gb": r["peak_gb"], "mm": r["mm"]}
+                         for p, r in unfused.items()}
+    del umodel
+    torch.cuda.empty_cache()
+    return record
+
+
+def remat_child(out: str) -> int:
+    """``--remat DIR``: phase 8r alone in this process, on weights of its
+    own; prints one JSON line of its numbers last (DIR is not written)."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    card = card_name_and_power()
+    print(card)
+    cfg = lora_train_config()
+    sd = init_params(cfg, dev, gen)
+    start = {key: t.clone() for key, t in sd.items() if trainable_predicate(key)}
+    with phase("8r the decoder's checkpoint policies (remat_policy)"):
+        record = remat_policies(sd, start, lora_batches(cfg, gen, dev), dev, card)
+    record["peak_rss_gb"] = peak_rss_gb()
+    print(f"  peak host RSS {record['peak_rss_gb']:.2f} GB ({card})")
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"the remat phase's peak host RSS {record['peak_rss_gb']:.2f} GB is over "
+                             f"{HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # Phase 9d: the trainer of record across processes (``mesh.fsdp=-1`` through
 # ``torchrun`` on FSDP2), each rank a process of its own
 # (``python -m torch.distributed.run --standalone --nproc_per_node=N
@@ -3333,6 +3527,8 @@ def main() -> int:
         return after_train_child(sys.argv[2])
     if sys.argv[1:2] == ["--extract"]:
         return extract_child(sys.argv[2])
+    if sys.argv[1:2] == ["--remat"]:
+        return remat_child(sys.argv[2])
     if sys.argv[1:2] in (["--sharded"], ["--sharded-pair"]):
         return sharded_child(sys.argv[2], pair=sys.argv[1] == "--sharded-pair")
     t_start = time.perf_counter()

@@ -127,9 +127,35 @@ def compute_glover_regressor(
         exp_condition, frame_times, oversampling, min_onset
     )
     hkernel = glover_hrf(tr, oversampling)
-    conv_reg = np.convolve(hr_regressor, hkernel)[: hr_regressor.size]
-    # Linear resampling at frame_times (nilearn uses scipy interp1d linear).
-    return np.interp(frame_times, hr_frame_times, conv_reg)
+    # Linear resampling at frame_times (nilearn uses scipy interp1d linear)
+    # of ``np.convolve(hr_regressor, hkernel)[: hr_regressor.size]``. The
+    # interpolation reads the convolution at the two grid points around
+    # each frame time only, so only those entries are computed, each by the
+    # dot product np.convolve computes for it (:func:`_convolve_at`): a
+    # weight at a small ``time_diff`` convolves ~24k points with a ~32k-point
+    # kernel, tens of thousands of BLAS dots, which stall when the
+    # machine's cores are busy.
+    out = np.empty_like(frame_times)
+    last = hr_frame_times.size - 1
+    for k, t in enumerate(frame_times):
+        j = int(np.searchsorted(hr_frame_times, t, side="right")) - 1
+        window = [min(max(j, 0), last), min(max(j + 1, 0), last)]
+        conv = [_convolve_at(hr_regressor, hkernel, i) for i in window]
+        out[k] = np.interp(t, hr_frame_times[window], conv)
+    return out
+
+
+def _convolve_at(a: np.ndarray, v: np.ndarray, i: int) -> float:
+    """``np.convolve(a, v)[i]``, by the same dot product: numpy convolves
+    the longer array with the shorter one reversed, and its full-mode
+    entry i is the dot of their overlap there (``_pyarray_correlate``)."""
+    if v.size > a.size:
+        a, v = v, a
+    vr = v[::-1].copy()
+    n2 = vr.size
+    lo = max(0, i - (n2 - 1))
+    hi = min(a.size, i + 1)
+    return float(np.dot(a[lo:hi], vr[n2 - 1 - (i - lo): n2 - 1 - (i - lo) + (hi - lo)]))
 
 
 @functools.lru_cache(maxsize=65536)

@@ -21,6 +21,14 @@ never trainable, and the matmul is the one
 :func:`~phantom_vlb_tpu_torch.ops.quant.quant_matmul` selects; the
 functions there take the (in, out) transpose, as a view.
 
+The rank-r mid is named ``lora_mid`` as in the reference (:210), around
+the product that makes it (``core/remat.py``), so the ``'mids'`` and
+``'flash'`` checkpoint policies keep it. The adapter's products run before
+the base product, which saves no tensor (:func:`frozen_linear`, the int8
+Functions of ``ops/quant.py``): a checkpointed layer's replay stops at its
+last saved tensor, so it never runs the last projection's z @ B and base
+product, which only the layer's output needs.
+
 Dropout masks come only from an explicit per-site seed (an int the caller
 derives from the step, the layer and the site), never from a global RNG
 state: a per-layer ``torch.utils.checkpoint`` replays the layer in the
@@ -40,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from phantom_vlb_tpu_torch.core.remat import named
 from phantom_vlb_tpu_torch.ops.lora_epilogue import lora_epilogue
 from phantom_vlb_tpu_torch.ops.lora_fused import dropout_threshold, fused_dropout_matmul
 from phantom_vlb_tpu_torch.ops.quant import BASE_QUANT_MODES, quant_matmul
@@ -147,6 +156,30 @@ class _QuantBase(nn.Module):
         return quant_matmul(self.base_quant, x, self.weight_q.t(), self.weight_scale, dtype)
 
 
+class _FrozenLinear(torch.autograd.Function):
+    """``x @ weight^T`` with a frozen ``weight``, which the backward reads
+    from the module's tensor rather than from a saved one: the product then
+    saves nothing, so a checkpointed layer's replay, which stops at the last
+    saved tensor, never runs a base product whose output only the layer's
+    output needs (XLA's replay drops it too). dx is the same ``mm`` that
+    autograd of ``F.linear`` runs."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.weight = weight
+        return F.linear(x, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (dy @ ctx.weight if ctx.needs_input_grad[0] else None), None
+
+
+def frozen_linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    if weight.requires_grad:
+        return F.linear(x, weight)
+    return _FrozenLinear.apply(x, weight)
+
+
 class LoRALinear(_QuantBase):
     """A frozen base with f32 ``lora_a`` (in, r) and ``lora_b`` (r, out):
     ``weight`` (out, in) in the compute dtype, or with ``base_quant`` the
@@ -177,24 +210,30 @@ class LoRALinear(_QuantBase):
         ``adapter_x`` a pre-dropped adapter input (shared dropout); ``rows``
         the global batch rows x holds (:func:`keep_rows`)."""
         lora, dtype = self.lora, self.dtype
-        y = F.linear(x, self.weight) if self.base_quant is None else self._base(x, dtype)
         a = self.lora_a.to(dtype)
         live = self.training and lora.dropout > 0 and seed is not None
         if adapter_x is None and live and lora.fused_dropout:
             x2d = x.reshape(-1, x.shape[-1])
             row0 = 0 if rows is None else rows[0] * (x2d.shape[0] // x.shape[0])
-            z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0).reshape(
-                *x.shape[:-1], lora.rank)
+            with named("lora_mid"):
+                z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0)
+            z = z.reshape(*x.shape[:-1], lora.rank)
         else:
             z = x if adapter_x is None else adapter_x
             if adapter_x is None and live:
                 z = adapter_dropout(z, lora, seed, rows)
-            z = z @ a
+            with named("lora_mid"):
+                z = z @ a
         if lora.fused_epilogue:
-            return lora_epilogue(y, z, self.lora_b.to(dtype), lora.scaling,
+            return lora_epilogue(self._base_product(x), z, self.lora_b.to(dtype), lora.scaling,
                                  backward="xla" if lora.fused_epilogue == "fwd" else "pallas")
         z = z @ self.lora_b.to(dtype)
-        return y + z * _in_dtype(lora.scaling, dtype)
+        return self._base_product(x) + z * _in_dtype(lora.scaling, dtype)
+
+    def _base_product(self, x: torch.Tensor) -> torch.Tensor:
+        if self.base_quant is None:
+            return frozen_linear(x, self.weight)
+        return self._base(x, self.dtype)
 
 
 class FrozenQuantDense(_QuantBase):

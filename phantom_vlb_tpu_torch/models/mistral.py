@@ -13,12 +13,16 @@ With ``MistralConfig.lora`` every projection is a :class:`LoRALinear`
 ``'w8a8'``, ``'w8a8g8'``) makes its frozen base int8, or, without LoRA,
 makes every projection a :class:`FrozenQuantDense`; and ``shared_dropout`` gives q/k/v and
 gate/up one adapter-input mask each (:234-245). ``remat`` wraps each layer
-in ``torch.utils.checkpoint`` (non-reentrant) when gradients are recorded:
-the counterpart of ``remat_policy='nothing'`` (:185-203, :418-455), which
-keeps only each layer's input and replays the layer in the backward. The
-replay must draw the same dropout masks, so every mask comes from a seed
-derived before the layer runs (step seed -> layer -> site), never from a
-generator's state.
+in ``torch.utils.checkpoint`` (non-reentrant) when gradients are recorded
+(:418-455), which keeps each layer's input and replays the layer in the
+backward; ``remat_policy`` (:55-60, :185-203; ``core/remat.py``) says what
+else the layer keeps from its forward so the replay skips it: ``'nothing'``,
+``'attn'``, ``'mids'``, ``'flash'`` or ``'dots'``, named as in JAX at the
+same sites (``attn_out`` here, ``flash_out``/``flash_lse`` in
+``ops/flash_attention.py``, ``lora_mid`` in ``models/lora.py``). The ring
+``attention_impl``s take ``'nothing'`` only. The replay must draw the same
+dropout masks, so every mask comes from a seed derived before the layer
+runs (step seed -> layer -> site), never from a generator's state.
 
 Parameters are stored in the compute dtype (``MistralConfig.dtype``); the
 reference keeps f32 parameters and casts them to that dtype at each use,
@@ -30,7 +34,8 @@ as there.
 :func:`~phantom_vlb_tpu_torch.core.mesh.set_sequence_ring` set, after RoPE
 on the global positions, as the reference does. The per-layer checkpoint
 replays the ring. The attention owns no parameters, so
-:func:`set_attention_impl` switches a built model in place.
+:func:`set_attention_impl` switches a built model in place, and
+:func:`set_remat_policy` its policy.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from phantom_vlb_tpu_torch.core.mesh import get_sequence_ring
+from phantom_vlb_tpu_torch.core.remat import check_remat_policy, checkpoint_name, remat_context_fn
 from phantom_vlb_tpu_torch.models.lora import (
     FrozenQuantDense,
     LoRAConfig,
@@ -55,7 +61,7 @@ from phantom_vlb_tpu_torch.ops.flash_attention import attention_packed
 from phantom_vlb_tpu_torch.ops.ring_fused import ring_flash_fused
 
 __all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed",
-           "ATTENTION_IMPLS", "set_attention_impl"]
+           "ATTENTION_IMPLS", "set_attention_impl", "set_remat_policy"]
 
 RING_ATTENTION = {"ring": ring_attention, "ring_flash": ring_flash_attention,
                   "ring_fused": ring_flash_fused}
@@ -74,8 +80,10 @@ class MistralConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 1e6
     dtype: torch.dtype = torch.bfloat16
-    # Per-layer activation checkpointing while gradients are recorded.
+    # Per-layer activation checkpointing while gradients are recorded, and
+    # what each layer keeps from its forward (core/remat.py).
     remat: bool = True
+    remat_policy: str = "nothing"
     # LoRA on every projection (the reference's targets); None disables.
     lora: LoRAConfig | None = None
     # The frozen base projections stored int8: 'int8' (weight-only), 'w8a8'
@@ -88,6 +96,11 @@ class MistralConfig:
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}")
+        check_remat_policy(self.remat_policy)
+        if self.remat_policy != "nothing" and self.attention_impl in RING_ATTENTION:
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} with attention_impl {self.attention_impl!r}: "
+                "the rings take remat_policy='nothing' only")
 
     @staticmethod
     def full(**overrides) -> "MistralConfig":
@@ -190,6 +203,7 @@ class MistralAttention(nn.Module):
         else:
             ring = RING_ATTENTION[cfg.attention_impl]
             out = ring(q, k, v, h, hkv, get_sequence_ring(), kv_mask=kv_mask)
+        out = checkpoint_name(out, "attn_out")
         return _call_proj(self.o_proj, "o_proj", out, seed, rows=rows)
 
 
@@ -253,23 +267,37 @@ class MistralModel(nn.Module):
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         x = inputs_embeds.to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = remat_context_fn(cfg.remat_policy) if remat else None
         for i, layer in enumerate(self.layers):
             layer_seed = None if seed is None else site_seed(seed, i)
             if remat:
-                x = checkpoint(layer, x, rope, kv_mask, layer_seed, rows, use_reentrant=False)
+                x = checkpoint(layer, x, rope, kv_mask, layer_seed, rows, use_reentrant=False,
+                               context_fn=context_fn)
             else:
                 x = layer(x, rope, kv_mask, layer_seed, rows)
         return self.norm(x)
+
+
+def _replace_mistral(model: nn.Module, **changes) -> None:
+    """Replace fields of every :class:`MistralConfig` that a module of
+    ``model`` carries (as ``.cfg``, or as ``.cfg.mistral``), in place."""
+    for module in model.modules():
+        cfg = getattr(module, "cfg", None)
+        if isinstance(cfg, MistralConfig):
+            module.cfg = dataclasses.replace(cfg, **changes)
+        elif isinstance(getattr(cfg, "mistral", None), MistralConfig):
+            module.cfg = dataclasses.replace(
+                cfg, mistral=dataclasses.replace(cfg.mistral, **changes))
 
 
 def set_attention_impl(model: nn.Module, impl: str) -> None:
     """Switch every module of ``model`` that carries a :class:`MistralConfig`
     (or a config holding one as ``.mistral``) to ``impl``, in place; the
     weights are untouched."""
-    for module in model.modules():
-        cfg = getattr(module, "cfg", None)
-        if isinstance(cfg, MistralConfig):
-            module.cfg = dataclasses.replace(cfg, attention_impl=impl)
-        elif isinstance(getattr(cfg, "mistral", None), MistralConfig):
-            module.cfg = dataclasses.replace(
-                cfg, mistral=dataclasses.replace(cfg.mistral, attention_impl=impl))
+    _replace_mistral(model, attention_impl=impl)
+
+
+def set_remat_policy(model: nn.Module, policy: str) -> None:
+    """Switch ``model``'s decoder to the checkpoint ``policy``, in place, as
+    :func:`set_attention_impl` does; the weights are untouched."""
+    _replace_mistral(model, remat_policy=policy)

@@ -3,17 +3,20 @@
 Counterpart of ``phantom_vlb_tpu/ops/flash_attention.py``
 (``attention_packed`` :766, ``attention_with_stats`` :798, ``_fwd_impl`` :412,
 ``_fwd_kernel`` :93; ``_flash_packed_bwd`` :754, ``_bwd_impl`` :490,
-``_dq_dkv_kernel`` :284). On
-CUDA tensors :func:`attention_packed` is a ``torch.autograd.Function``: its
-forward launches ``csrc/flash_fwd.cu`` and saves (q, k, v, kv bias, out,
-lse); its backward launches the three kernels of ``csrc/flash_bwd.cu``:
-the prep (q pre-scaled, di, padded lse, a zeroed f32 dq accumulator), the
-main kernel (dk, dv and dq's f32 sums) and the post (dq in bf16). On CPU
-tensors it runs :func:`attention_packed_plain`, the plain PyTorch version of
-the forward, and autograd differentiates that. :func:`attention_packed_bwd_plain` is the
-plain version of the backward kernel's own arithmetic, which the card holds
-the kernel against. There is no fallback: a CUDA tensor the kernels do not
-take raises.
+``_dq_dkv_kernel`` :284). :func:`attention_packed` is a
+``torch.autograd.Function`` whose forward is the dispatcher op
+``vlb::flash_fwd`` -> (out, lse), named ``flash_out`` and ``flash_lse`` as
+the reference names them (:716-717), so that a checkpoint policy can keep
+them and the replay does not launch the kernel again (``core/remat.py``).
+On CUDA tensors the op launches ``csrc/flash_fwd.cu``, the Function saves
+(q, k, v, kv bias, out, lse) and its backward launches the three kernels of
+``csrc/flash_bwd.cu``: the prep (q pre-scaled, di, padded lse, a zeroed f32
+dq accumulator), the main kernel (dk, dv and dq's f32 sums) and the post
+(dq in bf16). On CPU tensors the op runs :func:`attention_packed_plain`,
+the plain PyTorch version of the forward, and the backward is autograd's
+of that. :func:`attention_packed_bwd_plain` is the plain version of the
+backward kernel's own arithmetic, which the card holds the kernel against.
+There is no fallback: a CUDA tensor the kernels do not take raises.
 
 ``causal_offset`` shifts the causal mask as the ring's steps need it: query
 row i sees key j where ``j <= i + causal_offset`` (reference ``_causal_add``
@@ -64,6 +67,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from phantom_vlb_tpu_torch.core.remat import named
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
@@ -136,12 +140,11 @@ def _packed(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2, 4).reshape(b, s, hkv * g * d)
 
 
-def _masked_scores(qg, kh, kv_mask, causal_offset=0):
-    """f32 scores (B, Hkv, G, S, S) + bias row + causal MASK_VALUE (where
-    ``col > row + causal_offset``), in that order."""
+def _masked_scores(qg, kh, bias, causal_offset=0):
+    """f32 scores (B, Hkv, G, S, S) + the (B, S) bias row + causal
+    MASK_VALUE (where ``col > row + causal_offset``), in that order."""
     s = qg.shape[-2]
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), kh.float())
-    bias = kv_bias(kv_mask)
     if bias is not None:
         scores = scores + bias[:, None, None, None, :]
     pos = torch.arange(s, device=qg.device)
@@ -165,11 +168,17 @@ def attention_packed_plain(
     Materialises the (B, Hq, S, S) f32 scores, so it is for the CPU and for
     holding the kernel to account on the card, not for speed.
     """
+    return _attention_plain(q, k, v, kv_bias(kv_mask), num_heads, num_kv_heads, sm_scale,
+                            causal_offset)
+
+
+def _attention_plain(q, k, v, bias, num_heads, num_kv_heads, sm_scale, causal_offset):
+    """:func:`attention_packed_plain` on the additive (B, S) ``bias``."""
     b, s, _ = q.shape
     group = num_heads // num_kv_heads
     qs = q * _scale_in_dtype(q, num_heads, sm_scale)
     scores = _masked_scores(_heads(qs, num_kv_heads, group), _heads(k, num_kv_heads, 1)[:, :, 0],
-                            kv_mask, causal_offset)
+                            bias, causal_offset)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -208,7 +217,7 @@ def attention_packed_bwd_plain(
     vh = _heads(v, num_kv_heads, 1)[:, :, 0]
     dog = _heads(do, num_kv_heads, group).float()
     og = _heads(out, num_kv_heads, group).float()
-    scores = _masked_scores(qg, kh, kv_mask, causal_offset)
+    scores = _masked_scores(qg, kh, kv_bias(kv_mask), causal_offset)
     p = torch.exp(scores - lse.reshape(b, num_kv_heads, group, s)[..., None])
     di = (og * dog).sum(-1, keepdim=True)
     dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(do.dtype).float(), dog)
@@ -376,13 +385,29 @@ def _flash_bwd_cuda(q, k, v, bias, out, lse, do, num_heads, num_kv_heads, sm_sca
     return flash_bwd_post(inp.acc, q.shape[1], _default_scale(q, num_heads, sm_scale)), dk, dv
 
 
+# The forward as a dispatcher op, so that a checkpoint policy can keep its
+# outputs and the backward's replay does not launch it again
+# (``core/remat.py``): the kernel on CUDA tensors, the plain version on CPU
+# tensors. ``sm_scale`` is the unrounded scale.
+_LIB = torch.library.Library("vlb", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, int num_heads, "
+            "int num_kv_heads, float sm_scale, int causal_offset) -> (Tensor, Tensor)")
+_LIB.impl("flash_fwd", _attention_plain, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+
+
 class _FlashAttention(torch.autograd.Function):
-    """CUDA path: flash_fwd.cu forward, flash_bwd.cu backward (prep, main, post)."""
+    """The ``vlb::flash_fwd`` op forward; the backward is flash_bwd.cu's
+    three kernels on the card and the vector-Jacobian product of the plain
+    forward on the CPU (what autograd of the plain version gives)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, causal_offset):
         bias = kv_bias(kv_mask)
-        out, lse = _flash_fwd_cuda(q, k, v, bias, num_heads, num_kv_heads, sm_scale, causal_offset)
+        with named("flash_out", "flash_lse"):
+            out, lse = torch.ops.vlb.flash_fwd(q, k, v, bias, num_heads, num_kv_heads,
+                                               _default_scale(q, num_heads, sm_scale),
+                                               causal_offset)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.heads = (num_heads, num_kv_heads, sm_scale, causal_offset)
         ctx.mark_non_differentiable(lse)
@@ -391,7 +416,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd_cuda(q, k, v, bias, out, lse, dout, *ctx.heads)
+        if q.device.type == "cpu":
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                out = _attention_plain(*qkv, bias, *ctx.heads)[0]
+                dq, dk, dv = torch.autograd.grad(out, qkv, dout)
+        else:
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, bias, out, lse, dout, *ctx.heads)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -413,14 +444,10 @@ def attention_packed(
     CPU tensors through :func:`attention_packed_plain`. lse is not
     differentiable.
     """
-    if q.device.type == "cpu":
-        return attention_packed_plain(
-            q, k, v, num_heads, num_kv_heads, sm_scale=sm_scale, kv_mask=kv_mask,
-            causal_offset=causal_offset,
-        )
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
+    elif q.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
     return _FlashAttention.apply(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, causal_offset)
 
 

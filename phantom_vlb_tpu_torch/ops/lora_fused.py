@@ -26,7 +26,9 @@ construction, and :func:`hash_bytes` (torch int64, masked to 32 bits)
 gives the kernels' bytes bit for bit.
 
 On CUDA tensors the three kernels of ``csrc/lora_dropout.cu`` run; on CPU
-tensors their plain versions. There is no fallback on the card.
+tensors their plain versions. There is no fallback on the card. The
+forward is the dispatcher op ``vlb::lora_dropout_fwd``, so that a
+checkpoint policy can keep the mid it makes (``core/remat.py``).
 """
 
 from __future__ import annotations
@@ -211,15 +213,23 @@ def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=Tru
             _da_cuda(x, a, dmid, seed, thr, bits, row0) if need_da else None)
 
 
+# The forward as a dispatcher op, so that a checkpoint policy can keep the
+# mid and the backward's replay does not launch the kernel again
+# (``core/remat.py``): the kernel on CUDA tensors, the plain version on CPU
+# tensors.
+_LIB = torch.library.Library("vlb", "FRAGMENT")
+_LIB.define("lora_dropout_fwd(Tensor x, Tensor a, int seed, int thr, Tensor? bits, int row0) -> Tensor")
+_LIB.impl("lora_dropout_fwd", fused_dropout_matmul_plain, "CPU")
+_LIB.impl("lora_dropout_fwd", _fwd_cuda, "CUDA")
+
+
 class _FusedDropoutMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, seed, p, bits, row0):
         thr, _ = dropout_threshold(p)
         ctx.save_for_backward(x, a, bits)
         ctx.seed, ctx.p, ctx.row0 = seed, p, row0
-        if x.device.type == "cpu":
-            return fused_dropout_matmul_plain(x, a, seed, thr, bits, row0)
-        return _fwd_cuda(x, a, seed, thr, bits, row0)
+        return torch.ops.vlb.lora_dropout_fwd(x, a, seed, thr, bits, row0)
 
     @staticmethod
     def backward(ctx, dmid):

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from phantom_vlb_tpu_torch.core.remat import OPAQUE, named
 from phantom_vlb_tpu_torch.ops.rowquant import over_127, row_quant, row_quant_scaled
 
 __all__ = [
@@ -73,31 +74,54 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b.double()).to(torch.int32)
 
 
+# The Functions below keep the frozen q and scale on ctx, not as saved
+# tensors: the products then save nothing, so a checkpointed layer's replay,
+# which stops at the last saved tensor, never runs a base product that only
+# the layer's output needs (``models/lora.py``). The int8 backward converts q
+# again rather than keep a bf16 copy of the weight.
+
+
+class _Int8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q, scale, dtype):
+        ctx.q, ctx.scale, ctx.x_dtype, ctx.dtype = q, scale, x.dtype, dtype
+        return (x.to(dtype) @ q.to(dtype)) * scale.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        g = dy * ctx.scale.to(ctx.dtype)
+        return (g @ ctx.q.to(ctx.dtype).t()).to(ctx.x_dtype), None, None, None
+
+
 def int8_matmul(x, q, scale, dtype=torch.bfloat16):
     """``x @ dequant(q)``: the product in ``dtype``, then the scale in ``dtype``."""
-    return (x.to(dtype) @ q.to(dtype)) * scale.to(dtype)
+    return _Int8.apply(x, q, scale, dtype)
 
 
 def _w8a8_forward(x, q, scale, dtype):
-    """Per-row int8 x, int8 x int8 -> int32, then ``(y * s_x) * scale``."""
+    """Per-row int8 x, int8 x int8 -> int32, then ``(y * s_x) * scale``;
+    in the scope whose products the ``'dots'`` checkpoint policy leaves to
+    the replay, as JAX's leaves its ``custom_vjp``'s (``core/remat.py``)."""
     lead, k = x.shape[:-1], x.shape[-1]
-    x8, s_x = row_quant(x.reshape(-1, k).contiguous())
-    y = _int_mm(x8, q)
-    return (y * s_x).mul_(scale).to(dtype).reshape(*lead, q.shape[1])
+    with named(OPAQUE):
+        x8, s_x = row_quant(x.reshape(-1, k).contiguous())
+        y = _int_mm(x8, q)
+        return (y * s_x).mul_(scale).to(dtype).reshape(*lead, q.shape[1])
 
 
 class _W8A8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q, scale, dtype):
-        ctx.save_for_backward(q, scale)
-        ctx.x_dtype = x.dtype
+        ctx.q, ctx.scale, ctx.x_dtype = q, scale, x.dtype
         return _w8a8_forward(x, q, scale, dtype)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
             return None, None, None, None
-        q, scale = ctx.saved_tensors
+        q, scale = ctx.q, ctx.scale
         # Straight-through: round() is the identity, so dx is the exact bf16
         # dequant backward, as the reference's (quant.py:131-145).
         dyb = (dy.float() * scale).to(torch.bfloat16)
@@ -107,15 +131,14 @@ class _W8A8(torch.autograd.Function):
 class _W8A8G8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q, scale, dtype):
-        ctx.save_for_backward(q, scale)
-        ctx.x_dtype = x.dtype
+        ctx.q, ctx.scale, ctx.x_dtype = q, scale, x.dtype
         return _w8a8_forward(x, q, scale, dtype)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
             return None, None, None, None
-        q, scale = ctx.saved_tensors
+        q, scale = ctx.q, ctx.scale
         lead, n = dy.shape[:-1], dy.shape[-1]
         # The weight scale rides the contracted axis here, so it is folded
         # into dy before the per-row quant (quant.py:173-179).

@@ -14,9 +14,8 @@ under it the model is built on each rank's card from the same seed and
 sharded by FSDP2 (``parallel/sharding.py``), and each rank's loaders yield
 its rows of each global batch, which the batch axes must divide. A single
 process trains on one card, whatever the machine holds. Branches of the
-reference that are not ported raise by name: ``datamodule.loader=grain``,
-an Orbax directory as ``model.checkpoint_path``, and under a mesh of more
-than one process ``model.cache_features``, ``datamodule.vision_token_cache``
+reference that are not ported raise by name: an Orbax directory as
+``model.checkpoint_path``, and under a mesh of more than one process ``model.cache_features``, ``datamodule.vision_token_cache``
 (and, in ``parallel/sharding.py``, ``base_quant`` and the ring
 ``attention_impl``s). :func:`build_trainer` and :func:`build_cached_trainer`
 also take ready ``loaders`` (any sized iterables of global batches; under a
@@ -38,6 +37,7 @@ from phantom_vlb_tpu_torch.core.config import Config, to_dict
 from phantom_vlb_tpu_torch.core.device import resolve_device
 from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN
 from phantom_vlb_tpu_torch.core.mesh import MeshConfig, MeshEnv, build_mesh
+from phantom_vlb_tpu_torch.data.grain_loader import GrainBatchLoader
 from phantom_vlb_tpu_torch.data.loader import (
     BatchLoader,
     LazyDataset,
@@ -66,9 +66,9 @@ __all__ = ["build_loaders", "split_loaders", "build_model_config", "load_pretrai
 
 def build_loaders(dm: Config, mesh: MeshEnv | None = None) -> tuple[BatchLoader, BatchLoader, dict]:
     """The train and val loaders over the lazy-load files (under a mesh,
-    this rank's rows of each global batch), and the files' names."""
-    if str(dm.get("loader", "native")) == "grain":
-        raise NotImplementedError("datamodule.loader=grain is not ported; use the native loader")
+    this rank's rows of each global batch), and the files' names: the
+    native loaders, or with ``datamodule.loader=grain`` the
+    :class:`GrainBatchLoader`s (``data/grain_loader.py``)."""
     files = expand_lazyload_glob(dm.lazyload_path, list(dm.seasons))
     if not files:
         raise FileNotFoundError(
@@ -81,8 +81,14 @@ def build_loaders(dm: Config, mesh: MeshEnv | None = None) -> tuple[BatchLoader,
 
 def split_loaders(dm: Config, train_sources: list, val_sources: list,
                   mesh: MeshEnv | None = None) -> tuple[BatchLoader, BatchLoader]:
-    """The train and val loaders of the datamodule config over lazy-load
-    files or open stores (e.g. the in-memory ones the builder writes)."""
+    """The train and val loaders of the datamodule config (``loader``:
+    ``native`` or ``grain``) over lazy-load files or open stores (e.g. the
+    in-memory ones the builder writes)."""
+    if str(dm.get("loader", "native")) == "grain":
+        common = dict(batch_size=int(dm.batch_size), seed=int(dm.random_state),
+                      worker_count=int(dm.get("num_workers", 0)), mesh=mesh)
+        return (GrainBatchLoader(train_sources, shuffle=True, **common),
+                GrainBatchLoader(val_sources, shuffle=bool(dm.get("shuffle_val_data", False)), **common))
     common = dict(batch_size=int(dm.batch_size), seed=int(dm.random_state),
                   prefetch=int(dm.get("prefetch", 4)), num_threads=int(dm.get("num_workers", 4)),
                   mesh=mesh)

@@ -87,9 +87,12 @@ def test_train_cli_on_the_cpu(lazy_pattern, tmp_path):
 
 
 # A mesh of 4 devices in one process: sharded training runs one process per
-# card, so the error names the launch that would give it 4.
+# card, so the error names the launch that would give it 4. The grain loader
+# trains (tests/test_torch_grain_loader.py); the vision-token cache, which
+# swaps the native loaders' datasets, refuses it.
 UNPORTED = {
-    "grain": (["datamodule.loader=grain"], NotImplementedError, "grain"),
+    "grain": (["datamodule.loader=grain", "datamodule.vision_token_cache={orbax}"], ValueError,
+              "vision_token_cache requires the native loader"),
     "mesh": (["mesh.fsdp=4"], ValueError, "needs 4 devices, have 1.*torchrun --nproc_per_node=4"),
     "orbax": (["model.checkpoint_path={orbax}"], NotImplementedError, "Orbax"),
 }

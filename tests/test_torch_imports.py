@@ -7,9 +7,11 @@ optional packages (flax, optax, yaml, pandas, PIL, transformers,
 tokenizers, ml_dtypes, safetensors, orbax, comet_ml) blocked: the
 trainer's modules among them, those of the stages around it (predict, the
 feature and token caches, the brain maps) and those of the first two
-stages (extraction and the lazy-load builder, with their CLIs), and
+stages (extraction and the lazy-load builder, with their CLIs),
 those of the multi-process path (the process group, the mesh, FSDP2
-sharding).
+sharding), and the checkpoint policies, the grain-order loader (which
+imports no ``grain``), the profiling hooks, the dtype policies and the
+model registry; the hand kernels' forward ops are registered.
 """
 
 import os
@@ -66,6 +68,13 @@ assert first <= set(names), sorted(first - set(names))
 sharded = {{"phantom_vlb_tpu_torch.core.distributed", "phantom_vlb_tpu_torch.core.mesh",
            "phantom_vlb_tpu_torch.parallel", "phantom_vlb_tpu_torch.parallel.sharding"}}
 assert sharded <= set(names), sorted(sharded - set(names))
+remat = {{"phantom_vlb_tpu_torch.core.remat", "phantom_vlb_tpu_torch.core.dtypes",
+         "phantom_vlb_tpu_torch.core.registry", "phantom_vlb_tpu_torch.data.grain_loader",
+         "phantom_vlb_tpu_torch.utils.profiling"}}
+assert remat <= set(names), sorted(remat - set(names))
+import torch
+assert hasattr(torch.ops.vlb, "flash_fwd") and hasattr(torch.ops.vlb, "lora_dropout_fwd")
+assert "grain" not in sys.modules
 print(len(names))
 """
 

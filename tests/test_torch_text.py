@@ -19,6 +19,7 @@ import random
 import numpy as np
 import pandas as pd
 import pytest
+from threadpoolctl import threadpool_limits
 
 from phantom_vlb_tpu.core.geometry import VLBGeometry as JGeometry
 from phantom_vlb_tpu.data import hrf as jhrf
@@ -48,13 +49,20 @@ def test_geometry_offsets_match_jax(geom):
 
 
 def test_hrf_weights_bit_equal():
+    """The reference convolves in full with ``np.convolve``: tens of
+    thousands of BLAS dots of up to 32k points for a small time_diff, which
+    OpenBLAS spreads over its threads. Under the suite's parallel workers
+    those threads fight for the cores and the test took minutes, so both
+    sides run with one BLAS thread (the port reads only the entries its
+    interpolation needs, by the same dots)."""
     diffs = np.concatenate([VLBGeometry().vision_onset_deltas(), np.linspace(0.05, 30.0, 97),
                             np.random.default_rng(0).uniform(0.1, 12.0, 40)])
-    np.testing.assert_array_equal(hrf.get_hrf_weights(diffs), jhrf.get_hrf_weights(diffs))
-    np.testing.assert_array_equal(hrf.glover_hrf(1.49), jhrf.glover_hrf(1.49))
     frames = np.arange(0.0, 20.0, 1.49)
-    np.testing.assert_array_equal(hrf.compute_glover_regressor(frames, onset=2.0),
-                                  jhrf.compute_glover_regressor(frames, onset=2.0))
+    with threadpool_limits(limits=1, user_api="blas"):
+        np.testing.assert_array_equal(hrf.get_hrf_weights(diffs), jhrf.get_hrf_weights(diffs))
+        np.testing.assert_array_equal(hrf.glover_hrf(1.49), jhrf.glover_hrf(1.49))
+        np.testing.assert_array_equal(hrf.compute_glover_regressor(frames, onset=2.0),
+                                      jhrf.compute_glover_regressor(frames, onset=2.0))
 
 
 def _tokenizers():
