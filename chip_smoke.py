@@ -12,6 +12,8 @@ vision towers.
     python3 chip_smoke.py --remat DIR       # phase 8r alone (DIR is not written)
     python -m torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR
         # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
+    python -m torch.distributed.run --standalone --nproc_per_node=2 chip_smoke.py --tensor-pair DIR
+        # phase 9d (e) alone: mesh.tensor=2 on 2 processes of the one card (gloo)
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -45,7 +47,16 @@ Phases, each printed with its wall time; any failure exits non-zero:
    and at S = 2048 on 2 ranks, one ring per n taking every case in turn
    (landing slots reused pass after pass), n(n-1)/2 chunk sends a pass; the
    flash kernels with causal offsets S_loc, 192, 64 and 0 at S_loc, and q
-   tiles shorter than 128 rows (S 100, and S 300 at offset 64);
+   tiles shorter than 128 rows (S 100, and S 300 at offset 64); and at the
+   shapes one ``tensor`` rank gives each kernel: flash forward and backward
+   at (3, 2048) with heads 16/4 (``tensor`` 2) and 4/1 (8), the LoRA
+   dropout kernels from a first column ``col0`` = 2048 at K 2048 and 7168
+   at K 7168 (a row-parallel o and down at ``tensor`` 2; the hash's columns
+   read back exactly), the epilogue at N 2048, 512 and 7168, and the row
+   quant's passes alone (``row_absmax``, ``row_quant_given``) at (6144,
+   2048) and (6144, 7168), plain and scaled, each half of a whole row
+   quantized with the maximum of the halves' maxima bit-equal to the whole
+   row's codes and scale;
 4. the full-width VLB model (the CLIP ViT-L/14-336 tower's 23 layers, the
    STC connector and the 32-layer Mistral-7B, bf16), made on the card from a
    seeded generator;
@@ -174,7 +185,20 @@ Phases, each printed with its wall time; any failure exits non-zero:
    global batch; step ms, peak device memory and each rank's peak host
    RSS. (d) with 2 cards, ``--sharded-pair`` on 2 processes at
    ``datamodule.batch_size=4`` against one card at 4; otherwise it prints
-   that (d) was skipped;
+   that (d) was skipped. (e) ``mesh.fsdp=1 mesh.tensor=2`` on 2 processes
+   that share the one card, their collectives over gloo on CUDA tensors
+   (NCCL refuses two ranks on one device; ``--tensor-pair``):
+   ``vlb_friends_lora`` with the fused u8 dropout at full width from cached
+   tokens, 1 epoch of 2 steps and a validation, each rank's decoder the
+   rank's 16 of 32 heads, 4 of 8 kv heads and 7168 of the MLP's 14336,
+   against one process on the same batches (first loss and step-1 adapter
+   gradients within tolerance, the gradients beside the floor of two
+   one-process runs); then one ``model.base_quant=w8a8g8`` step against one
+   process (its first loss bit-equal: fresh adapters add nothing, and the
+   int8 products sum their int32 partials). Each rank's launches against
+   what the code implies (the row-parallel quants through the split
+   kernel pair), its peak device memory and step ms, printed as a check
+   through host-staged gloo, not as a speed of tensor parallelism;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -187,7 +211,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
     int8 weights on both sides);
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
-    beside the bound; SDPA's ``is_causal`` forward beside the masked one;
+    beside the bound, at the one-card shapes and (printed only) at one
+    ``tensor`` rank's (``time_tensor_shapes``); SDPA's ``is_causal`` forward beside the masked one;
     the flash backward as the sum of its three kernels against SDPA's whole
     backward (the kernels it ran named), and SDPA with ``is_causal=True``,
     at (3, 2048) and (1, 4608); one pass of the fused ring (first send to
@@ -232,6 +257,7 @@ import sys
 import tempfile
 import threading
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -328,11 +354,18 @@ from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor, preprocess
 from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
 from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, RING_STATS, ring_fwd, ring_fwd_plain, ring_send_plan
 from phantom_vlb_tpu_torch.ops.rowquant import (
+    ROW_ABSMAX,
     ROW_QUANT,
+    ROW_QUANT_GIVEN,
     ROW_QUANT_SCALED,
+    row_absmax,
+    row_absmax_plain,
     row_quant,
+    row_quant_given,
+    row_quant_given_plain,
     row_quant_plain,
     row_quant_scaled,
+    row_quant_split,
 )
 from phantom_vlb_tpu_torch.parallel.sharding import whole
 from phantom_vlb_tpu_torch.postprocessing.nifti import NiftiImage, load_nifti, save_nifti
@@ -362,6 +395,14 @@ HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
 LORA_ROW0 = 2 * 2048 + 77      # a global first row for the hash mask, off every tile edge
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
+# What one rank of mesh.tensor=2 gives the kernels: the row-parallel o and
+# down read columns [K, 2K) of the input (rank 1), K = 2048 and 7168; the
+# column-parallel q, k/v and gate/up write N = 2048, 512 and 7168 columns;
+# the attention runs 16 of 32 heads (4 of 8 kv), and at tensor 8, 4 (1).
+TENSOR = 2
+TENSOR_LORA = ((2048, 2048), (7168, 7168))          # (K, col0)
+TENSOR_EPI_NS = (2048, 512, 7168)
+TENSOR_HEADS = ((16, 4), (4, 1))
 # The vision tower's projections at batch 3: 12 frames of 577 tokens (not a
 # multiple of 8 rows), at its two input widths.
 TOWER_ROWS = LORA_BATCH * REFERENCE_GEOMETRY.num_frames * (REFERENCE_GEOMETRY.patch_grid ** 2 + 1)
@@ -370,6 +411,7 @@ KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd"
            "flash_bwd_post": FLASH_BWD_POST,
            "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
            "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
+           "row_absmax": ROW_ABSMAX, "row_quant_given": ROW_QUANT_GIVEN,
            "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "epi_dzdb": EPI_DZDB,
            "ring_fwd": RING_FWD}
 # flash_bwd.cu built with each of its cost probes (see its header): the main
@@ -396,6 +438,8 @@ REPLACES = {
     "lora_da": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:111"),
     "row_quant": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35"),
     "row_quant_scaled": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:45"),
+    "row_absmax": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35,45"),
+    "row_quant_given": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35,45"),
     "epi_fwd": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:45"),
     "epi_dz": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:51"),
     "epi_db": ("lora_epilogue.cu", "phantom_vlb_tpu/ops/lora_epilogue.py:69"),
@@ -822,6 +866,73 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
     return errs
 
 
+def check_lora_col0(k: int, col0: int, gen, dev) -> dict[str, float]:
+    """The three kernels vs plain at (6144, k), r 16, p 0.1, hash mode from
+    global row LORA_ROW0 and first column ``col0`` (a row-parallel
+    projection's input on a ``tensor`` rank); the mask read back exactly
+    through dx is the hash's columns [col0, col0 + k). Returns each
+    kernel's max abs error."""
+    thr, _ = dropout_threshold(LORA_P)
+    x, a, dmid = lora_inputs(k, gen, dev)
+    mid = fused_dropout_matmul(x, a, 1234, LORA_P, row0=LORA_ROW0, col0=col0)
+    dx, da = fused_dropout_bwd(x, a, dmid, 1234, LORA_P, row0=LORA_ROW0, col0=col0)
+    torch.cuda.synchronize()
+    mid_ref = fused_dropout_matmul_plain(x, a, 1234, thr, row0=LORA_ROW0, col0=col0)
+    dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, 1234, thr, row0=LORA_ROW0, col0=col0)
+    rels = (rel_err(mid, mid_ref), rel_err(dx, dx_ref), rel_err(da, da_ref))
+    errs = {"lora_fwd": abs_err(mid, mid_ref), "lora_dx": abs_err(dx, dx_ref), "lora_da": abs_err(da, da_ref)}
+    del mid_ref, dx_ref, da_ref
+    e_a = torch.zeros_like(a)
+    e_a[:, 0] = 1
+    e_d = torch.zeros_like(dmid)
+    e_d[:, 0] = 1
+    dx, _ = fused_dropout_bwd(x, e_a, e_d, 1234, LORA_P, need_da=False, row0=LORA_ROW0, col0=col0)
+    wider = hash_bytes(1234, LORA_M, col0 + k, dev, LORA_ROW0)[:, col0:] >= thr
+    mismatches = int(((dx != 0) != wider).sum())
+    print(f"  lora K={k} hash from row {LORA_ROW0}, column {col0}: max|err|/max|ref| fwd {rels[0]:.3e} "
+          f"(tol {MID_REL_TOL}), dx {rels[1]:.3e} (tol {DX_REL_TOL}), dA {rels[2]:.3e} (tol {DA_REL_TOL}); "
+          f"mask via dx against columns [{col0}, {col0 + k}) of the whole row's hash: {mismatches} mismatches")
+    if not (rels[0] <= MID_REL_TOL and rels[1] <= DX_REL_TOL and rels[2] <= DA_REL_TOL) or mismatches:
+        raise AssertionError(f"LoRA kernels from column {col0} disagree with their plain versions (K={k})")
+    return errs
+
+
+def check_row_quant_split(gen, dev) -> dict[str, float]:
+    """The kernel's passes alone at one ``tensor`` rank's widths, (6144,
+    2048) and (6144, 7168) bf16 with a zero row, plain and scaled: the
+    maxima and the codes from a given scale bit-equal to their plain
+    versions, and each half of a whole row quantized with the maximum of
+    the halves' maxima (``row_quant_split``) bit-equal to the whole row's
+    q and s. Returns each entry point's max abs error (0 when bit-equal)."""
+    errs = {"row_absmax": 0.0, "row_quant_given": 0.0}
+    for k, _ in TENSOR_LORA:
+        x = (3 * torch.randn(LORA_M, TENSOR * k, generator=gen, device=dev)).to(torch.bfloat16)
+        x[LORA_M // 3] = 0
+        w = torch.rand(TENSOR * k, generator=gen, device=dev) * 2 + 0.01
+        for ws in (None, w):
+            q, s = row_quant_plain(x, ws)
+            halves = [(x[:, i * k:(i + 1) * k].contiguous(), None if ws is None else ws[i * k:(i + 1) * k].contiguous())
+                      for i in range(TENSOR)]
+            maxima = [row_absmax(h, hw) for h, hw in halves]
+            given = [row_quant_given(h, s, hw) for h, hw in halves]
+            split = [row_quant_split(h, lambda m: torch.stack(maxima).amax(0), hw) for h, hw in halves]
+            torch.cuda.synchronize()
+            mis = {"absmax": sum(int((m != row_absmax_plain(h, hw)).sum()) for m, (h, hw) in zip(maxima, halves)),
+                   "given": sum(int((g != row_quant_given_plain(h, s, hw)).sum()) for g, (h, hw) in zip(given, halves)),
+                   "split q": sum(int((qs != q[:, i * k:(i + 1) * k]).sum()) for i, (qs, _) in enumerate(split)),
+                   "split s": sum(int((ss != s).sum()) for _, ss in split)}
+            label = f"(6144, {k}) bf16{' scaled' if ws is not None else ''}"
+            print(f"  row quant's passes alone {label}: mismatches {mis}")
+            if any(mis.values()):
+                raise AssertionError(f"the split row quant disagrees with its plain version at {label}")
+            errs["row_absmax"] = max(errs["row_absmax"], *(abs_err(m, row_absmax_plain(h, hw))
+                                                          for m, (h, hw) in zip(maxima, halves)))
+            errs["row_quant_given"] = max(errs["row_quant_given"],
+                                          *(abs_err(g, row_quant_given_plain(h, s, hw)) for g, (h, hw) in zip(given, halves)))
+        del x, w
+    return errs
+
+
 def check_row_quant(gen, dev) -> dict[str, float]:
     """Both entry points vs plain, bit for bit: bf16 at (6144, 4096) and
     (6144, 14336) with a zero row, 6141 rows (not a multiple of 8), and the
@@ -855,13 +966,14 @@ def epilogue_inputs(n: int, gen, dev):
     return y, z, b, dy
 
 
-def check_epilogue(gen, dev) -> dict[str, float]:
+def check_epilogue(gen, dev, ns=EPI_NS) -> dict[str, float]:
     """Forward, the fused dz + dB, and dz and dB alone vs plain at M = 6144,
-    r = 16, N = 1024, 4096, 14336, and two calls of each backward entry
-    point bit for bit; returns each kernel's max abs error."""
+    r = 16, N in ``ns`` (the one-card widths 1024, 4096, 14336 by default),
+    and two calls of each backward entry point bit for bit; returns each
+    kernel's max abs error."""
     errs = {"epi_fwd": 0.0, "epi_dz": 0.0, "epi_db": 0.0, "epi_dzdb": 0.0}
     scaling = 32.0 / LORA_R
-    for n in EPI_NS:
+    for n in ns:
         y, z, b, dy = epilogue_inputs(n, gen, dev)
         backward = {"epi_dz": lambda: (lora_epilogue_dz(dy, b, scaling),),
                     "epi_db": lambda: (lora_epilogue_db(z, dy, scaling),),
@@ -1106,7 +1218,7 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
                 "lora_fwd": (7 if "lora_mid" in kept else 14) * layers, "lora_dx": 7 * layers - 3,
                 "lora_da": 7 * layers,
                 "row_quant": (14 if epilogue else 13) * layers if int8 else 0,
-                "row_quant_scaled": 7 * layers - 3 if int8 else 0,
+                "row_quant_scaled": 7 * layers - 3 if int8 else 0, "row_absmax": 0, "row_quant_given": 0,
                 "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
                 "epi_dzdb": 7 * layers if epilogue else 0}
     return {name: per_step[name] * steps for name in KERNELS}
@@ -1480,7 +1592,8 @@ def time_fwd_probes(dev) -> None:
 def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int = 3) -> dict[str, float]:
     """Device time per call of every kernel ``fn`` launches, by kernel name
     (``torch.profiler``). The tracer drops sessions, or some of a session's
-    records, now and then, so up to ``tries`` sessions are taken. With
+    records, now and then, so up to ``tries`` sessions that recorded any
+    device time are taken (and as many more that recorded none). With
     ``kernel`` named, the first whose records of the kernels whose name
     holds it number a nonzero multiple of ``iters`` (each call launches
     the same) is returned; when none does, each kernel's mean over what the
@@ -1492,7 +1605,7 @@ def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int
     for _ in range(warmup):
         fn()
     sessions = []
-    for _ in range(tries):
+    for _ in range(2 * tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -1507,6 +1620,8 @@ def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int
             return {key: t / iters for key, t, _ in events}
         if events:
             sessions.append(events)
+            if len(sessions) == tries:
+                break
     if not kernel:
         if not sessions:
             print("  (no trace of the call recorded: its time by CUDA events)")
@@ -1720,6 +1835,70 @@ def time_lora(gen, dev) -> dict[str, dict]:
     return out
 
 
+def time_tensor_shapes(gen, dev) -> None:
+    """Each kernel of the tensor-parallel step at the shapes one rank of
+    mesh.tensor=2 gives it, beside its plain version, a library yardstick
+    and the bound (printed only; the JSON keeps the one-card shapes): the
+    flash forward and the backward's main kernel with 16 of 32 heads (4 of
+    8 kv) at (3, 2048); the LoRA dropout kernels from column K of a
+    row-parallel input (o: K 2048, down: 7168); the epilogue's forward and
+    fused dz + dB at N 2048, 512 and 7168 (q, k/v, gate/up)."""
+    b, s = LORA_BATCH, REFERENCE_GEOMETRY.feature_len
+    hq, hkv = TENSOR_HEADS[0]
+    q, k, v, kv_mask = attention_inputs(b, s, gen, dev, hq, hkv)
+    out, lse = attention_packed(q, k, v, hq, hkv, kv_mask=kv_mask)
+    do = torch.randn(out.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    q4, k4, v4 = (t.view(b, s, -1, D).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None] & (kv_mask > 0)[:, None, None, :]
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep, enable_gqa=True)
+    do4 = do.view(b, s, -1, D).transpose(1, 2)
+    fwd_flops = 4 * b * hq * D * s * (s + 1) // 2
+    shape = f"B={b} S={s} heads {hq}/{hkv}"
+    rec = timed(lambda: attention_packed(q, k, v, hq, hkv, kv_mask=kv_mask), "flash_fwd_kernel",
+                lambda: attention_packed_plain(q, k, v, hq, hkv, kv_mask=kv_mask),
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep, enable_gqa=True), 10)
+    report("flash_fwd", shape, rec, fwd_flops, (2 * q.numel() + k.numel() + v.numel()) * 2 + (b * hq * s + b * s) * 4)
+    rec = timed(lambda: attention_packed_bwd(q, k, v, out, lse, do, hq, hkv, kv_mask=kv_mask), "flash_bwd_kernel",
+                lambda: attention_packed_bwd_plain(q, k, v, out, lse, do, hq, hkv, kv_mask=kv_mask),
+                lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True), 10)
+    report("flash_bwd", shape, rec, 10 * b * hq * D * s * (s + 1) // 2,
+           4 * q.numel() * 2 + 4 * k.numel() * 2 + (b * hq * s + b * s) * 4)
+    del q, k, v, out, lse, do, q4, k4, v4, o4, do4, keep
+    thr, _ = dropout_threshold(LORA_P)
+    m, r = LORA_M, LORA_R
+    for kk, col0 in TENSOR_LORA:
+        x, a, dmid = lora_inputs(kk, gen, dev)
+        mask_scale = ((hash_bytes(7, m, kk, dev, col0=col0) >= thr).to(torch.bfloat16)
+                      * torch.tensor(1.0 / (1.0 - thr / 256.0), dtype=torch.bfloat16, device=dev))
+        cases = {
+            "lora_fwd": (lambda: fused_dropout_matmul(x, a, 7, LORA_P, col0=col0), "lora_fwd_kernel",
+                         lambda: fused_dropout_matmul_plain(x, a, 7, thr, col0=col0),
+                         lambda: (x * mask_scale) @ a, (m * kk + kk * r + m * r) * 2),
+            "lora_dx": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, need_da=False, col0=col0), "lora_dx_kernel",
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr, col0=col0),
+                        lambda: (dmid @ a.T) * mask_scale, (m * r + kk * r + m * kk) * 2),
+            "lora_da": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, need_dx=False, col0=col0), "lora_da_kernel",
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr, col0=col0),
+                        lambda: (x * mask_scale).T @ dmid, (m * kk + m * r) * 2 + kk * r * 4),
+        }
+        for name, (kernel_fn, kernel, plain_fn, library_fn, nbytes) in cases.items():
+            report(name, f"M={m} K={kk} col0={col0}", timed(kernel_fn, kernel, plain_fn, library_fn, 20),
+                   2 * m * kk * r, nbytes)
+        del x, a, dmid, mask_scale
+    scaling = 32.0 / LORA_R
+    for n in TENSOR_EPI_NS:
+        y, z, bb, dy = epilogue_inputs(n, gen, dev)
+        rec = timed(lambda: lora_epilogue_fwd(y, z, bb, scaling), "epi_",
+                    lambda: lora_epilogue_plain(y, z, bb, scaling),
+                    lambda: torch.addmm(y, z, bb, alpha=scaling), 20)
+        report("epi_fwd", f"M={m} N={n}", rec, 2 * m * r * n, (2 * m * n + m * r + r * n) * 2)
+        rec = timed(lambda: lora_epilogue_dzdb(z, dy, bb, scaling), "epi_",
+                    lambda: lora_epilogue_dzdb_plain(z, dy, bb, scaling),
+                    lambda: (torch.mm(dy, bb.t()) * scaling, torch.mm(z.t(), dy) * scaling), 20)
+        report("epi_dzdb", f"M={m} N={n}", rec, 4 * m * r * n, (m * n + 2 * m * r + 2 * r * n) * 2)
+        del y, z, bb, dy
+
+
 def eager_row_quant(x, w=None):
     """The row quant as the obvious eager torch sequence (library yardstick)."""
     v = x.float() if w is None else x.float() * w
@@ -1746,6 +1925,26 @@ def time_row_quant(gen, dev) -> dict[str, dict]:
             if n == LORA_KS[0]:
                 out[name] = rec
         del x, w
+    # The passes alone at one tensor rank's widths (the row-parallel o and
+    # down at tensor 2); the JSON carries K = 2048. Each pass reads x once;
+    # the first writes a maximum a row, the second reads a scale a row and
+    # writes q. The library: max|x| a row as one call; the eager codes.
+    for k, _ in TENSOR_LORA:
+        x = torch.randn(LORA_M, k, generator=gen, device=dev, dtype=torch.bfloat16)
+        s = row_quant_plain(x)[1]
+        cases = {
+            "row_absmax": (lambda: row_absmax(x), lambda: row_absmax_plain(x),
+                           lambda: torch.linalg.vector_norm(x, float("inf"), dim=-1), LORA_M * k * 2 + LORA_M * 4),
+            "row_quant_given": (lambda: row_quant_given(x, s), lambda: row_quant_given_plain(x, s),
+                                lambda: torch.round(x.float() / s).clamp(-127, 127).to(torch.int8),
+                                LORA_M * k * 3 + LORA_M * 4),
+        }
+        for name, (kernel_fn, plain_fn, library_fn, nbytes) in cases.items():
+            rec = timed(kernel_fn, "row_quant_kernel", plain_fn, library_fn, 20)
+            report(name, f"({LORA_M}, {k})", rec, 0.0, nbytes)
+            if k == TENSOR_LORA[0][0]:
+                out[name] = rec
+        del x, s
     return out
 
 
@@ -3194,7 +3393,7 @@ def recorded_fit(trainer, train: list, val: list) -> dict:
 
     def clip_after_snapshot():
         if not grads:
-            grads.update({k: whole(p.grad).detach().clone() for k, p in trainer.trainable.items()
+            grads.update({k: whole(p.grad, p).detach().clone() for k, p in trainer.trainable.items()
                           if "lora_" in k})
         return clip()
 
@@ -3426,12 +3625,145 @@ def sharded_pair(root: Path, dev) -> dict:
     return record
 
 
+# (e): mesh.tensor=2 on the one card. Two processes share cuda:0 and reach
+# each other over gloo, which takes CUDA tensors (staged through the host);
+# NCCL refuses two ranks on one device. A check of the tensor-parallel path
+# on the card's kernels, not a speed of tensor parallelism.
+TENSOR_OVERRIDES = ("mesh.fsdp=1", f"mesh.tensor={TENSOR}", "model.lora_fused_dropout=true",
+                    "trainer.max_epochs=1", "trainer.val_check_interval=1.0", "trainer.log_every_n_steps=1")
+TENSOR_STEPS = 2                          # bf16: 1 epoch of 2 steps and a validation; w8a8g8: 1 step
+# (e)'s first loss against one process's on the same batches and seeds,
+# |err| / |ref|: the row-parallel products' f32 partials are added over the
+# 2 ranks and rounded once, so a bf16 rounding may flip (9p's bound for a
+# loss after bf16 roundings moved). Under w8a8g8 it is bit-equal: fresh
+# adapters add nothing and the int8 products add int32 partials. The step-1
+# adapter gradients, |err| / |ref| by 2-norm over all of them, are held
+# within TENSOR_FLOOR_RATIO times the gap of two one-process runs (the
+# flash backward's dq reduce-adds sum in a run-dependent order), or
+# TOKEN_GRAD_TOL where that is larger: under bf16 each rank's partial of
+# every column-parallel dx is rounded to bf16 before the ranks' sum, where
+# one card rounds the whole sum once, and these roundings move through 32
+# layers. On an H100 80GB HBM3 at 700 W the bf16 gap read 4.78e-2 beside a
+# floor of 1.63e-2 (2.9x), and w8a8g8's, whose int8 dx adds int32 partials,
+# 6.72e-2 beside 6.72e-2.
+TENSOR_LOSS_TOL, TENSOR_FLOOR_RATIO = TOKEN_LOSS_TOL, 4.0
+
+
+def token_loaders(config, n_train: int, n_val: int, gen, dev) -> tuple[list, list]:
+    """Train and val batches of cached video tokens made on the card from
+    seed 0, as dicts of device tensors."""
+    cfg = build_model_config(config.model)
+    batches = synthetic_batches(cfg, n_train + n_val, int(config.datamodule.batch_size),
+                                np.random.default_rng(SEED), gen, dev)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in b.items()} for b in batches]
+    return batches[:n_train], batches[n_train:]
+
+
+def expected_tensor_launches(layers: int, steps: int, val_batches: int, int8: bool) -> dict[str, int]:
+    """What one tensor rank launches in a fit of ``steps`` LoRA steps (fused
+    u8 dropout, remat per layer) and ``val_batches`` validation batches: a
+    one-card step's kernels (the rank's heads in each flash launch, the
+    rank's block of each projection in each LoRA launch), and a flash
+    forward a layer per validation batch. Under w8a8g8 the quants of rows
+    whose columns are split run as the kernel's two passes
+    (``row_absmax``, ``row_quant_given``): x of the row-parallel o (pass
+    and replay) and down (the replay stops before it), and dy of the
+    column-parallel five's dx (but layer 0's q, k, v, whose input needs no
+    gradient); the whole-row quant keeps x of the column-parallel five
+    (pass and replay) and the scaled one dy of o and down. A validation
+    batch quantizes x once a projection."""
+    want = expected_train_launches(layers, steps, int8=int8)
+    want["flash_fwd"] += layers * val_batches
+    if int8:
+        split = (3 * layers + 5 * layers - 3) * steps + 2 * layers * val_batches
+        want.update(row_quant=10 * layers * steps + 5 * layers * val_batches, row_quant_scaled=2 * layers * steps,
+                    row_absmax=split, row_quant_given=split)
+    return want
+
+
+def tensor_pair(root: Path, dev) -> dict:
+    """(e) in each of the 2 ranks: ``vlb_friends_lora`` with mesh.tensor=2
+    (bf16, then one w8a8g8 step) through ``build_trainer`` and ``fit``;
+    rank 0 then runs one process's trainer on the same batches while rank 1
+    waits at the barrier. A failed check is recorded, not raised, so that
+    no rank leaves a collective unmatched."""
+    rank = dist.get_rank()
+    record, errors = {}, []
+    for key, extra, steps in (("bf16", (), TENSOR_STEPS), ("w8a8g8", ("model.base_quant=w8a8g8",), 1)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        overrides = (*TENSOR_OVERRIDES, *extra)
+        config = compose("vlb_friends_lora", root / f"tensor_{key}", *overrides)
+        train, val = token_loaders(config, steps, 1, gen, dev)
+        trainer, _, _ = build_trainer(config, device=dev, loaders=(train, val))
+        layers = trainer.model.cfg.mistral.num_hidden_layers
+        split = trainer.model.model.layers[0].self_attn.q_proj.tensor_split
+        t = recorded_fit(trainer, train, val)
+        want = expected_tensor_launches(layers, steps, 1, int8=key != "bf16")
+        print(f"  [rank {rank}] (e) mesh.tensor={TENSOR} {key} ({split.role}-parallel q, rank {split.rank} of "
+              f"{split.size}): brain_loss {t['loss']}, step ms {[round(x, 3) for x in t['step_ms']]} (gloo, host-"
+              f"staged), peak device memory {t['peak_gb']:.2f} GB, launches "
+              f"{ {k: v for k, v in t['launches'].items() if v} }")
+        if t["launches"] != want:
+            errors.append(f"(e) {key}: rank {rank} launched {t['launches']}, want {want}")
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, t["peak_gb"])
+        rec = {"loss": t["loss"], "step_ms": t["step_ms"], "rank_peak_gb": peaks, "launches": t["launches"]}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            one, _, _ = build_trainer(compose("vlb_friends_lora", root / f"one_{key}", *overrides), device=dev,
+                                      loaders=(train, val), mesh=one_device_mesh())
+            floor_grads = unsharded_floor(one, train[0])
+            u = recorded_fit(one, train, val)
+            floor, gap = grad_gap(u["grads"], floor_grads), grad_gap(t["grads"], u["grads"])
+            loss_gap = abs(t["loss"][0] - u["loss"][0]) / abs(u["loss"][0])
+            grad_tol = max(TOKEN_GRAD_TOL, TENSOR_FLOOR_RATIO * floor["norm"])
+            print(f"  (e) {key}: one process brain_loss {u['loss']}, step ms {[round(x, 3) for x in u['step_ms']]}, "
+                  f"peak device memory {u['peak_gb']:.2f} GB; first loss bit-equal {t['loss'][0] == u['loss'][0]}, "
+                  f"|err| / |ref| {loss_gap:.3e} (tol {TENSOR_LOSS_TOL}); step-1 adapter gradients |err| / |ref| "
+                  f"{gap['norm']:.3e} against one process's (tol {grad_tol:.3e}), beside {floor['norm']:.3e} between "
+                  f"two one-process runs; per tensor max|err| / max|ref| up to {gap['tensor']:.3e} (the floor's "
+                  f"{floor['tensor']:.3e})")
+            if loss_gap > TENSOR_LOSS_TOL or gap["norm"] > grad_tol:
+                errors.append(f"(e) {key}: the tensor={TENSOR} step differs from one process's")
+            if key == "w8a8g8" and t["loss"][0] != u["loss"][0]:
+                errors.append(f"(e) w8a8g8: the tensor={TENSOR} first loss is not one process's bit for bit")
+            rec.update(one_loss=u["loss"], one_step_ms=u["step_ms"], one_peak_gb=u["peak_gb"], loss_gap=loss_gap,
+                       loss_equal=t["loss"][0] == u["loss"][0], grad_gap=gap["norm"], grad_floor=floor["norm"])
+            del one, u
+            gc.collect()
+            torch.cuda.empty_cache()
+        record[key] = rec
+        dist.barrier()
+    if errors:
+        record["error"] = "; ".join(errors)
+    return record
+
+
+def tensor_child(out: str) -> int:
+    """``--tensor-pair DIR`` under torchrun with 2 processes: (e), both on
+    cuda:0, the process group over gloo."""
+    if "RANK" not in os.environ:
+        raise RuntimeError("--tensor-pair runs under torch.distributed.run (torchrun)")
+    torch.cuda.set_device(0)
+    faulthandler.enable(sys.__stderr__)
+    dist.init_process_group("gloo", init_method="env://", timeout=timedelta(seconds=SHARDED_COLLECTIVE_S))
+    return rank_child(out, tensor_pair)
+
+
 def sharded_child(out: str, pair: bool) -> int:
     """``--sharded DIR`` (or ``--sharded-pair DIR``) under torchrun: this
-    rank's part of phase 9d; rank 0 prints one JSON line of its numbers,
-    every rank's peak host RSS among them, last."""
+    rank's part of phase 9d over NCCL."""
     if not maybe_initialize_distributed("cuda", timeout_s=SHARDED_COLLECTIVE_S):
         raise RuntimeError("--sharded runs under torch.distributed.run (torchrun)")
+    return rank_child(out, sharded_pair if pair else sharded_lora)
+
+
+def rank_child(out: str, body) -> int:
+    """A rank of phase 9d in its group: ``body(root, device)``; rank 0
+    prints one JSON line of its numbers, every rank's peak host RSS among
+    them, last."""
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3443,7 +3775,7 @@ def sharded_child(out: str, pair: bool) -> int:
     faulthandler.dump_traceback_later(SHARDED_LIMIT_S - 60, file=stacks)
     # On an error the process exits with its group as it stands: leaving a
     # group while a peer waits in a collective can block.
-    record = sharded_pair(root, dev) if pair else sharded_lora(root, dev)
+    record = body(root, dev)
     rss = [None] * dist.get_world_size()
     dist.all_gather_object(rss, peak_rss_gb())
     shutdown_distributed()
@@ -3531,6 +3863,8 @@ def main() -> int:
         return remat_child(sys.argv[2])
     if sys.argv[1:2] in (["--sharded"], ["--sharded-pair"]):
         return sharded_child(sys.argv[2], pair=sys.argv[1] == "--sharded-pair")
+    if sys.argv[1:2] == ["--tensor-pair"]:
+        return tensor_child(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3575,6 +3909,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         max_abs_err.update(check_row_quant(gen, dev))
         max_abs_err.update(check_epilogue(gen, dev))
+        torch.cuda.empty_cache()
+        # The shapes one tensor rank gives each kernel (mesh.tensor=2, and
+        # the heads at 8): the errors join each kernel's.
+        for hq, hkv in TENSOR_HEADS:
+            fwd_err, bwd_err, parts = check_flash(LORA_BATCH, REFERENCE_GEOMETRY.feature_len, gen, dev, hq=hq, hkv=hkv)
+            for name, err in zip(("flash_fwd", "flash_bwd", "flash_bwd_prep", "flash_bwd_post"),
+                                 (fwd_err, bwd_err, *parts)):
+                max_abs_err[name] = max(max_abs_err[name], err)
+        for k, col0 in TENSOR_LORA:
+            for name, err in check_lora_col0(k, col0, gen, dev).items():
+                max_abs_err[name] = max(max_abs_err[name], err)
+        max_abs_err.update(check_row_quant_split(gen, dev))
+        for name, err in check_epilogue(gen, dev, TENSOR_EPI_NS).items():
+            max_abs_err[name] = max(max_abs_err[name], err)
         torch.cuda.empty_cache()
     with phase("4 full-width model"):
         cfg = VLBConfig.full()
@@ -3658,6 +4006,16 @@ def main() -> int:
             else:
                 print(f"  (d) skipped: the machine has {n_cards} card (2 ranks at batch {PAIR_BATCH} against one "
                       "card need 2)")
+            tensor = run_sharded(out, TENSOR, "--tensor-pair", f"(e) mesh.tensor={TENSOR} on {TENSOR} processes of "
+                                 "the one card (gloo)", SHARDED_LIMIT_S)
+            for key in ("bf16", "w8a8g8"):
+                e = tensor[key]
+                print(f"  (e) {key}, a check through host-staged gloo, not a speed of tensor parallelism: step ms "
+                      f"{[round(x, 3) for x in e['step_ms']]} against one process's "
+                      f"{[round(x, 3) for x in e['one_step_ms']]}, peak device memory per rank "
+                      f"{[round(x, 2) for x in e['rank_peak_gb']]} GB against {e['one_peak_gb']:.2f} GB, first loss "
+                      f"bit-equal {e['loss_equal']} (|err| / |ref| {e['loss_gap']:.3e}), step-1 gradients "
+                      f"{e['grad_gap']:.3e} beside the floor {e['grad_floor']:.3e} ({card})")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     with phase("9v w8a8g8 serve from frames"):
@@ -3677,6 +4035,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         timing = {**time_flash(gen, dev), **time_lora(gen, dev), **time_row_quant(gen, dev),
                   **time_epilogue(gen, dev), **time_ring(gen, dev)}
+        time_tensor_shapes(gen, dev)
         time_bwd_probes(dev)
         time_fwd_probes(dev)
         time_int_mm(gen, dev)
@@ -3690,6 +4049,10 @@ def main() -> int:
         if rss_gb > HOST_RSS_LIMIT_GB:
             raise AssertionError("peak host RSS over its limit")
 
+    # The row quant's passes alone run where a row's columns are split: the
+    # launches of (e)'s w8a8g8 step on rank 0.
+    for name in ("row_absmax", "row_quant_given"):
+        launches[name] = tensor["w8a8g8"]["launches"][name]
     records = [
         {"name": name, "route": "cuda", "source": f"phantom_vlb_tpu_torch/csrc/{REPLACES[name][0]}",
          "replaces": REPLACES[name][1], "launches": launches[name],

@@ -3,15 +3,25 @@
 Counterpart of ``phantom_vlb_tpu/core/mesh.py`` (:37-111): :class:`MeshConfig`
 with the same axes (``data``, ``fsdp``, ``tensor``, ``sequence``), the same
 ``sizes`` and the same errors; :class:`MeshEnv` with ``n_devices``,
-``batch_divisor`` and this rank's rows of a global batch; :func:`build_mesh`
-on ``init_device_mesh``. A device of the mesh is a process (one card each,
-``core/distributed.py``), so ``-1`` absorbs the world size. The batch is
-split over (``data``, ``fsdp``), rank r taking the r-th block of rows
-(:meth:`MeshEnv.local_rows`, the one place that rule is written; the
-loader and the dropout masks read it);
-``data`` > 1 is HSDP, a 2-D mesh handed to ``fully_shard``
-(``parallel/sharding.py``). ``tensor`` or ``sequence`` > 1 across processes
-is not ported (ROADMAP Queue 1).
+``batch_divisor``, each rank's coordinates and its rows of a global batch;
+:func:`build_mesh` on ``init_device_mesh``. A device of the mesh is a
+process (one card each, ``core/distributed.py``), so ``-1`` absorbs the
+world size. Ranks lie on the mesh in row-major order over (``data``,
+``fsdp``, ``tensor``), as ``init_device_mesh`` lays them. The batch is
+split over (``data``, ``fsdp``): the ranks of batch coordinate b take the
+b-th block of rows (:meth:`MeshEnv.local_rows`, the one place that rule is
+written; the loader and the dropout masks read it), so the ``tensor`` ranks
+of one coordinate hold the same rows and draw the same masks. ``data`` > 1
+is HSDP, a 2-D mesh handed to ``fully_shard``; ``tensor`` > 1 splits the
+decoder's projections over the ``tensor`` ranks (``parallel/sharding.py``,
+``parallel/tensor.py``). ``sequence`` > 1 across processes is not ported
+(ROADMAP Queue 1).
+
+Reductions follow the axes: :meth:`MeshEnv.all_sum` (the loss, the
+metrics) and :meth:`MeshEnv.all_gather` (the Pearson states) run over the
+batch axes alone, since the ``tensor`` ranks of a coordinate hold the same
+values; :meth:`MeshEnv.shard_sum` (the gradient norm's squares) over
+``fsdp``, and also over ``tensor`` for tensors split along it.
 
 The ``sequence`` axis within one process is :class:`SequenceRing`, the
 ranks that context-parallel attention splits S over (the counterpart of
@@ -47,8 +57,8 @@ SEQUENCE_AXIS = "sequence"
 AXIS_NAMES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, SEQUENCE_AXIS)
 # Axes over which a batch is split.
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
-_NOT_PORTED = ("the {axis} axis across processes is not ported (ROADMAP Queue 1: `tensor` > 1 and "
-               "the multi-process ring wait); set mesh.{axis}=1")
+_NOT_PORTED = ("the {axis} axis across processes is not ported (ROADMAP Queue 1: the multi-process "
+               "ring waits); set mesh.{axis}=1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +93,16 @@ class MeshConfig:
 
 @dataclasses.dataclass
 class MeshEnv:
-    """A built mesh: its axis sizes, this process's rank, and the
-    ``DeviceMesh`` over the batch axes that ``fully_shard`` takes (None in a
-    process outside any group, which shards nothing)."""
+    """A built mesh: its axis sizes, this process's rank, the ``DeviceMesh``
+    over the batch axes that ``fully_shard`` takes (None in a process
+    outside any group, which shards nothing), and with ``tensor`` > 1 this
+    rank's process groups along ``tensor`` and along the batch axes."""
 
     shape: dict[str, int]
     rank: int = 0
     device_mesh: object | None = None
+    tensor_group: object | None = None
+    batch_group: object | None = None
 
     @property
     def n_devices(self) -> int:
@@ -108,14 +121,36 @@ class MeshEnv:
         """The process that writes files and logs (rank 0)."""
         return self.rank == 0
 
+    @property
+    def coords(self) -> dict[str, int]:
+        """This rank's index along each axis (row-major over the axes)."""
+        out, rest = {}, self.rank
+        for axis in reversed(AXIS_NAMES):
+            size = self.shape.get(axis, 1)
+            out[axis] = rest % size
+            rest //= size
+        return {a: out[a] for a in AXIS_NAMES}
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's coordinate over the batch axes (data-major): which
+        block of a global batch it holds."""
+        c = self.coords
+        return c[DATA_AXIS] * self.shape.get(FSDP_AXIS, 1) + c[FSDP_AXIS]
+
+    @property
+    def tensor_size(self) -> int:
+        return self.shape.get(TENSOR_AXIS, 1)
+
     def local_rows(self, global_rows: int) -> slice:
-        """This rank's rows of a global batch of ``global_rows``; raises when
-        the batch axes do not divide it (as ``jax.device_put`` does)."""
+        """This rank's rows of a global batch of ``global_rows`` (those of
+        its batch coordinate); raises when the batch axes do not divide it
+        (as ``jax.device_put`` does)."""
         if global_rows % self.batch_divisor:
             raise ValueError(f"a global batch of {global_rows} rows does not split over the mesh's "
                              f"batch axes of {self.batch_divisor} devices")
         n = global_rows // self.batch_divisor
-        return slice(self.rank * n, (self.rank + 1) * n)
+        return slice(self.batch_rank * n, (self.batch_rank + 1) * n)
 
     def rows(self, local_rows: int) -> tuple[int, int]:
         """(first global row, global rows) of a batch whose rank-local part
@@ -123,30 +158,42 @@ class MeshEnv:
         global_rows = local_rows * self.batch_divisor
         return self.local_rows(global_rows).start, global_rows
 
+    def _batch_group(self):
+        """The group over the batch axes (the world's when ``tensor`` is 1)."""
+        return self.batch_group if self.tensor_size > 1 else None
+
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks of the batch axes (itself alone
         when unsharded); a new tensor."""
         t = t.clone()
-        if self.sharded:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        if self.sharded and (self.tensor_size == 1 or self.batch_divisor > 1):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._batch_group())
         return t
 
-    def shard_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ``fsdp`` axis alone: the parameters'
-        shards (their ``data`` replicas hold the same values)."""
+    def shard_sum(self, t: torch.Tensor, over_tensor: bool = False) -> torch.Tensor:
+        """``t`` summed over the ``fsdp`` axis, the parameters' shards (their
+        ``data`` replicas hold the same values); with ``over_tensor`` over
+        the ``tensor`` axis too (the shards of a tensor split along it)."""
         t = t.clone()
-        if self.sharded:
+        if not self.sharded:
+            return t
+        if self.tensor_size == 1:
             group = (self.device_mesh.get_group(FSDP_AXIS) if self.shape[DATA_AXIS] > 1
                      else self.device_mesh.get_group())
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            return t
+        if self.shape[FSDP_AXIS] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.device_mesh.get_group(FSDP_AXIS))
+        if over_tensor:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.tensor_group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
-        """Every rank's ``t`` (same shape on all), in rank order."""
-        if not self.sharded:
+        """Every batch coordinate's ``t`` (same shape on all), in order."""
+        if not self.sharded or (self.tensor_size > 1 and self.batch_divisor == 1):
             return [t]
-        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-        dist.all_gather(out, t.contiguous())
+        out = [torch.empty_like(t) for _ in range(self.batch_divisor)]
+        dist.all_gather(out, t.contiguous(), group=self._batch_group())
         return out
 
 
@@ -165,18 +212,32 @@ def build_mesh(config: MeshConfig | None = None, device: str | torch.device = "c
                              f"cards, with {MULTI_CARD_OPT_IN}=1: ROADMAP Queue 1 #4)") from e
     world = dist.get_world_size()
     shape = dict(zip(AXIS_NAMES, config.sizes(world)))
-    for axis in (TENSOR_AXIS, SEQUENCE_AXIS):
-        if shape[axis] > 1:
-            raise NotImplementedError(_NOT_PORTED.format(axis=axis))
+    if shape[SEQUENCE_AXIS] > 1:
+        raise NotImplementedError(_NOT_PORTED.format(axis=SEQUENCE_AXIS))
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = torch.device(device).type
+    rank = dist.get_rank()
+    tensor = shape[TENSOR_AXIS]
+    if tensor > 1:
+        # The batch axes' mesh is a slice of the whole (data, fsdp, tensor)
+        # mesh, as FSDP2 wants; the group along the batch axes is made here
+        # (every rank makes every group, in the same order).
+        root = init_device_mesh(device_type, (shape[DATA_AXIS], shape[FSDP_AXIS], tensor),
+                                mesh_dim_names=(DATA_AXIS, FSDP_AXIS, TENSOR_AXIS))
+        mesh = root[DATA_AXIS, FSDP_AXIS] if shape[DATA_AXIS] > 1 else root[FSDP_AXIS]
+        batch_group = None
+        for t in range(tensor):
+            group = dist.new_group(list(range(t, world, tensor)))
+            if rank % tensor == t:
+                batch_group = group
+        return MeshEnv(shape, rank, mesh, root.get_group(TENSOR_AXIS), batch_group)
     if shape[DATA_AXIS] > 1:
         mesh = init_device_mesh(device_type, (shape[DATA_AXIS], shape[FSDP_AXIS]),
                                 mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
     else:
         mesh = init_device_mesh(device_type, (shape[FSDP_AXIS],), mesh_dim_names=(FSDP_AXIS,))
-    return MeshEnv(shape, dist.get_rank(), mesh)
+    return MeshEnv(shape, rank, mesh)
 
 
 class SequenceRing:

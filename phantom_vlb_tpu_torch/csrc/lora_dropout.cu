@@ -11,15 +11,18 @@
 // with x (M, K) bf16, A (K, R) bf16, R in {16, 32, 64, 128}, dmid (M, R)
 // bf16. The mask is regenerated in every kernel and never stored: keep iff
 // byte >= thr, the byte taken from `bits` (M, K) uint8 when given, else from
-// a counter-based hash of (seed, row0 + row, col >> 2) alone:
-//   word = fmix32(fmix32(seed ^ (row0 + row) * 0x9E3779B1) ^ (col >> 2)),
+// a counter-based hash of (seed, row0 + row, (col0 + col) >> 2) alone:
+//   word = fmix32(fmix32(seed ^ (row0 + row) * 0x9E3779B1) ^ ((col0 + col) >> 2)),
 //   byte = (word >> 8 * (col & 3)) & 0xFF
 // (fmix32 is MurmurHash3's finaliser), so one 32-bit word masks 4
 // neighbouring elements and the mask depends on no tile shape: the three
 // kernels agree on it by construction, and the port's plain version
 // (ops/lora_fused.py:hash_bytes) computes the same bytes. row0 is the
 // global index of x's first row: a rank that holds rows [row0, row0 + M)
-// of a batch split over ranks draws those rows of the one-card mask.
+// of a batch split over ranks draws those rows of the one-card mask. col0
+// (a multiple of 4) is the global index of x's first column: a rank of the
+// tensor axis whose row-parallel projection reads columns [col0, col0 + K)
+// of the input draws those columns of it.
 //
 // Bound: rank-R contractions move far more bytes than they compute
 // (2R = 32 FLOP per 2-byte element of x at R = 16). At M = 6144 one pass
@@ -100,8 +103,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Keep bits (bit e for element e) of 8 neighbouring elements at (row, col),
 // col a multiple of 8.
-__device__ __forceinline__ uint32_t keep8(const uint8_t* bits, uint32_t seed, int row0, int thr,
-                                         int row, int col, int K) {
+__device__ __forceinline__ uint32_t keep8(const uint8_t* bits, uint32_t seed, int row0, int col0,
+                                         int thr, int row, int col, int K) {
   uint32_t b[2];
   if (bits != nullptr) {
     const uint2 raw = *reinterpret_cast<const uint2*>(bits + static_cast<size_t>(row) * K + col);
@@ -109,8 +112,8 @@ __device__ __forceinline__ uint32_t keep8(const uint8_t* bits, uint32_t seed, in
     b[1] = raw.y;
   } else {
     const uint32_t key = row_key(seed, row0 + row);
-    b[0] = mask_word(key, col);
-    b[1] = mask_word(key, col + 4);
+    b[0] = mask_word(key, col0 + col);
+    b[1] = mask_word(key, col0 + col + 4);
   }
   uint32_t keep = 0;
 #pragma unroll
@@ -148,14 +151,15 @@ struct XChunk {
     }
   }
   __device__ __forceinline__ void store_masked(__nv_bfloat16 (*zs)[ZROW], const uint8_t* bits,
-                                               uint32_t seed, int row0, int thr, __nv_bfloat162 s2,
+                                               uint32_t seed, int row0, int col0, int thr,
+                                               __nv_bfloat162 s2,
                                                int M, int K, int m0, int k0, int tid) const {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int c = tid + u * NTHREADS;
       const int r = c >> 3, cc = (c & 7) * 8;
       const int row = m0 + r;
-      const uint32_t keep = row < M ? keep8(bits, seed, row0, thr, row, k0 + cc, K) : 0u;
+      const uint32_t keep = row < M ? keep8(bits, seed, row0, col0, thr, row, k0 + cc, K) : 0u;
       *reinterpret_cast<uint4*>(&zs[r][cc]) = drop8(x[u], keep, s2);
     }
   }
@@ -189,7 +193,7 @@ template <int R>
 __global__ void __launch_bounds__(NTHREADS)
 lora_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
                 const uint8_t* __restrict__ bits, float* __restrict__ part,
-                int M, int K, int split, uint32_t seed, int row0, int thr, float scale) {
+                int M, int K, int split, uint32_t seed, int row0, int col0, int thr, float scale) {
   __shared__ __align__(16) __nv_bfloat16 zs[CH][ZROW];
   __shared__ __align__(16) __nv_bfloat16 as[CH][R + 8];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -211,7 +215,7 @@ lora_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
     ac.load(a, K, c_begin * CH, tid);
   }
   for (int c = c_begin; c < c_end; ++c) {
-    xc.store_masked(zs, bits, seed, row0, thr, s2, M, K, m0, c * CH, tid);
+    xc.store_masked(zs, bits, seed, row0, col0, thr, s2, M, K, m0, c * CH, tid);
     ac.store(as, tid);
     __syncthreads();
     if (c + 1 < c_end) {
@@ -250,7 +254,7 @@ template <int R>
 __global__ void __launch_bounds__(NTHREADS)
 lora_da_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dmid,
                const uint8_t* __restrict__ bits, float* __restrict__ part,
-               int M, int K, int split, uint32_t seed, int row0, int thr, float scale) {
+               int M, int K, int split, uint32_t seed, int row0, int col0, int thr, float scale) {
   __shared__ __align__(16) __nv_bfloat16 zs[CH][ZROW];
   __shared__ __align__(16) __nv_bfloat16 ds[CH][R + 8];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -272,7 +276,7 @@ lora_da_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
     dc.load(dmid, M, c_begin * CH, tid);
   }
   for (int c = c_begin; c < c_end; ++c) {
-    xc.store_masked(zs, bits, seed, row0, thr, s2, M, K, c * CH, k0, tid);
+    xc.store_masked(zs, bits, seed, row0, col0, thr, s2, M, K, c * CH, k0, tid);
     dc.store(ds, tid);
     __syncthreads();
     if (c + 1 < c_end) {
@@ -313,7 +317,7 @@ template <int R>
 __global__ void __launch_bounds__(NTHREADS)
 lora_dx_kernel(const __nv_bfloat16* __restrict__ dmid, const __nv_bfloat16* __restrict__ a,
                const uint8_t* __restrict__ bits, __nv_bfloat16* __restrict__ dx,
-               int M, int K, uint32_t seed, int row0, int thr, float inv_keep) {
+               int M, int K, uint32_t seed, int row0, int col0, int thr, float inv_keep) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.x * 16;
@@ -352,8 +356,8 @@ lora_dx_kernel(const __nv_bfloat16* __restrict__ dmid, const __nv_bfloat16* __re
     const int row = m0 + g + 8 * e2;
     if (row >= M) continue;
     const int col = k0 + 16 * t;
-    const uint32_t keep = keep8(bits, seed, row0, thr, row, col, K)
-                          | (keep8(bits, seed, row0, thr, row, col + 8, K) << 8);
+    const uint32_t keep = keep8(bits, seed, row0, col0, thr, row, col, K)
+                          | (keep8(bits, seed, row0, col0, thr, row, col + 8, K) << 8);
     uint32_t w[8];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -381,11 +385,13 @@ int dispatch_rank(int R, Args... args) {
 template <int R>
 struct FwdLaunch {
   static int run(const void* x, const void* a, const void* bits, void* part, int M, int K,
-                 int split, uint32_t seed, int row0, int thr, float scale, cudaStream_t stream) {
+                 int split, uint32_t seed, int row0, int col0, int thr, float scale,
+                 cudaStream_t stream) {
     const dim3 grid((M + CH - 1) / CH, split);
     lora_fwd_kernel<R><<<grid, NTHREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a),
-        static_cast<const uint8_t*>(bits), static_cast<float*>(part), M, K, split, seed, row0, thr, scale);
+        static_cast<const uint8_t*>(bits), static_cast<float*>(part), M, K, split, seed, row0, col0, thr,
+        scale);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -393,11 +399,13 @@ struct FwdLaunch {
 template <int R>
 struct DaLaunch {
   static int run(const void* x, const void* dmid, const void* bits, void* part, int M, int K,
-                 int split, uint32_t seed, int row0, int thr, float scale, cudaStream_t stream) {
+                 int split, uint32_t seed, int row0, int col0, int thr, float scale,
+                 cudaStream_t stream) {
     const dim3 grid(K / CH, split);
     lora_da_kernel<R><<<grid, NTHREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dmid),
-        static_cast<const uint8_t*>(bits), static_cast<float*>(part), M, K, split, seed, row0, thr, scale);
+        static_cast<const uint8_t*>(bits), static_cast<float*>(part), M, K, split, seed, row0, col0, thr,
+        scale);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -405,11 +413,12 @@ struct DaLaunch {
 template <int R>
 struct DxLaunch {
   static int run(const void* dmid, const void* a, const void* bits, void* dx, int M, int K,
-                 uint32_t seed, int row0, int thr, float inv_keep, cudaStream_t stream) {
+                 uint32_t seed, int row0, int col0, int thr, float inv_keep, cudaStream_t stream) {
     const dim3 grid((M + 15) / 16, (K + 4 * CH - 1) / (4 * CH));
     lora_dx_kernel<R><<<grid, NTHREADS, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(dmid), static_cast<const __nv_bfloat16*>(a),
-        static_cast<const uint8_t*>(bits), static_cast<__nv_bfloat16*>(dx), M, K, seed, row0, thr, inv_keep);
+        static_cast<const uint8_t*>(bits), static_cast<__nv_bfloat16*>(dx), M, K, seed, row0, col0, thr,
+        inv_keep);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -418,25 +427,25 @@ struct DxLaunch {
 
 // Plain-C launchers (bound with ctypes): the caller's current device and
 // stream, K a multiple of 64, R in {16, 32, 64, 128}, bits null for the
-// hash (of global rows row0 + row). Each returns cudaGetLastError() after
-// its launch.
+// hash (of global rows row0 + row and columns col0 + col). Each returns
+// cudaGetLastError() after its launch.
 extern "C" int lora_fwd_launch(const void* x, const void* a, const void* bits, void* part,
-                               int M, int K, int R, int split, uint32_t seed, int row0, int thr,
-                               float scale, void* stream) {
-  return dispatch_rank<FwdLaunch>(R, x, a, bits, part, M, K, split, seed, row0, thr, scale,
+                               int M, int K, int R, int split, uint32_t seed, int row0, int col0,
+                               int thr, float scale, void* stream) {
+  return dispatch_rank<FwdLaunch>(R, x, a, bits, part, M, K, split, seed, row0, col0, thr, scale,
                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lora_dx_launch(const void* dmid, const void* a, const void* bits, void* dx,
-                              int M, int K, int R, uint32_t seed, int row0, int thr, float inv_keep,
-                              void* stream) {
-  return dispatch_rank<DxLaunch>(R, dmid, a, bits, dx, M, K, seed, row0, thr, inv_keep,
+                              int M, int K, int R, uint32_t seed, int row0, int col0, int thr,
+                              float inv_keep, void* stream) {
+  return dispatch_rank<DxLaunch>(R, dmid, a, bits, dx, M, K, seed, row0, col0, thr, inv_keep,
                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lora_da_launch(const void* x, const void* dmid, const void* bits, void* part,
-                              int M, int K, int R, int split, uint32_t seed, int row0, int thr,
-                              float scale, void* stream) {
-  return dispatch_rank<DaLaunch>(R, x, dmid, bits, part, M, K, split, seed, row0, thr, scale,
+                              int M, int K, int R, int split, uint32_t seed, int row0, int col0,
+                              int thr, float scale, void* stream) {
+  return dispatch_rank<DaLaunch>(R, x, dmid, bits, part, M, K, split, seed, row0, col0, thr, scale,
                                  static_cast<cudaStream_t>(stream));
 }

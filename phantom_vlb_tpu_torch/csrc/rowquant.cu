@@ -8,7 +8,14 @@
 //   v = x * w_scale  (row_quant_scaled_launch; f32 product, w_scale (N,) f32)
 //   s = max(max|v| / 127, 1e-12),  q = clip(rint(v / s), -127, 127)
 // per row of x (rows, N), bf16 or f32; q int8 (rows, N), s f32 (rows) (the
-// TPU's 128-lane scale padding is not copied). Division is IEEE (no fast
+// TPU's 128-lane scale padding is not copied).
+//
+// The same kernel in two more modes splits the quantization where a row's
+// columns lie on several ranks of the tensor axis (the caller reduces the
+// maxima over the ranks between the two launches):
+//   row_absmax_launch:      m = max|v| per row of this rank's columns
+//   row_quant_given_launch: q = clip(rint(v / s), -127, 127) with s given
+// so q and s equal the one-card quantization of the whole row bit for bit. Division is IEEE (no fast
 // math, no reciprocal multiply) and rint rounds half to even, so q and s
 // equal the plain version (ops/rowquant.py:row_quant_plain) bit for bit.
 // Any row count and any N: the TPU's rows % 8 and N % 128 limits are its
@@ -90,20 +97,17 @@ __device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d, fl
          static_cast<uint32_t>(static_cast<uint8_t>(quant1(d, sc))) << 24;
 }
 
-template <typename T, bool SCALED>
-__global__ void __launch_bounds__(NTHREADS)
-row_quant_kernel(const T* __restrict__ x, const float* __restrict__ w, int8_t* __restrict__ q,
-                 float* __restrict__ s, int N, bool vec, bool cache) {
-  constexpr int E = 16 / sizeof(T);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float warp_max[NTHREADS / 32];
-  __shared__ float row_scale;
-  T* cached = reinterpret_cast<T*>(smem_raw);
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * N;
-  int8_t* qr = q + row * N;
+// What a launch does: both passes (s written), pass 1 alone (the row's
+// max|v| written to s, no q), or pass 2 alone with s read.
+enum Mode { FULL = 0, ABSMAX = 1, GIVEN = 2 };
 
+// Pass 1: max|v| over the row, valid in thread 0; the raw row kept in
+// `cached` when `cache`.
+template <typename T, bool SCALED>
+__device__ __forceinline__ float row_absmax(const T* __restrict__ xr, const float* __restrict__ w,
+                                            T* cached, float* warp_max, int N, bool vec, bool cache) {
+  constexpr int E = 16 / sizeof(T);
+  const int tid = threadIdx.x;
   float amax = 0.0f;
   if (vec) {
     const int pieces = N / E;
@@ -128,13 +132,39 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ w, int8_t* _
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
   if ((tid & 31) == 0) warp_max[tid >> 5] = amax;
   __syncthreads();
-  if (tid == 0) {
-    float m = warp_max[0];
+  float m = warp_max[0];
 #pragma unroll
-    for (int i = 1; i < NTHREADS / 32; ++i) m = fmaxf(m, warp_max[i]);
-    const float sc = fmaxf(__fdiv_rn(m, 127.0f), 1e-12f);
-    row_scale = sc;
-    s[row] = sc;
+  for (int i = 1; i < NTHREADS / 32; ++i) m = fmaxf(m, warp_max[i]);
+  return m;
+}
+
+template <typename T, bool SCALED, int MODE>
+__global__ void __launch_bounds__(NTHREADS)
+row_quant_kernel(const T* __restrict__ x, const float* __restrict__ w, int8_t* __restrict__ q,
+                 float* __restrict__ s, int N, bool vec, bool cache) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float warp_max[NTHREADS / 32];
+  __shared__ float row_scale;
+  T* cached = reinterpret_cast<T*>(smem_raw);
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const T* xr = x + row * N;
+  int8_t* qr = q + row * N;
+
+  if (MODE == GIVEN) {
+    if (tid == 0) row_scale = s[row];
+  } else {
+    const float m = row_absmax<T, SCALED>(xr, w, cached, warp_max, N, vec, cache);
+    if (MODE == ABSMAX) {
+      if (tid == 0) s[row] = m;
+      return;
+    }
+    if (tid == 0) {
+      const float sc = fmaxf(__fdiv_rn(m, 127.0f), 1e-12f);
+      row_scale = sc;
+      s[row] = sc;
+    }
   }
   __syncthreads();
   const float sc = row_scale;
@@ -161,32 +191,41 @@ row_quant_kernel(const T* __restrict__ x, const float* __restrict__ w, int8_t* _
   }
 }
 
-template <typename T, bool SCALED>
+template <typename T, bool SCALED, int MODE>
 int launch(const void* x, const float* w, void* q, void* s, int rows, int N, cudaStream_t stream) {
   constexpr int E = 16 / sizeof(T);
   // 16-byte pieces need every row to start on 16 bytes (N % E == 0, an
   // aligned base) and the scales on 16 bytes too; q's rows then start on
   // E bytes.
   const bool vec = N % E == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   (MODE == ABSMAX || reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
                    (!SCALED || reinterpret_cast<uintptr_t>(w) % 16 == 0);
   const size_t row_bytes = static_cast<size_t>(N) * sizeof(T);
-  const bool cache = row_bytes <= MAX_CACHED_BYTES;
-  row_quant_kernel<T, SCALED><<<rows, NTHREADS, cache ? row_bytes : 0, stream>>>(
+  // Only a launch that makes both passes reads the row twice.
+  const bool cache = MODE == FULL && row_bytes <= MAX_CACHED_BYTES;
+  row_quant_kernel<T, SCALED, MODE><<<rows, NTHREADS, cache ? row_bytes : 0, stream>>>(
       static_cast<const T*>(x), w, static_cast<int8_t*>(q), static_cast<float*>(s), N, vec, cache);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool SCALED>
+template <bool SCALED, int MODE>
 int dispatch(const void* x, int dtype, const float* w, void* q, void* s, int rows, int N,
              void* stream) {
   if (rows <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<__nv_bfloat16, SCALED>(x, w, q, s, rows, N, st);
-    case 1: return launch<float, SCALED>(x, w, q, s, rows, N, st);
+    case 0: return launch<__nv_bfloat16, SCALED, MODE>(x, w, q, s, rows, N, st);
+    case 1: return launch<float, SCALED, MODE>(x, w, q, s, rows, N, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int MODE>
+int dispatch_maybe_scaled(const void* x, int dtype, const void* w, void* q, void* s, int rows, int N,
+                          void* stream) {
+  const auto ws = static_cast<const float*>(w);
+  return ws == nullptr ? dispatch<false, MODE>(x, dtype, nullptr, q, s, rows, N, stream)
+                       : dispatch<true, MODE>(x, dtype, ws, q, s, rows, N, stream);
 }
 
 }  // namespace
@@ -197,10 +236,23 @@ int dispatch(const void* x, int dtype, const float* w, void* q, void* s, int row
 // launch.
 extern "C" int row_quant_launch(const void* x, int dtype, void* q, void* s, int rows, int N,
                                 void* stream) {
-  return dispatch<false>(x, dtype, nullptr, q, s, rows, N, stream);
+  return dispatch<false, FULL>(x, dtype, nullptr, q, s, rows, N, stream);
 }
 
 extern "C" int row_quant_scaled_launch(const void* x, int dtype, const void* w_scale, void* q,
                                        void* s, int rows, int N, void* stream) {
-  return dispatch<true>(x, dtype, static_cast<const float*>(w_scale), q, s, rows, N, stream);
+  return dispatch<true, FULL>(x, dtype, static_cast<const float*>(w_scale), q, s, rows, N, stream);
+}
+
+// The split quantization: amax (rows) f32 written with max|v| per row of x
+// (times w_scale when it is not null); then q written from the scales s
+// (rows) f32 that the caller made of the maxima reduced over the ranks.
+extern "C" int row_absmax_launch(const void* x, int dtype, const void* w_scale, void* amax, int rows,
+                                 int N, void* stream) {
+  return dispatch_maybe_scaled<ABSMAX>(x, dtype, w_scale, nullptr, amax, rows, N, stream);
+}
+
+extern "C" int row_quant_given_launch(const void* x, int dtype, const void* w_scale, const void* s,
+                                      void* q, int rows, int N, void* stream) {
+  return dispatch_maybe_scaled<GIVEN>(x, dtype, w_scale, q, const_cast<void*>(s), rows, N, stream);
 }

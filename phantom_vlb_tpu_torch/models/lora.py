@@ -37,6 +37,21 @@ backward, and a mask drawn from generator state would differ on the replay.
 over ranks that the input holds: the generator paths draw the global
 batch's mask and keep these rows, the fused path hashes the global row
 indices, so each rank drops what the one-card step drops on its rows.
+
+A projection split over the ``tensor`` axis carries its
+:class:`~phantom_vlb_tpu_torch.parallel.tensor.TensorSplit` as
+``tensor_split`` (set by ``parallel/sharding.py``; None on one card), and
+its tensors hold its block. Column-parallel (the output channels split):
+``lora_a`` whole, ``lora_b`` and the base split by output; the mid goes
+through :func:`copy_to_tensor` before ``z @ B``, and the base's input
+comes in already through it (``base_x``, the layer's). Row-parallel (the
+input channels split, x holding the rank's columns [c0, c0 + K/t) of the
+whole input): ``lora_a`` and the base split by input, ``lora_b`` whole;
+the mid and the base are partial sums reduced over the ranks
+(:func:`reduce_from_tensor`; the base's in f32, rounded once), and the
+adapter term is added once, after the reduction. Its dropout masks are the
+whole input's columns [c0, c0 + K/t): the generator paths draw the whole
+width and keep these columns, the fused path hashes from ``col0`` = c0.
 """
 
 from __future__ import annotations
@@ -52,11 +67,14 @@ from phantom_vlb_tpu_torch.core.remat import named
 from phantom_vlb_tpu_torch.ops.lora_epilogue import lora_epilogue
 from phantom_vlb_tpu_torch.ops.lora_fused import dropout_threshold, fused_dropout_matmul
 from phantom_vlb_tpu_torch.ops.quant import BASE_QUANT_MODES, quant_matmul
+from phantom_vlb_tpu_torch.parallel.tensor import COLUMN, ROW, copy_to_tensor, mm_f32, reduce_from_tensor
 
 __all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "keep_rows", "is_lora_path",
-           "lora_merge", "site_seed"]
+           "lora_merge", "site_seed", "row_parallel_linear", "CODES_DTYPE"]
 
 _U32 = 0xFFFFFFFF
+# The dtype whose bytes carry a sharded int8 base's codes (``parallel/sharding.py``).
+CODES_DTYPE = torch.float8_e4m3fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,33 +124,37 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def keep_rows(x: torch.Tensor, rows: tuple[int, int] | None, draw) -> torch.Tensor:
+def keep_rows(x: torch.Tensor, rows: tuple[int, int] | None, draw,
+              cols: tuple[int, int] | None = None) -> torch.Tensor:
     """``draw(shape)`` over x's shape, or, when x holds rows [r0, r0 + B) of
     a global batch of ``rows`` = (r0, n) rows, over the global shape with
-    x's rows kept: the draw of the one-card step, row for row."""
-    if rows is None:
-        return draw(x.shape)
-    r0, n = rows
-    return draw((n, *x.shape[1:]))[r0:r0 + x.shape[0]]
+    x's rows kept: the draw of the one-card step, row for row; likewise
+    for the columns [c0, c0 + K) of a whole width ``cols`` = (c0, width)."""
+    r0, n = (0, x.shape[0]) if rows is None else rows
+    if cols is None:
+        return draw(x.shape) if rows is None else draw((n, *x.shape[1:]))[r0:r0 + x.shape[0]]
+    c0, width = cols
+    return draw((n, *x.shape[1:-1], width))[r0:r0 + x.shape[0], ..., c0:c0 + x.shape[-1]]
 
 
 def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int,
-                    rows: tuple[int, int] | None = None) -> torch.Tensor:
+                    rows: tuple[int, int] | None = None,
+                    cols: tuple[int, int] | None = None) -> torch.Tensor:
     """Adapter-input dropout from the site ``seed`` (training path).
 
     ``dropout_bits=32``: keep ~ Bernoulli(1 - p), survivors / (1 - p);
     ``dropout_bits=8``: u8 bytes, keep iff byte >= round(256 p), survivors /
     (1 - round(256 p)/256). The scale is in x's dtype, as the reference's.
-    ``rows``: see :func:`keep_rows`.
+    ``rows``, ``cols``: see :func:`keep_rows`.
     """
     gen = _generator(seed, x.device)
     if cfg.dropout_bits >= 32:
         keep = keep_rows(x, rows, lambda shape: torch.rand(
-            shape, generator=gen, device=x.device) < cfg.dropout_keep_prob)
+            shape, generator=gen, device=x.device) < cfg.dropout_keep_prob, cols)
     elif cfg.dropout_bits == 8:
         thr = dropout_threshold(cfg.dropout)[0]
         keep = keep_rows(x, rows, lambda shape: torch.randint(
-            0, 256, shape, generator=gen, device=x.device, dtype=torch.uint8) >= thr)
+            0, 256, shape, generator=gen, device=x.device, dtype=torch.uint8) >= thr, cols)
     else:
         raise ValueError(f"dropout_bits must be 8 or 32, not {cfg.dropout_bits}")
     return torch.where(keep, x / _in_dtype(cfg.dropout_keep_prob, x.dtype), 0.0)
@@ -145,15 +167,25 @@ def _check_base_quant(base_quant: str | None) -> None:
 
 class _QuantBase(nn.Module):
     """The frozen int8 base: ``weight_q`` (out, in) int8 and ``weight_scale``
-    (out,) f32 buffers, and the matmul ``base_quant`` selects."""
+    (out,) f32 buffers (frozen parameters once sharded over processes, so
+    that FSDP2 shards them; ``parallel/sharding.py``), and the matmul
+    ``base_quant`` selects."""
+
+    tensor_split = None
 
     def _init_quant_base(self, in_features: int, out_features: int, base_quant: str) -> None:
         self.base_quant = base_quant
         self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
         self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32))
 
+    @property
+    def codes(self) -> torch.Tensor:
+        """``weight_q`` as int8 (a view where it rides as float8 bytes)."""
+        q = self.weight_q
+        return q if q.dtype == torch.int8 else q.view(torch.int8)
+
     def _base(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return quant_matmul(self.base_quant, x, self.weight_q.t(), self.weight_scale, dtype)
+        return quant_matmul(self.base_quant, x, self.codes.t(), self.weight_scale, dtype, self.tensor_split)
 
 
 class _FrozenLinear(torch.autograd.Function):
@@ -180,10 +212,39 @@ def frozen_linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _FrozenLinear.apply(x, weight)
 
 
+class _FrozenLinearF32(torch.autograd.Function):
+    """``x @ weight^T`` summed and returned in f32 (:func:`mm_f32`), with a
+    frozen ``weight`` read from the module in the backward as
+    :class:`_FrozenLinear` reads it; dx is the compute dtype's ``mm``."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.weight = weight
+        return mm_f32(x, weight.t())
+
+    @staticmethod
+    def backward(ctx, dy):
+        w = ctx.weight
+        return (dy.to(w.dtype) @ w if ctx.needs_input_grad[0] else None), None
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, split) -> torch.Tensor:
+    """A frozen row-parallel product: this rank's f32 partial, summed over
+    the ``tensor`` ranks and rounded once to x's dtype."""
+    return reduce_from_tensor(_FrozenLinearF32.apply(x, weight), split).to(x.dtype)
+
+
+def input_columns(split, x: torch.Tensor) -> tuple[int, int] | None:
+    """(first column, whole width) of a row-parallel input's columns, or
+    None where x is whole."""
+    return split.cols(x.shape[-1]) if split is not None and split.role == ROW else None
+
+
 class LoRALinear(_QuantBase):
     """A frozen base with f32 ``lora_a`` (in, r) and ``lora_b`` (r, out):
     ``weight`` (out, in) in the compute dtype, or with ``base_quant`` the
-    int8 buffers of :class:`FrozenQuantDense`."""
+    int8 buffers of :class:`FrozenQuantDense`; ``tensor_split`` as the
+    module's note says."""
 
     def __init__(self, in_features: int, out_features: int, lora: LoRAConfig,
                  dtype: torch.dtype = torch.bfloat16, base_quant: str | None = None):
@@ -205,35 +266,45 @@ class LoRALinear(_QuantBase):
             nn.init.uniform_(self.lora_a, -bound, bound)
 
     def forward(self, x: torch.Tensor, seed: int | None = None,
-                adapter_x: torch.Tensor | None = None, rows: tuple[int, int] | None = None) -> torch.Tensor:
+                adapter_x: torch.Tensor | None = None, rows: tuple[int, int] | None = None,
+                base_x: torch.Tensor | None = None) -> torch.Tensor:
         """``seed`` is the site's dropout seed (None: no dropout);
         ``adapter_x`` a pre-dropped adapter input (shared dropout); ``rows``
-        the global batch rows x holds (:func:`keep_rows`)."""
-        lora, dtype = self.lora, self.dtype
+        the global batch rows x holds (:func:`keep_rows`); ``base_x`` the
+        base product's input where it is not x (a column-parallel layer's
+        input through :func:`copy_to_tensor`)."""
+        lora, dtype, split = self.lora, self.dtype, self.tensor_split
         a = self.lora_a.to(dtype)
         live = self.training and lora.dropout > 0 and seed is not None
+        cols = input_columns(split, x)
         if adapter_x is None and live and lora.fused_dropout:
             x2d = x.reshape(-1, x.shape[-1])
             row0 = 0 if rows is None else rows[0] * (x2d.shape[0] // x.shape[0])
             with named("lora_mid"):
-                z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0)
+                z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0,
+                                         col0=0 if cols is None else cols[0])
             z = z.reshape(*x.shape[:-1], lora.rank)
         else:
             z = x if adapter_x is None else adapter_x
             if adapter_x is None and live:
-                z = adapter_dropout(z, lora, seed, rows)
+                z = adapter_dropout(z, lora, seed, rows, cols)
             with named("lora_mid"):
                 z = z @ a
+        if split is not None:
+            z = copy_to_tensor(z, split) if split.role == COLUMN else reduce_from_tensor(z, split)
+        base_x = x if base_x is None else base_x
         if lora.fused_epilogue:
-            return lora_epilogue(self._base_product(x), z, self.lora_b.to(dtype), lora.scaling,
+            return lora_epilogue(self._base_product(base_x), z, self.lora_b.to(dtype), lora.scaling,
                                  backward="xla" if lora.fused_epilogue == "fwd" else "pallas")
         z = z @ self.lora_b.to(dtype)
-        return self._base_product(x) + z * _in_dtype(lora.scaling, dtype)
+        return self._base_product(base_x) + z * _in_dtype(lora.scaling, dtype)
 
     def _base_product(self, x: torch.Tensor) -> torch.Tensor:
-        if self.base_quant is None:
-            return frozen_linear(x, self.weight)
-        return self._base(x, self.dtype)
+        if self.base_quant is not None:
+            return self._base(x, self.dtype)
+        if self.tensor_split is not None and self.tensor_split.role == ROW:
+            return row_parallel_linear(x, self.weight, self.tensor_split)
+        return frozen_linear(x, self.weight)
 
 
 class FrozenQuantDense(_QuantBase):

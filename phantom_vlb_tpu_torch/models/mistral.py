@@ -29,6 +29,15 @@ reference keeps f32 parameters and casts them to that dtype at each use,
 which rounds them the same way. LoRA adapters stay f32 and are cast at use,
 as there.
 
+Split over the ``tensor`` axis of a process mesh (``parallel/tensor.py``;
+the projections' ``tensor_split``, set by ``parallel/sharding.py``), a
+layer holds its rank's heads (16 q and 4 kv of Mistral-7B's 32 and 8 at
+``tensor`` 2) and its block of the MLP's width: the base products of the
+column-parallel q/k/v and gate/up read the attention's and the MLP's
+input through :func:`copy_to_tensor` (except under w8a8g8, whose int8 dx
+sums itself), and o/down sum their products over the ranks. The head
+counts follow the projections' widths.
+
 ``attention_impl``: ``'auto'`` is the packed flash path; ``'ring'``,
 ``'ring_flash'`` and ``'ring_fused'`` split the sequence over the ring that
 :func:`~phantom_vlb_tpu_torch.core.mesh.set_sequence_ring` set, after RoPE
@@ -54,11 +63,14 @@ from phantom_vlb_tpu_torch.models.lora import (
     LoRAConfig,
     LoRALinear,
     adapter_dropout,
+    row_parallel_linear,
     site_seed,
 )
 from phantom_vlb_tpu_torch.ops.context_parallel import ring_attention, ring_flash_attention
 from phantom_vlb_tpu_torch.ops.flash_attention import attention_packed
+from phantom_vlb_tpu_torch.ops.quant import sums_own_dx
 from phantom_vlb_tpu_torch.ops.ring_fused import ring_flash_fused
+from phantom_vlb_tpu_torch.parallel.tensor import ROW, copy_to_tensor
 
 __all__ = ["MistralConfig", "MistralModel", "RMSNorm", "rope_tables", "apply_rope_packed",
            "ATTENTION_IMPLS", "set_attention_impl", "set_remat_policy"]
@@ -166,11 +178,25 @@ def _proj(cfg: MistralConfig, in_features: int, out_features: int) -> nn.Module:
     return nn.Linear(in_features, out_features, bias=False)
 
 
-def _call_proj(module: nn.Module, name: str, x, seed, adapter_x=None, rows=None):
-    """A projection, with its site's seed when it carries adapters."""
+def _call_proj(module: nn.Module, name: str, x, seed, adapter_x=None, rows=None, base_x=None):
+    """A projection, with its site's seed when it carries adapters;
+    ``base_x`` the base product's input where it is not x."""
     if isinstance(module, LoRALinear):
-        return module(x, None if seed is None else site_seed(seed, SITES[name]), adapter_x, rows)
-    return module(x)
+        return module(x, None if seed is None else site_seed(seed, SITES[name]), adapter_x, rows, base_x)
+    split = getattr(module, "tensor_split", None)
+    if isinstance(module, nn.Linear) and split is not None and split.role == ROW:
+        return row_parallel_linear(x, module.weight, split)
+    return module(x if base_x is None else base_x)
+
+
+def _base_input(cfg: MistralConfig, proj: nn.Module, x):
+    """The column-parallel base products' input: x through
+    :func:`copy_to_tensor` when ``proj`` is split over the ``tensor`` axis
+    (and its base does not sum its own dx), else None (x itself)."""
+    split = getattr(proj, "tensor_split", None)
+    if split is None or sums_own_dx(cfg.base_quant):
+        return None
+    return copy_to_tensor(x, split)
 
 
 def _shared_adapter_input(cfg: MistralConfig, training: bool, x, seed, site: str, rows=None):
@@ -193,11 +219,16 @@ class MistralAttention(nn.Module):
 
     def forward(self, x, rope, kv_mask=None, seed=None, rows=None):
         cfg = self.cfg
-        h, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
         xa = _shared_adapter_input(cfg, self.training, x, seed, "attn_input", rows)
-        q = apply_rope_packed(_call_proj(self.q_proj, "q_proj", x, seed, xa, rows), rope, h)
-        k = apply_rope_packed(_call_proj(self.k_proj, "k_proj", x, seed, xa, rows), rope, hkv)
-        v = _call_proj(self.v_proj, "v_proj", x, seed, xa, rows)
+        xb = _base_input(cfg, self.q_proj, x)
+        # This rank's heads (all of them on one card), by the widths.
+        q = _call_proj(self.q_proj, "q_proj", x, seed, xa, rows, xb)
+        h = q.shape[-1] // cfg.head_dim
+        q = apply_rope_packed(q, rope, h)
+        k = _call_proj(self.k_proj, "k_proj", x, seed, xa, rows, xb)
+        hkv = k.shape[-1] // cfg.head_dim
+        k = apply_rope_packed(k, rope, hkv)
+        v = _call_proj(self.v_proj, "v_proj", x, seed, xa, rows, xb)
         if cfg.attention_impl == "auto":
             out, _ = attention_packed(q, k, v, h, hkv, kv_mask=kv_mask)
         else:
@@ -217,8 +248,9 @@ class MistralMLP(nn.Module):
 
     def forward(self, x, seed=None, rows=None):
         xa = _shared_adapter_input(self.cfg, self.training, x, seed, "mlp_input", rows)
-        gate = _call_proj(self.gate_proj, "gate_proj", x, seed, xa, rows)
-        up = _call_proj(self.up_proj, "up_proj", x, seed, xa, rows)
+        xb = _base_input(self.cfg, self.gate_proj, x)
+        gate = _call_proj(self.gate_proj, "gate_proj", x, seed, xa, rows, xb)
+        up = _call_proj(self.up_proj, "up_proj", x, seed, xa, rows, xb)
         return _call_proj(self.down_proj, "down_proj", F.silu(gate) * up, seed, rows=rows)
 
 

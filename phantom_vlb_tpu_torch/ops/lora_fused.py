@@ -15,11 +15,14 @@ plain product. Dtypes follow the reference: the forward and dA scale x by
 f32 ``dmid @ A^T`` by the f32 ``1/keep``.
 
 The bytes come from ``bits`` (an (M, K) uint8 tensor, the test mode) or from
-a counter-based hash of (seed, row0 + row, col >> 2) alone: one 32-bit word
-masks 4 neighbouring elements, byte ``col & 3`` each, as the reference's
-``_keep_planes`` spreads one word over 4 elements. ``row0`` is the global
-index of x's first row, so a rank that holds rows [row0, row0 + M) of a
-batch split over ranks draws those rows of the one-card mask. A GPU cannot reproduce
+a counter-based hash of (seed, row0 + row, (col0 + col) >> 2) alone: one
+32-bit word masks 4 neighbouring elements, byte ``col & 3`` each, as the
+reference's ``_keep_planes`` spreads one word over 4 elements. ``row0`` is
+the global index of x's first row, so a rank that holds rows [row0, row0 +
+M) of a batch split over ranks draws those rows of the one-card mask;
+``col0`` (a multiple of 4) is the global index of x's first column, so a
+rank of the tensor axis whose row-parallel projection reads columns [col0,
+col0 + K) of the input draws those columns of it. A GPU cannot reproduce
 the TPU's hardware stream, so the hash is this port's own; because it does
 not depend on tile shapes, forward, dx and dA see the same mask by
 construction, and :func:`hash_bytes` (torch int64, masked to 32 bits)
@@ -54,18 +57,18 @@ _U32 = 0xFFFFFFFF
 _SRC = "lora_dropout.cu"
 LORA_FWD = CudaKernel(
     _SRC, "lora_fwd_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 )
 LORA_DX = CudaKernel(
     _SRC, "lora_dx_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 )
 LORA_DA = CudaKernel(
     _SRC, "lora_da_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
 )
 
 
@@ -91,23 +94,23 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def hash_bytes(seed: int, m: int, k: int, device=None, row0: int = 0) -> torch.Tensor:
-    """(m, k) uint8 mask bytes of ``seed`` for global rows [row0, row0 + m),
-    the kernels' exact stream: word(row, w) = fmix32(fmix32(seed ^ row *
-    0x9E3779B1) ^ w) for w = col >> 2, byte ``col & 3`` of it for element
-    (row, col)."""
-    if k % 4:
-        raise ValueError(f"k = {k} is not a multiple of 4")
+def hash_bytes(seed: int, m: int, k: int, device=None, row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """(m, k) uint8 mask bytes of ``seed`` for global rows [row0, row0 + m)
+    and columns [col0, col0 + k), the kernels' exact stream: word(row, w) =
+    fmix32(fmix32(seed ^ row * 0x9E3779B1) ^ w) for w = col >> 2, byte
+    ``col & 3`` of it for element (row, col)."""
+    if k % 4 or col0 % 4:
+        raise ValueError(f"k = {k} and col0 = {col0} must be multiples of 4")
     rows = torch.arange(row0, row0 + m, dtype=torch.int64, device=device)
-    words = torch.arange(k // 4, dtype=torch.int64, device=device)
+    words = torch.arange(col0 // 4, (col0 + k) // 4, dtype=torch.int64, device=device)
     row_key = _fmix32((seed & _U32) ^ _mul32(rows, _GOLDEN))
     h = _fmix32(row_key[:, None] ^ words[None, :])
     shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
     return ((h[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(m, k)
 
 
-def _keep_mask(x, seed, thr, bits, row0):
-    b = hash_bytes(seed, x.shape[0], x.shape[1], x.device, row0) if bits is None else bits
+def _keep_mask(x, seed, thr, bits, row0, col0):
+    b = hash_bytes(seed, x.shape[0], x.shape[1], x.device, row0, col0) if bits is None else bits
     return b >= thr
 
 
@@ -125,15 +128,16 @@ def _dropped(x, keep, thr):
     return torch.where(keep, x * _scale_in_dtype(thr, x.dtype), 0.0)
 
 
-def fused_dropout_matmul_plain(x, a, seed: int, thr: int, bits=None, row0: int = 0) -> torch.Tensor:
+def fused_dropout_matmul_plain(x, a, seed: int, thr: int, bits=None, row0: int = 0,
+                               col0: int = 0) -> torch.Tensor:
     """Plain forward: (M, r) in x's dtype, f32 sums."""
-    z = _dropped(x, _keep_mask(x, seed, thr, bits, row0), thr)
+    z = _dropped(x, _keep_mask(x, seed, thr, bits, row0, col0), thr)
     return (z.float() @ a.to(x.dtype).float()).to(x.dtype)
 
 
-def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: int = 0):
+def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: int = 0, col0: int = 0):
     """Plain backward: (dx in x's dtype, dA f32)."""
-    keep = _keep_mask(x, seed, thr, bits, row0)
+    keep = _keep_mask(x, seed, thr, bits, row0, col0)
     dmid = dmid.to(x.dtype).float()
     g = dmid @ a.to(x.dtype).float().T
     dx = torch.where(keep, g * _inv_keep(thr), 0.0).to(x.dtype)
@@ -141,12 +145,12 @@ def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: in
     return dx, da
 
 
-def _check_cuda(x, a, bits):
+def _check_cuda(x, a, bits, col0=0):
     m, k = x.shape
     if a.shape[0] != k or a.shape[1] not in RANKS:
         raise ValueError(f"A must be ({k}, r) with r in {RANKS}; got {tuple(a.shape)}")
-    if k % CHUNK:
-        raise ValueError(f"K = {k} is not a multiple of {CHUNK}")
+    if k % CHUNK or col0 % 4:
+        raise ValueError(f"K = {k} must be a multiple of {CHUNK} and col0 = {col0} one of 4")
     for name, t in (("x", x), ("A", a)):
         if t.device != x.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous bf16 tensor on {x.device}; got {t.dtype} on {t.device}")
@@ -159,7 +163,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_cuda(x, a, seed, thr, bits, row0):
+def _fwd_cuda(x, a, seed, thr, bits, row0, col0):
     m, k = x.shape
     r = a.shape[1]
     m_blocks, chunks = math.ceil(m / CHUNK), k // CHUNK
@@ -167,23 +171,23 @@ def _fwd_cuda(x, a, seed, thr, bits, row0):
     part = torch.empty((split, m, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LORA_FWD.launch(x.data_ptr(), a.data_ptr(), _ptr(bits), part.data_ptr(),
-                        m, k, r, split, seed & _U32, row0, thr, _scale_in_dtype(thr, x.dtype),
+                        m, k, r, split, seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
                         torch.cuda.current_stream().cuda_stream)
     return part.sum(0).to(x.dtype)
 
 
-def _dx_cuda(x, a, dmid, seed, thr, bits, row0):
+def _dx_cuda(x, a, dmid, seed, thr, bits, row0, col0):
     m, k = x.shape
     dmid = dmid.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         LORA_DX.launch(dmid.data_ptr(), a.data_ptr(), _ptr(bits), dx.data_ptr(),
-                       m, k, a.shape[1], seed & _U32, row0, thr, _inv_keep(thr),
+                       m, k, a.shape[1], seed & _U32, row0, col0, thr, _inv_keep(thr),
                        torch.cuda.current_stream().cuda_stream)
     return dx
 
 
-def _da_cuda(x, a, dmid, seed, thr, bits, row0):
+def _da_cuda(x, a, dmid, seed, thr, bits, row0, col0):
     m, k = x.shape
     r = a.shape[1]
     dmid = dmid.to(x.dtype).contiguous()
@@ -192,25 +196,25 @@ def _da_cuda(x, a, dmid, seed, thr, bits, row0):
     part = torch.empty((split, k, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LORA_DA.launch(x.data_ptr(), dmid.data_ptr(), _ptr(bits), part.data_ptr(),
-                       m, k, r, split, seed & _U32, row0, thr, _scale_in_dtype(thr, x.dtype),
+                       m, k, r, split, seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
                        torch.cuda.current_stream().cuda_stream)
     return part.sum(0)
 
 
 def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=True, need_da=True,
-                      row0: int = 0):
+                      row0: int = 0, col0: int = 0):
     """(dx, dA f32) of :func:`fused_dropout_matmul` at ``p > 0``: the dx and
     dA kernels on CUDA tensors, :func:`fused_dropout_bwd_plain` on CPU
     tensors. A gradient not asked for comes back as None, unlaunched."""
     thr, _ = dropout_threshold(p)
     if x.device.type == "cpu":
-        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits, row0)
+        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits, row0, col0)
         return (dx if need_dx else None), (da if need_da else None)
-    _check_cuda(x, a, bits)
+    _check_cuda(x, a, bits, col0)
     if dmid.shape != (x.shape[0], a.shape[1]):
         raise ValueError(f"dmid {tuple(dmid.shape)} != ({x.shape[0]}, {a.shape[1]})")
-    return (_dx_cuda(x, a, dmid, seed, thr, bits, row0) if need_dx else None,
-            _da_cuda(x, a, dmid, seed, thr, bits, row0) if need_da else None)
+    return (_dx_cuda(x, a, dmid, seed, thr, bits, row0, col0) if need_dx else None,
+            _da_cuda(x, a, dmid, seed, thr, bits, row0, col0) if need_da else None)
 
 
 # The forward as a dispatcher op, so that a checkpoint policy can keep the
@@ -218,35 +222,37 @@ def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=Tru
 # (``core/remat.py``): the kernel on CUDA tensors, the plain version on CPU
 # tensors.
 _LIB = torch.library.Library("vlb", "FRAGMENT")
-_LIB.define("lora_dropout_fwd(Tensor x, Tensor a, int seed, int thr, Tensor? bits, int row0) -> Tensor")
+_LIB.define("lora_dropout_fwd(Tensor x, Tensor a, int seed, int thr, Tensor? bits, int row0, int col0) "
+            "-> Tensor")
 _LIB.impl("lora_dropout_fwd", fused_dropout_matmul_plain, "CPU")
 _LIB.impl("lora_dropout_fwd", _fwd_cuda, "CUDA")
 
 
 class _FusedDropoutMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, a, seed, p, bits, row0):
+    def forward(ctx, x, a, seed, p, bits, row0, col0):
         thr, _ = dropout_threshold(p)
         ctx.save_for_backward(x, a, bits)
-        ctx.seed, ctx.p, ctx.row0 = seed, p, row0
-        return torch.ops.vlb.lora_dropout_fwd(x, a, seed, thr, bits, row0)
+        ctx.seed, ctx.p, ctx.row0, ctx.col0 = seed, p, row0, col0
+        return torch.ops.vlb.lora_dropout_fwd(x, a, seed, thr, bits, row0, col0)
 
     @staticmethod
     def backward(ctx, dmid):
         x, a, bits = ctx.saved_tensors
         dx, da = fused_dropout_bwd(x, a, dmid, ctx.seed, ctx.p, bits=bits,
                                    need_dx=ctx.needs_input_grad[0],
-                                   need_da=ctx.needs_input_grad[1], row0=ctx.row0)
-        return dx, (None if da is None else da.to(a.dtype)), None, None, None, None
+                                   need_da=ctx.needs_input_grad[1], row0=ctx.row0, col0=ctx.col0)
+        return dx, (None if da is None else da.to(a.dtype)), None, None, None, None, None
 
 
 def fused_dropout_matmul(x: torch.Tensor, a: torch.Tensor, seed: int, p: float, *,
-                         bits: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
+                         bits: torch.Tensor | None = None, row0: int = 0, col0: int = 0) -> torch.Tensor:
     """``dropout(x; p) @ a`` with the mask fused into the contraction.
 
     x (M, K), a (K, r); ``seed`` an integer (its low 32 bits are used),
-    ignored when ``bits`` (M, K) uint8 is given; ``row0`` the global index
-    of x's first row in the hash mask. Returns (M, r) in x's
+    ignored when ``bits`` (M, K) uint8 is given; ``row0`` and ``col0`` the
+    global indices of x's first row and column in the hash mask (col0 a
+    multiple of 4). Returns (M, r) in x's
     dtype, differentiable in x and a. On CUDA tensors: bf16, K a multiple of
     64, r in (16, 32, 64, 128), contiguous; anything else raises.
     """
@@ -256,7 +262,7 @@ def fused_dropout_matmul(x: torch.Tensor, a: torch.Tensor, seed: int, p: float, 
     if x.dim() != 2 or a.dim() != 2:
         raise ValueError(f"want x (M, K), a (K, r); got {tuple(x.shape)}, {tuple(a.shape)}")
     if x.device.type == "cuda":
-        _check_cuda(x, a, bits)
+        _check_cuda(x, a, bits, col0)
     elif x.device.type != "cpu":
         raise ValueError(f"no fused dropout kernel for device {x.device}")
-    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits, int(row0))
+    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits, int(row0), int(col0))

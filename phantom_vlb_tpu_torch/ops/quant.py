@@ -17,7 +17,20 @@ dequantized matrix is never formed:
 
 ``q`` is (in, out) at these functions, as in the JAX package; it may be a
 transposed view of the (out, in) tensor a module stores (see
-``models/lora.py``). The int32 product is ``torch._int_mm`` on the card (the
+``models/lora.py``).
+
+With ``split`` (a :class:`~phantom_vlb_tpu_torch.parallel.tensor.TensorSplit`)
+q holds this ``tensor`` rank's block. Column-parallel (q's out columns
+split) the products are the one-card ones on the rank's columns, and x's
+gradient is a partial sum that the layer's input sums over the ranks,
+except under w8a8g8: dy's row scale is the maximum over the ranks'
+columns (:func:`~phantom_vlb_tpu_torch.ops.rowquant.row_quant_split`) and
+the int32 dx partials are summed before the dequant, so dx is the
+one-card dx on every rank. Row-parallel (q's in rows split, x holding the
+rank's columns): the weight-only product sums f32 partials and rounds
+once; w8a8 quantizes x with the whole row's scale and sums the int32
+partials before the dequant, so the product is the one-card product bit
+for bit; dx is the rank's columns of the one-card dx. The int32 product is ``torch._int_mm`` on the card (the
 JAX package leaves it to ``lax.dot_general``, outside any Pallas kernel)
 and an exact float64 product on the CPU: ``14336 * 127^2 < 2^31``, so
 nothing overflows, and f64 holds every partial sum exactly.
@@ -28,11 +41,12 @@ from __future__ import annotations
 import torch
 
 from phantom_vlb_tpu_torch.core.remat import OPAQUE, named
-from phantom_vlb_tpu_torch.ops.rowquant import over_127, row_quant, row_quant_scaled
+from phantom_vlb_tpu_torch.ops.rowquant import over_127, row_quant, row_quant_scaled, row_quant_split
+from phantom_vlb_tpu_torch.parallel.tensor import COLUMN, ROW, all_reduce_max, all_reduce_sum, mm_f32
 
 __all__ = [
     "quantize_int8", "int8_matmul", "int8_matmul_w8a8", "int8_matmul_w8a8g8", "quant_matmul",
-    "quantize_state_dict", "is_base_projection", "BASE_QUANT_MODES", "BASE_PROJECTIONS",
+    "quantize_state_dict", "is_base_projection", "sums_own_dx", "BASE_QUANT_MODES", "BASE_PROJECTIONS",
     "TOWER_PROJECTIONS",
 ]
 
@@ -81,90 +95,116 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # again rather than keep a bf16 copy of the weight.
 
 
+def _role(split) -> str | None:
+    return None if split is None else split.role
+
+
 class _Int8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, q, scale, dtype):
+    def forward(ctx, x, q, scale, dtype, split):
         ctx.q, ctx.scale, ctx.x_dtype, ctx.dtype = q, scale, x.dtype, dtype
-        return (x.to(dtype) @ q.to(dtype)) * scale.to(dtype)
+        if _role(split) == ROW:
+            y = all_reduce_sum(mm_f32(x.to(dtype), q.to(dtype)), split).to(dtype)
+        else:
+            y = x.to(dtype) @ q.to(dtype)
+        return y * scale.to(dtype)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         g = dy * ctx.scale.to(ctx.dtype)
-        return (g @ ctx.q.to(ctx.dtype).t()).to(ctx.x_dtype), None, None, None
+        return (g @ ctx.q.to(ctx.dtype).t()).to(ctx.x_dtype), None, None, None, None
 
 
-def int8_matmul(x, q, scale, dtype=torch.bfloat16):
+def int8_matmul(x, q, scale, dtype=torch.bfloat16, split=None):
     """``x @ dequant(q)``: the product in ``dtype``, then the scale in ``dtype``."""
-    return _Int8.apply(x, q, scale, dtype)
+    return _Int8.apply(x, q, scale, dtype, split)
 
 
-def _w8a8_forward(x, q, scale, dtype):
+def _w8a8_forward(x, q, scale, dtype, split):
     """Per-row int8 x, int8 x int8 -> int32, then ``(y * s_x) * scale``;
     in the scope whose products the ``'dots'`` checkpoint policy leaves to
     the replay, as JAX's leaves its ``custom_vjp``'s (``core/remat.py``)."""
     lead, k = x.shape[:-1], x.shape[-1]
     with named(OPAQUE):
-        x8, s_x = row_quant(x.reshape(-1, k).contiguous())
-        y = _int_mm(x8, q)
+        x2 = x.reshape(-1, k).contiguous()
+        if _role(split) == ROW:
+            x8, s_x = row_quant_split(x2, lambda m: all_reduce_max(m, split))
+            y = all_reduce_sum(_int_mm(x8, q), split)
+        else:
+            x8, s_x = row_quant(x2)
+            y = _int_mm(x8, q)
         return (y * s_x).mul_(scale).to(dtype).reshape(*lead, q.shape[1])
 
 
 class _W8A8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, q, scale, dtype):
+    def forward(ctx, x, q, scale, dtype, split):
         ctx.q, ctx.scale, ctx.x_dtype = q, scale, x.dtype
-        return _w8a8_forward(x, q, scale, dtype)
+        return _w8a8_forward(x, q, scale, dtype, split)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         q, scale = ctx.q, ctx.scale
         # Straight-through: round() is the identity, so dx is the exact bf16
         # dequant backward, as the reference's (quant.py:131-145).
         dyb = (dy.float() * scale).to(torch.bfloat16)
-        return (dyb @ q.to(torch.bfloat16).t()).to(ctx.x_dtype), None, None, None
+        return (dyb @ q.to(torch.bfloat16).t()).to(ctx.x_dtype), None, None, None, None
 
 
 class _W8A8G8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, q, scale, dtype):
-        ctx.q, ctx.scale, ctx.x_dtype = q, scale, x.dtype
-        return _w8a8_forward(x, q, scale, dtype)
+    def forward(ctx, x, q, scale, dtype, split):
+        ctx.q, ctx.scale, ctx.x_dtype, ctx.split = q, scale, x.dtype, split
+        return _w8a8_forward(x, q, scale, dtype, split)
 
     @staticmethod
     def backward(ctx, dy):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
-        q, scale = ctx.q, ctx.scale
+            return None, None, None, None, None
+        q, scale, split = ctx.q, ctx.scale, ctx.split
         lead, n = dy.shape[:-1], dy.shape[-1]
         # The weight scale rides the contracted axis here, so it is folded
         # into dy before the per-row quant (quant.py:173-179).
-        g8, s_g = row_quant_scaled(dy.reshape(-1, n).contiguous(), scale)
-        dx = _int_mm(g8, q.t())
-        return (dx * s_g).to(ctx.x_dtype).reshape(*lead, q.shape[0]), None, None, None
+        dy2 = dy.reshape(-1, n).contiguous()
+        if _role(split) == COLUMN:
+            g8, s_g = row_quant_split(dy2, lambda m: all_reduce_max(m, split), scale)
+            dx = all_reduce_sum(_int_mm(g8, q.t()), split)
+        else:
+            g8, s_g = row_quant_scaled(dy2, scale)
+            dx = _int_mm(g8, q.t())
+        return (dx * s_g).to(ctx.x_dtype).reshape(*lead, q.shape[0]), None, None, None, None
 
 
-def int8_matmul_w8a8(x, q, scale, dtype=torch.bfloat16):
+def int8_matmul_w8a8(x, q, scale, dtype=torch.bfloat16, split=None):
     """``dequant(quant(x) @ q)``, differentiable in x (straight-through bf16 dx)."""
-    return _W8A8.apply(x, q, scale, dtype)
+    return _W8A8.apply(x, q, scale, dtype, split)
 
 
-def int8_matmul_w8a8g8(x, q, scale, dtype=torch.bfloat16):
+def int8_matmul_w8a8g8(x, q, scale, dtype=torch.bfloat16, split=None):
     """The w8a8 forward with an int8 dx product (``base_quant='w8a8g8'``)."""
-    return _W8A8G8.apply(x, q, scale, dtype)
+    return _W8A8G8.apply(x, q, scale, dtype, split)
 
 
-def quant_matmul(mode: str, x, q, scale, dtype):
-    """The matmul ``base_quant`` selects: ``'int8'``, ``'w8a8'`` or ``'w8a8g8'``."""
+def sums_own_dx(mode: str | None) -> bool:
+    """Whether a column-parallel base of ``mode`` sums x's gradient over
+    the ``tensor`` ranks itself (w8a8g8's int32 dx), so that its input must
+    not go through the layer's :func:`copy_to_tensor`."""
+    return mode == "w8a8g8"
+
+
+def quant_matmul(mode: str, x, q, scale, dtype, split=None):
+    """The matmul ``base_quant`` selects: ``'int8'``, ``'w8a8'`` or
+    ``'w8a8g8'``; ``split`` this rank's block of a ``tensor``-split base."""
     if mode == "int8":
-        return int8_matmul(x, q, scale, dtype)
+        return int8_matmul(x, q, scale, dtype, split)
     if mode == "w8a8":
-        return int8_matmul_w8a8(x, q, scale, dtype)
+        return int8_matmul_w8a8(x, q, scale, dtype, split)
     if mode == "w8a8g8":
-        return int8_matmul_w8a8g8(x, q, scale, dtype)
+        return int8_matmul_w8a8g8(x, q, scale, dtype, split)
     raise ValueError(f"base_quant must be one of {BASE_QUANT_MODES}, not {mode!r}")
 
 

@@ -15,6 +15,14 @@ divides as IEEE does and rounds half to even, so its q and s equal
 :func:`row_quant_plain`'s bit for bit. On CPU tensors the plain version
 runs. There is no fallback on the card, and no switch: the JAX package
 keeps its kernel opt-in only because XLA's fusion beat it on the TPU.
+
+Where a row's columns lie on several ranks of the tensor axis,
+:func:`row_quant_split` quantizes in three steps: each rank's max|v| over
+its columns (:func:`row_absmax`, the kernel's first pass alone), the
+maximum over the ranks (the caller's collective), then the rank's columns
+quantized with the scale of the whole row (:func:`row_quant_given`, its
+second pass alone). Maxima are exact, so q and s equal the one-card
+quantization of the whole row bit for bit.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ import torch
 
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
-__all__ = ["row_quant", "row_quant_scaled", "row_quant_plain", "over_127", "ROW_QUANT",
-           "ROW_QUANT_SCALED"]
+__all__ = ["row_quant", "row_quant_scaled", "row_quant_plain", "over_127", "row_absmax", "row_absmax_plain",
+           "row_quant_given", "row_quant_given_plain", "row_quant_split", "ROW_QUANT", "ROW_QUANT_SCALED",
+           "ROW_ABSMAX", "ROW_QUANT_GIVEN"]
 
 _SRC = "rowquant.cu"
 ROW_QUANT = CudaKernel(
@@ -36,6 +45,16 @@ ROW_QUANT = CudaKernel(
 )
 ROW_QUANT_SCALED = CudaKernel(
     _SRC, "row_quant_scaled_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p],
+)
+ROW_ABSMAX = CudaKernel(
+    _SRC, "row_absmax_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p],
+)
+ROW_QUANT_GIVEN = CudaKernel(
+    _SRC, "row_quant_given_launch",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p],
 )
@@ -49,16 +68,33 @@ def over_127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
 
 
+def _values(x, w_scale):
+    v = x.float()
+    return v if w_scale is None else v * w_scale.float()
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
+    """s of a row's max|v|."""
+    return over_127(amax).clamp_min(1e-12)
+
+
 def row_quant_plain(x: torch.Tensor, w_scale: torch.Tensor | None = None):
     """(q int8, s f32 (..., 1)) of ``x`` (times ``w_scale`` in f32)."""
-    v = x.float()
-    if w_scale is not None:
-        v = v * w_scale.float()
-    s = over_127(v.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
-    return torch.round(v / s).clamp_(-127, 127).to(torch.int8), s
+    s = _scale(row_absmax_plain(x, w_scale))
+    return row_quant_given_plain(x, s, w_scale), s
 
 
-def _quant_cuda(x, w_scale):
+def row_absmax_plain(x: torch.Tensor, w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """max|v| per row, f32 (..., 1)."""
+    return _values(x, w_scale).abs().amax(dim=-1, keepdim=True)
+
+
+def row_quant_given_plain(x: torch.Tensor, s: torch.Tensor, w_scale: torch.Tensor | None = None):
+    """q int8 of ``x`` (times ``w_scale``) with the row scales ``s`` (..., 1)."""
+    return torch.round(_values(x, w_scale) / s).clamp_(-127, 127).to(torch.int8)
+
+
+def _check_cuda(x, w_scale):
     n = x.shape[-1]
     if x.dtype not in _DTYPE_CODES or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous bf16 or f32 tensor; got {x.dtype}, "
@@ -71,6 +107,11 @@ def _quant_cuda(x, w_scale):
     if n == 0 or rows >= 2**31 or n >= 2**31:
         raise ValueError(f"row_quant takes 1 to 2^31 - 1 columns and fewer than 2^31 rows; "
                          f"got ({rows}, {n})")
+    return rows, n
+
+
+def _quant_cuda(x, w_scale):
+    rows, n = _check_cuda(x, w_scale)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
     if rows == 0:
@@ -104,3 +145,56 @@ def row_quant_scaled(x: torch.Tensor, w_scale: torch.Tensor):
     forming the product in device memory: the w8a8g8 backward's
     ``dy * weight_scale``."""
     return _dispatch(x, w_scale)
+
+
+def _on_card(x) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no row-quant kernel for device {x.device}")
+    return True
+
+
+def row_absmax(x: torch.Tensor, w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """max|x (times ``w_scale``)| per row, f32 (..., 1): the kernel's first
+    pass alone."""
+    if not _on_card(x):
+        return row_absmax_plain(x, w_scale)
+    rows, n = _check_cuda(x, w_scale)
+    amax = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    if rows:
+        with torch.cuda.device(x.device):
+            ROW_ABSMAX.launch(x.data_ptr(), _DTYPE_CODES[x.dtype], _ptr(w_scale), amax.data_ptr(), rows, n,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    return amax
+
+
+def row_quant_given(x: torch.Tensor, s: torch.Tensor, w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q int8 of x (times ``w_scale``) with the row scales ``s`` (..., 1)
+    f32: the kernel's second pass alone."""
+    if not _on_card(x):
+        return row_quant_given_plain(x, s, w_scale)
+    rows, n = _check_cuda(x, w_scale)
+    if s.shape != (*x.shape[:-1], 1) or s.dtype != torch.float32 or s.device != x.device:
+        raise ValueError(f"s must be a {(*x.shape[:-1], 1)} f32 tensor on {x.device}; got "
+                         f"{tuple(s.shape)} {s.dtype} on {s.device}")
+    s = s.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if rows:
+        with torch.cuda.device(x.device):
+            ROW_QUANT_GIVEN.launch(x.data_ptr(), _DTYPE_CODES[x.dtype], _ptr(w_scale), s.data_ptr(),
+                                   q.data_ptr(), rows, n, torch.cuda.current_stream(x.device).cuda_stream)
+    return q
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def row_quant_split(x: torch.Tensor, reduce_max, w_scale: torch.Tensor | None = None):
+    """(q, s) of :func:`row_quant` (or :func:`row_quant_scaled`) for rows
+    whose columns lie on several ranks, x holding this rank's: the local
+    maxima, ``reduce_max`` (their maximum over the ranks, a collective),
+    then this rank's columns quantized with the whole row's scale."""
+    s = _scale(reduce_max(row_absmax(x, w_scale)))
+    return row_quant_given(x, s, w_scale), s

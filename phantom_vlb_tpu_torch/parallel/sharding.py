@@ -8,8 +8,10 @@ along the dim that the table's ``fsdp`` entry names:
 
 - :data:`DEFAULT_RULES`: the JAX table on the port's names, in torch's
   layout (``nn.Linear`` weights (out, in), convolutions (O, I, ...)); a
-  spec covers a tensor's leading dims, the rest are None. The ``tensor``
-  entries are kept and not applied (``tensor`` > 1 is not ported).
+  spec covers a tensor's leading dims, the rest are None. Its ``tensor``
+  entries are applied by :func:`split_decoder` (below), which cuts each
+  decoder projection's tensors to the rank's block before FSDP2 shards
+  the blocks over ``fsdp``.
 - Any other tensor: the largest dim that ``fsdp`` divides when it holds at
   least ``MIN_SIZE_TO_SHARD`` values, ties broken in the JAX layout's
   order, as the JAX fallback does; else none.
@@ -17,7 +19,26 @@ along the dim that the table's ``fsdp`` entry names:
   drops it.
 
 FSDP2 shards every parameter of a unit, so where the table says none (a
-replicated leaf in JAX) the parameter takes FSDP2's default, dim 0.
+replicated leaf in JAX) the parameter takes FSDP2's default, dim 0. The
+int8 bases' ``weight_q`` and ``weight_scale`` are made frozen parameters
+(``requires_grad=False``, the same state-dict names; the codes as the bytes
+of a float8 tensor) so that FSDP2 shards them too; it gathers a unit's
+mixed dtypes as bytes.
+
+Under ``tensor`` > 1 (``parallel/tensor.py``) the decoder's q/k/v/gate/up
+are column-parallel: ``weight``/``weight_q`` (out, in) and ``weight_scale``
+split on out, as the table's ``('fsdp', 'tensor')`` on the (in, out)
+kernel and ``('tensor',)`` on its scale; o/down are row-parallel:
+``weight``/``weight_q`` split on in, ``weight_scale`` whole. The adapters
+lie as the collectives need them: a column-parallel ``lora_a`` whole and
+its ``lora_b`` split on out (the table's ``(None, 'tensor')``); a
+row-parallel ``lora_a`` split on in and its ``lora_b`` whole, where the
+table keeps ``lora_a`` whole and splits ``lora_b`` (ROADMAP Queue 3). A
+``tensor`` size that does not divide the heads, the kv heads or the MLP's
+width raises by name (the JAX table drops the axis and replicates). Each
+split parameter carries its split (:data:`TENSOR_SPLIT`), which
+:func:`whole` and :func:`shard_like` read; a checkpoint holds whole
+tensors, so it restores across mesh shapes.
 
 :func:`shard_model` makes a unit of each decoder layer (the reference's
 FULL_SHARD unit, which per-layer remat replays), each CLIP layer, the STC
@@ -36,9 +57,12 @@ import torch
 from torch import nn
 
 from phantom_vlb_tpu_torch.core.mesh import FSDP_AXIS, MeshEnv
+from phantom_vlb_tpu_torch.models.lora import CODES_DTYPE, _QuantBase
+from phantom_vlb_tpu_torch.models.mistral import MistralAttention, MistralConfig, MistralMLP
+from phantom_vlb_tpu_torch.parallel.tensor import COLUMN, ROW, TensorSplit, gather_along
 
 __all__ = ["DEFAULT_RULES", "MIN_SIZE_TO_SHARD", "infer_param_shardings", "fsdp_dim", "shard_model",
-           "whole", "shard_like"]
+           "whole", "shard_like", "split_decoder", "tensor_split_of", "TENSOR_SPLIT"]
 
 Spec = tuple  # one entry a dim: an axis name, a tuple of names, or None
 
@@ -140,8 +164,6 @@ def _shard_units(model: nn.Module) -> list[nn.Module]:
 def _refuse_unported(model: nn.Module, world: int) -> None:
     """What a mesh of more than one process does not run (ROADMAP Queue 1)."""
     where = f"under a mesh of {world} processes is not ported (ROADMAP Queue 1); run it in one process"
-    if any(name.endswith("weight_q") for name, _ in model.named_buffers()):
-        raise NotImplementedError(f"base_quant (int8 weights are buffers, which FSDP2 does not shard) {where}")
     for m in model.modules():
         cfg = getattr(m, "cfg", None)
         impl = getattr(cfg, "attention_impl", None) or getattr(getattr(cfg, "mistral", None), "attention_impl", None)
@@ -149,12 +171,101 @@ def _refuse_unported(model: nn.Module, world: int) -> None:
             raise NotImplementedError(f"attention_impl={impl!r} (a ring whose ranks are processes) {where}")
 
 
+# The attribute of a parameter split over the ``tensor`` axis: (dim, TensorSplit).
+TENSOR_SPLIT = "_vlb_tensor_split"
+# The decoder projections by role, and the dim of each of their tensors
+# that the ``tensor`` axis splits (a tensor not named stays whole).
+_ROLES = {"q_proj": COLUMN, "k_proj": COLUMN, "v_proj": COLUMN, "gate_proj": COLUMN, "up_proj": COLUMN,
+          "o_proj": ROW, "down_proj": ROW}
+_SPLIT_DIMS = {COLUMN: {"weight": 0, "weight_q": 0, "weight_scale": 0, "lora_b": 1},
+               ROW: {"weight": 1, "weight_q": 1, "lora_a": 0}}
+
+
+def tensor_split_of(p) -> tuple[int, TensorSplit] | None:
+    """(dim, split) of a parameter split over the ``tensor`` axis, else None."""
+    return getattr(p, TENSOR_SPLIT, None)
+
+
+def _check_tensor_divides(model: nn.Module, size: int) -> None:
+    for m in model.modules():
+        cfg = getattr(m, "cfg", None)
+        if isinstance(m, MistralAttention | MistralMLP) and isinstance(cfg, MistralConfig):
+            for what, n in (("attention heads", cfg.num_attention_heads),
+                            ("kv heads", cfg.num_key_value_heads),
+                            ("MLP width (intermediate_size)", cfg.intermediate_size)):
+                if n % size:
+                    raise ValueError(f"mesh.tensor={size} does not divide the decoder's {n} {what}; "
+                                     "choose a tensor size that divides the heads, the kv heads and the "
+                                     "MLP's width")
+
+
+def _projections(model: nn.Module):
+    """(name, module) of each decoder projection, in module order."""
+    for m in model.modules():
+        if isinstance(m, MistralAttention | MistralMLP):
+            for name, proj in m.named_children():
+                if name in _ROLES:
+                    yield name, proj
+
+
+def split_decoder(model: nn.Module, env: MeshEnv) -> None:
+    """Cut each decoder projection's tensors to this rank's block along the
+    ``tensor`` axis and give the projection its ``tensor_split``, in place
+    (a no-op at ``tensor`` 1)."""
+    size = env.tensor_size
+    if size == 1:
+        return
+    _check_tensor_divides(model, size)
+    rank = env.coords["tensor"]
+    for name, proj in _projections(model):
+        split = TensorSplit(_ROLES[name], env.tensor_group, size, rank)
+        for leaf, dim in _SPLIT_DIMS[split.role].items():
+            t = getattr(proj, leaf, None)
+            if t is None:
+                continue
+            n = t.shape[dim] // size
+            block = t.detach().narrow(dim, rank * n, n).clone()
+            if isinstance(t, nn.Parameter):
+                setattr(proj, leaf, nn.Parameter(block, requires_grad=t.requires_grad))
+            else:
+                proj.register_buffer(leaf, block)
+        proj.tensor_split = split
+
+
+def _freeze_quant_buffers(model: nn.Module) -> None:
+    """The int8 bases' buffers as frozen parameters of the same names. FSDP2
+    makes each sharded tensor a parameter that may take a gradient, which
+    an integer tensor may not (torch 2.11 refuses it), so the int8 codes
+    ride as the bytes of a float8 tensor, never read as floats: the base
+    reads them back as int8 (``_QuantBase.codes``, a view)."""
+    for m in model.modules():
+        if isinstance(m, _QuantBase) and "weight_q" in m._buffers:
+            for leaf in ("weight_q", "weight_scale"):
+                t = m._buffers.pop(leaf)
+                if t.dtype == torch.int8:
+                    t = t.view(CODES_DTYPE)
+                m.register_parameter(leaf, nn.Parameter(t, requires_grad=False))
+
+
+def _mark_splits(model: nn.Module) -> None:
+    for name, proj in _projections(model):
+        split = getattr(proj, "tensor_split", None)
+        if split is None:
+            continue
+        for leaf, dim in _SPLIT_DIMS[split.role].items():
+            p = proj._parameters.get(leaf)
+            if p is not None:
+                setattr(p, TENSOR_SPLIT, (dim, split))
+
+
 def shard_model(model: nn.Module, env: MeshEnv,
                 rules: Sequence[tuple[str, Spec]] = tuple(DEFAULT_RULES)) -> nn.Module:
-    """``fully_shard`` over ``env``'s mesh on the units (each decoder layer,
-    each CLIP layer, the STC connector, the embedding, the head), then the
-    root, in place; each parameter split along :func:`fsdp_dim` of its
-    spec (dim 0 where that is None). Gradients are reduced as sums."""
+    """The decoder's projections cut along ``tensor`` (:func:`split_decoder`),
+    the int8 bases made frozen parameters, then ``fully_shard`` over
+    ``env``'s batch mesh on the units (each decoder layer, each CLIP
+    layer, the STC connector, the embedding, the head), then the root, in
+    place; each parameter split along :func:`fsdp_dim` of its spec (dim 0
+    where that is None). Gradients are reduced as sums."""
     if not env.sharded:
         raise ValueError("shard_model needs a mesh over a process group (build_mesh after "
                          "maybe_initialize_distributed)")
@@ -163,6 +274,8 @@ def shard_model(model: nn.Module, env: MeshEnv,
     from torch.distributed.fsdp import FSDPModule, fully_shard
     from torch.distributed.tensor import Shard
 
+    split_decoder(model, env)
+    _freeze_quant_buffers(model)
     specs = infer_param_shardings(model, env, rules)
     dims = {id(p): fsdp_dim(specs[name]) for name, p in model.named_parameters()}
 
@@ -176,20 +289,37 @@ def shard_model(model: nn.Module, env: MeshEnv,
         if isinstance(m, FSDPModule):
             m.set_force_sum_reduction_for_comms(True)
             m.set_gradient_divide_factor(1.0)
+    _mark_splits(model)
     return model
 
 
-def whole(t):
-    """A sharded tensor (``DTensor``) gathered whole on every rank (a
-    collective), else ``t`` itself."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
+def whole(t, like=None):
+    """A sharded tensor gathered whole on every rank (a collective): a
+    ``DTensor``'s shards, then, for a tensor split along ``tensor`` (``t``
+    or the parameter ``like`` it belongs to, e.g. its gradient or an AdamW
+    moment), the ``tensor`` ranks' blocks; else ``t`` itself."""
+    out = t.full_tensor() if hasattr(t, "full_tensor") else t
+    split = tensor_split_of(t if like is None else like)
+    if split is None or out.dim() == 0:
+        return out
+    return gather_along(out, *split)
 
 
 def shard_like(t, param: torch.Tensor):
-    """A whole tensor of ``param``'s shape, split as ``param``'s ``DTensor``
-    placements split it (no communication: every rank holds ``t``); other
-    values (per-tensor step counts) and for an unsharded ``param``, ``t``."""
-    if not hasattr(param, "device_mesh") or not isinstance(t, torch.Tensor) or t.shape != param.shape:
+    """A whole tensor of ``param``'s whole shape cut to this rank's part
+    of it: its block along ``tensor`` where ``param`` is split so, then
+    split as ``param``'s ``DTensor`` placements split it (no communication:
+    every rank holds ``t``); other values (per-tensor step counts) and for
+    an unsharded ``param``, ``t``."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    split = tensor_split_of(param)
+    if split is not None and t.dim() == param.dim():
+        dim, ts = split
+        n = param.shape[dim]
+        if t.shape[dim] == n * ts.size:
+            t = t.narrow(dim, ts.rank * n, n).contiguous()
+    if not hasattr(param, "device_mesh") or t.shape != param.shape:
         return t
     from torch.distributed.tensor import distribute_tensor
 

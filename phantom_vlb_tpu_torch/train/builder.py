@@ -10,14 +10,17 @@ console and optional Comet loggers and the hyperparameters logged twice
 
 The ``mesh`` node spans the processes of a ``torchrun`` launch
 (``core/distributed.py``, one card each; ``-1`` absorbs the world size):
-under it the model is built on each rank's card from the same seed and
-sharded by FSDP2 (``parallel/sharding.py``), and each rank's loaders yield
-its rows of each global batch, which the batch axes must divide. A single
-process trains on one card, whatever the machine holds. Branches of the
-reference that are not ported raise by name: an Orbax directory as
-``model.checkpoint_path``, and under a mesh of more than one process ``model.cache_features``, ``datamodule.vision_token_cache``
-(and, in ``parallel/sharding.py``, ``base_quant`` and the ring
-``attention_impl``s). :func:`build_trainer` and :func:`build_cached_trainer`
+under it the model is built on each rank's card from the same seed, its
+decoder's projections cut to each rank's block along ``mesh.tensor`` and
+the blocks sharded by FSDP2 over the batch axes (``parallel/sharding.py``,
+``parallel/tensor.py``; any ``base_quant`` too), and each rank's loaders
+yield its batch coordinate's rows of each global batch, which the batch
+axes must divide. A single process trains on one card, whatever the
+machine holds. Branches of the reference that are not ported raise by
+name: an Orbax directory as ``model.checkpoint_path``, ``mesh.sequence``
+> 1 across processes (``core/mesh.py``), and under a mesh of more than one
+process ``model.cache_features``, ``datamodule.vision_token_cache`` (and,
+in ``parallel/sharding.py``, the ring ``attention_impl``s). :func:`build_trainer` and :func:`build_cached_trainer`
 also take ready ``loaders`` (any sized iterables of global batches; under a
 mesh each rank keeps its rows), in which case they build none; the
 vision-token cache needs the native loaders (it swaps their datasets).
@@ -244,7 +247,8 @@ def build_run_mesh(config: Config, device: torch.device) -> MeshEnv:
                           config.get("datamodule", {}).get("vision_token_cache"))):
             if on:
                 raise NotImplementedError(f"{flag} under a mesh of {mesh.n_devices} processes is not ported "
-                                          "(ROADMAP Queue 1); run it in one process")
+                                          "(ROADMAP Queue 1 #4: the caches under a process mesh); run it in "
+                                          "one process")
     mesh.local_rows(int(config.datamodule.batch_size))          # raises unless the batch axes divide it
     return mesh
 

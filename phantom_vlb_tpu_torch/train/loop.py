@@ -57,7 +57,7 @@ from phantom_vlb_tpu_torch.train.metrics import (
     pearson_init,
     roi_metric_names,
 )
-from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
+from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate, local_part
 from phantom_vlb_tpu_torch.train.step import Forward, eval_step, train_step, vlb_forward
 
 __all__ = ["TrainLoopConfig", "VLBTrainer", "train_batches", "is_adapter"]
@@ -158,7 +158,7 @@ class VLBTrainer:
         tensors by name and the optimizer's state, whole (under a mesh,
         gathered on every rank: a collective)."""
         return {"step": self.optimizer.step,
-                "params": {name: whole(p.detach()) for name, p in self.trainable.items()},
+                "params": {name: whole(p.detach(), p) for name, p in self.trainable.items()},
                 "optimizer": self.optimizer.state_dict()}
 
     def load_params(self, params: Mapping[str, torch.Tensor], source: str = "the tensors given") -> None:
@@ -171,10 +171,7 @@ class VLBTrainer:
         with torch.no_grad():
             for key, t in params.items():
                 p = self.trainable[key]
-                if hasattr(p, "to_local"):
-                    p.to_local().copy_(shard_like(t, p).to_local())
-                else:
-                    p.copy_(t)
+                local_part(p).copy_(local_part(shard_like(t, p)))
 
     # ------------------------------------------------------------------
     def maybe_resume(self, name: str = "last") -> bool:
@@ -297,7 +294,7 @@ class VLBTrainer:
                 break
         if self.ckpt is not None:
             self.ckpt.save_last(self.state())
-            adapters = {k: whole(v) for k, v in self.model.state_dict().items() if is_adapter(k)}
+            adapters = {k: whole(p.detach(), p) for k, p in self.model.named_parameters() if is_adapter(k)}
             if adapters and self.ckpt.writer:       # none: a model other than the VLB
                 export_adapters(adapters, Path(self.config.output_dir) / "adapters", is_adapter)
         return self.last_val_metrics

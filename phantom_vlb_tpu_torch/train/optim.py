@@ -12,7 +12,9 @@ kernel there).
 The global norm is optax's ``sqrt(sum of each tensor's sum of squares)``.
 Under a sharded mesh the gradients are FSDP2 shards (``DTensor``s): each
 rank sums the squares of its shards and the sums are added over the
-``fsdp`` axis, so every rank clips by the one-card norm.
+``fsdp`` axis, and those of tensors split along ``tensor`` over that axis
+too (a tensor whole on every ``tensor`` rank counted once), so every rank
+clips by the one-card norm.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Iterable
 import torch
 
 from phantom_vlb_tpu_torch.core.mesh import MeshEnv
-from phantom_vlb_tpu_torch.parallel.sharding import shard_like, whole
+from phantom_vlb_tpu_torch.parallel.sharding import shard_like, tensor_split_of, whole
 
 __all__ = ["OptimConfig", "AdamWCosine", "learning_rate", "global_norm", "clip_by_global_norm_", "local_part"]
 
@@ -55,21 +57,29 @@ def local_part(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def global_norm(grads: list[torch.Tensor], mesh: MeshEnv | None = None) -> torch.Tensor:
+def _squares(grads: list[torch.Tensor]) -> torch.Tensor:
+    return torch.stack([local_part(g).float().contiguous().square().sum() for g in grads]).sum()
+
+
+def global_norm(grads: list[torch.Tensor], mesh: MeshEnv | None = None,
+                split: list[bool] | None = None) -> torch.Tensor:
     """``sqrt`` of the sum over ``grads`` of each one's f32 sum of squares
     (its row-major elements in order, whatever its strides); under a mesh,
-    of this rank's shards, summed over the ``fsdp`` axis."""
-    squares = torch.stack([local_part(g).float().contiguous().square().sum() for g in grads]).sum()
-    if mesh is not None:
-        squares = mesh.shard_sum(squares)
-    return squares.sqrt()
+    of this rank's shards, summed over the ``fsdp`` axis, and over
+    ``tensor`` for the grads that ``split`` marks as split along it."""
+    if mesh is None or not split or not any(split):
+        squares = _squares(grads)
+        return (squares if mesh is None else mesh.shard_sum(squares)).sqrt()
+    whole_ = [g for g, s in zip(grads, split) if not s]
+    parts = mesh.shard_sum(_squares([g for g, s in zip(grads, split) if s]), over_tensor=True)
+    return (parts + mesh.shard_sum(_squares(whole_)) if whole_ else parts).sqrt()
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
-                         mesh: MeshEnv | None = None) -> torch.Tensor:
+                         mesh: MeshEnv | None = None, split: list[bool] | None = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / |g|`` when the global norm
     ``|g| >= max_norm``; returns ``|g|`` (f32, on the grads' device)."""
-    norm = global_norm(grads, mesh)
+    norm = global_norm(grads, mesh, split)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         local_part(g).mul_(scale.to(g.dtype))
@@ -102,7 +112,8 @@ class AdamWCosine:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return clip_by_global_norm_([p.grad for p in self.params], self.config.grad_clip, self.mesh)
+        return clip_by_global_norm_([p.grad for p in self.params], self.config.grad_clip, self.mesh,
+                                    [tensor_split_of(p) is not None for p in self.params])
 
     def apply(self) -> float:
         """One AdamW update at this step's rate; returns the rate."""
@@ -119,7 +130,8 @@ class AdamWCosine:
         moments; sharded moments gathered whole on every rank (a
         collective), in the one-process layout."""
         state = self.adamw.state_dict()
-        state["state"] = {i: {k: whole(v) for k, v in s.items()} for i, s in state["state"].items()}
+        state["state"] = {i: {k: whole(v, self.params[int(i)]) for k, v in s.items()}
+                          for i, s in state["state"].items()}
         return {"step": self.step, "adamw": state}
 
     def load_state_dict(self, state: dict) -> None:

@@ -11,12 +11,14 @@ and step count untouched (:129-141). ``forward(model, batch, seed)`` gives
 
 Under a sharded ``mesh`` (``core/mesh.py``) each rank holds its rows of the
 global batch: its loss is its rows' squared errors over the global count
-of valid rows (summed over the ranks first), with the L2 penalty on rank 0
-alone, so the ranks' losses and gradients sum to the one-card step's
-(``parallel/sharding.py`` has FSDP2 sum the gradients, not average them);
-the dropout masks are the global batch's on the rank's rows. The loss
-reported, and the choice to apply or skip an update, come from the sum
-over the ranks, so every rank makes the same choice.
+of valid rows (summed over the batch axes first), with the L2 penalty on
+batch coordinate 0 alone, so the batch coordinates' losses and gradients
+sum to the one-card step's (``parallel/sharding.py`` has FSDP2 sum the
+gradients, not average them); the dropout masks are the global batch's on
+the rank's rows. The ``tensor`` ranks of a coordinate run the same loss
+(``parallel/tensor.py``). The loss reported, and the choice to apply or
+skip an update, come from the sum over the batch axes, so every rank makes
+the same choice.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def loss_fn(model: torch.nn.Module, batch: Mapping[str, torch.Tensor], seed: int
     pred, l2_reg = forward(model, batch, seed, rows=mesh.rows(row_mask.shape[0]))
     n_valid = mesh.all_sum(row_mask.to(pred.dtype).sum())
     mse = masked_mse(pred, batch["timeseries"], row_mask, n_valid)
-    return (mse + l2_reg if mesh.rank == 0 else mse), mse, l2_reg
+    return (mse + l2_reg if mesh.batch_rank == 0 else mse), mse, l2_reg
 
 
 def train_step(

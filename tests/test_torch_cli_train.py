@@ -11,7 +11,8 @@ config, then the file lists) are written. Each branch the port does not
 have raises by name, and the default device is the card. Launched by
 ``torchrun`` on 2 gloo ranks with ``mesh.fsdp=-1`` and adapter dropout
 0.1, it writes the one metrics.csv that one process writes (f32 sums of
-each rank's rows added apart: 1e-5 relative).
+each rank's rows added apart: 1e-5 relative); so does it with
+``mesh.fsdp=1 mesh.tensor=2``, the ranks splitting the decoder.
 """
 
 import csv
@@ -179,3 +180,32 @@ def test_torchrun_two_ranks_write_what_one_process_writes(lazy_pattern, tmp_path
     saved = torch.load(tmp_path / "two" / "last" / STATE_FILE, weights_only=True)
     assert set(saved["params"]) == set(torch.load(tmp_path / "one" / "last" / STATE_FILE,
                                                   weights_only=True)["params"])
+
+
+def test_torchrun_tensor_two_writes_what_one_process_writes(lazy_pattern, tmp_path):
+    """``mesh.fsdp=1 mesh.tensor=2``: the 2 ranks split the tiny decoder's
+    heads and MLP width, hold the same rows, and write the metrics.csv and
+    ``last`` of one process (the row-parallel partials add in f32 apart:
+    1e-5 relative)."""
+    args = [a for a in _args(lazy_pattern, tmp_path / "two") if a != "mesh.fsdp=1"]
+    args = [a.replace("model.lora_dropout=0.0", "model.lora_dropout=0.1") for a in args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+                           "-m", "phantom_vlb_tpu_torch.cli.train", *args, "mesh.fsdp=1", "mesh.tensor=2",
+                           "--device", "cpu"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("final val/brain_loss") == 1                   # rank 0 alone
+    one = [a.replace(str(tmp_path / "two"), str(tmp_path / "one")) for a in args]
+    assert main([*one, "mesh.fsdp=1", "--device", "cpu"]) == 0
+    got, want = _csv_rows(tmp_path / "two"), _csv_rows(tmp_path / "one")
+    assert len(got) == len(want) and got[0].keys() == want[0].keys()
+    for g, w in zip(got, want):
+        for key, value in w.items():
+            if key == "train/steps_per_sec" or value == "":
+                assert (g[key] == "") == (value == ""), key
+            else:
+                np.testing.assert_allclose(float(g[key]), float(value), rtol=1e-5, atol=1e-6, err_msg=key)
+    saved = torch.load(tmp_path / "two" / "last" / STATE_FILE, weights_only=True)
+    whole = torch.load(tmp_path / "one" / "last" / STATE_FILE, weights_only=True)
+    assert {k: tuple(v.shape) for k, v in saved["params"].items()} == \
+        {k: tuple(v.shape) for k, v in whole["params"].items()}

@@ -72,11 +72,18 @@ from phantom_vlb_tpu_torch.ops.ring_fused import (
 )
 from phantom_vlb_tpu_torch.ops.quant import int8_matmul, int8_matmul_w8a8, int8_matmul_w8a8g8, quantize_int8
 from phantom_vlb_tpu_torch.ops.rowquant import (
+    ROW_ABSMAX,
     ROW_QUANT,
+    ROW_QUANT_GIVEN,
     ROW_QUANT_SCALED,
+    row_absmax,
+    row_absmax_plain,
     row_quant,
+    row_quant_given,
+    row_quant_given_plain,
     row_quant_plain,
     row_quant_scaled,
+    row_quant_split,
 )
 from phantom_vlb_tpu_torch.parallel.sharding import whole
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
@@ -135,6 +142,8 @@ def _reference(q, k, v, hq, hkv, mask, causal_offset=0):
         (1, 2048, 32, 8, None),         # serving length
         (3, 129, 4, 4, [129, 1, 64]),   # group 1, one valid key
         (2, 256, 16, 4, [0, 256]),      # a row with every key masked
+        (3, 2048, 16, 4, None),         # one rank's heads at mesh.tensor=2
+        (3, 2048, 4, 1, [2048, 1500, 2048]),  # one rank's heads at mesh.tensor=8
     ],
 )
 def test_flash_fwd_matches_plain(cuda, b, s, hq, hkv, valid):
@@ -204,6 +213,8 @@ def _rel(a, b):
         (3, 129, 4, 4, [129, 1, 64]),   # group 1, one valid key
         (2, 256, 16, 4, [0, 256]),      # a row with every key masked
         (1, 4608, 8, 2, [4000]),        # past the reference's fused-backward limit
+        (3, 2048, 16, 4, None),         # one rank's heads at mesh.tensor=2
+        (3, 2048, 4, 1, [2048, 1500, 2048]),  # one rank's heads at mesh.tensor=8
     ],
 )
 def test_flash_bwd_matches_plain(cuda, b, s, hq, hkv, valid):
@@ -314,6 +325,22 @@ def test_lora_kernels_match_plain(cuda, m, k, r, mode):
     assert _rel(da, da_ref) <= DA_REL_TOL
 
 
+# One tensor rank's row-parallel inputs: columns [col0, col0 + K) of the
+# o projection's 4096 and the down projection's 14336 at mesh.tensor=2, and
+# a first column off the 64-column tile.
+@pytest.mark.parametrize("m,k,col0", [(256, 2048, 2048), (128, 7168, 7168), (96, 512, 68)])
+def test_lora_kernels_from_a_first_column_match_plain(cuda, m, k, col0):
+    x, a, dmid, _ = _lora_inputs(cuda, m, k, 16)
+    mid = fused_dropout_matmul(x, a, 7, P, row0=40, col0=col0)
+    dx, da = fused_dropout_bwd(x, a, dmid, 7, P, row0=40, col0=col0)
+    torch.cuda.synchronize()
+    assert _rel(mid, fused_dropout_matmul_plain(x, a, 7, THR, row0=40, col0=col0)) <= MID_REL_TOL
+    dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, 7, THR, row0=40, col0=col0)
+    assert _rel(dx, dx_ref) <= DX_REL_TOL and _rel(da, da_ref) <= DA_REL_TOL
+    assert torch.equal(dx != 0, hash_bytes(7, m, k, cuda, row0=40, col0=col0) >= THR)
+    assert not torch.equal(dx != 0, hash_bytes(7, m, k, cuda, row0=40) >= THR)
+
+
 def test_lora_hash_mask_is_exact(cuda):
     m, k, r = 320, 1024, 16
     x = torch.zeros(m, k, device=cuda, dtype=torch.bfloat16)
@@ -371,6 +398,34 @@ def test_row_quant_kernels_match_plain_bit_for_bit(cuda, rows, n, dtype):
         assert got[1][rows // 2].item() == torch.tensor(1e-12).item()
 
 
+@pytest.mark.parametrize("rows,n", [(64, 2048), (24, 7168), (13, 1000), (5, 7)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_row_quant_kernels_match_plain_bit_for_bit(cuda, rows, n, dtype):
+    """The kernel's passes alone (one tensor rank's columns of a row): the
+    maxima and the codes from a given scale equal the plain versions', and
+    two halves with the maximum of their maxima give the whole row's
+    codes and scale."""
+    g = torch.Generator(device=cuda).manual_seed(rows * n)
+    x = (3 * torch.randn(rows, 2 * n, generator=g, device=cuda)).to(dtype)
+    x[rows // 2] = 0
+    w = torch.rand(2 * n, generator=g, device=cuda) * 2 + 0.01
+    counts = (ROW_ABSMAX.launches, ROW_QUANT_GIVEN.launches)
+    for ws in (None, w):
+        q, s = row_quant_plain(x, ws)
+        halves = [(x[:, :n].contiguous(), None if ws is None else ws[:n].contiguous()),
+                  (x[:, n:].contiguous(), None if ws is None else ws[n:].contiguous())]
+        maxima = [row_absmax(h, hw) for h, hw in halves]
+        for (h, hw), m in zip(halves, maxima):
+            torch.cuda.synchronize()
+            assert torch.equal(m, row_absmax_plain(h, hw))
+            assert torch.equal(row_quant_given(h, s, hw), row_quant_given_plain(h, s, hw))
+        for i, (h, hw) in enumerate(halves):
+            qh, sh = row_quant_split(h, lambda m: torch.maximum(*maxima), hw)
+            torch.cuda.synchronize()
+            assert torch.equal(sh, s) and torch.equal(qh, q[:, i * n:(i + 1) * n])
+    assert (ROW_ABSMAX.launches, ROW_QUANT_GIVEN.launches) == (counts[0] + 8, counts[1] + 8)
+
+
 def test_row_quant_counts_and_raises(cuda):
     x = torch.randn(4, 2, 64, device=cuda, dtype=torch.bfloat16)
     before = (ROW_QUANT.launches, ROW_QUANT_SCALED.launches)
@@ -403,7 +458,9 @@ def _epi_inputs(dev, m, n, r, seed=0):
 # at once (r 128 at N 9000: 141 column groups; the last-block fold).
 EPI_SHAPES = [(256, 1024, 16), (6144, 4096, 16), (100, 300, 4), (70, 1000, 37), (64, 256, 128),
               (33, 9, 16), (64, 14336, 16), (6144, 64, 16), (256, 1024, 1), (512, 2048, 128),
-              (128, 9000, 128)]
+              (128, 9000, 128),
+              # One tensor rank's column-parallel widths at mesh.tensor=2: q, k/v, gate/up.
+              (6144, 2048, 16), (6144, 512, 16), (6144, 7168, 16)]
 
 
 @pytest.mark.parametrize("m,n,r", EPI_SHAPES)

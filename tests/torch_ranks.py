@@ -11,7 +11,8 @@ on the CPU.
 
 The cases build a VLB from a config and a state dict the caller saved (no
 JAX here), and report whole tensors, so the caller holds them against the
-one-process step and the JAX package's.
+one-process step and the JAX package's. ``many`` runs several cases in one
+launch, in order (the ranks start once).
 """
 
 from __future__ import annotations
@@ -65,17 +66,20 @@ def run_ranks(case: str, world: int, tmp: Path, timeout: float = RANK_TIMEOUT_S,
 # The rank's side.
 
 def tiny_config(use_lora: bool, dropout: float = 0.0, bits: int = 32, fused: bool = False,
-                remat: bool = False, l2_lambda: float = 0.001):
+                remat: bool = False, l2_lambda: float = 0.001, base_quant: str | None = None,
+                remat_policy: str = "nothing", shared: bool = False, fused_epilogue: str = ""):
     """The tiny VLB's config, with LoRA (rank 4) and head dropout at
     ``dropout``: 32-bit generator masks, u8 ones, or the fused kernel's hash
-    (its plain version on the CPU)."""
+    (its plain version on the CPU); optionally an int8 base, a checkpoint
+    policy, one adapter mask per layer input and the fused epilogue."""
     from phantom_vlb_tpu_torch.models import videollama2 as tv
     from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 
     cfg = tv.VLBConfig.tiny(use_lora=use_lora, dropout_rate=dropout, l2_lambda=l2_lambda)
-    lora = LoRAConfig(rank=4, alpha=8.0, dropout=dropout, dropout_bits=bits, fused_dropout=fused) \
-        if use_lora else None
-    return dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, lora=lora, remat=remat))
+    lora = LoRAConfig(rank=4, alpha=8.0, dropout=dropout, dropout_bits=bits, fused_dropout=fused,
+                      shared_dropout=shared, fused_epilogue=fused_epilogue) if use_lora else None
+    return dataclasses.replace(cfg, mistral=dataclasses.replace(
+        cfg.mistral, lora=lora, remat=remat, base_quant=base_quant, remat_policy=remat_policy))
 
 
 def make_model(cfg, sd: dict, device="cpu"):
@@ -94,7 +98,7 @@ def _cpu(tree):
 def _whole_grads(trainable: dict) -> dict:
     from phantom_vlb_tpu_torch.parallel.sharding import whole
 
-    return {k: whole(p.grad).cpu() for k, p in trainable.items()}
+    return {k: whole(p.grad, p).cpu() for k, p in trainable.items()}
 
 
 def case_steps(mesh, tmp: Path, scenarios: list) -> dict:
@@ -120,7 +124,7 @@ def case_steps(mesh, tmp: Path, scenarios: list) -> dict:
         for i, batch in enumerate(sc["batches"]):
             rows = mesh.local_rows(len(batch["row_mask"]))
             local = {k: torch.as_tensor(v)[rows].to(device) for k, v in batch.items()}
-            before = {k: whole(p.detach()).clone() for k, p in trainable.items()}
+            before = {k: whole(p.detach(), p).clone() for k, p in trainable.items()}
             r = train_step(model, optimizer, local, seed=sc["seeds"][i], mesh=mesh)
             res["loss"].append(r["brain_loss"].item())
             res["l2"].append(r["l2_reg"].item())
@@ -129,8 +133,9 @@ def case_steps(mesh, tmp: Path, scenarios: list) -> dict:
             if i == 0:
                 res["grads"] = _whole_grads(trainable)
             if not r["finite"]:
-                res["unchanged"] = all(torch.equal(whole(p.detach()), before[k]) for k, p in trainable.items())
-        res["params"] = {k: whole(p.detach()).cpu() for k, p in trainable.items()}
+                res["unchanged"] = all(torch.equal(whole(p.detach(), p), before[k])
+                                       for k, p in trainable.items())
+        res["params"] = {k: whole(p.detach(), p).cpu() for k, p in trainable.items()}
         res["optimizer"] = _cpu(optimizer.state_dict())
         res["placements"] = {n: str(p.placements) for n, p in model.named_parameters()}
         out[sc["name"]] = res
@@ -173,7 +178,51 @@ def _copy(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-CASES = {"steps": case_steps, "fit": case_fit}
+def case_products(mesh, tmp: Path, cfg, sd: dict, seed: int) -> dict:
+    """Each decoder projection of ``cfg``'s model cut to this rank's block
+    along ``tensor`` (``split_decoder``, no FSDP), fed the whole input (its
+    columns, row-parallel) made from ``seed``: the base product's output
+    (column-parallel: this rank's columns gathered whole) and x's gradient
+    under a seeded output gradient (row-parallel: its columns gathered), by
+    projection name."""
+    from phantom_vlb_tpu_torch.models.lora import LoRALinear
+    from phantom_vlb_tpu_torch.parallel.sharding import _projections, split_decoder
+    from phantom_vlb_tpu_torch.parallel.tensor import COLUMN, copy_to_tensor, gather_along
+
+    model = make_model(cfg, sd)
+    split_decoder(model, mesh)
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for i, (name, proj) in enumerate(_projections(model)):
+        split = proj.tensor_split
+        k = proj.weight_q.shape[1] * (split.size if split.role != COLUMN else 1)
+        x = torch.randn(2, 5, k, generator=gen)
+        n = proj.weight_q.shape[0] * (split.size if split.role == COLUMN else 1)
+        dy = torch.randn(2, 5, n, generator=gen)
+        if split.role == COLUMN:
+            xin = x.clone().requires_grad_()
+            base_in = xin if cfg.mistral.base_quant == "w8a8g8" else copy_to_tensor(xin, split)
+            dy_in = dy.chunk(split.size, -1)[split.rank]
+        else:
+            xin = x.chunk(split.size, -1)[split.rank].clone().requires_grad_()
+            base_in, dy_in = xin, dy
+        y = proj._base_product(base_in) if isinstance(proj, LoRALinear) else proj(base_in)
+        y.backward(dy_in)
+        dx = xin.grad
+        if split.role == COLUMN:
+            y = gather_along(y.detach(), -1, split)
+        else:
+            dx = gather_along(dx, -1, split)
+        out[f"{i}.{name}"] = {"y": y.detach(), "dx": dx, "x": x, "dy": dy}
+    return out
+
+
+def case_many(mesh, tmp: Path, jobs: list) -> list:
+    """Each (case, kwargs) of ``jobs`` in turn, in one launch."""
+    return [CASES[name](mesh, tmp, **kwargs) for name, kwargs in jobs]
+
+
+CASES = {"steps": case_steps, "fit": case_fit, "products": case_products, "many": case_many}
 
 
 def main() -> int:
