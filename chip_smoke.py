@@ -14,6 +14,8 @@ vision towers.
         # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
     python -m torch.distributed.run --standalone --nproc_per_node=2 chip_smoke.py --tensor-pair DIR
         # phase 9d (e) alone: mesh.tensor=2 on 2 processes of the one card (gloo)
+    python -m torch.distributed.run --standalone --nproc_per_node=N chip_smoke.py --caches DIR
+        # phase 9d (f) alone: the two caches at world 1 (NCCL) or on 2 processes of the one card (gloo)
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -87,13 +89,19 @@ Phases, each printed with its wall time; any failure exits non-zero:
    launch counts) and one more under ``torch.profiler``, and 2 steps
    through the per-step flash ring;
 8r. the decoder's checkpoint policies (``remat_policy``) on phase 7's
-   weights: one full-width LoRA model (bf16, r 16, fused u8 dropout, batch
-   3 from cached tokens) switched in place to each of ``'nothing'``
+   weights: full-width LoRA models (bf16, r 16, fused u8 dropout, batch 3
+   from cached tokens), the packed path (32 layers), and at phase 7's
+   first 8 layers the packed path with the fused epilogue and each ring
+   (``'ring_fused'``, ``'ring_flash'``, on 4 ranks of the card), each switched in place to each of ``'nothing'``
    (twice), ``'attn'``, ``'mids'``, ``'flash'`` and ``'dots'``, 2 steps
    each from phase 7's starting adapters and seeds, the second traced
    (device busy time and idle share): each kernel's launches against what
-   the policy implies (32 flash forwards and 224 ``lora_fwd`` a step under
-   ``'flash'``), the first loss bit-equal across policies, the step-1
+   the JAX grad's jaxpr runs for the policy (32 flash forwards and 224
+   ``lora_fwd`` a step under ``'flash'`` on the packed path, a quarter
+   of each at 8 layers; under a ring
+   the ring's passes run again under every policy; with the fused
+   epilogue 13 ``epi_fwd`` a layer a step: the replay runs neither the last
+   projection's base product nor its epilogue), the first loss bit-equal across policies, the step-1
    adapter gradients against the first ``'nothing'`` run's within 1.25
    times the gap of the two ``'nothing'`` runs (dq's reduce-adds sum in a
    run-dependent order), step 1's ms (``utils/profiling.StepTimer``) and
@@ -188,7 +196,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
    that (d) was skipped. (e) ``mesh.fsdp=1 mesh.tensor=2`` on 2 processes
    that share the one card, their collectives over gloo on CUDA tensors
    (NCCL refuses two ranks on one device; ``--tensor-pair``):
-   ``vlb_friends_lora`` with the fused u8 dropout at full width from cached
+   ``vlb_friends_lora`` with the fused u8 dropout at full width (the
+   decoder cut to RANK_LAYERS = 8 layers in (e) and (f)) from cached
    tokens, 1 epoch of 2 steps and a validation, each rank's decoder the
    rank's 16 of 32 heads, 4 of 8 kv heads and 7168 of the MLP's 14336,
    against one process on the same batches (first loss and step-1 adapter
@@ -198,7 +207,28 @@ Phases, each printed with its wall time; any failure exits non-zero:
    int8 products sum their int32 partials). Each rank's launches against
    what the code implies (the row-parallel quants through the split
    kernel pair), its peak device memory and step ms, printed as a check
-   through host-staged gloo, not as a speed of tensor parallelism;
+   through host-staged gloo, not as a speed of tensor parallelism. (f) the
+   two caches under ``--caches``, at world 1 over NCCL (``mesh.fsdp=-1``)
+   and on 2 processes of the one card over gloo (``mesh.data=2
+   mesh.fsdp=1``: each rank 2 rows of each batch of 4), at full width (8
+   layers) from
+   frames made on the card, 1 train and 1 val batch of 4: (f1)
+   ``vlb_friends_baseline model.cache_features=true`` through
+   ``build_cached_trainer`` into in-memory stores (each rank runs the
+   backbone over its rows of every batch: 32 flash forwards a batch; the
+   rows gathered, every rank's stores the same bytes), then the head's fit
+   over them on the sharded step; (f2) ``vlb_friends_lora
+   datamodule.vision_token_cache`` through ``build_trainer`` over native
+   loaders of in-memory lazy-load stores into an in-memory sidecar store
+   (no kernel launched; every rank's the same bytes), then a LoRA fit from
+   its tokens. Rank 0 builds and fits each in one process on the same
+   batches: the features and tokens bit-equal to one process's built over
+   the same rows a forward (a rank's), their gap to one process's over 4
+   printed (the ranks' backbone runs 2 rows where one process runs 4, and
+   cuBLAS's kernels for the shape round otherwise), the fingerprints
+   equal, the head's and the LoRA fit's first loss within TOKEN_LOSS_TOL
+   and step-1 gradients within TOKEN_GRAD_TOL (the LoRA fit's as (e)
+   holds them); each rank's launches, peak device memory and host RSS;
 9v. one batch of 5 served from frames through a w8a8g8 frozen model (its
    decoder's and its tower's projections int8): ``row_quant`` launched once
    for each of the 7 x 32 decoder and 6 x 23 tower projections;
@@ -246,6 +276,7 @@ import ctypes
 import dataclasses
 import faulthandler
 import gc
+import hashlib
 import json
 import os
 import resource
@@ -279,7 +310,7 @@ from phantom_vlb_tpu_torch.core.remat import REMAT_POLICIES
 from phantom_vlb_tpu_torch.data.extract import extract_episode
 from phantom_vlb_tpu_torch.data.hrf import get_hrf_weights
 from phantom_vlb_tpu_torch.data.lazyload_build import LazyloadBuildConfig, build_lazyload_dsets, infer_geometry
-from phantom_vlb_tpu_torch.data.loader import BatchLoader, split_train_val
+from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset, batch_fields, split_train_val
 from phantom_vlb_tpu_torch.data.schemas import (
     LazySample,
     MemoryStore,
@@ -290,7 +321,7 @@ from phantom_vlb_tpu_torch.data.schemas import (
 )
 from phantom_vlb_tpu_torch.data.synthetic import write_synthetic_bold_file
 from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer, read_tsv, validate_joiner_counts
-from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, encode_tokens
+from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, dataset_fingerprint, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig, adapter_dropout
@@ -377,11 +408,12 @@ from phantom_vlb_tpu_torch.train.builder import (
     load_pretrained_params,
     split_loaders,
 )
+from phantom_vlb_tpu_torch.train import builder as train_builder
 from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
 from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
-from phantom_vlb_tpu_torch.train.precompute import head_forward
+from phantom_vlb_tpu_torch.train.precompute import build_feature_cache, head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
 from phantom_vlb_tpu_torch.utils.profiling import StepTimer, device_memory_stats
 
@@ -1189,12 +1221,15 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
                             remat_policy: str = "nothing") -> dict[str, int]:
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
-    and 2 x 7 LoRA forwards (and, with the int8 base, row quants: the replay
-    stops before the last projection's base product unless the fused
-    epilogue, which saves z and B after it, follows it; with the fused
-    epilogue, epilogue forwards); ``remat_policy`` 'flash' keeps the flash
-    forward's outputs (1 a layer), 'mids' and 'flash' the LoRA mids (7 LoRA
-    forwards a layer); one flash backward; 7 dA (and 7
+    and 2 x 7 LoRA forwards (and, with the int8 base, row quants, and with
+    the fused epilogue, epilogue forwards: 13 a layer, as the replay stops
+    before the last projection's base product, and the fused epilogue saves
+    z and B before that product, so its replay runs neither it nor the
+    kernel, as the JAX grad's does not); ``remat_policy`` 'flash' keeps the
+    packed path's flash forward's outputs (1 a layer; a ring's flash
+    forwards are not named, as in the reference, and run again), 'mids' and
+    'flash' the LoRA mids (7 LoRA forwards a layer, under a ring too); one
+    flash backward; 7 dA (and 7
     fused epilogue backwards, dz and dB from one launch: the single dz and
     dB entry points never run, as both grads are always needed); and 7 dx
     (7 scaled row quants) except for layer 0's q, k and v,
@@ -1212,14 +1247,14 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
             "ring_fused": {"flash_fwd": 0, **ring_bwd, "ring_fwd": 2 * RING_RANKS * layers},
             "ring_flash": {"flash_fwd": 2 * pairs * layers, **ring_bwd, "ring_fwd": 0}}[ring]
     kept = REMAT_POLICIES[remat_policy] or set()
-    if "flash_out" in kept:
+    if "flash_out" in kept and ring is None:
         attn["flash_fwd"] = layers
     per_step = {**attn,
                 "lora_fwd": (7 if "lora_mid" in kept else 14) * layers, "lora_dx": 7 * layers - 3,
                 "lora_da": 7 * layers,
-                "row_quant": (14 if epilogue else 13) * layers if int8 else 0,
+                "row_quant": 13 * layers if int8 else 0,
                 "row_quant_scaled": 7 * layers - 3 if int8 else 0, "row_absmax": 0, "row_quant_given": 0,
-                "epi_fwd": 14 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
+                "epi_fwd": 13 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
                 "epi_dzdb": 7 * layers if epilogue else 0}
     return {name: per_step[name] * steps for name in KERNELS}
 
@@ -3252,50 +3287,94 @@ def remat_run(model, start: dict, batches: list, dev, policy: str, steps: int = 
     return run
 
 
-def remat_policies(sd: dict, start: dict, batches: list, dev, card: str) -> dict:
-    """Phase 8r on ``sd``'s full-width LoRA weights (phase 7's), from
-    ``start``'s adapters, over ``batches`` of cached tokens; returns its
-    numbers."""
-    cfg = lora_train_config()
-    layers = cfg.mistral.num_hidden_layers
-    model = VideoLLaMA2VLB.from_state_dict(cfg, sd)
-    print(f"  {layers} layers bf16, LoRA r {cfg.mistral.lora.rank} with the fused u8 dropout {LORA_P}, "
-          f"batch {LORA_BATCH} from cached tokens, {REMAT_STEPS} steps a policy, the second traced")
+# The models phase 8r switches through the policies: (label, attention_impl,
+# fused_epilogue, decoder layers). The rings run on RING_RANKS ranks of the
+# card. The packed model keeps its 32 layers; the others run phase 7's
+# first 8 layers at full width, which the policies' checks hold per layer,
+# to keep the script's time (``--remat`` alone at 32 layers each takes
+# ~225 s).
+REMAT_MODELS = (("packed", "auto", "", None), ("fused epilogue", "auto", "pallas", 8),
+                ("ring_fused", "ring_fused", "", 8), ("ring_flash", "ring_flash", "", 8))
+
+
+def first_layers(tensors: dict, layers: int) -> dict:
+    """``tensors`` (a state dict, or a part of one) without the decoder
+    layers from ``layers`` on."""
+    return {k: t for k, t in tensors.items()
+            if not (k.startswith("model.layers.") and int(k.split(".")[2]) >= layers)}
+
+
+def policy_sweep(model, label: str, start: dict, batches: list, dev, card: str) -> dict:
+    """``model`` through REMAT_RUNS: each policy's launches against what the
+    JAX grad's jaxpr runs (``expected_train_launches``), its first loss
+    bit-equal to the first 'nothing' run's and its step-1 gradients within
+    TOKEN_FLOOR_RATIO x the gap of the two 'nothing' runs; its numbers."""
+    mcfg = model.cfg.mistral
+    layers = mcfg.num_hidden_layers
+    ring = None if mcfg.attention_impl == "auto" else mcfg.attention_impl
     runs = []
     for policy in REMAT_RUNS:
         run = remat_run(model, start, batches, dev, policy)
-        want = expected_train_launches(layers, REMAT_STEPS, remat_policy=policy)
-        print(f"  {policy!r}: losses {run['loss']}, step 1 ms {run['step_ms']['step 1']}, step 2 (traced) wall "
-              f"{run['wall_ms']:.3f} ms, device busy {run['busy_ms']:.3f} ms (idle share "
+        want = expected_train_launches(layers, REMAT_STEPS, epilogue=bool(mcfg.lora.fused_epilogue), ring=ring,
+                                       remat_policy=policy)
+        print(f"  {label} {policy!r}: losses {run['loss']}, step 1 ms {run['step_ms']['step 1']}, step 2 (traced) "
+              f"wall {run['wall_ms']:.3f} ms, device busy {run['busy_ms']:.3f} ms (idle share "
               f"{1.0 - run['busy_ms'] / run['wall_ms']:.4f}; "
               + ", ".join(f"{g} {ms:.3f}" for g, ms in sorted(run["groups"].items(), key=lambda x: -x[1]))
               + f"), peak device memory {run['peak_gb']:.3f} GB, launches "
               f"{ {k: v for k, v in run['launches'].items() if v} }")
         if run["launches"] != want:
-            raise AssertionError(f"remat_policy {policy!r} launched {run['launches']}, want {want}")
+            raise AssertionError(f"{label}: remat_policy {policy!r} launched {run['launches']}, want {want}")
+        if ring == "ring_fused":
+            check_ring_sends(run["launches"], f"{label} under {policy!r}")
         runs.append((policy, run))
     ref = runs[0][1]
     floor = grad_gap(runs[1][1]["grads"], ref["grads"])
-    print(f"  step-1 adapter gradients of the two 'nothing' runs: |err|/|ref| {floor['norm']:.4e} by 2-norm "
-          f"(the floor), largest per-tensor max|err|/max|ref| {floor['tensor']:.4e}")
+    print(f"  {label}: step-1 adapter gradients of the two 'nothing' runs: |err|/|ref| {floor['norm']:.4e} by "
+          f"2-norm (the floor), largest per-tensor max|err|/max|ref| {floor['tensor']:.4e}")
     keys = ("step_ms", "wall_ms", "busy_ms", "peak_gb")
-    record = {"policies": {"nothing": {**{k: [ref[k], runs[1][1][k]] for k in keys},
-                                       "grad_gap": floor["norm"]}}}
+    record = {"nothing": {**{k: [ref[k], runs[1][1][k]] for k in keys}, "grad_gap": floor["norm"],
+                          "launches": ref["launches"]}}
     for policy, run in runs[2:]:
         gap = grad_gap(run["grads"], ref["grads"])
-        print(f"  {policy!r}: first loss {run['loss'][0]!r} against {ref['loss'][0]!r}; gradients "
+        print(f"  {label} {policy!r}: first loss {run['loss'][0]!r} against {ref['loss'][0]!r}; gradients "
               f"{gap['norm']:.4e} from the first 'nothing' run's (limit {TOKEN_FLOOR_RATIO} x "
               f"{floor['norm']:.4e}), per tensor {gap['tensor']:.4e}; step 2 wall {run['wall_ms']:.3f} ms, "
               f"device busy {run['busy_ms']:.3f} ms against {ref['wall_ms']:.3f} and {ref['busy_ms']:.3f}, "
               f"peak {run['peak_gb']:.3f} GB against {ref['peak_gb']:.3f} ({card})")
         if run["loss"][0] != ref["loss"][0]:
-            raise AssertionError(f"remat_policy {policy!r}: the first loss differs from 'nothing''s")
+            raise AssertionError(f"{label}: remat_policy {policy!r}: the first loss differs from 'nothing''s")
         if not gap["norm"] <= TOKEN_FLOOR_RATIO * floor["norm"]:
-            raise AssertionError(f"remat_policy {policy!r}: the step-1 gradients are {gap['norm']:.4e} from "
-                                 f"'nothing''s, over {TOKEN_FLOOR_RATIO} x the floor {floor['norm']:.4e}")
-        record["policies"][policy] = {**{k: run[k] for k in keys}, "grad_gap": gap["norm"]}
-    del model, runs
-    torch.cuda.empty_cache()                       # 'dots' kept ~34 GB
+            raise AssertionError(f"{label}: remat_policy {policy!r}: the step-1 gradients are {gap['norm']:.4e} "
+                                 f"from 'nothing''s, over {TOKEN_FLOOR_RATIO} x the floor {floor['norm']:.4e}")
+        record[policy] = {**{k: run[k] for k in keys}, "grad_gap": gap["norm"], "launches": run["launches"]}
+    return record
+
+
+def remat_policies(sd: dict, start: dict, batches: list, dev, card: str) -> dict:
+    """Phase 8r on ``sd``'s full-width LoRA weights (phase 7's), from
+    ``start``'s adapters, over ``batches`` of cached tokens: each model of
+    REMAT_MODELS through the policies; returns its numbers."""
+    record = {}
+    for label, impl, epilogue, depth in REMAT_MODELS:
+        cfg = lora_train_config(fused_epilogue=epilogue)
+        layers = depth or cfg.mistral.num_hidden_layers
+        cfg = dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, attention_impl=impl,
+                                                                   num_hidden_layers=layers))
+        model = VideoLLaMA2VLB.from_state_dict(cfg, first_layers(sd, layers))
+        print(f"  {label}: {layers} layers bf16, LoRA r {cfg.mistral.lora.rank} with the fused u8 dropout {LORA_P}, "
+              f"fused epilogue {epilogue or 'off'}, attention {impl}"
+              + (f" on {RING_RANKS} ranks of the card" if impl != "auto" else "")
+              + f", batch {LORA_BATCH} from cached tokens, {REMAT_STEPS} steps a policy, the second traced")
+        if impl != "auto":
+            set_sequence_ring(SequenceRing([dev] * RING_RANKS))
+        try:
+            record[label] = policy_sweep(model, label, first_layers(start, layers), batches, dev, card)
+        finally:
+            set_sequence_ring(None)
+        del model
+        torch.cuda.empty_cache()                   # 'dots' kept ~34 GB
+    layers = lora_train_config().mistral.num_hidden_layers
     lora = LoRAConfig(rank=16, alpha=32.0, dropout=LORA_P)
     umodel = VideoLLaMA2VLB.from_state_dict(
         VLBConfig.full(use_lora=True, mistral=MistralConfig.full(lora=lora, remat=True)), sd)
@@ -3374,9 +3453,10 @@ def first_seed(trainer) -> int:
     return int(torch.randint(0, 2**32, (), generator=torch.Generator().manual_seed(trainer.config.seed)))
 
 
-def recorded_fit(trainer, train: list, val: list) -> dict:
+def recorded_fit(trainer, train: list, val: list, keep=lambda name: "lora_" in name) -> dict:
     """``trainer.fit`` with each step's output and host ms (the card waited
-    for before and after), the gradients of step 1 before the clip (whole),
+    for before and after), the gradients of step 1 before the clip (whole;
+    of the trainable tensors ``keep`` selects, the adapters by default),
     the launch counts set to 0 just before and read just after, and the
     peak device memory."""
     outs, step_ms, grads = [], [], {}
@@ -3394,7 +3474,7 @@ def recorded_fit(trainer, train: list, val: list) -> dict:
     def clip_after_snapshot():
         if not grads:
             grads.update({k: whole(p.grad, p).detach().clone() for k, p in trainer.trainable.items()
-                          if "lora_" in k})
+                          if keep(k)})
         return clip()
 
     trainer.train_one, trainer.optimizer.clip_ = timed_step, clip_after_snapshot
@@ -3741,6 +3821,24 @@ def tensor_pair(root: Path, dev) -> dict:
     return record
 
 
+# Decoder layers in the rank phases (e) and (f), at full width: their
+# checks hold per layer, and 2 processes of one card over gloo stage every
+# collective through the host (at 32 layers a step of (e) takes 25-30 s).
+RANK_LAYERS = 8
+
+
+def cut_decoder_depth(layers: int) -> None:
+    """Have the builder (``build_trainer``, ``build_cached_trainer``) make
+    the decoder ``layers`` deep in this process, all else as configured."""
+    full = train_builder.build_model_config
+
+    def cut(m):
+        cfg = full(m)
+        return dataclasses.replace(cfg, mistral=dataclasses.replace(cfg.mistral, num_hidden_layers=layers))
+
+    train_builder.build_model_config = cut
+
+
 def tensor_child(out: str) -> int:
     """``--tensor-pair DIR`` under torchrun with 2 processes: (e), both on
     cuda:0, the process group over gloo."""
@@ -3749,7 +3847,303 @@ def tensor_child(out: str) -> int:
     torch.cuda.set_device(0)
     faulthandler.enable(sys.__stderr__)
     dist.init_process_group("gloo", init_method="env://", timeout=timedelta(seconds=SHARDED_COLLECTIVE_S))
+    cut_decoder_depth(RANK_LAYERS)
     return rank_child(out, tensor_pair)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9d (f): the two caches under torchrun (``--caches DIR``), at world 1
+# over NCCL and as 2 processes of the one card over gloo. The 2 processes
+# take mesh.data=2 (each rank 2 rows of each batch of 4, the model
+# replicated: HSDP, whose collectives are the rows' gathers and the
+# gradients' all-reduce; as in (e), gloo carries CUDA tensors through the
+# host).
+
+CACHE_BATCH = 4
+# Train and val batches each cache is built over (and the head and LoRA
+# fits run over): the fewest that give a step and a validation. Each rank
+# is a process whose host RSS is held to HOST_RSS_LIMIT_GB, and an NCCL
+# rank starts near 7 GB; every further batch keeps its frames (in the
+# lazy-load stores, 65 MB a batch), its features (41 MB) and its tokens
+# (39 MB) on the host, in the ranks' copy and in one process's.
+CACHE_BATCHES = (1, 1)
+CACHE_OVERRIDES = ("trainer.max_epochs=1", "trainer.val_check_interval=1.0", "trainer.log_every_n_steps=1",
+                   f"datamodule.batch_size={CACHE_BATCH}")
+# The fits over the ranks' caches against one process's at the same global
+# batch of 4: the first loss as |err| / |ref| within TOKEN_LOSS_TOL and the
+# step-1 gradients by 2-norm within TOKEN_GRAD_TOL (the head's; the
+# adapters' as (e) holds them). A rank's backbone runs on its 2 rows where
+# one process's runs on 4, so cuBLAS may take other kernels and bf16
+# roundings move through the layers (as in (d), PAIR_LOSS_TOL): the caches
+# are held bit for bit against one process's build over the same rows a
+# forward (the rank's), and their gap to the build over 4 is printed.
+
+
+def cache_mesh_overrides(world: int) -> tuple:
+    return ("mesh.fsdp=-1",) if world == 1 else ("mesh.data=2", "mesh.fsdp=1")
+
+
+def lazy_store(batches: list) -> MemoryStore:
+    """A lazy-load store (the layout ``LazyDataset`` reads, as
+    ``build_lazyload_dsets`` writes it) of the real rows of ``batches``
+    (dicts of device tensors), on the host."""
+    store, i = MemoryStore(), 0
+    for batch in batches:
+        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        for r in np.flatnonzero(host["row_mask"] > 0):
+            group = store.create_group(f"{i}")
+            for field in LazySample.FIELDS:
+                group.create_dataset(f"{i}_{field}", data=host[field][r])
+            i += 1
+    store.create_dataset("dset_len", data=[i])
+    return store
+
+
+def split_rows(batches: list, n: int) -> list:
+    """Each batch (a dict of tensors) cut into batches of ``n`` rows, in order."""
+    return [{k: v[i:i + n] for k, v in b.items()} for b in batches for i in range(0, len(b["row_mask"]), n)]
+
+
+def value_gap(pairs, dev, bits: bool = False) -> dict:
+    """``(got, want)`` array pairs on the card: |got - want| / |want| by
+    2-norm over all of them, and the fraction of values that differ;
+    ``bits``: uint16 arrays of bf16 bit patterns."""
+    num = den = moved = total = 0.0
+    for got, want in pairs:
+        g, w = (torch.from_numpy(np.ascontiguousarray(x).view(np.int16) if bits else np.ascontiguousarray(x)).to(dev)
+                for x in (got, want))
+        g, w = (x.view(torch.bfloat16).float() if bits else x.float() for x in (g, w))
+        num += float((g - w).square().sum())
+        den += float(w.square().sum())
+        moved += float((g != w).sum())
+        total += w.numel()
+    return {"rel": (num / max(den, 1e-30)) ** 0.5, "moved": moved / max(total, 1.0)}
+
+
+def feature_store_gap(got: MemoryStore, want: MemoryStore, dev) -> dict:
+    """A feature cache against another: the sample counts, the features'
+    :func:`value_gap`, and the weights and targets bit for bit."""
+    n = int(want["dset_len"][0])
+    if int(got["dset_len"][0]) != n:
+        return {"n": int(got["dset_len"][0]), "want_n": n, "rel": float("inf"), "moved": 1.0, "others_equal": False}
+    gap = value_gap(((got[f"{i}"][f"{i}_features"], want[f"{i}"][f"{i}_features"]) for i in range(n)), dev)
+    others = all(np.asarray(got[f"{i}"][f"{i}_{f}"]).tobytes() == np.asarray(want[f"{i}"][f"{i}_{f}"]).tobytes()
+                 for i in range(n) for f in ("weights", "timeseries"))
+    return {"n": n, **gap, "others_equal": others}
+
+
+def store_digest(store) -> str:
+    """A sha256 of a store's arrays (names and bytes), to compare ranks'."""
+    h = hashlib.sha256()
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            value = node[key]
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key}/")
+            else:
+                h.update(f"{prefix}{key}".encode())
+                h.update(value.encode() if isinstance(value, str) else np.ascontiguousarray(value).tobytes())
+
+    walk(store, "")
+    return h.hexdigest()[:16]
+
+
+def caches_on_ranks(root: Path, dev) -> dict:
+    """(f) in each rank of the launch: (f1) ``vlb_friends_baseline
+    model.cache_features=true`` through ``build_cached_trainer`` into
+    in-memory stores (flash launches of the build: each rank runs every
+    batch on its rows) and the head's fit over them; (f2) ``vlb_friends_lora
+    datamodule.vision_token_cache`` through ``build_trainer`` over native
+    loaders of lazy-load stores, into an in-memory sidecar store, and a LoRA
+    fit from its tokens. Rank 0 then builds and fits each in one process on
+    the same batches while the others wait at the barrier. A failed check
+    is recorded, not raised, so that no rank leaves a collective unmatched."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    overrides = (*CACHE_OVERRIDES, *cache_mesh_overrides(world))
+    n_train, n_val = CACHE_BATCHES
+    local = CACHE_BATCH // world                        # a rank's rows of each batch
+    record, errors = {"world": world}, []
+    head_keys = lambda k: k.startswith("head.")            # noqa: E731
+
+    # (f1) the feature cache and the head over it.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    config = compose("vlb_friends_baseline", root / f"cached_{world}", "model.cache_features=true", *overrides)
+    layers = train_builder.build_model_config(config.model).mistral.num_hidden_layers
+    train, val = frame_loaders(config, n_train, n_val, gen, dev)
+    stores = {"train": MemoryStore(), "val": MemoryStore()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, cached_train, cached_val = build_cached_trainer(config, dev, loaders=(train, val), caches=stores)
+    torch.cuda.synchronize()
+    build_s, build_launches = time.perf_counter() - t0, read_launches()
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: layers * (n_train + n_val) if n == "flash_fwd" else 0 for n in KERNELS}
+    if build_launches != want:
+        errors.append(f"(f1) rank {rank}: the feature-cache build launched {build_launches}, want {want}")
+    h = recorded_fit(trainer, cached_train, cached_val, keep=head_keys)
+    if any(h["launches"].values()):
+        errors.append(f"(f1) rank {rank}: the head's fit launched {h['launches']}")
+    digests = [None] * world
+    dist.all_gather_object(digests, [store_digest(stores["train"]), store_digest(stores["val"])])
+    peaks = [None] * world
+    dist.all_gather_object(peaks, [build_peak, h["peak_gb"]])
+    print(f"  [rank {rank}] (f1) feature cache built in {build_s:.2f} s ({stores['train']['dset_len'][0]} + "
+          f"{stores['val']['dset_len'][0]} samples, {n_train} + {n_val} batches of {CACHE_BATCH}, {local} rows of each "
+          f"here), launches { {k: v for k, v in build_launches.items() if v} }, peak device memory {build_peak:.2f} "
+          f"GB; head fit brain_loss {h['loss']}, step ms {[round(x, 3) for x in h['step_ms']]}; {rss_note()}")
+    if len(set(map(tuple, digests))) != 1:
+        errors.append(f"(f1) the ranks' stores differ: {digests}")
+    rec = {"build_s": build_s, "build_launches": build_launches, "loss": h["loss"], "step_ms": h["step_ms"],
+           "rank_peak_gb": peaks}
+    del trainer, cached_train, cached_val
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_host_memory(collect=True)
+    if rank == 0:
+        # One process over batches of 4, and (where a rank holds fewer rows)
+        # over the same rows a forward as a rank.
+        one_stores = {"train": MemoryStore(), "val": MemoryStore()}
+        one, ot, ov = build_cached_trainer(compose("vlb_friends_baseline", root / "cached_one",
+                                                   "model.cache_features=true", *overrides), dev,
+                                           loaders=(train, val), caches=one_stores, mesh=one_device_mesh())
+        u = recorded_fit(one, ot, ov, keep=head_keys)
+        same = one_stores
+        if local < CACHE_BATCH:
+            model = build_model(config.model, int(config.random_state), dev)
+            same = {split: MemoryStore() for split in stores}
+            for split, batches in (("train", train), ("val", val)):
+                build_feature_cache(model, split_rows(batches, local), same[split])
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        equal = all(store_digest(stores[k]) == store_digest(same[k]) for k in stores)
+        del same
+        gaps = {split: feature_store_gap(stores[split], one_stores[split], dev) for split in stores}
+        loss_gap = abs(h["loss"][0] - u["loss"][0]) / abs(u["loss"][0])
+        grad = grad_gap(h["grads"], u["grads"])
+        print(f"  (f1) the ranks' caches bit-equal to one process's built {local} rows a forward: {equal}; against "
+              f"one process's built 4 a forward: {gaps}; head first loss bit-equal {h['loss'][0] == u['loss'][0]} "
+              f"(|err| / |ref| {loss_gap:.3e}, tol {TOKEN_LOSS_TOL}), step-1 head gradients |err| / |ref| "
+              f"{grad['norm']:.3e} (tol {TOKEN_GRAD_TOL}), bit-equal {grad['equal']}; one process's head step ms "
+              f"{[round(x, 3) for x in u['step_ms']]}; {rss_note()}")
+        if not equal or not all(g["others_equal"] for g in gaps.values()):
+            errors.append(f"(f1) the ranks' feature cache differs from one process's: equal {equal}, {gaps}")
+        if loss_gap > TOKEN_LOSS_TOL or grad["norm"] > TOKEN_GRAD_TOL:
+            errors.append("(f1) the head's fit over the ranks' cache differs from one process's")
+        rec.update(same_rows_equal=equal, store_gap=gaps, loss_gap=loss_gap, grad_gap=grad["norm"],
+                   one_loss=u["loss"], one_step_ms=u["step_ms"])
+        del one, ot, ov, u, one_stores
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_host_memory(collect=True)
+    record["feature_cache"] = rec
+    del stores, train, val
+    release_host_memory(collect=True)
+    dist.barrier()
+
+    # (f2) the vision-token cache and a LoRA fit from it.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    config = compose("vlb_friends_lora", root / f"tokens_{world}", "datamodule.vision_token_cache=memory",
+                     *overrides)
+    batches = frame_loaders(config, n_train, n_val, gen, dev)
+    lazy = [lazy_store(b) for b in batches]
+    del batches
+    release_host_memory(collect=True)
+
+    def loaders():
+        return tuple(BatchLoader(LazyDataset([store]), CACHE_BATCH, shuffle=False, prefetch=0) for store in lazy)
+
+    tokens = MemoryStore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer, train, val = build_trainer(config, device=dev, loaders=loaders(), token_cache=tokens)
+    torch.cuda.synchronize()
+    build_s, build_launches = time.perf_counter() - t0, read_launches()
+    if any(build_launches.values()):
+        errors.append(f"(f2) rank {rank}: the token-cache build launched {build_launches}")
+    t = recorded_fit(trainer, train, val)
+    want = expected_fit_launches(layers, n_train, n_val, lora=True)
+    if t["launches"] != want:
+        errors.append(f"(f2) rank {rank}: the LoRA fit launched {t['launches']}, want {want}")
+    digests, peaks = [None] * world, [None] * world
+    dist.all_gather_object(digests, store_digest(tokens))
+    dist.all_gather_object(peaks, t["peak_gb"])
+    print(f"  [rank {rank}] (f2) token cache and the trainer built in {build_s:.2f} s ({len(tokens)} sidecars, "
+          f"{sum(tokens[k]['tokens'].nbytes for k in tokens) / 1e6:.1f} MB), LoRA fit brain_loss {t['loss']}, step ms "
+          f"{[round(x, 3) for x in t['step_ms']]}, peak device memory {t['peak_gb']:.2f} GB, launches "
+          f"{ {k: v for k, v in t['launches'].items() if v} }; {rss_note()}")
+    if len(set(digests)) != 1:
+        errors.append(f"(f2) the ranks' sidecars differ: {digests}")
+    rec = {"build_s": build_s, "loss": t["loss"], "step_ms": t["step_ms"], "rank_peak_gb": peaks,
+           "launches": t["launches"]}
+    del trainer, train, val
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_host_memory(collect=True)
+    if rank == 0:
+        one_tokens = MemoryStore()
+        one, ot, ov = build_trainer(compose("vlb_friends_lora", root / "tokens_one",
+                                            "datamodule.vision_token_cache=memory", *overrides), device=dev,
+                                    loaders=loaders(), mesh=one_device_mesh(), token_cache=one_tokens)
+        # The same clips through one process's towers at the rank's rows a forward.
+        equal, tok = tokens.keys() == one_tokens.keys(), {}
+        for loader in (ot, ov):
+            base = loader.dataset.base
+            name = f"vision_tokens_{dataset_fingerprint(base, 0, 0)[:8]}"
+            same = one_tokens[name]["tokens"]
+            if local < CACHE_BATCH:
+                same = np.empty_like(same)
+                encode_tokens(one.model, base, same, batch_size=local)
+            equal = equal and np.array_equal(tokens[name]["tokens"], same)
+            tok[name] = {"fingerprint_equal": tokens[name]["fingerprint"] == one_tokens[name]["fingerprint"],
+                         **value_gap(zip(tokens[name]["tokens"], one_tokens[name]["tokens"]), dev, bits=True)}
+            del same
+        floor_grads = unsharded_floor(one, batch_fields(next(iter(ot))))
+        u = recorded_fit(one, ot, ov)
+        floor, gap = grad_gap(u["grads"], floor_grads), grad_gap(t["grads"], u["grads"])
+        loss_gap = abs(t["loss"][0] - u["loss"][0]) / abs(u["loss"][0])
+        grad_tol = max(TOKEN_GRAD_TOL, TENSOR_FLOOR_RATIO * floor["norm"])
+        print(f"  (f2) the ranks' sidecars bit-equal to one process's tokens at {local} clips a forward: {equal}; "
+              f"against one process's at 4: {tok}; first loss bit-equal {t['loss'][0] == u['loss'][0]} (|err| / "
+              f"|ref| {loss_gap:.3e}, tol {TOKEN_LOSS_TOL}); step-1 adapter gradients |err| / |ref| {gap['norm']:.3e} "
+              f"(tol {grad_tol:.3e}) beside {floor['norm']:.3e} between two one-process runs; one process's step ms "
+              f"{[round(x, 3) for x in u['step_ms']]}; {rss_note()}")
+        if not equal or not all(g["fingerprint_equal"] for g in tok.values()):
+            errors.append(f"(f2) the ranks' sidecars differ from one process's: equal {equal}, {tok}")
+        if loss_gap > TOKEN_LOSS_TOL or gap["norm"] > grad_tol:
+            errors.append("(f2) the LoRA fit from the ranks' tokens differs from one process's")
+        rec.update(same_rows_equal=equal, token_gap=tok, loss_gap=loss_gap, grad_gap=gap["norm"],
+                   grad_floor=floor["norm"], one_loss=u["loss"], one_step_ms=u["step_ms"])
+        del one, ot, ov, u
+        gc.collect()
+        torch.cuda.empty_cache()
+        release_host_memory(collect=True)
+    record["token_cache"] = rec
+    dist.barrier()
+    if errors:
+        record["error"] = "; ".join(errors)
+    return record
+
+
+def caches_child(out: str) -> int:
+    """``--caches DIR`` under torchrun: (f), at world 1 over NCCL, or on 2
+    processes that share card 0 over gloo."""
+    if "RANK" not in os.environ:
+        raise RuntimeError("--caches runs under torch.distributed.run (torchrun)")
+    if int(os.environ["WORLD_SIZE"]) == 1:
+        if not maybe_initialize_distributed("cuda", timeout_s=SHARDED_COLLECTIVE_S):
+            raise RuntimeError("--caches could not join its group")
+    else:
+        torch.cuda.set_device(0)
+        faulthandler.enable(sys.__stderr__)
+        dist.init_process_group("gloo", init_method="env://", timeout=timedelta(seconds=SHARDED_COLLECTIVE_S))
+    cut_decoder_depth(RANK_LAYERS)
+    return rank_child(out, caches_on_ranks)
 
 
 def sharded_child(out: str, pair: bool) -> int:
@@ -3865,6 +4259,8 @@ def main() -> int:
         return sharded_child(sys.argv[2], pair=sys.argv[1] == "--sharded-pair")
     if sys.argv[1:2] == ["--tensor-pair"]:
         return tensor_child(sys.argv[2])
+    if sys.argv[1:2] == ["--caches"]:
+        return caches_child(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -4016,6 +4412,16 @@ def main() -> int:
                       f"{[round(x, 2) for x in e['rank_peak_gb']]} GB against {e['one_peak_gb']:.2f} GB, first loss "
                       f"bit-equal {e['loss_equal']} (|err| / |ref| {e['loss_gap']:.3e}), step-1 gradients "
                       f"{e['grad_gap']:.3e} beside the floor {e['grad_floor']:.3e} ({card})")
+            for world, label in ((1, "(f) the caches at world 1 (NCCL)"),
+                                 (2, "(f) the caches on 2 processes of the one card (gloo)")):
+                f = run_sharded(out, world, "--caches", label, SHARDED_LIMIT_S)
+                fc, tc = f["feature_cache"], f["token_cache"]
+                print(f"  {label}: feature cache built in {fc['build_s']:.2f} s, flash_fwd "
+                      f"{fc['build_launches']['flash_fwd']} a rank, head step ms {[round(x, 3) for x in fc['step_ms']]} "
+                      f"against one process's {[round(x, 3) for x in fc['one_step_ms']]}, caches' gap {fc['store_gap']}; "
+                      f"token cache and trainer built in {tc['build_s']:.2f} s, LoRA step ms "
+                      f"{[round(x, 3) for x in tc['step_ms']]} against {[round(x, 3) for x in tc['one_step_ms']]}; "
+                      f"peak device memory per rank {fc['rank_peak_gb']} and {tc['rank_peak_gb']} GB ({card})")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     with phase("9v w8a8g8 serve from frames"):

@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["maybe_initialize_distributed", "is_multihost", "process_info", "shutdown_distributed",
-           "DIST_TIMEOUT_S", "MULTI_CARD_OPT_IN"]
+           "barrier", "broadcast_object", "DIST_TIMEOUT_S", "MULTI_CARD_OPT_IN"]
 
 # A collective's time limit: above the longest a rank waits on its peers in
 # training (a peer's first-use kernel build, rank 0 writing a checkpoint).
@@ -113,6 +113,23 @@ def shutdown_distributed() -> None:
     """Leave the process group, if in one."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def barrier() -> None:
+    """Wait until every process of the group reaches this point (a no-op
+    outside a group): e.g. a file rank 0 wrote is whole for every rank."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def broadcast_object(obj, src: int = 0):
+    """``obj`` as process ``src`` holds it, on every process of the group
+    (``obj`` itself outside one): one process's decision, taken alike."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def is_multihost() -> bool:

@@ -196,6 +196,14 @@ class MeshEnv:
         dist.all_gather(out, t.contiguous(), group=self._batch_group())
         return out
 
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A global batch from each rank's rows of it: every batch
+        coordinate's ``t`` (its :meth:`local_rows`, the same count on all)
+        concatenated in order along dim 0, on every rank. 16-bit floats
+        travel as f32, which holds them exactly (gloo takes f32 everywhere)."""
+        parts = self.all_gather(t.float() if t.dtype in (torch.float16, torch.bfloat16) else t)
+        return torch.cat(parts).to(t.dtype) if len(parts) > 1 else t
+
 
 def build_mesh(config: MeshConfig | None = None, device: str | torch.device = "cuda") -> MeshEnv:
     """The mesh over this process group's ranks (one device each), or a

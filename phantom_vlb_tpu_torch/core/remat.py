@@ -18,6 +18,17 @@ again:
   :data:`OPAQUE`). ``bmm`` is a batched product, and a hand kernel is not
   a product: the fused kernels are Pallas calls on the TPU, not dots.
 
+Under a ring ``attention_impl`` each policy keeps what the reference's keeps
+there: the rings' ``custom_vjp``s name nothing inside
+(``phantom_vlb_tpu/ops/context_parallel.py:268``, ``ops/ring_fused.py:341``),
+so ``'flash'`` keeps only the mids (the per-step ring's flash forwards run
+outside any named scope, ``attention_with_stats``), ``'attn'`` keeps
+``attn_out`` but its replay runs the ring again for the lse the backward
+reads, and ``'dots'`` keeps no product of the plain ring, whose products
+are batched. Every policy's replay runs a ring pass (``vlb::ring_fwd``,
+or the per-step ring's ``vlb::flash_fwd`` calls) again, as the JAX grad's
+jaxpr does.
+
 Each maps to a policy function of ``torch.utils.checkpoint``'s selective
 checkpointing, which decides per dispatched op whether the replay takes its
 outputs from memory. XLA's replay computes only what the backward needs;

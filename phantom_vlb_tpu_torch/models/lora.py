@@ -27,7 +27,10 @@ the product that makes it (``core/remat.py``), so the ``'mids'`` and
 the base product, which saves no tensor (:func:`frozen_linear`, the int8
 Functions of ``ops/quant.py``): a checkpointed layer's replay stops at its
 last saved tensor, so it never runs the last projection's z @ B and base
-product, which only the layer's output needs.
+product, which only the layer's output needs. The fused epilogue saves z
+and B before it makes the base product (``lora_epilogue`` takes y as a
+function), so its replay runs neither that product nor the kernel forward
+for the last projection either.
 
 Dropout masks come only from an explicit per-site seed (an int the caller
 derives from the step, the layer and the site), never from a global RNG
@@ -294,7 +297,7 @@ class LoRALinear(_QuantBase):
             z = copy_to_tensor(z, split) if split.role == COLUMN else reduce_from_tensor(z, split)
         base_x = x if base_x is None else base_x
         if lora.fused_epilogue:
-            return lora_epilogue(self._base_product(base_x), z, self.lora_b.to(dtype), lora.scaling,
+            return lora_epilogue(lambda: self._base_product(base_x), z, self.lora_b.to(dtype), lora.scaling,
                                  backward="xla" if lora.fused_epilogue == "fwd" else "pallas")
         z = z @ self.lora_b.to(dtype)
         return self._base_product(base_x) + z * _in_dtype(lora.scaling, dtype)

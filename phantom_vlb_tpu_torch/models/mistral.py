@@ -18,9 +18,11 @@ in ``torch.utils.checkpoint`` (non-reentrant) when gradients are recorded
 backward; ``remat_policy`` (:55-60, :185-203; ``core/remat.py``) says what
 else the layer keeps from its forward so the replay skips it: ``'nothing'``,
 ``'attn'``, ``'mids'``, ``'flash'`` or ``'dots'``, named as in JAX at the
-same sites (``attn_out`` here, ``flash_out``/``flash_lse`` in
-``ops/flash_attention.py``, ``lora_mid`` in ``models/lora.py``). The ring
-``attention_impl``s take ``'nothing'`` only. The replay must draw the same
+same sites (``attn_out`` here, after the packed path or the ring, as at
+:280 and :321; ``flash_out``/``flash_lse`` in ``ops/flash_attention.py``,
+``lora_mid`` in ``models/lora.py``). Every ring takes every policy: the
+rings name nothing inside, as the reference's ``custom_vjp``s do not, so
+each policy's replay runs the ring's forward again. The replay must draw the same
 dropout masks, so every mask comes from a seed derived before the layer
 runs (step seed -> layer -> site), never from a generator's state.
 
@@ -42,7 +44,9 @@ counts follow the projections' widths.
 ``'ring_flash'`` and ``'ring_fused'`` split the sequence over the ring that
 :func:`~phantom_vlb_tpu_torch.core.mesh.set_sequence_ring` set, after RoPE
 on the global positions, as the reference does. The per-layer checkpoint
-replays the ring. The attention owns no parameters, so
+replays the ring, which :func:`~phantom_vlb_tpu_torch.core.mesh.get_sequence_ring`
+gives at each call: the ring stays set through the backward. The attention
+owns no parameters, so
 :func:`set_attention_impl` switches a built model in place, and
 :func:`set_remat_policy` its policy.
 """
@@ -109,10 +113,6 @@ class MistralConfig:
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}")
         check_remat_policy(self.remat_policy)
-        if self.remat_policy != "nothing" and self.attention_impl in RING_ATTENTION:
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} with attention_impl {self.attention_impl!r}: "
-                "the rings take remat_policy='nothing' only")
 
     @staticmethod
     def full(**overrides) -> "MistralConfig":

@@ -463,18 +463,19 @@ def attention_with_stats(
     causal_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-only (out, lse) in the packed layout: the partial-result form a
-    ring step merges (reference ``attention_with_stats`` :798-821). Nothing
-    is recorded for autograd; train through :func:`attention_packed` or the
+    ring step merges (reference ``attention_with_stats`` :798-821), through
+    the ``vlb::flash_fwd`` op (the kernel on CUDA tensors, the plain version
+    on CPU tensors) outside any named scope: as in the reference, which
+    names nothing here, no checkpoint policy keeps its outputs. Nothing is
+    recorded for autograd; train through :func:`attention_packed` or the
     ring functions of ``ops/context_parallel.py``."""
-    if q.device.type == "cpu":
-        with torch.no_grad():
-            return attention_packed_plain(q, k, v, num_heads, num_kv_heads, sm_scale=sm_scale,
-                                          kv_mask=kv_mask, causal_offset=causal_offset)
-    if q.device.type != "cuda":
+    if q.device.type == "cuda":
+        _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
+    elif q.device.type != "cpu":
         raise ValueError(f"no attention kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, num_heads, num_kv_heads, kv_mask)
-    return _flash_fwd_cuda(q, k, v, kv_bias(kv_mask), num_heads, num_kv_heads, sm_scale,
-                           causal_offset)
+    with torch.no_grad():
+        return torch.ops.vlb.flash_fwd(q, k, v, kv_bias(kv_mask), num_heads, num_kv_heads,
+                                       _default_scale(q, num_heads, sm_scale), causal_offset)
 
 
 def attention_packed_bwd(

@@ -43,6 +43,7 @@ import functools
 
 import torch
 
+from phantom_vlb_tpu_torch.core.remat import OPAQUE, named
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
@@ -301,46 +302,81 @@ def _addmm_scaled(a, b, scaling: float) -> torch.Tensor:
     return out.addmm_(a, b, beta=0, alpha=scaling)
 
 
+class _Residuals(torch.autograd.Function):
+    """z passed through (a view), with z and B saved for the epilogue's
+    backward: :class:`_LoRAEpilogue` reads them from this node, so they are
+    saved before y is made (see :func:`lora_epilogue`)."""
+
+    @staticmethod
+    def forward(ctx, z, b):
+        ctx.save_for_backward(z, b)
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, dz):
+        return dz, None
+
+
 class _LoRAEpilogue(torch.autograd.Function):
+    """The kernel forward; z is :class:`_Residuals`' output, whose node
+    holds the saved z and B, so this Function saves nothing."""
+
     @staticmethod
     def forward(ctx, y, z, b, scaling, backward):
-        ctx.save_for_backward(z, b)
+        ctx.residuals = z.grad_fn
         ctx.scaling, ctx.backward = scaling, backward
-        return lora_epilogue_fwd(y, z, b, scaling)
+        # A kernel, not a product: on the CPU, 'dots' does not keep its
+        # plain version's product either (core/remat.py).
+        with named(OPAQUE):
+            return lora_epilogue_fwd(y, z, b, scaling)
 
     @staticmethod
     def backward(ctx, dy):
-        z, b = ctx.saved_tensors
+        # z's gradient is wanted where the z given to lora_epilogue needs
+        # one, not where B alone makes the pass-through need one.
+        want_dz = ctx.needs_input_grad[1] and ctx.residuals.needs_input_grad[0]
+        want_db = ctx.needs_input_grad[2]
         dy = dy.contiguous()
         dz = db = None
+        if want_dz or want_db:
+            z, b = ctx.residuals.saved_tensors
         if ctx.backward == "xla":
-            if ctx.needs_input_grad[1]:
+            if want_dz:
                 dz = _addmm_scaled(dy, b.t(), ctx.scaling)
-            if ctx.needs_input_grad[2]:
+            if want_db:
                 db = _addmm_scaled(z.t(), dy, ctx.scaling)
-        elif ctx.needs_input_grad[1] and ctx.needs_input_grad[2]:
+        elif want_dz and want_db:
             dz, db = lora_epilogue_dzdb(z, dy, b, ctx.scaling)
-        elif ctx.needs_input_grad[1]:
+        elif want_dz:
             dz = lora_epilogue_dz(dy, b, ctx.scaling)
-        elif ctx.needs_input_grad[2]:
+        elif want_db:
             db = lora_epilogue_db(z, dy, ctx.scaling)
         return (dy if ctx.needs_input_grad[0] else None), dz, db, None, None
 
 
-def lora_epilogue(y: torch.Tensor, z: torch.Tensor, b: torch.Tensor, scaling: float, *,
+def lora_epilogue(y, z: torch.Tensor, b: torch.Tensor, scaling: float, *,
                   backward: str = "pallas") -> torch.Tensor:
     """``y + scaling * (z @ b)``, differentiable in y, z and b.
 
-    y (..., N), z (..., r), b (r, N). ``backward``: ``"pallas"`` runs the
-    backward kernel (one pass over dy for both grads, or the entry point of
-    the one grad needed), ``"xla"`` the library products (the forward is
-    the kernel either way).
+    y (..., N), or a function of no arguments that returns it; z (..., r),
+    b (r, N). ``backward``: ``"pallas"`` runs the backward kernel (one pass
+    over dy for both grads, or the entry point of the one grad needed),
+    ``"xla"`` the library products (the forward is the kernel either way).
+
+    z and b are saved for the backward before y is made, where y is given
+    as a function: a checkpointed layer's replay stops at the last tensor
+    the layer saved, so for the layer's last projection it then runs
+    neither the product that makes y nor the kernel forward, whose output
+    only the layer's output needs (XLA's replay drops both: the reference
+    keeps only (z, B) as residuals, ``lora_epilogue.py:153-154``).
     """
     if backward not in ("pallas", "xla"):
         raise ValueError(f"backward must be 'pallas' or 'xla', not {backward!r}")
+    r = b.shape[0]
+    z = _Residuals.apply(z.reshape(-1, r), b)
+    y = y() if callable(y) else y
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no epilogue kernel for device {y.device}")
     lead, n = y.shape[:-1], y.shape[-1]
-    r = b.shape[0]
-    out = _LoRAEpilogue.apply(y.reshape(-1, n), z.reshape(-1, r), b, float(scaling), backward)
+    out = _LoRAEpilogue.apply(y.reshape(-1, n), z, b, float(scaling), backward)
     return out.reshape(*lead, n)

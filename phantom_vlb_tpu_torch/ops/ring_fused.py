@@ -11,7 +11,9 @@ backward is the per-step ring's (:func:`ring_flash_bwd`) on the saved
 (out, lse), as the reference's ``rf_bwd`` (:356-365) is.
 
 - :func:`ring_fwd` (out, lse) for the global packed tensors: q (B, S, Hq*D),
-  k and v (B, S, Hkv*D), kv_mask (B, S). Chunk i of S goes to rank i; the
+  k and v (B, S, Hkv*D), kv_mask (B, S), through the ``vlb::ring_fwd``
+  dispatcher op, which checkpoint policies see (none keeps it, as none
+  keeps the reference's). Chunk i of S goes to rank i; the
   kernel runs once per rank on that rank's compute stream; out and lse come
   back whole on q's device (on one card the ranks write their rows of them
   in place). CUDA tensors launch the kernel (bf16, D = 128, contiguous,
@@ -52,6 +54,7 @@ from phantom_vlb_tpu_torch.ops.context_parallel import (
 from phantom_vlb_tpu_torch.ops.flash_attention import (
     MASK_VALUE,
     _check_cuda_inputs,
+    _default_scale,
     _heads,
     _packed,
     _scale_in_dtype,
@@ -273,6 +276,36 @@ def _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, ring: SequenceRing, sm_scal
     return out, lse
 
 
+# The pass as a dispatcher op (``core/remat.py``: a checkpoint policy sees
+# it; as in the reference, which names nothing inside its ring, no policy
+# keeps its outputs, so a checkpointed layer's replay runs it again). The
+# ring is passed by key (an op takes tensors and scalars); ``sm_scale`` is
+# the unrounded scale. A replayed pass is a pass like any other: it takes
+# the ring's next epoch and its landing slots for the shape.
+_RINGS: "weakref.WeakValueDictionary[int, SequenceRing]" = weakref.WeakValueDictionary()
+
+
+def _ring_key(ring: SequenceRing) -> int:
+    _RINGS[id(ring)] = ring
+    return id(ring)
+
+
+def _ring_op_plain(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, ring):
+    return ring_fwd_plain(q, k, v, num_heads, num_kv_heads, _RINGS[ring], sm_scale=sm_scale,
+                          kv_mask=kv_mask)
+
+
+def _ring_op_cuda(q, k, v, kv_mask, num_heads, num_kv_heads, sm_scale, ring):
+    return _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, _RINGS[ring], sm_scale, kv_mask)
+
+
+_LIB = torch.library.Library("vlb", "FRAGMENT")
+_LIB.define("ring_fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, int num_heads, int num_kv_heads, "
+            "float sm_scale, int ring) -> (Tensor, Tensor)")
+_LIB.impl("ring_fwd", _ring_op_plain, "CPU")
+_LIB.impl("ring_fwd", _ring_op_cuda, "CUDA")
+
+
 def ring_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -284,18 +317,19 @@ def ring_fwd(
     sm_scale: float | None = None,
     kv_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal GQA attention over the ring by the fused kernel: (out (B, S,
-    Hq*D) in q's dtype, lse (B, Hq, S) f32). Not differentiable: train
-    through :func:`ring_flash_fused`."""
+    """Causal GQA attention over the ring by the fused kernel, through the
+    ``vlb::ring_fwd`` op: (out (B, S, Hq*D) in q's dtype, lse (B, Hq, S)
+    f32). Not differentiable: train through :func:`ring_flash_fused`."""
     if q.device.type == "cpu":
         if any(d.type != "cpu" for d in ring.devices):
             raise ValueError(f"a CPU tensor needs a ring of CPU ranks; got {ring}")
-        return ring_fwd_plain(q, k, v, num_heads, num_kv_heads, ring, sm_scale=sm_scale,
-                              kv_mask=kv_mask)
-    if q.device.type != "cuda":
+    elif q.device.type == "cuda":
+        _check_cuda(q, k, v, num_heads, num_kv_heads, ring, kv_mask)
+    else:
         raise ValueError(f"no ring kernel for device {q.device}")
-    _check_cuda(q, k, v, num_heads, num_kv_heads, ring, kv_mask)
-    return _ring_fwd_cuda(q, k, v, num_heads, num_kv_heads, ring, sm_scale, kv_mask)
+    with torch.no_grad():
+        return torch.ops.vlb.ring_fwd(q, k, v, kv_mask, num_heads, num_kv_heads,
+                                      _default_scale(q, num_heads, sm_scale), _ring_key(ring))
 
 
 class _RingFused(torch.autograd.Function):

@@ -15,12 +15,16 @@ decoder's projections cut to each rank's block along ``mesh.tensor`` and
 the blocks sharded by FSDP2 over the batch axes (``parallel/sharding.py``,
 ``parallel/tensor.py``; any ``base_quant`` too), and each rank's loaders
 yield its batch coordinate's rows of each global batch, which the batch
-axes must divide. A single process trains on one card, whatever the
-machine holds. Branches of the reference that are not ported raise by
-name: an Orbax directory as ``model.checkpoint_path``, ``mesh.sequence``
-> 1 across processes (``core/mesh.py``), and under a mesh of more than one
-process ``model.cache_features``, ``datamodule.vision_token_cache`` (and,
-in ``parallel/sharding.py``, the ring ``attention_impl``s). :func:`build_trainer` and :func:`build_cached_trainer`
+axes must divide. The two caches run under the mesh as the reference's run
+under its own (:327-343, :402-482): each rank encodes its rows of the
+clips (``datamodule.vision_token_cache``) or runs the backbone over its rows
+(``model.cache_features``), the rows are gathered in order, rank 0 writes a
+file, and the head over the feature cache trains on the sharded step. A
+single process trains on one card, whatever the machine holds. Branches of
+the reference that are not ported raise by name: an Orbax directory as
+``model.checkpoint_path``, ``mesh.sequence`` > 1 across processes
+(``core/mesh.py``), and under a mesh of more than one process the ring
+``attention_impl``s (``parallel/sharding.py``). :func:`build_trainer` and :func:`build_cached_trainer`
 also take ready ``loaders`` (any sized iterables of global batches; under a
 mesh each rank keeps its rows), in which case they build none; the
 vision-token cache needs the native loaders (it swaps their datasets).
@@ -38,7 +42,7 @@ import torch
 
 from phantom_vlb_tpu_torch.core.config import Config, to_dict
 from phantom_vlb_tpu_torch.core.device import resolve_device
-from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN
+from phantom_vlb_tpu_torch.core.distributed import MULTI_CARD_OPT_IN, broadcast_object
 from phantom_vlb_tpu_torch.core.mesh import MeshConfig, MeshEnv, build_mesh
 from phantom_vlb_tpu_torch.data.grain_loader import GrainBatchLoader
 from phantom_vlb_tpu_torch.data.loader import (
@@ -57,6 +61,7 @@ from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
 from phantom_vlb_tpu_torch.train.optim import OptimConfig
 from phantom_vlb_tpu_torch.train.precompute import (
     CachedFeatureLoader,
+    HeadOnly,
     build_feature_cache,
     cache_present,
     head_forward,
@@ -232,8 +237,8 @@ def _check_shape(key: str, base: torch.Tensor, w: torch.Tensor) -> None:
 
 def build_run_mesh(config: Config, device: torch.device) -> MeshEnv:
     """The ``mesh`` node over this launch's processes; says so when a
-    single process leaves cards idle, and raises for what a mesh of more
-    than one process does not run (ROADMAP Queue 1)."""
+    single process leaves cards idle, and raises unless its batch axes
+    divide ``datamodule.batch_size``."""
     mesh = build_mesh(MeshConfig.from_config(config.get("mesh")), device)
     n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
     if not mesh.sharded and n_cards > 1:
@@ -241,14 +246,6 @@ def build_run_mesh(config: Config, device: torch.device) -> MeshEnv:
               f"Launch one process per card to shard over them: {MULTI_CARD_OPT_IN}=1 torchrun "
               f"--nproc_per_node={n_cards} -m phantom_vlb_tpu_torch.cli.train ... (not yet run to its end "
               "on more than one card: ROADMAP Queue 1 #4)")
-    if mesh.n_devices > 1:
-        for flag, on in (("model.cache_features", config.get("model", {}).get("cache_features", False)),
-                         ("datamodule.vision_token_cache",
-                          config.get("datamodule", {}).get("vision_token_cache"))):
-            if on:
-                raise NotImplementedError(f"{flag} under a mesh of {mesh.n_devices} processes is not ported "
-                                          "(ROADMAP Queue 1 #4: the caches under a process mesh); run it in "
-                                          "one process")
     mesh.local_rows(int(config.datamodule.batch_size))          # raises unless the batch axes divide it
     return mesh
 
@@ -300,17 +297,21 @@ def _loaders(dm: Config, loaders, mesh: MeshEnv | None = None) -> tuple[object, 
 
 
 def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=None,
-                  mesh: MeshEnv | None = None):
+                  mesh: MeshEnv | None = None, token_cache=None):
     """Full assembly on ``device`` -> (trainer, train_loader, val_loader).
 
     ``loaders``: an optional (train, val) pair of sized iterables of global
     batches (e.g. lists of dicts of tensors); without it the native loaders
     are built over the lazy-load files. With ``datamodule.vision_token_cache``
     the frozen vision path runs once per clip into a sidecar under that
-    directory (``$VARS`` expanded) and the loaders read its tokens. Under a
-    mesh of processes (:func:`build_run_mesh`), each rank's loaders yield its
-    rows and the trainer shards the model; ``mesh`` replaces that mesh
-    (e.g. ``MeshEnv`` of one device: unsharded, in a process of a group).
+    directory (``$VARS`` expanded), or into ``token_cache`` (an in-memory
+    store, ``MemoryStore``) when given, and the loaders read its tokens.
+    Under a mesh of processes (:func:`build_run_mesh`), each rank's loaders
+    yield its rows and the trainer shards the model; the model is whole on
+    every rank until then, so each rank encodes its rows of the clips into
+    the sidecar, which rank 0 writes (``data/token_cache.py``). ``mesh``
+    replaces that mesh (e.g. ``MeshEnv`` of one device: unsharded, in a
+    process of a group).
     """
     device = resolve_device(device)
     seed = int(config.random_state)
@@ -328,8 +329,11 @@ def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=N
         if str(dm.get("loader", "native")) == "grain":
             raise ValueError("vision_token_cache requires the native loader "
                              "(datamodule.loader=grain builds its own dataset views)")
-        attach_token_cache(model, [train_loader, val_loader], os.path.expandvars(str(cache_dir)),
-                           batch_size=int(dm.get("batch_size", 6)), log=lambda m: print(f"[build] {m}"))
+        attach_token_cache(model, [train_loader, val_loader],
+                           os.path.expandvars(str(cache_dir)) if token_cache is None else token_cache,
+                           batch_size=int(dm.get("batch_size", 6)),
+                           log=(lambda m: print(f"[build] {m}")) if mesh.is_writer else None,
+                           mesh=mesh)
 
     optim_cfg, loop_cfg = _loop_configs(config, model.cfg.num_target, seed)
     # The CSV log (the brain maps' input) always; Comet when configured;
@@ -350,7 +354,7 @@ def build_trainer(config: Config, device: str | torch.device = "cuda", loaders=N
 
 
 def build_cached_trainer(config: Config, device: str | torch.device = "cuda", loaders=None,
-                         caches: Mapping[str, object] | None = None):
+                         caches: Mapping[str, object] | None = None, mesh: MeshEnv | None = None):
     """The frozen baseline's feature-cache path on ``device`` -> (trainer,
     cached train loader, cached val loader): the backbone runs once per
     sample of each split into its cache, then the trainer trains the head
@@ -360,6 +364,13 @@ def build_cached_trainer(config: Config, device: str | torch.device = "cuda", lo
     ``train/precompute.py``), filled here unless it holds a cache already;
     a split without one caches into ``output_dir/feature_cache_{split}.h5``,
     which is reused when present. ``loaders`` as for :func:`build_trainer`.
+
+    Under a mesh of processes (:func:`build_run_mesh`, or ``mesh``) each
+    rank runs the backbone (whole on every rank) over its rows of each
+    batch and the rows are gathered, so each cache is the one-process cache
+    (rank 0 writes a file, and decides whether one is there already); the
+    head then trains on the sharded step (FSDP2 shards it as it shards the
+    whole model's head), each rank on its rows of each global batch.
     """
     m = config.model
     if not bool(m.get("freeze_backbone", True)) or bool(m.get("use_lora", False)):
@@ -367,9 +378,9 @@ def build_cached_trainer(config: Config, device: str | torch.device = "cuda", lo
     device = resolve_device(device)
     seed = int(config.random_state)
     np.random.seed(seed)
-    build_run_mesh(config, device)             # one process only (raises under more)
+    mesh = build_run_mesh(config, device) if mesh is None else mesh
     dm = config.datamodule
-    train_loader, val_loader, dset_names = _loaders(dm, loaders)
+    train_loader, val_loader, dset_names = _loaders(dm, loaders, mesh)
     model = build_model(m, seed, device)
 
     out_dir = Path(str(config.output_dir))
@@ -377,27 +388,30 @@ def build_cached_trainer(config: Config, device: str | torch.device = "cuda", lo
     stores = dict(caches or {})
     for split, loader in (("train", train_loader), ("val", val_loader)):
         store = stores.setdefault(split, out_dir / f"feature_cache_{split}.h5")
-        if not cache_present(store):
-            if isinstance(store, Path):
+        present = cache_present(store)
+        if isinstance(store, Path):
+            present = broadcast_object(present)          # rank 0's file decides
+        if not present:
+            if isinstance(store, Path) and mesh.is_writer:
                 print(f"building {split} feature cache -> {store}")
-            build_feature_cache(model, loader, store)
+            build_feature_cache(model, loader, store, mesh)
 
     batch_size = int(dm.batch_size)
-    cached_train = CachedFeatureLoader(stores["train"], batch_size, shuffle=True, seed=seed)
+    cached_train = CachedFeatureLoader(stores["train"], batch_size, shuffle=True, seed=seed, mesh=mesh)
     cached_val = CachedFeatureLoader(stores["val"], batch_size,
-                                     shuffle=bool(dm.get("shuffle_val_data", False)))
-    head = torch.nn.ModuleDict({"head": model.head})
+                                     shuffle=bool(dm.get("shuffle_val_data", False)), mesh=mesh)
+    head = HeadOnly(model.head)
     optim_cfg, loop_cfg = _loop_configs(config, model.cfg.num_target, seed)
     del model
-    trainer = VLBTrainer(head, optim_cfg, loop_cfg, forward=head_forward, device=device)
+    trainer = VLBTrainer(head, optim_cfg, loop_cfg, forward=head_forward, device=device, mesh=mesh)
     trainer.csv_logger.log_hyperparams(dset_names)
     return trainer, cached_train, cached_val
 
 
 def run_cached_training(config: Config, device: str | torch.device = "cuda", loaders=None,
-                        caches: Mapping[str, object] | None = None) -> dict:
+                        caches: Mapping[str, object] | None = None, mesh: MeshEnv | None = None) -> dict:
     """:func:`build_cached_trainer`, then fit the head over the caches."""
-    trainer, cached_train, cached_val = build_cached_trainer(config, device, loaders, caches)
+    trainer, cached_train, cached_val = build_cached_trainer(config, device, loaders, caches, mesh)
     return trainer.fit(cached_train, cached_val)
 
 

@@ -158,11 +158,23 @@ def test_loader_reads_stores_as_files(built, prefetch):
             np.testing.assert_array_equal(x, y)
 
 
-def test_token_cache_refuses_a_dataset_of_stores(built):
-    from phantom_vlb_tpu_torch.data.token_cache import dataset_fingerprint
+def test_token_cache_refuses_a_dataset_of_stores(built, tmp_path):
+    """A sidecar file is keyed by lazy-load files: over in-memory stores
+    the token cache refuses a file, and takes an in-memory sidecar (a
+    ``MemoryStore``) keyed by each store's place, count and content."""
+    from phantom_vlb_tpu_torch.data import token_cache as ttc
+    from phantom_vlb_tpu_torch.models import videollama2 as tv
+    from phantom_vlb_tpu_torch.models.convert import init_params
 
+    ds = LazyDataset(built[1])
+    cfg = tv.VLBConfig.tiny()
+    model = tv.VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, device="cpu"))
     with pytest.raises(ValueError, match="stores"):
-        dataset_fingerprint(LazyDataset(built[1]), 27, 64)
+        ttc.build_token_cache(model, ds, tmp_path / "tok.h5", batch_size=3)
+    assert not list(tmp_path.iterdir())
+    assert ttc.dataset_fingerprint(ds, 27, 64) == ttc.dataset_fingerprint(LazyDataset(built[1]), 27, 64)
+    side = ttc.build_token_cache(model, ds, MemoryStore(), batch_size=3)
+    assert side["tokens"].shape == (len(ds), cfg.geometry.num_vis_tokens, cfg.mistral.hidden_size)
 
 
 def test_infer_geometry_matches_jax_and_rejects_a_bad_window(stages, built):

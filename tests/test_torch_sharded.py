@@ -161,9 +161,10 @@ def test_rule_table_matches_jax(cpu_devices):
 
 
 def test_mesh_refuses_what_is_not_ported(monkeypatch):
-    """What a mesh of processes still refuses by name: the rings, the
-    caches, and ``sequence`` > 1 (``tensor`` > 1 and ``base_quant`` run:
-    ``tests/test_torch_tensor_parallel.py``)."""
+    """What a mesh of processes still refuses by name: the rings and
+    ``sequence`` > 1 (``tensor`` > 1 and ``base_quant`` run:
+    ``tests/test_torch_tensor_parallel.py``; the caches:
+    ``tests/test_torch_mesh_caches.py``)."""
     fake = MeshEnv({"data": 1, "fsdp": 2, "tensor": 1, "sequence": 1}, rank=0, device_mesh=object())
     from phantom_vlb_tpu_torch.models.mistral import set_attention_impl
 
@@ -171,16 +172,6 @@ def test_mesh_refuses_what_is_not_ported(monkeypatch):
     set_attention_impl(ring, "ring_fused")
     with pytest.raises(NotImplementedError, match="ring_fused"):
         shard_model(ring, fake)
-    # The caches under a mesh of 2 processes, before anything is built.
-    from phantom_vlb_tpu_torch.core.config import Config
-    from phantom_vlb_tpu_torch.train import builder
-
-    monkeypatch.setattr(builder, "build_mesh", lambda config, device: fake)
-    for node, key, value in (("model", "cache_features", True), ("datamodule", "vision_token_cache", "/c")):
-        config = Config({"mesh": Config({"fsdp": 2}), "datamodule": Config({"batch_size": 4}), "model": Config()})
-        config[node][key] = value
-        with pytest.raises(NotImplementedError, match=f"{node}.{key} under a mesh of 2 processes.*ROADMAP Queue 1"):
-            builder.build_run_mesh(config, torch.device("cpu"))
     # build_mesh refuses sequence > 1 across processes before it builds a DeviceMesh.
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)

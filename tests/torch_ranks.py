@@ -23,6 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -217,12 +218,84 @@ def case_products(mesh, tmp: Path, cfg, sd: dict, seed: int) -> dict:
     return out
 
 
+def case_token_cache(mesh, tmp: Path, sd: dict, cfg, paths: list, cache_dir: str | None,
+                     batch_size: int) -> dict:
+    """The vision-token cache of the lazy-load ``paths`` under the mesh:
+    ``attach_token_cache`` into ``cache_dir`` (a file rank 0 writes) or,
+    with ``cache_dir`` None, into an in-memory store filled on every rank.
+    Reports the sidecar's name, fingerprint and tokens as this rank sees
+    them (the file read back after the barrier), the mtimes of the
+    sidecars there before and after, the real rows of this rank's last
+    batch, and the model's weights digest whole and sharded by FSDP2."""
+    import h5py
+
+    from phantom_vlb_tpu_torch.data import token_cache as ttc
+    from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset
+    from phantom_vlb_tpu_torch.data.schemas import MemoryStore
+    from phantom_vlb_tpu_torch.parallel.sharding import shard_model
+
+    model = make_model(cfg, sd)
+    loader = BatchLoader(LazyDataset(paths), batch_size, shuffle=False, prefetch=0, mesh=mesh)
+    mtimes = (lambda: {} if cache_dir is None else
+              {p.name: p.stat().st_mtime_ns for p in Path(cache_dir).glob("*.h5")})
+    before = mtimes()
+    target = MemoryStore() if cache_dir is None else cache_dir
+    ttc.attach_token_cache(model, [loader], target, batch_size=batch_size, mesh=mesh)
+    tokens = loader.dataset.tokens
+    if cache_dir is None:
+        (name,) = target.keys()
+        fingerprint = target[name]["fingerprint"]
+    else:
+        name = Path(tokens).stem
+        with h5py.File(tokens, "r") as f:
+            tokens, fingerprint = f["tokens"][...], f.attrs["fingerprint"]
+    last = list(loader)[-1]
+    whole = ttc.weights_digest(model.state_dict())
+    shard_model(model, mesh)
+    return {"name": name, "fingerprint": fingerprint, "tokens": tokens, "before": before, "after": mtimes(),
+            "last_rows": int(last.row_mask.sum()), "last_vision": last.vision.view(torch.int16).clone(),
+            "digest": whole, "sharded_digest": ttc.weights_digest(model.state_dict()),
+            "dtensors": sum(hasattr(t, "full_tensor") for t in model.state_dict().values())}
+
+
+def case_feature_cache(mesh, tmp: Path, sd: dict, cfg, paths: list, batch_size: int) -> dict:
+    """The feature cache of the lazy-load ``paths`` under the mesh, into an
+    in-memory store (filled whole on every rank), and the batches of
+    ``CachedFeatureLoader`` over it as this rank sees them."""
+    from phantom_vlb_tpu_torch.data.loader import BatchLoader, LazyDataset
+    from phantom_vlb_tpu_torch.data.schemas import MemoryStore
+    from phantom_vlb_tpu_torch.train.precompute import CachedFeatureLoader, build_feature_cache
+
+    model = make_model(cfg, sd)
+    loader = BatchLoader(LazyDataset(paths), batch_size, shuffle=False, prefetch=0, mesh=mesh)
+    store = MemoryStore()
+    n = build_feature_cache(model, loader, store, mesh)
+    cached = list(CachedFeatureLoader(store, batch_size, shuffle=True, seed=5, mesh=mesh))
+    return {"n": n, "store": {k: ({f: np.asarray(v) for f, v in g.items()} if isinstance(g, dict) else np.asarray(g))
+                              for k, g in store.items()},
+            "batches": cached, "last_rows": int(list(loader)[-1].row_mask.sum())}
+
+
+def case_cli(mesh, tmp: Path, argv: list, sd: dict | None = None) -> dict:
+    """``vlb-train-torch`` with ``argv`` on the launch's ranks (the group
+    this process joined); with ``sd``, the builder's random weights are
+    ``sd``'s tensors. The CLI leaves the group when it is done."""
+    from phantom_vlb_tpu_torch.cli.train import main
+    from phantom_vlb_tpu_torch.train import builder
+
+    if sd is not None:
+        builder.init_params = lambda cfg, device, generator: {k: t.clone() for k, t in sd.items()}
+    assert main(argv) == 0
+    return {}
+
+
 def case_many(mesh, tmp: Path, jobs: list) -> list:
     """Each (case, kwargs) of ``jobs`` in turn, in one launch."""
     return [CASES[name](mesh, tmp, **kwargs) for name, kwargs in jobs]
 
 
-CASES = {"steps": case_steps, "fit": case_fit, "products": case_products, "many": case_many}
+CASES = {"steps": case_steps, "fit": case_fit, "products": case_products, "token_cache": case_token_cache,
+         "feature_cache": case_feature_cache, "cli": case_cli, "many": case_many}
 
 
 def main() -> int:
