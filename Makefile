@@ -1,7 +1,8 @@
 # Developer targets (the reference ships a cookiecutter Makefile; these are
 # the useful equivalents for this repo).
 
-.PHONY: test test-fast lint bench bench-extract native clean parity parity-full
+.PHONY: test test-fast lint bench bench-extract native clean parity parity-full \
+	convert-orbax-torch parity-torch parity-real-torch
 
 test:
 	python -m pytest tests/ -q
@@ -50,6 +51,27 @@ parity-full:
 	JAX_PLATFORMS=cpu python scripts/full_width_parity.py --component clip --out /tmp/fwparity_clip
 	JAX_PLATFORMS=cpu python scripts/full_width_parity.py --component stc --oracle hf
 	JAX_PLATFORMS=cpu python scripts/full_width_parity.py --component stc --oracle timm
+
+# The PyTorch port (phantom_vlb_tpu_torch). A JAX run's Orbax checkpoints
+# (a checkpoint root, or one TrainState / adapters export / param tree) into
+# the port's layouts, in a new directory; run where orbax is installed.
+SRC ?=
+DST ?=
+convert-orbax-torch:
+	JAX_PLATFORMS=cpu python scripts/orbax_to_torch.py $(SRC) $(DST)
+
+# The port at full width against transformers and the HF STC oracle, on the
+# CPU, f32: Mistral at depth 4, CLIP ViT-L/14-336, the STC at 1024 -> 4096.
+parity-torch:
+	python scripts/full_width_parity_torch.py --component mistral --layers 4
+	python scripts/full_width_parity_torch.py --component clip
+	python scripts/full_width_parity_torch.py --component stc
+
+# The port's real-weights runbook; skips cleanly without CKPT.
+parity-real-torch:
+	python scripts/parity_real_torch.py \
+		$(if $(CKPT),--ckpt $(CKPT)) $(if $(TOK),--tokenizer $(TOK)) \
+		$(if $(LAYERS),--layers $(LAYERS))
 
 clean:
 	rm -rf .jax_cache

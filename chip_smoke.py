@@ -10,6 +10,8 @@ vision towers.
     python3 chip_smoke.py --after-train DIR # phase 9p alone, on 9t's DIR
     python3 chip_smoke.py --extract DIR     # phase 9e alone, under DIR
     python3 chip_smoke.py --remat DIR       # phase 8r alone (DIR is not written)
+    python3 chip_smoke.py --from-jax DIR    # phase 9j alone, under DIR
+    python3 chip_smoke.py --full-width DIR  # phase 9w alone, under DIR
     python -m torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR
         # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
     python -m torch.distributed.run --standalone --nproc_per_node=2 chip_smoke.py --tensor-pair DIR
@@ -158,6 +160,34 @@ Phases, each printed with its wall time; any failure exits non-zero:
    metrics.csv with an atlas of one label per ROI written by
    ``save_nifti`` (an HTML and a volume a val row, each parcel its r²).
    Where ``h5py`` imports, (a)-(c) also write and read the files;
+9j. a run of the JAX trainer resumed on the card, in a process of its own
+   (``--from-jax DIR``): a JAX ``TrainState``'s raw tree at full width from
+   a numpy seed (flax layouts, the decoder stacked in ``layers_scan``:
+   rank-16 adapters on the 7 projections of the 32 layers and the head,
+   AdamW's ``mu`` and ``nu``, the counts at step 5) and a
+   ``trainer_state.json``, converted by ``train/from_jax.py`` (the card's
+   machine has no orbax: the tree is handed over in place of Orbax's
+   reader); ``vlb_friends_lora model.lora_fused_dropout=true`` resumed from
+   the converted root through ``build_trainer`` and ``maybe_resume``:
+   tensors and both moments bit-equal to the tree laid out by hand, the
+   step, AdamW's per-tensor steps and the rate the schedule's; one LoRA
+   step from frames (the launches the code implies) and one val batch
+   served; the same step from the same tensors handed to a trainer
+   directly (``load_params``, ``load_state_dict``), twice: the first loss
+   bit-equal, the gradient norm within FROM_JAX_NORM_TOL, the updated
+   parameters within FROM_JAX_UPDATE_FLOOR_RATIO times the two direct
+   runs' gap; the conversion's seconds and bytes;
+9w. full-width weights in HF layout, in a process of its own
+   (``--full-width DIR``): a random 4-layer Mistral-7B with the CLIP
+   tower (24 layers and ``post_layernorm``) and the STC connector, under
+   VideoLLaMA2's keys (and ``lm_head``), made on the card and written by
+   the port's safetensors writer; ``vlb_friends_baseline
+   model.checkpoint_path=DIR/hf`` (the decoder cut to 4 layers) built in
+   bf16 through ``load_pretrained_params``, and the same shards in f32;
+   one batch of 2 from frames at S = 2048 through each, the bf16 one on
+   the hand kernels (4 flash forwards), the f32 one on the plain attention
+   with TF32 off: each decoder layer's output, the final norm, the video
+   tokens and the predictions within FULL_WIDTH_TOL;
 9e. the first two stages users run, in a process of its own (``--extract
    DIR``; its peak host RSS held to the same bound), at the geometry of
    record (TR 1.49 s, 4 frames a TR, window 3, 336 px, 866 text ids, 64
@@ -278,11 +308,11 @@ import faulthandler
 import gc
 import hashlib
 import json
+import math
 import os
 import resource
 import shutil
 import signal
-import struct
 import subprocess
 import sys
 import tempfile
@@ -323,8 +353,9 @@ from phantom_vlb_tpu_torch.data.synthetic import write_synthetic_bold_file
 from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer, read_tsv, validate_joiner_counts
 from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, dataset_fingerprint, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
-from phantom_vlb_tpu_torch.models.convert import hf_key, init_params
+from phantom_vlb_tpu_torch.models.convert import hf_key, init_params, write_safetensors
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig, adapter_dropout
+from phantom_vlb_tpu_torch.models import mistral as mistral_module
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl, set_remat_policy
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
 from phantom_vlb_tpu_torch.models.videollama2 import (
@@ -411,7 +442,8 @@ from phantom_vlb_tpu_torch.train.builder import (
 from phantom_vlb_tpu_torch.train import builder as train_builder
 from phantom_vlb_tpu_torch.train.checkpoint import ADAPTERS_FILE, STATE_FILE
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer, is_adapter, train_batches
-from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger
+from phantom_vlb_tpu_torch.train.from_jax import convert as convert_from_jax
+from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger, NullMetricsLogger
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
 from phantom_vlb_tpu_torch.train.precompute import build_feature_cache, head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
@@ -562,6 +594,27 @@ CACHED_HEAD_TOL = 1e-5
 # 1.73e-2 for the tokens (printed, not held). Each gap is held within
 # TOKEN_GRAD_TOL, and the tokens' within TOKEN_FLOOR_RATIO times the floor.
 TOKEN_GRAD_TOL, TOKEN_FLOOR_RATIO, TOKEN_LOSS_TOL = 1e-2, 1.25, 1e-3
+# Phase 9j: a step resumed from a converted JAX state against the same step
+# from the same tensors handed over directly. The first loss is a forward
+# of the same bits, so bit-equal. The backward sums dq's reduce-adds in a
+# run-dependent order: the gradient norm, one scalar, moved 1.4e-6 to
+# 2.1e-5 (at 5.13) between two direct runs in four calls, so it is held to
+# FROM_JAX_NORM_TOL relative (~25x the widest); the parameters after the
+# update, where the moments enter (a moment mapped wrong moves every
+# update by its own size), are held as a whole by 2-norm within
+# FROM_JAX_UPDATE_FLOOR_RATIO times the gap of the two direct runs.
+FROM_JAX_NORM_TOL = 1e-4
+FROM_JAX_UPDATE_FLOOR_RATIO = 2.0
+# Phase 9w: the bf16 hand-kernel forward of a full-width checkpoint against
+# the f32 plain forward of the same shards on the card (TF32 off), each
+# decoder layer's output, the final norm, the video tokens and the
+# predictions as |err| / |ref| by 2-norm: bf16 activations round at 2^-9 a
+# time, ~10 times a layer on the residual path (norm, q/k/v, attention, o,
+# residual, gate/up, SiLU product, down), adding in quadrature to ~1.3e-2
+# over 4 layers; the tower's 23 layers and the STC's convolutions round as
+# often, each after an f32 LayerNorm (narrow towers on the CPU: 1.1e-2).
+# The bound is ~4x that estimate.
+FULL_WIDTH_TOL = 5e-2
 HOST_RSS_LIMIT_GB = 8.0
 GEMM_MARKERS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 QUEUE_FULL = "Command Buffer Full"
@@ -2243,26 +2296,6 @@ LORA_TRAIN_OVERRIDES = ("trainer.max_epochs=2", "trainer.val_check_interval=0.5"
 TRAIN_BATCHES, VAL_BATCHES = 4, 2          # LoRA run: 8 steps, 4 validations
 BASELINE_TRAIN_BATCHES = 3
 NAN_STEPS = (2, 3, 4)                      # 0-based: steps 3-5 have NaN targets
-SAFETENSORS_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
-                     torch.int8: "I8", torch.int32: "I32"}
-
-
-def write_safetensors(path: Path, tensors: dict) -> None:
-    """A safetensors file: an 8-byte little-endian header length, a JSON
-    header (dtype, shape and byte offsets of each tensor), then the bytes."""
-    header, blobs, offset = {}, [], 0
-    for key, t in tensors.items():
-        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
-        header[key] = {"dtype": SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
-                       "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    text = json.dumps(header).encode()
-    text += b" " * (-len(text) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(text)) + text)
-        for raw in blobs:
-            f.write(raw)
 
 
 def compose(experiment: str, out: Path, *overrides: str):
@@ -4185,6 +4218,353 @@ def rank_child(out: str, body) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 9j: a run of the JAX trainer resumed on the card (``--from-jax DIR``).
+# A JAX TrainState's raw tree (what scripts/orbax_to_torch.py restores from
+# Orbax: flax layouts, the decoder stacked in ``layers_scan``, frozen leaves
+# None) is made at full width from a numpy seed, converted by
+# train/from_jax.py (the card's machine has no orbax: a restore that hands
+# over that tree stands in for Orbax's reader), and vlb-train-torch's
+# trainer resumes from the converted root.
+
+FROM_JAX_STEP = 5                          # the JAX run's applied updates
+# (site, projection) -> (input, output) width of Mistral-7B's projections.
+PROJ_WIDTHS = {("self_attn", "q_proj"): (4096, 4096), ("self_attn", "k_proj"): (4096, 1024),
+               ("self_attn", "v_proj"): (4096, 1024), ("self_attn", "o_proj"): (4096, 4096),
+               ("mlp", "gate_proj"): (4096, 14336), ("mlp", "up_proj"): (4096, 14336),
+               ("mlp", "down_proj"): (14336, 4096)}
+FROM_JAX_OVERRIDES = ("trainer.max_epochs=1", "model.lora_fused_dropout=true", "trainer.resume=true")
+
+
+def jax_trainable_tree(layers: int, rank: int, hidden: int, targets: int, rng: np.random.Generator,
+                       kind: str) -> dict:
+    """The JAX trainer's trainable subtree at full width in flax layouts:
+    ``model/layers_scan/<site>/<proj>/lora_a`` (L, in, r) and ``lora_b``
+    (L, r, out), the base kernels and norms None; the head's LayerNorm
+    ``scale``/``bias`` and the ridge ``kernel`` (in, out). ``kind``: the
+    parameters, or AdamW's first or second moments (non-negative)."""
+    def draw(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return np.abs(a) if kind == "nu" else a
+
+    big, small = {"param": (1.0, 0.01), "mu": (1e-4, 1e-4), "nu": (1e-8, 1e-8)}[kind]
+    scan: dict = {"input_layernorm": {"weight": None}, "post_attention_layernorm": {"weight": None}}
+    for (site, proj), (n_in, n_out) in PROJ_WIDTHS.items():
+        scan.setdefault(site, {})[proj] = {
+            "kernel": None, "lora_a": draw((layers, n_in, rank), big / np.sqrt(n_in)),
+            "lora_b": draw((layers, rank, n_out), small)}
+    head = {f"layer_norm{i}": {"scale": (1.0 + draw((hidden,), 0.1)) if kind == "param" else draw((hidden,), big),
+                               "bias": draw((hidden,), small)} for i in (1, 2)}
+    head["ridge"] = {"linear": {"kernel": draw((hidden, targets), big / np.sqrt(hidden)),
+                                "bias": draw((targets,), small)}}
+    return {"model": {"embed_tokens": {"embedding": None}, "layers_scan": scan, "norm": {"weight": None}},
+            "head": head}
+
+
+def port_layout(tree: dict, layers: int) -> dict[str, np.ndarray]:
+    """``tree``'s arrays by the port's names, laid out by hand: layer l of a
+    stacked factor as it is, the ridge kernel transposed, LayerNorm
+    ``scale`` as ``weight``."""
+    out = {}
+    for (site, proj) in PROJ_WIDTHS:
+        for f in ("lora_a", "lora_b"):
+            stacked = tree["model"]["layers_scan"][site][proj][f]
+            for layer in range(layers):
+                out[f"model.layers.{layer}.{site}.{proj}.{f}"] = stacked[layer]
+    for i in (1, 2):
+        ln = tree["head"][f"layer_norm{i}"]
+        out[f"head.layer_norm{i}.weight"], out[f"head.layer_norm{i}.bias"] = ln["scale"], ln["bias"]
+    ridge = tree["head"]["ridge"]["linear"]
+    out["head.ridge.linear.weight"], out["head.ridge.linear.bias"] = ridge["kernel"].T, ridge["bias"]
+    return out
+
+
+def direct_trainer(model, trainer, tensors: dict, dev) -> VLBTrainer:
+    """A trainer over ``model`` handed ``tensors`` ("param", "mu", "nu" by
+    name) straight, through ``load_params`` and ``load_state_dict``."""
+    direct = VLBTrainer(model, trainer.optimizer.config,
+                        TrainLoopConfig(seed=trainer.config.seed, checkpoint=False, num_target=trainer.config.num_target),
+                        device=dev, csv_logger=NullMetricsLogger())
+    names = list(direct.trainable)
+    direct.load_params({n: tensors["param"][n] for n in names})
+    state = {i: {"step": torch.tensor(float(FROM_JAX_STEP)), "exp_avg": tensors["mu"][n].clone(),
+                 "exp_avg_sq": tensors["nu"][n].clone()}
+             for i, n in enumerate(names)}
+    direct.optimizer.load_state_dict({"step": FROM_JAX_STEP, "adamw": {
+        "state": state, "param_groups": direct.optimizer.adamw.state_dict()["param_groups"]}})
+    direct.global_step = FROM_JAX_STEP
+    return direct
+
+
+def from_jax_child(out: str) -> int:
+    """``--from-jax DIR``: phase 9j in this process, under DIR; prints one
+    JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    card = card_name_and_power()
+    cfg = VLBConfig.full(use_lora=True)
+    layers, rank = cfg.mistral.num_hidden_layers, cfg.mistral.lora.rank
+    hidden, targets = cfg.mistral.hidden_size, cfg.num_target
+    with phase("9j (a) a JAX TrainState at full width from a numpy seed, converted"):
+        rng = np.random.default_rng(SEED)
+        trees = {kind: jax_trainable_tree(layers, rank, hidden, targets, rng, kind) for kind in ("param", "mu", "nu")}
+        count = np.asarray(FROM_JAX_STEP, np.int32)
+        # optax's chain(clip_by_global_norm, adamw) restored raw: the clip's
+        # and the weight decay's empty states None, Adam's and the schedule's.
+        state = {"step": count, "params": trees["param"],
+                 "opt_state": [None, [{"count": count, "mu": trees["mu"], "nu": trees["nu"]}, None,
+                                      {"count": count}]]}
+        jax_root = root / "jax"
+        (jax_root / "last").mkdir(parents=True)
+        (jax_root / "last" / "_METADATA").write_text("{}")       # an Orbax directory's marker
+        meta = {"es_best": float("inf"), "es_strikes": 0, "best_metric": 1.25, "best_path": "",
+                "epoch": 0, "global_step": FROM_JAX_STEP}
+        (jax_root / "trainer_state.json").write_text(json.dumps(meta))
+        n_leaves = sum(1 for kind in trees.values() for _ in _leaves(kind))
+        report, kinds = convert_from_jax(jax_root, root / "port", lambda path: state)
+        print(f"  {n_leaves} leaves ({sum(a.nbytes for t in trees.values() for a in _leaves(t)) / 1e6:.1f} MB "
+              f"f32: {layers} layers' rank-{rank} adapters on 7 projections and the head, with mu and nu); "
+              f"kinds {kinds}; converted in {report.seconds:.3f} s: {len(report.files)} files, {report.bytes} "
+              f"bytes ({card})")
+        # The tree laid out by hand, kept on the card; the host's copies go.
+        want = {kind: {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for n, a in port_layout(trees[kind], layers).items()} for kind in trees}
+        del trees, state
+    with phase("9j (b) vlb-train-torch's trainer resumed from the converted root"):
+        config = compose("vlb_friends_lora", root / "port", *FROM_JAX_OVERRIDES)
+        train, val = frame_loaders(config, 1, 1, gen, dev)
+        trainer, train, val = build_trainer(config, device=dev, loaders=(train, val))
+        if not trainer.maybe_resume():
+            raise AssertionError("the converted root did not resume")
+        opt = trainer.optimizer.state_dict()
+        names = list(trainer.trainable)
+        if set(names) != set(want["param"]):
+            raise AssertionError(f"trainable {sorted(set(names) ^ set(want['param']))[:8]} differ")
+        bit_equal = all(torch.equal(trainer.trainable[n], want["param"][n])
+                        and torch.equal(opt["adamw"]["state"][i]["exp_avg"], want["mu"][n])
+                        and torch.equal(opt["adamw"]["state"][i]["exp_avg_sq"], want["nu"][n])
+                        for i, n in enumerate(names))
+        steps = {float(s["step"]) for s in opt["adamw"]["state"].values()}
+        del opt
+        ocfg = trainer.optimizer.config
+        lr = learning_rate(ocfg, trainer.optimizer.step)
+        lr_want = ocfg.lr * (1.0 + math.cos(math.pi * FROM_JAX_STEP / ocfg.t_max)) / 2.0
+        print(f"  resumed at step {trainer.global_step} (schedule {trainer.optimizer.step}, AdamW's per-tensor "
+              f"steps {sorted(steps)}), lr {lr!r} against the schedule's {lr_want!r}; {len(names)} tensors and "
+              f"both moments bit-equal to the tree after layout: {bit_equal}; best metric "
+              f"{trainer.ckpt.best_metric} carried")
+        if not (bit_equal and trainer.global_step == trainer.optimizer.step == FROM_JAX_STEP
+                and steps == {float(FROM_JAX_STEP)} and lr == lr_want and trainer.ckpt.best_metric == 1.25):
+            raise AssertionError("the resumed state is not the JAX state")
+    with phase("9j (c) one LoRA step from frames, one val batch served"):
+        trainer.model.train()                  # as fit sets it: the adapters' dropout on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        first = trainer.train_one(train[0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        updated = {n: p.detach().clone() for n, p in trainer.trainable.items()}
+        launches = read_launches()
+        want_launches = expected_train_launches(layers, 1)
+        if launches != want_launches:
+            raise AssertionError(f"the resumed step launched {launches}, want {want_launches}")
+        reset_launches()
+        served = predict_batches(trainer.model.eval(), val, dev)
+        serve_launches = read_launches()
+        check_predictions(served, LORA_BATCH, targets)
+        if serve_launches["flash_fwd"] != layers or sum(serve_launches.values()) != layers:
+            raise AssertionError(f"the served batch launched {serve_launches}")
+        loss, norm = float(first["brain_loss"]), float(first["grad_norm"])
+        print(f"  step {trainer.optimizer.step}: brain_loss {loss!r}, grad norm {norm!r}, {step_ms:.1f} ms, "
+              f"launches { {k: v for k, v in launches.items() if v} }, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; one val batch served ({serve_launches['flash_fwd']} "
+              f"flash_fwd) ({card})")
+    with phase("9j (d) the same step from the same tensors handed over directly (twice: the floor)"):
+        direct = []
+        for _ in range(2):
+            d = direct_trainer(trainer.model.train(), trainer, want, dev)
+            out = d.train_one(train[0])
+            direct.append((float(out["brain_loss"]), float(out["grad_norm"]),
+                           {n: p.detach().clone() for n, p in d.trainable.items()}))
+            del d
+        (loss_b, norm_b, upd_b), (loss_c, norm_c, upd_c) = direct
+
+        def apart(x: dict, y: dict) -> float:
+            return float(torch.stack([(x[n] - y[n]).float().square().sum() for n in x]).sum().sqrt())
+
+        gap, floor = abs(norm - norm_b), abs(norm_b - norm_c)
+        upd_gap, upd_floor = apart(updated, upd_b), apart(upd_b, upd_c)
+        upd_size = apart(upd_b, want["param"])
+        loss_equal = loss == loss_b == loss_c
+        print(f"  first loss bit-equal to the direct trainers': {loss_equal} ({loss!r}, {loss_b!r}, {loss_c!r}); "
+              f"grad norm {norm!r} against {norm_b!r} (bit-equal {gap == 0.0}; the two direct runs {floor:.3e} "
+              f"apart: dq's reduce-adds sum in a run-dependent order); the updated tensors {upd_gap:.3e} from the "
+              f"direct trainer's by 2-norm, the two direct runs {upd_floor:.3e} apart (the update itself "
+              f"{upd_size:.3e})")
+        if not loss_equal:
+            raise AssertionError("the converted state's first loss differs from the directly loaded one's")
+        if gap > FROM_JAX_NORM_TOL * norm_b:
+            raise AssertionError(f"grad norm {gap:.3e} from the direct trainer's, over {FROM_JAX_NORM_TOL} relative")
+        if upd_gap > FROM_JAX_UPDATE_FLOOR_RATIO * upd_floor:
+            raise AssertionError(f"the update {upd_gap:.3e} from the direct trainer's, over "
+                                 f"{FROM_JAX_UPDATE_FLOOR_RATIO} x the floor {upd_floor:.3e}")
+    record = {"convert_s": report.seconds, "convert_bytes": report.bytes, "step_ms": step_ms,
+              "loss": loss, "grad_norm": norm, "grad_norm_gap": gap, "grad_norm_floor": floor,
+              "update_gap": upd_gap, "update_floor": upd_floor, "update_size": upd_size,
+              "peak_rss_gb": peak_rss_gb()}
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"9j's peak host RSS {record['peak_rss_gb']:.2f} GB is over {HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif v is not None:
+            yield v
+
+
+# ---------------------------------------------------------------------------
+# Phase 9w: full-width weights in HF layout on the card (``--full-width
+# DIR``): a random 4-layer Mistral-7B with the CLIP tower and the STC in
+# VideoLLaMA2's key layout, written by the port's safetensors writer, loaded
+# through load_pretrained_params in bf16 (the hand kernels) and in f32 (the
+# plain attention, TF32 off), both on the card, and served one batch from
+# frames at S = 2048.
+
+FULL_WIDTH_LAYERS = 4
+FULL_WIDTH_BATCH = 2
+
+
+def hf_shards(out: Path, cfg: VLBConfig, gen, dev) -> tuple[int, int]:
+    """The model's frozen weights under VideoLLaMA2's HF keys, made on the
+    card from ``gen``, a shard each decoder layer and one each for the rest,
+    the tower's and the connector's; with what a real checkpoint holds and
+    the feature path never reads (``lm_head``, the tower's last layer and
+    ``post_layernorm``). Returns (tensors, bytes)."""
+    sd = init_params(cfg, dev, gen)
+    hf = {hf_key(k): t for k, t in sd.items() if hf_key(k) is not None}
+    del sd
+    h, vision = cfg.mistral.hidden_size, "model.vision_tower.vision_tower.vision_model."
+    extra = {"lm_head.weight": torch.randn(cfg.mistral.vocab_size, h, generator=gen, device=dev,
+                                           dtype=torch.bfloat16).mul_(0.02),
+             vision + "post_layernorm.weight": torch.ones(cfg.clip.hidden_size, device=dev),
+             vision + "post_layernorm.bias": torch.zeros(cfg.clip.hidden_size, device=dev)}
+    last = f"{vision}encoder.layers.{cfg.clip.effective_layers - 1}."
+    extra.update({f"{vision}encoder.layers.{cfg.clip.effective_layers}." + k[len(last):]: t.clone()
+                  for k, t in hf.items() if k.startswith(last)})
+    hf.update(extra)
+    groups: dict[str, dict] = {}
+    for k, t in hf.items():
+        name = (f"model-layer-{int(k.split('.')[2]):05d}" if k.startswith("model.layers.")
+                else "vision" if k.startswith(vision) else "stc" if k.startswith("model.mm_projector.")
+                else "model-top")
+        groups.setdefault(name, {})[k] = t
+    out.mkdir(parents=True)
+    size = sum(write_safetensors(out / f"{name}.safetensors", tensors) for name, tensors in groups.items())
+    return len(hf), size
+
+
+def layer_outputs(model):
+    """Forward hooks on each decoder layer and the final norm: their outputs
+    (f32 copies) in order, appended to the returned list."""
+    outs, handles = [], []
+    for module in [*model.model.layers, model.model.norm]:
+        handles.append(module.register_forward_hook(lambda m, a, o: outs.append(o.float().clone())))
+    return outs, handles
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def full_width_child(out: str) -> int:
+    """``--full-width DIR``: phase 9w in this process, under DIR; prints one
+    JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(out)
+    card = card_name_and_power()
+    cut_decoder_depth(FULL_WIDTH_LAYERS)
+    config = compose("vlb_friends_baseline", root / "run", f"model.checkpoint_path={root / 'hf'}")
+    cfg = train_builder.build_model_config(config.model)              # the cut depth
+    with phase(f"9w (a) a random {FULL_WIDTH_LAYERS}-layer full-width checkpoint in HF layout, written"):
+        t0 = time.perf_counter()
+        n, size = hf_shards(root / "hf", cfg, gen, dev)
+        write_s = time.perf_counter() - t0
+        print(f"  {n} tensors, {size / 1e9:.3f} GB bf16 in {len(list((root / 'hf').iterdir()))} shards, written in "
+              f"{write_s:.2f} s by the port's writer ({card})")
+        torch.cuda.empty_cache()
+    with phase("9w (b) loaded through load_pretrained_params in bf16"):
+        t0 = time.perf_counter()
+        model = build_model(config.model, SEED + 1, dev)       # other random weights under the checkpoint's
+        load_s = time.perf_counter() - t0
+    with phase("9w (c) the same shards in f32"):
+        f32 = VLBConfig.full(mistral=dataclasses.replace(cfg.mistral, dtype=torch.float32),
+                             clip=dataclasses.replace(cfg.clip, dtype=torch.float32),
+                             stc=dataclasses.replace(cfg.stc, dtype=torch.float32))
+        params = {k: t.float() for k, t in model.state_dict().items()}
+        reference = VideoLLaMA2VLB.from_state_dict(f32, load_pretrained_params(f32, root / "hf", params))
+        del params
+    with phase("9w (d) one batch from frames at S = 2048 through each"):
+        batch = synthetic_batches(cfg, 1, FULL_WIDTH_BATCH, np.random.default_rng(SEED), gen, dev, frames=True)
+        outs, handles = layer_outputs(model)
+        reset_launches()
+        got = predict_batches(model, batch, dev)
+        launches = read_launches()
+        for hnd in handles:
+            hnd.remove()
+        want_outs, handles = layer_outputs(reference)
+        reset_launches()
+        with plain_attention():
+            want = predict_batches(reference, batch, dev)
+        plain_launches = read_launches()
+        for hnd in handles:
+            hnd.remove()
+        if launches["flash_fwd"] != FULL_WIDTH_LAYERS or sum(launches.values()) != FULL_WIDTH_LAYERS \
+                or sum(plain_launches.values()):
+            raise AssertionError(f"bf16 launched {launches}, f32 {plain_launches}")
+        video = batch[0]["vision"]
+        tokens_err = rel_norm(model.encode_video(video), reference.encode_video(video))
+        errs = [rel_norm(g, w) for g, w in zip(outs, want_outs)]
+        pred_err = rel_norm(torch.from_numpy(got["predicted"]), torch.from_numpy(want["predicted"]))
+        print(f"  loaded in {load_s:.2f} s (bf16); bf16 hand-kernel forward against the f32 plain forward of the "
+              f"same shards (TF32 off), |err| / |ref| by 2-norm: video tokens {tokens_err:.3e}; decoder layers "
+              f"{[f'{e:.3e}' for e in errs[:-1]]}, final norm {errs[-1]:.3e}; predictions {pred_err:.3e}; tolerance "
+              f"{FULL_WIDTH_TOL} (bf16 activations, 2^-9 a rounding, ~10 roundings a layer on the residual path "
+              f"over {FULL_WIDTH_LAYERS} layers; the f32 side exact to ~1e-6); launches {launches}, f32 plain 0 "
+              f"({card})")
+        if max(errs + [tokens_err, pred_err]) > FULL_WIDTH_TOL:
+            raise AssertionError("the bf16 full-width forward is off the f32 one")
+    record = {"write_s": write_s, "bytes": size, "load_s": load_s, "layer_err": errs, "tokens_err": tokens_err,
+              "pred_err": pred_err, "peak_rss_gb": peak_rss_gb()}
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"9w's peak host RSS {record['peak_rss_gb']:.2f} GB is over {HOST_RSS_LIMIT_GB}")
+    return 0
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The decoder's attention through its plain PyTorch version on CUDA
+    tensors (f32, which the kernel does not take), in this process."""
+    real = mistral_module.attention_packed
+    mistral_module.attention_packed = attention_packed_plain
+    try:
+        yield
+    finally:
+        mistral_module.attention_packed = real
+
+
 def run_sharded(out: str, nproc: int, flag: str, label: str, timeout: int) -> dict:
     """``chip_smoke.py flag out`` on ``nproc`` processes through
     ``torch.distributed.run --standalone``; the ranks' output is passed on
@@ -4253,6 +4633,10 @@ def main() -> int:
         return after_train_child(sys.argv[2])
     if sys.argv[1:2] == ["--extract"]:
         return extract_child(sys.argv[2])
+    if sys.argv[1:2] == ["--from-jax"]:
+        return from_jax_child(sys.argv[2])
+    if sys.argv[1:2] == ["--full-width"]:
+        return full_width_child(sys.argv[2])
     if sys.argv[1:2] == ["--remat"]:
         return remat_child(sys.argv[2])
     if sys.argv[1:2] in (["--sharded"], ["--sharded-pair"]):
@@ -4374,6 +4758,25 @@ def main() -> int:
                   f"9t's baseline step from frames {[round(x, 3) for x in trained['baseline_step_ms']]}; LoRA step "
                   f"from cached tokens {[round(x, 3) for x in after['tokens_step_ms']]} against from frames "
                   f"{[round(x, 3) for x in after['frames_step_ms']]} ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="from-jax-", dir=BUILD_ROOT)
+    try:
+        with phase("9j a JAX run's state converted and resumed on the card, in a process of its own"):
+            resumed = run_child("--from-jax", out, "the from-JAX phase", 600)
+            print(f"  converted in {resumed['convert_s']:.3f} s ({resumed['convert_bytes']} bytes); the resumed step "
+                  f"{resumed['step_ms']:.1f} ms, grad norm {resumed['grad_norm_gap']:.3e} from the direct trainer's "
+                  f"(floor {resumed['grad_norm_floor']:.3e}), the update {resumed['update_gap']:.3e} (floor "
+                  f"{resumed['update_floor']:.3e}) ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="full-width-", dir=BUILD_ROOT)
+    try:
+        with phase("9w full-width weights in HF layout, bf16 hand kernels against f32 plain, in a process of its own"):
+            wide = run_child("--full-width", out, "the full-width phase", 600)
+            print(f"  wrote {wide['bytes'] / 1e9:.3f} GB in {wide['write_s']:.2f} s, loaded in {wide['load_s']:.2f} s; "
+                  f"worst layer {max(wide['layer_err']):.3e}, tokens {wide['tokens_err']:.3e}, predictions "
+                  f"{wide['pred_err']:.3e} (tolerance {FULL_WIDTH_TOL}) ({card})")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     out = tempfile.mkdtemp(prefix="extract-", dir=BUILD_ROOT)

@@ -22,4 +22,6 @@ Entry points default to ``device="cuda"`` and raise when no card is present;
 pass ``device="cpu"`` to run on the CPU.
 """
 
-__version__ = "0.1.0"
+from phantom_vlb_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

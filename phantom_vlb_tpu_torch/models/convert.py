@@ -36,21 +36,30 @@ existing state dict in place, projection by projection, on its device.
 
 :class:`SafetensorsDir` reads the ``*.safetensors`` shards of a directory
 (VideoLLaMA2's HF keys) on demand: the 8-byte header length, the JSON
-header, then ``torch.frombuffer`` over a private ``mmap`` of the file, one
-tensor at a time, copied to the target device (BF16, F16, F32, I8 and I32).
-The pages a tensor was read from are handed back after its copy, so host
-RSS stays near one tensor. :func:`hf_key` names the HF key a state-dict
+header, then each tensor's bytes read into a host buffer of its own when
+it is asked for (``readinto`` at its offset), copied to the target device
+(BF16, F16, F32, I8 and I32). The files are never mapped: on the card's
+machine the pages of a mapping stayed resident after ``madvise``, and a
+3.9 GB checkpoint raised the reader's RSS by 3.1 GB; read so, host RSS
+stays near one tensor. :func:`hf_key` names the HF key a state-dict
 key is read from, the mapping that ``convert_mistral`` (:130),
 ``convert_clip_vision`` (:169) and ``convert_stc_connector`` (:224) of
 ``phantom_vlb_tpu/models/convert.py`` define; HF's layout is PyTorch's, so
-it is renames only.
+it is renames only. Shards tagged :data:`PORT_LAYOUT` in their
+``__metadata__`` hold this package's own state-dict names instead
+(``train/from_jax.py`` writes a JAX param tree so).
+:func:`write_safetensors` writes a shard, one tensor's bytes at a time.
+
+A Flax leaf may be f32, int8 or bf16 (an ``ml_dtypes`` array, as Orbax
+restores one; read through its 16-bit pattern), a ``None`` (a frozen leaf
+of a trainable subtree: skipped), or a callable that returns the array
+when the leaf is reached (a leaf not yet read from disk).
 """
 
 from __future__ import annotations
 
 import json
 import math
-import mmap
 import re
 import struct
 from pathlib import Path
@@ -64,8 +73,9 @@ from phantom_vlb_tpu_torch.models.lora import is_lora_path
 from phantom_vlb_tpu_torch.models.videollama2 import VLBConfig, VideoLLaMA2VLB, is_norm, stored_dtype
 from phantom_vlb_tpu_torch.ops.quant import quantize_int8
 
-__all__ = ["from_flax_params", "init_params", "SafetensorsDir", "hf_key", "HF_VISION_PREFIX",
-           "HF_STC_PREFIX"]
+__all__ = ["from_flax_params", "flax_leaf_arrays", "flax_paths", "to_tensor", "init_params",
+           "SafetensorsDir", "write_safetensors", "hf_key", "HF_VISION_PREFIX", "HF_STC_PREFIX",
+           "PORT_LAYOUT"]
 
 INIT_STD = 0.02  # HF Mistral's initializer_range (and CLIP's)
 
@@ -109,6 +119,19 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple[tuple, object]
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def flax_paths(tree: Mapping) -> list[tuple]:
+    """The paths of ``tree``'s leaves that hold a value (not ``None``)."""
+    return [path for path, leaf in _flatten(tree) if leaf is not None]
+
+
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A tensor of its own holding ``a``: bf16 (``ml_dtypes``, which
+    ``torch.from_numpy`` refuses) through its 16-bit pattern."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, order="C").view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C"))
 
 
 def _unconsumed(path: tuple) -> ValueError:
@@ -187,28 +210,40 @@ def _layer_keys(path: tuple, group: int, n: int) -> list[str]:
     return [f"{root}.layers.{j * max(group, 1) + g}.{suffix}" for j in range(n)]
 
 
-def from_flax_params(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``params`` tree of ``VideoLLaMA2VLB`` -> this package's state dict (CPU)."""
-    sd: dict[str, torch.Tensor] = {}
-
-    def put(key: str, a: np.ndarray, name: str) -> None:
-        if key in sd:
-            raise ValueError(f"{key} given twice")
-        sd[key] = torch.from_numpy(np.array(_layout(a, name), order="C"))      # own copy
-
+def flax_leaf_arrays(tree: Mapping) -> Iterator[tuple[tuple, list[tuple[str, np.ndarray]]]]:
+    """For each leaf of a Flax ``params`` tree of ``VideoLLaMA2VLB`` that
+    holds a value, in tree order: its path and the (state-dict key, array
+    in PyTorch's layout) pairs it maps to, the arrays views of the leaf
+    (one a layer of a stacked leaf). A callable leaf is called when
+    reached, so one leaf is in memory at a time."""
     for path, leaf in _flatten(tree):
-        a = np.asarray(leaf)
-        if path in _FIXED:
-            put(_FIXED[path], a, path[-1])
-        elif path[0] == "mm_projector":
-            put(_stc_key(path), a, path[-1])
-        elif path[0] in ("model", "vision_tower") and len(path) >= 3:
-            group = sum(1 for k in tree[path[0]].get("layers_scan", {}) if k.startswith("sub_"))
-            keys = _layer_keys(path, group, len(a))
-            for key, x in zip(keys, a if path[1] == "layers_scan" else [a]):
-                put(key, x, path[-1])
-        else:
-            raise _unconsumed(path)
+        if leaf is not None:
+            yield path, _leaf_pairs(tree, path, leaf)
+
+
+def _leaf_pairs(tree: Mapping, path: tuple, leaf) -> list[tuple[str, np.ndarray]]:
+    a = np.asarray(leaf() if callable(leaf) else leaf)
+    if path in _FIXED:
+        return [(_FIXED[path], _layout(a, path[-1]))]
+    if path[0] == "mm_projector":
+        return [(_stc_key(path), _layout(a, path[-1]))]
+    if path[0] in ("model", "vision_tower") and len(path) >= 3:
+        group = sum(1 for k in tree[path[0]].get("layers_scan", {}) if k.startswith("sub_"))
+        keys = _layer_keys(path, group, len(a))
+        slices = a if path[1] == "layers_scan" else [a]
+        return [(key, _layout(x, path[-1])) for key, x in zip(keys, slices)]
+    raise _unconsumed(path)
+
+
+def from_flax_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ``params`` tree of ``VideoLLaMA2VLB`` -> this package's state dict
+    (CPU tensors of their own, in the leaves' dtypes)."""
+    sd: dict[str, torch.Tensor] = {}
+    for _, pairs in flax_leaf_arrays(tree):
+        for key, a in pairs:
+            if key in sd:
+                raise ValueError(f"{key} given twice")
+            sd[key] = to_tensor(a)
     return sd
 
 
@@ -271,6 +306,49 @@ SAFETENSORS_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch
                       "I8": torch.int8, "I32": torch.int32}
 HF_VISION_PREFIX = "model.vision_tower.vision_tower.vision_model."
 HF_STC_PREFIX = "model.mm_projector."
+# The ``__metadata__`` of shards keyed by this package's state-dict names.
+PORT_LAYOUT = {"format": "pt", "layout": "phantom_vlb_tpu_torch"}
+_NUMPY_NAMES = {"float32": "F32", "float16": "F16", "int8": "I8", "int32": "I32", "bfloat16": "BF16"}
+
+
+def _dtype_name(t) -> str:
+    """The safetensors dtype name of a tensor or a numpy array."""
+    name = ({v: k for k, v in SAFETENSORS_DTYPES.items()}.get(t.dtype) if isinstance(t, torch.Tensor)
+            else _NUMPY_NAMES.get(t.dtype.name))
+    if name is None:
+        raise ValueError(f"safetensors shards here hold {sorted(SAFETENSORS_DTYPES)}, not {t.dtype}")
+    return name
+
+
+def _host_bytes(t) -> np.ndarray:
+    """A flat uint8 view of a contiguous host copy of ``t``."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(t).reshape(-1).view(np.uint8)
+
+
+def write_safetensors(path: str | Path, tensors: Mapping[str, object],
+                      metadata: Mapping[str, str] | None = None) -> int:
+    """A safetensors file at ``path``: an 8-byte little-endian header length,
+    a JSON header (``__metadata__``, then each tensor's dtype, shape and
+    byte offsets) padded to 8 bytes, then the bytes. ``tensors`` maps keys
+    to numpy arrays (bf16 ones included) or tensors on any device; each is
+    copied to the host when its bytes are written, so the host holds one
+    at a time. Returns the bytes written."""
+    header: dict[str, object] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for key, t in tensors.items():
+        dtype = _dtype_name(t)
+        nbytes = math.prod(t.shape) * SAFETENSORS_DTYPES[dtype].itemsize
+        header[key] = {"dtype": dtype, "shape": list(t.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)) + text)
+        for t in tensors.values():
+            f.write(memoryview(_host_bytes(t)))
+    return 8 + len(text) + offset
 
 
 class SafetensorsDir(Mapping):
@@ -279,17 +357,23 @@ class SafetensorsDir(Mapping):
 
     def __init__(self, path: str | Path, device: str | torch.device = "cpu"):
         self.device = torch.device(device)
-        self._maps: list[mmap.mmap] = []
+        self._files: list = []
         self._index: dict[str, tuple] = {}     # key -> (shard, dtype, shape, begin, end)
+        self.metadata: dict[str, str] | None = None     # the shards' ``__metadata__`` (all alike)
         shards = sorted(Path(path).glob("*.safetensors"))
         if not shards:
             raise FileNotFoundError(f"no *.safetensors shards under {path}")
-        for shard in shards:
-            with open(shard, "rb") as f:
-                (n,) = struct.unpack("<Q", f.read(8))
-                header = json.loads(f.read(n))
-                size = f.seek(0, 2)
-                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+        for i, shard in enumerate(shards):
+            f = open(shard, "rb", buffering=0)
+            self._files.append(f)
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+            size = f.seek(0, 2)
+            meta = header.get("__metadata__")
+            if i and meta != self.metadata:
+                raise ValueError(f"{shard.name}'s __metadata__ {meta} differs from {shards[0].name}'s "
+                                 f"{self.metadata}")
+            self.metadata = meta
             for key, info in header.items():
                 if key == "__metadata__":
                     continue
@@ -303,26 +387,20 @@ class SafetensorsDir(Mapping):
                     raise ValueError(f"{shard.name}: {key}'s offsets do not fit its shape and dtype")
                 if key in self._index:
                     raise ValueError(f"{key} is in two shards")
-                self._index[key] = (len(self._maps), dtype, shape, begin, end)
-            self._maps.append(mm)
+                self._index[key] = (len(self._files) - 1, dtype, shape, begin, end)
 
     def __getitem__(self, key: str) -> torch.Tensor:
         i, dtype, shape, begin, end = self._index[key]
-        mm = self._maps[i]
-        if end == begin:
-            return torch.empty(shape, dtype=dtype, device=self.device)
-        if begin % dtype.itemsize == 0:
-            host = torch.frombuffer(mm, dtype=dtype, count=(end - begin) // dtype.itemsize,
-                                    offset=begin)
-            out = host.reshape(shape).to(self.device, copy=True)
-        else:                                       # unaligned: copy the bytes out first
-            host = torch.frombuffer(mm, dtype=torch.uint8, count=end - begin, offset=begin)
-            out = host.clone().view(dtype).reshape(shape).to(self.device)
-        del host
-        page = mmap.PAGESIZE
-        start = begin - begin % page
-        mm.madvise(mmap.MADV_DONTNEED, start, end - start)
-        return out
+        host = torch.empty(end - begin, dtype=torch.uint8)
+        f = self._files[i]
+        f.seek(begin)
+        view, done = memoryview(host.numpy()), 0
+        while done < end - begin:
+            got = f.readinto(view[done:])
+            if not got:
+                raise ValueError(f"{key}: the shard ends before its bytes")
+            done += got
+        return host.view(dtype).reshape(shape).to(self.device)
 
     def __iter__(self) -> Iterator[str]:
         return iter(self._index)
@@ -334,9 +412,9 @@ class SafetensorsDir(Mapping):
         return key in self._index
 
     def close(self) -> None:
-        for mm in self._maps:
-            mm.close()
-        self._maps = []
+        for f in self._files:
+            f.close()
+        self._files = []
 
 
 _HF_TOWER_FIXED = {

@@ -3,7 +3,9 @@
 Counterpart of ``phantom_vlb_tpu/train/builder.py``: seed, the native
 loaders over the lazy-load files (:40-80), the model config of the selected
 regime (:85-133), random weights with HF-keyed pretrained weights merged in
-(:147), the vision-token cache (:327-343), the trainer with its CSV,
+(:147; a JAX param tree as this package's shards, which
+``train/from_jax.py`` writes from the Orbax form, :159-167), the
+vision-token cache (:327-343), the trainer with its CSV,
 console and optional Comet loggers and the hyperparameters logged twice
 (:301-399), the feature-cache path of the frozen baseline
 (``run_cached_training``, :402-482) and ``run_training`` (:485).
@@ -22,7 +24,8 @@ clips (``datamodule.vision_token_cache``) or runs the backbone over its rows
 file, and the head over the feature cache trains on the sharded step. A
 single process trains on one card, whatever the machine holds. Branches of
 the reference that are not ported raise by name: an Orbax directory as
-``model.checkpoint_path``, ``mesh.sequence`` > 1 across processes
+``model.checkpoint_path`` (naming the converter, ``scripts/orbax_to_torch.py``),
+``mesh.sequence`` > 1 across processes
 (``core/mesh.py``), and under a mesh of more than one process the ring
 ``attention_impl``s (``parallel/sharding.py``). :func:`build_trainer` and :func:`build_cached_trainer`
 also take ready ``loaders`` (any sized iterables of global batches; under a
@@ -53,10 +56,17 @@ from phantom_vlb_tpu_torch.data.loader import (
     split_train_val,
 )
 from phantom_vlb_tpu_torch.data.token_cache import attach_token_cache
-from phantom_vlb_tpu_torch.models.convert import HF_STC_PREFIX, SafetensorsDir, hf_key, init_params
+from phantom_vlb_tpu_torch.models.convert import (
+    HF_STC_PREFIX,
+    PORT_LAYOUT,
+    SafetensorsDir,
+    hf_key,
+    init_params,
+)
 from phantom_vlb_tpu_torch.models.lora import LoRAConfig
 from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB, VLBConfig
 from phantom_vlb_tpu_torch.ops.quant import quantize_int8
+from phantom_vlb_tpu_torch.train.checkpoint import refuse_orbax
 from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
 from phantom_vlb_tpu_torch.train.optim import OptimConfig
 from phantom_vlb_tpu_torch.train.precompute import (
@@ -179,31 +189,39 @@ def _assert_keys_consumed(sd: Mapping, prefix: str, expected: set[str]) -> None:
             "connector's reconstruction does not hold for this checkpoint.")
 
 
-def _is_orbax_dir(p: Path) -> bool:
-    return (p / "_METADATA").exists() or (p / "manifest.ocdbt").exists() or (p / "d").exists()
-
-
 def load_pretrained_params(model_cfg: VLBConfig, checkpoint_path: str | Path,
-                           params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """``params`` (a state dict) with the tensors of the HF safetensors shards
-    under ``checkpoint_path`` (VideoLLaMA2's keys) in place of their own.
+                           params: Mapping[str, torch.Tensor], sd: Mapping | None = None
+                           ) -> dict[str, torch.Tensor]:
+    """``params`` (a state dict) with the tensors of the safetensors shards
+    under ``checkpoint_path`` in place of their own.
 
-    Each tensor is read from the shards straight to its parameter's device
-    and cast to its dtype; under ``base_quant`` the HF weight of a base
-    projection is quantized there (:func:`quantize_int8`). The decoder's
-    tensors must all be present; the tower's and the connector's are taken
-    when the shards hold that subtree, the connector's only when its keys
-    match the connector exactly. The head and the adapters keep their
-    values. Shapes must match.
+    Shards with VideoLLaMA2's HF keys: each tensor is read from the shards
+    straight to its parameter's device and cast to its dtype; under
+    ``base_quant`` the HF weight of a base projection is quantized there
+    (:func:`quantize_int8`). The decoder's tensors must all be present; the
+    tower's and the connector's are taken when the shards hold that
+    subtree, the connector's only when its keys match the connector
+    exactly. The head and the adapters keep their values. Shapes must match.
+
+    Shards tagged :data:`PORT_LAYOUT` (a JAX param tree, the Orbax
+    ``model.checkpoint_path`` form, converted by ``train/from_jax.py``) hold
+    state-dict names and replace every tensor, the head and the adapters
+    too, as the reference's Orbax branch does; a tensor missing or stray
+    raises by name. An Orbax directory raises, naming the converter.
+
+    ``sd``: an optional key -> tensor mapping read in place of the shards
+    (e.g. one that records which keys were read).
     """
     p = Path(checkpoint_path)
-    if _is_orbax_dir(p):
-        raise NotImplementedError(f"{p} is an Orbax checkpoint directory; the port reads HF "
-                                  "safetensors shards only")
-    if not list(p.glob("*.safetensors")):
+    refuse_orbax(p, "model.checkpoint_path")
+    if sd is None and not list(p.glob("*.safetensors")):
         raise FileNotFoundError(f"no checkpoint found at {checkpoint_path}")
-    sd = SafetensorsDir(p, next(iter(params.values())).device)
+    own = sd is None
+    if own:
+        sd = SafetensorsDir(p, next(iter(params.values())).device)
     try:
+        if getattr(sd, "metadata", None) == PORT_LAYOUT:
+            return _load_port_layout(sd, p, params)
         _assert_keys_consumed(sd, HF_STC_PREFIX, _stc_expected_keys(model_cfg.stc))
         subtrees = {"vision_tower.": any(k.startswith("model.vision_tower") for k in sd),
                     "mm_projector.": any(k.startswith(HF_STC_PREFIX) for k in sd)}
@@ -215,7 +233,7 @@ def load_pretrained_params(model_cfg: VLBConfig, checkpoint_path: str | Path,
                 continue
             if src not in sd:
                 raise KeyError(f"{src} (for {key}) is not in the checkpoint at {p}")
-            w = sd[src]
+            w = sd[src].to(base.device)
             if key.endswith(".weight_q"):
                 scale_key = key[: -len("weight_q")] + "weight_scale"
                 w, scale = quantize_int8(w, axis=1)
@@ -225,7 +243,24 @@ def load_pretrained_params(model_cfg: VLBConfig, checkpoint_path: str | Path,
             out[key] = w.to(base.dtype)
             del w
     finally:
-        sd.close()
+        if own:
+            sd.close()
+    return out
+
+
+def _load_port_layout(sd: Mapping, p: Path, params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every tensor of ``params`` from shards keyed by state-dict names."""
+    stray = sorted(set(sd) - set(params))
+    if stray:
+        raise ValueError(f"the checkpoint at {p} holds tensors the model does not: {stray[:8]}")
+    out = {}
+    for key, base in params.items():
+        if key not in sd:
+            raise KeyError(f"{key} is not in the checkpoint at {p}")
+        w = sd[key]
+        _check_shape(key, base, w)
+        out[key] = w.to(base.device, base.dtype)
+        del w
     return out
 
 

@@ -13,6 +13,11 @@ backbone. ``export_adapters`` writes ``adapters.pt``, the selected tensors
 by name. Under a mesh of processes the state holds whole tensors (gathered
 by the trainer), so a checkpoint resumes at any world size; only the
 writer (rank 0) writes, and every rank keeps the best/last bookkeeping.
+
+The JAX package's checkpoints are Orbax directories, which this package
+does not read: ``scripts/orbax_to_torch.py`` (where ``orbax`` is
+installed) converts them into these layouts (``train/from_jax.py``), and
+:func:`refuse_orbax` names it wherever an Orbax directory is given.
 """
 
 from __future__ import annotations
@@ -24,10 +29,28 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-__all__ = ["CheckpointManager", "export_adapters", "load_adapters", "STATE_FILE", "ADAPTERS_FILE"]
+__all__ = ["CheckpointManager", "export_adapters", "load_adapters", "STATE_FILE", "ADAPTERS_FILE",
+           "is_orbax_dir", "refuse_orbax"]
 
 STATE_FILE = "state.pt"
 ADAPTERS_FILE = "adapters.pt"
+
+
+def is_orbax_dir(path: Path) -> bool:
+    """A directory an Orbax checkpointer wrote (its metadata or OCDBT files)."""
+    return any((path / name).exists() for name in ("_METADATA", "manifest.ocdbt", "d"))
+
+
+def refuse_orbax(path: str | Path, what: str) -> None:
+    """Raise, naming the converter, when ``path`` (given as ``what``) is an
+    Orbax directory."""
+    path = Path(path)
+    if is_orbax_dir(path):
+        raise NotImplementedError(
+            f"{path} is an Orbax checkpoint directory (the JAX package's); the port reads its own "
+            f"layouts only. Convert it where orbax is installed: python scripts/orbax_to_torch.py "
+            f"{path} OUT (make convert-orbax-torch SRC={path} DST=OUT), then give {what} the "
+            "converted directory")
 
 
 def _write(obj: Any, path: Path) -> int:
@@ -98,6 +121,7 @@ class CheckpointManager:
 
     @staticmethod
     def restore_path(path: str | Path, device: str | torch.device = "cpu") -> dict:
+        refuse_orbax(path, "the checkpoint")
         return torch.load(Path(path) / STATE_FILE, map_location=device, weights_only=True)
 
 
@@ -119,6 +143,7 @@ def load_adapters(params: Mapping[str, torch.Tensor], path: str | Path,
     """``params`` with the tensors ``keep`` selects taken from an adapter
     export (each moved to its tensor's device and dtype); the export must
     hold exactly those names."""
+    refuse_orbax(path, "the adapter export")
     restored = torch.load(Path(path) / ADAPTERS_FILE, map_location="cpu", weights_only=True)
     wanted = {name for name in params if keep(name)}
     if set(restored) != wanted:

@@ -128,7 +128,7 @@ class VLBTrainer:
             shard_model(model, self.mesh)
         self.trainable: dict[str, torch.nn.Parameter] = {
             name: p for name, p in model.named_parameters() if p.requires_grad}
-        self.optimizer = AdamWCosine(self.trainable.values(), optim_config, self.mesh)
+        self.optimizer = AdamWCosine(self.trainable.values(), optim_config, self.mesh, names=self.trainable)
         if csv_logger is None:
             csv_logger = (CSVMetricsLogger(loop_config.output_dir, loop_config.run_name) if writer
                           else NullMetricsLogger())

@@ -89,13 +89,18 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
 class AdamWCosine:
     """Clip, AdamW and the cosine schedule over ``params``; ``step`` counts
     the updates applied (a skipped update leaves it and the state as they
-    were). ``mesh``: the mesh the parameters are sharded over, if any."""
+    were). ``mesh``: the mesh the parameters are sharded over, if any.
+    ``names``: the parameters' names, which :meth:`state_dict` records so
+    that :meth:`load_state_dict` matches moments to parameters by name."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], config: OptimConfig = OptimConfig(),
-                 mesh: MeshEnv | None = None):
+                 mesh: MeshEnv | None = None, names: Iterable[str] | None = None):
         self.params = list(params)
         self.config = config
         self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.names = None if names is None else list(names)
+        if self.names is not None and len(self.names) != len(self.params):
+            raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.step = 0
         self.adamw = torch.optim.AdamW(
             self.params, lr=learning_rate(config, 0), betas=config.betas, eps=config.eps,
@@ -128,21 +133,44 @@ class AdamWCosine:
         """The update count and AdamW's state (moments and per-tensor step
         counts), so that a resumed run continues the schedule and the
         moments; sharded moments gathered whole on every rank (a
-        collective), in the one-process layout."""
+        collective), in the one-process layout; and, when known, the
+        parameters' names (``names``: AdamW's index i is ``names[i]``)."""
         state = self.adamw.state_dict()
         state["state"] = {i: {k: whole(v, self.params[int(i)]) for k, v in s.items()}
                           for i, s in state["state"].items()}
-        return {"step": self.step, "adamw": state}
+        out = {"step": self.step, "adamw": state}
+        if self.names is not None:
+            out["names"] = list(self.names)
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         """Take :meth:`state_dict`'s layout, written at any world size and
         read onto any device: each rank keeps its shard of every moment of a
         sharded parameter, and the per-tensor step counts go to the host,
-        where AdamW keeps them."""
+        where AdamW keeps them. When both sides know the names, moments
+        follow names (a stray or missing name raises); a hyperparameter the
+        state does not hold (a converted JAX state holds none) keeps this
+        optimizer's value."""
         self.step = int(state["step"])
         adamw = dict(state["adamw"])
-        adamw["state"] = {int(i): {k: v.cpu() if k == "step" else shard_like(v, self.params[int(i)])
-                                   for k, v in s.items()}
-                          for i, s in adamw["state"].items()}
+        moments = {int(i): s for i, s in adamw["state"].items()}
+        groups = adamw["param_groups"]
+        saved_names = state.get("names")
+        if saved_names is not None and self.names is not None:
+            if sorted(saved_names) != sorted(self.names):
+                raise ValueError("the optimizer state is for other parameters: "
+                                 f"{sorted(set(saved_names) ^ set(self.names))[:8]}")
+            if len(groups) != 1:
+                raise ValueError(f"a named optimizer state has one parameter group, not {len(groups)}")
+            index = {name: i for i, name in enumerate(saved_names)}
+            moments = {i: moments[index[name]] for i, name in enumerate(self.names) if index[name] in moments}
+            groups = [{**groups[0], "params": list(range(len(self.names)))}]
+        adamw["state"] = {i: {k: v.cpu() if k == "step" else shard_like(v, self.params[i])
+                              for k, v in s.items()}
+                          for i, s in moments.items()}
+        live = self.adamw.state_dict()["param_groups"]
+        if len(groups) != len(live):
+            raise ValueError(f"the optimizer state has {len(groups)} parameter groups, not {len(live)}")
+        adamw["param_groups"] = [{**mine, **saved} for mine, saved in zip(live, groups)]
         self.adamw.load_state_dict(adamw)
 
