@@ -2,7 +2,7 @@
 # the useful equivalents for this repo).
 
 .PHONY: test test-fast lint bench bench-extract native clean parity parity-full \
-	convert-orbax-torch parity-torch parity-real-torch
+	convert-orbax-torch parity-torch parity-real-torch quality-torch
 
 test:
 	python -m pytest tests/ -q
@@ -72,6 +72,16 @@ parity-real-torch:
 	python scripts/parity_real_torch.py \
 		$(if $(CKPT),--ckpt $(CKPT)) $(if $(TOK),--tokenizer $(TOK)) \
 		$(if $(LAYERS),--layers $(LAYERS))
+
+# The port's two production-geometry quality runs on the card (raise without
+# one): teacher-student recovery through the bf16, w8a8 and w8a8g8 bases at
+# 32 layers (150 steps), then the planted-HRF plateau at 16 layers
+# (--plant self). One JSON line per config on stdout; see
+# docs/quality_runs_torch.md for the card's readings.
+quality-torch:
+	python scripts/quant_quality_run_torch.py
+	python scripts/plateau_run_torch.py --plant self --layers 16 --configs bf16,w8a8g8 \
+		--patience 8 --max-epochs 60
 
 clean:
 	rm -rf .jax_cache

@@ -12,6 +12,7 @@ vision towers.
     python3 chip_smoke.py --remat DIR       # phase 8r alone (DIR is not written)
     python3 chip_smoke.py --from-jax DIR    # phase 9j alone, under DIR
     python3 chip_smoke.py --full-width DIR  # phase 9w alone, under DIR
+    python3 chip_smoke.py --quality DIR     # phase 9q alone, under DIR
     python -m torch.distributed.run --standalone --nproc_per_node=1 chip_smoke.py --sharded DIR
         # phase 9d (a)-(c) alone; --sharded-pair with 2 processes for (d)
     python -m torch.distributed.run --standalone --nproc_per_node=2 chip_smoke.py --tensor-pair DIR
@@ -188,6 +189,23 @@ Phases, each printed with its wall time; any failure exits non-zero:
    the hand kernels (4 flash forwards), the f32 one on the plain attention
    with TF32 off: each decoder layer's output, the final norm, the video
    tokens and the predictions within FULL_WIDTH_TOL;
+9q. the two quality-run scripts at full width through their own
+   functions, in a process of its own (``--quality DIR``), only their
+   counts cut: (a) ``scripts/quant_quality_run_torch.py`` (32 layers,
+   batch 6, frames, a bf16 teacher, the bf16, w8a8 and w8a8g8 students, 3
+   steps over 2 train batches, 1 val batch): the targets finite, every
+   student's start bitwise the teacher's, the int8 codes and scales the
+   teacher's base quantized (fingerprints of their bits), w8a8's and
+   w8a8g8's first losses bit-equal, each step's and evaluation's launches
+   against what the code implies (no LoRA kernel at dropout 0; the
+   decoder's and the tower's row quants), the JSON lines' keys; (b)
+   ``scripts/plateau_run_torch.py --layers 32 --plant self --configs
+   bf16,w8a8g8`` over 2 train and 1 val batch of 6 for 2 epochs, then
+   ``--probe`` on the same data: the tokens encoded once (one
+   ``encode_video`` a batch, no hand kernel in the bf16 towers, none in the
+   fits), the pooled reps finite with a forward's launches a batch, each
+   fit's launches, one CSV row an epoch, the records' keys; step ms, peak
+   device memory and the process's peak host RSS;
 9e. the first two stages users run, in a process of its own (``--extract
    DIR``; its peak host RSS held to the same bound), at the geometry of
    record (TR 1.49 s, 4 frames a TR, window 3, 336 px, 866 text ids, 64
@@ -307,6 +325,8 @@ import dataclasses
 import faulthandler
 import gc
 import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -413,7 +433,7 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     hash_bytes,
 )
 from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor, preprocess
-from phantom_vlb_tpu_torch.ops.quant import quantize_state_dict
+from phantom_vlb_tpu_torch.ops.quant import is_base_projection, quantize_int8, quantize_state_dict
 from phantom_vlb_tpu_torch.ops.ring_fused import RING_FWD, RING_STATS, ring_fwd, ring_fwd_plain, ring_send_plan
 from phantom_vlb_tpu_torch.ops.rowquant import (
     ROW_ABSMAX,
@@ -4553,6 +4573,286 @@ def full_width_child(out: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 9q: the two quality-run scripts (scripts/quant_quality_run_torch.py,
+# scripts/plateau_run_torch.py) at full width through their own functions,
+# in a process of its own (``--quality DIR``), only their counts cut.
+
+QUALITY_ARGV = ["--steps", "3", "--eval-every", "3", "--n-train", "2", "--n-val", "1"]
+PLATEAU_ARGV = ["--layers", "32", "--plant", "self", "--configs", "bf16,w8a8g8", "--train-batches", "2",
+                "--val-batches", "1", "--max-epochs", "2"]
+QUALITY_JSON_KEYS = ["config", "geometry", "curve"]
+PLATEAU_JSON_KEYS = ["config", "layers", "noise_ceiling_r", "final_val_corr_avg", "stopped_early", "stop_step",
+                     "walltime_s", "curve"]
+PROBE_JSON_KEYS = ["config", "probe_alpha", "probe_val_r"]
+INT_VIEWS = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module                   # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+def fingerprint(t: torch.Tensor) -> tuple[int, int]:
+    """Two integer sums of a tensor's bits on its device (plain and weighted
+    by position mod 65521): equal tensors give equal pairs, and a flipped
+    bit moves both."""
+    bits = t.detach().contiguous().view(INT_VIEWS[t.element_size()]).reshape(-1).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int(bits.sum()), int((bits * weights).sum())
+
+
+def quality_launches(layers: int, tower_layers: int, quant: str | None, train: bool) -> dict[str, int]:
+    """A teacher-student step from frames (``train``: the decoder's layers
+    twice under remat, one flash backward a layer) or a val batch: no LoRA
+    kernel (no dropout), and with an int8 base a row quant a projection
+    each time it runs (13 a layer in a step, the replay stopping before the
+    last projection's base product; the tower's 6 a layer once), with
+    w8a8g8 a scaled one a dx (layer 0's q, k, v need none)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_fwd"] = (2 if train else 1) * layers
+    if train:
+        want.update(flash_bwd_prep=layers, flash_bwd=layers, flash_bwd_post=layers)
+    if quant is not None:
+        want["row_quant"] = (13 if train else 7) * layers + 6 * tower_layers
+    if quant == "w8a8g8" and train:
+        want["row_quant_scaled"] = 7 * layers - 3
+    return want
+
+
+def plateau_fit_launches(layers: int, steps: int, val_batches: int, quant: str | None) -> dict[str, int]:
+    """A plateau fit from cached tokens: a step as above without the tower
+    (the adapters' dropout unfused: no LoRA kernel), a val batch a forward."""
+    step = quality_launches(layers, 0, quant, train=True)
+    val = quality_launches(layers, 0, quant, train=False)
+    return {k: steps * step[k] + val_batches * val[k] for k in KERNELS}
+
+
+def wrap(module, name: str, before=None, after=None) -> None:
+    """Replace ``module.name`` by a call between ``before()`` and
+    ``after(result)``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        if before is not None:
+            before()
+        out = real(*args, **kwargs)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(module, name, wrapper)
+
+
+def json_lines(text: str) -> list[dict]:
+    lines = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    for line in text.splitlines():
+        print(f"  {line}")
+    return lines
+
+
+def quality_teacher_student(card: str) -> dict:
+    """``quant_quality_run_torch.run`` at its defaults (32 layers, batch 6,
+    bf16, w8a8 and w8a8g8, a bf16 teacher) but 3 steps, 2 train and 1 val
+    batch, through the script's own functions, watched from outside."""
+    qq = load_script("quant_quality_run_torch")
+    args = qq.parse_args(QUALITY_ARGV)
+    configs = args.configs.split(",")
+    cfg = qq.build_cfg(None, args.layers, args.preset)
+    layers, tower_layers = cfg.mistral.num_hidden_layers, cfg.clip.effective_layers
+    bases, codes, want_codes, targets, steps, evals = [], [], {}, [], [], []
+
+    def state(cfg_, device):
+        sd = qq.base_state(cfg_, device)
+        bases.append({k: fingerprint(t) for k, t in sd.items()})
+        if not want_codes:                         # the teacher's base, quantized as q8_dev would
+            for key, t in sd.items():
+                if is_base_projection(key, t):
+                    q, s = quantize_int8(t, axis=1)
+                    base = key[: -len("weight")]
+                    want_codes[base + "weight_q"], want_codes[base + "weight_scale"] = fingerprint(q), fingerprint(s)
+        return sd
+
+    wrap(qq, "quantize_base", after=lambda sd: codes.append(
+        {k: fingerprint(t) for k, t in sd.items() if k.endswith((".weight_q", ".weight_scale"))}))
+
+    def set_targets(model, batches, rng):
+        reset_launches()
+        real_targets(model, batches, rng)
+        torch.cuda.synchronize()
+        targets.append((read_launches(), [b["timeseries"] for b in batches]))
+
+    real_targets = qq.set_teacher_targets
+    qq.set_teacher_targets = set_targets
+
+    def step_before():
+        torch.cuda.synchronize()
+        reset_launches()
+        steps.append({"t0": time.perf_counter()})
+
+    def step_after(out):
+        torch.cuda.synchronize()
+        steps[-1].update(ms=(time.perf_counter() - steps[-1]["t0"]) * 1e3, launches=read_launches(),
+                         loss=float(out["brain_loss"]))
+
+    wrap(qq, "train_step", before=step_before, after=step_after)
+    wrap(qq, "evaluate", before=reset_launches, after=lambda r: evals.append((read_launches(), r)))
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        records = qq.run(args, state=state)
+    wall_s = time.perf_counter() - t0
+    lines = json_lines(out.getvalue())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    (teacher_launches, ys), = targets
+    if not all(np.isfinite(y).all() and y.shape == (args.batch, cfg.num_target) for y in ys):
+        raise AssertionError(f"the teacher's targets are not finite ({args.batch}, {cfg.num_target}) arrays")
+    t_quant = qq.teacher_quant(configs, args.teacher)
+    if teacher_launches != {k: v * len(ys) for k, v in
+                            quality_launches(layers, tower_layers, t_quant, train=False).items()}:
+        raise AssertionError(f"the teacher's forward launched {teacher_launches}")
+    if len(bases) != 1 + len(configs) or any(b != bases[0] for b in bases[1:]):
+        raise AssertionError("a student's starting state is not bitwise the teacher's")
+    if len(codes) != 2 or any(c != want_codes for c in codes):
+        raise AssertionError("a student's int8 codes or scales are not the teacher's base quantized")
+    if [line.get("config") for line in lines] != configs or any(list(line) != QUALITY_JSON_KEYS for line in lines) \
+            or any([list(p) for p in line["curve"]] != [["step", "val_pearson_avg"]] for line in lines):
+        raise AssertionError(f"the JSON lines are not the JAX script's: {lines}")
+    per = args.steps
+    by_config = {name: steps[i * per:(i + 1) * per] for i, name in enumerate(configs)}
+    for i, name in enumerate(configs):
+        quant = qq.quant_of(name)
+        want_step = quality_launches(layers, tower_layers, quant, train=True)
+        want_eval = {k: v * args.n_val for k, v in quality_launches(layers, tower_layers, quant, train=False).items()}
+        got = [s["launches"] for s in by_config[name]]
+        if any(g != want_step for g in got) or evals[i][0] != want_eval:
+            raise AssertionError(f"{name}: a step launched {got}, an evaluation {evals[i][0]}; want {want_step} "
+                                 f"and {want_eval}")
+        if not all(np.isfinite(s["loss"]) for s in by_config[name]) or not np.isfinite(records[i]["curve"][-1][1]):
+            raise AssertionError(f"{name}: a non-finite loss or val r")
+    first = {name: by_config[name][0]["loss"] for name in configs}
+    if first["w8a8"] != first["w8a8g8"]:
+        raise AssertionError(f"w8a8's first loss {first['w8a8']!r} is not w8a8g8's {first['w8a8g8']!r}")
+    for name in configs:
+        print(f"  {name}: step ms {[round(s['ms'], 3) for s in by_config[name]]}, first loss "
+              f"{by_config[name][0]['loss']!r}, launches a step "
+              f"{ {k: v for k, v in by_config[name][0]['launches'].items() if v} }, val r "
+              f"{records[configs.index(name)]['curve'][-1][1]:.6f} ({card})")
+    print(f"  teacher: {len(ys)} batches of {args.batch}, {teacher_launches['flash_fwd']} flash forwards; every "
+          f"student's start bitwise the teacher's ({len(bases[0])} tensors), the int8 codes and scales "
+          f"({len(want_codes)} tensors) the teacher's base quantized; w8a8 and w8a8g8 first losses bit-equal; "
+          f"{wall_s:.1f} s in all, peak device memory {peak_gb:.2f} GB ({card})")
+    return {"quality_step_ms": {name: [s["ms"] for s in by_config[name]] for name in configs},
+            "quality_first_loss": first, "quality_peak_gb": peak_gb, "quality_s": wall_s}
+
+
+def quality_plateau(root: Path, dev, card: str) -> dict:
+    """``plateau_run_torch`` at 32 layers, ``--plant self``, bf16 and
+    w8a8g8, 2 train and 1 val batch of 6, 2 epochs; then ``--probe`` on the
+    same data."""
+    pr = load_script("plateau_run_torch")
+    args = pr.parse_args([*PLATEAU_ARGV, "--out", str(root / "plateau")])
+    quant = {name: pr.quant_of(name) for name in args.configs.split(",")}
+    n_batches = args.train_batches + args.val_batches
+    encodes, pooled, fits = [], [], []
+    real_encode, real_train_one = VideoLLaMA2VLB.encode_video, VLBTrainer.train_one
+    VideoLLaMA2VLB.encode_video = lambda self, video: (encodes.append(video.shape[0]), real_encode(self, video))[1]
+    try:
+        t0 = time.perf_counter()
+        reset_launches()
+        data = pr.prepare(args, pr.base_state)
+        torch.cuda.synchronize()
+        encode_launches, prepare_s = read_launches(), time.perf_counter() - t0
+        if encodes != [args.batch] * n_batches or any(encode_launches.values()):
+            raise AssertionError(f"the tokens were encoded {encodes} (want {n_batches} batches of {args.batch}), "
+                                 f"launching {encode_launches} (the bf16 towers launch no hand kernel)")
+        if not all(b["vision"].dtype == torch.bfloat16 and b["vision"].device == dev for b in data.batches):
+            raise AssertionError("the cached tokens are not bf16 on the card")
+
+        def pooled_after(reps):
+            torch.cuda.synchronize()
+            pooled.append((read_launches(), reps))
+
+        wrap(pr, "pooled_reps", before=reset_launches, after=pooled_after)
+        step_ms = timed_calls(VLBTrainer, "train_one")
+
+        def fit_before():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+
+        def fit_after(rec):
+            torch.cuda.synchronize()
+            fits.append((read_launches(), torch.cuda.max_memory_allocated() / 1e9))
+
+        wrap(pr, "fit", before=fit_before, after=fit_after)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            records = pr.run(args, data=data)
+        lines = json_lines(out.getvalue())
+        probe_args = pr.parse_args([*PLATEAU_ARGV, "--out", str(root / "plateau"), "--probe"])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            probes = pr.run(probe_args, data=data)
+        probe_lines = json_lines(out.getvalue())
+    finally:
+        VideoLLaMA2VLB.encode_video, VLBTrainer.train_one = real_encode, real_train_one
+    if len(encodes) != n_batches:
+        raise AssertionError(f"the fits encoded frames again ({len(encodes) - n_batches} more batches)")
+    layers, hidden = args.layers, pr.build_cfg(None, args.layers, args.preset).mistral.hidden_size
+    for (launches, reps), name in zip(pooled, [*quant, *quant]):
+        want = {k: v * n_batches for k, v in quality_launches(layers, 0, quant[name], train=False).items()}
+        if launches != want or not np.isfinite(reps).all() or reps.shape != (n_batches * args.batch, hidden):
+            raise AssertionError(f"{name}: the pooled reps launched {launches} (want {want}) or are not finite "
+                                 f"({reps.shape})")
+    steps = args.train_batches * args.max_epochs
+    for (launches, peak_gb), rec, line, name in zip(fits, records, lines, quant):
+        want = plateau_fit_launches(layers, steps, args.max_epochs * args.val_batches, quant[name])
+        if launches != want:
+            raise AssertionError(f"{name}: the fit launched {launches}, want {want}")
+        if list(line) != PLATEAU_JSON_KEYS or len(rec["curve"]) != args.max_epochs or rec["stop_step"] != steps \
+                or not all(np.isfinite(r) and np.isfinite(loss) for _, r, loss in rec["curve"]):
+            raise AssertionError(f"{name}: the record is not the JAX script's, or its curve has not one finite "
+                                 f"row an epoch: {line}")
+        print(f"  {name}: fit {rec['walltime_s']:.1f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, curve {pr.rounded(rec)['curve']}, peak device "
+              f"memory {peak_gb:.2f} GB ({card})")
+    if [list(line) for line in probe_lines] != [PROBE_JSON_KEYS] * 3 * len(quant) or not all(
+            np.isfinite(p["probe_val_r"]) for p in probes):
+        raise AssertionError(f"the probe lines are not the JAX script's: {probe_lines}")
+    print(f"  tokens of {n_batches} batches of {args.batch} encoded once in {prepare_s:.1f} s (host pixels "
+          f"included); LoRA step ms {[round(x, 3) for x in step_ms]} ({card})")
+    return {"plateau_step_ms": step_ms, "plateau_prepare_s": prepare_s,
+            "plateau_fit_s": [rec["walltime_s"] for rec in records],
+            "probe": [(p["config"], p["probe_alpha"], p["probe_val_r"]) for p in probes]}
+
+
+def quality_child(out: str) -> int:
+    """``--quality DIR``: phase 9q in this process, under DIR; prints one
+    JSON line of its numbers last."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name_and_power()
+    record = {}
+    with phase("9q (a) teacher-student LoRA recovery (scripts/quant_quality_run_torch.py) at full width"):
+        record.update(quality_teacher_student(card))
+        torch.cuda.empty_cache()
+    with phase("9q (b) the planted-HRF plateau (scripts/plateau_run_torch.py) at 32 layers, then its probe"):
+        record.update(quality_plateau(Path(out), dev, card))
+    record["peak_rss_gb"] = peak_rss_gb()
+    print(json.dumps(record))
+    if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
+        raise AssertionError(f"9q's peak host RSS {record['peak_rss_gb']:.2f} GB is over {HOST_RSS_LIMIT_GB}")
+    return 0
+
+
 @contextlib.contextmanager
 def plain_attention():
     """The decoder's attention through its plain PyTorch version on CUDA
@@ -4637,6 +4937,8 @@ def main() -> int:
         return from_jax_child(sys.argv[2])
     if sys.argv[1:2] == ["--full-width"]:
         return full_width_child(sys.argv[2])
+    if sys.argv[1:2] == ["--quality"]:
+        return quality_child(sys.argv[2])
     if sys.argv[1:2] == ["--remat"]:
         return remat_child(sys.argv[2])
     if sys.argv[1:2] in (["--sharded"], ["--sharded-pair"]):
@@ -4777,6 +5079,16 @@ def main() -> int:
             print(f"  wrote {wide['bytes'] / 1e9:.3f} GB in {wide['write_s']:.2f} s, loaded in {wide['load_s']:.2f} s; "
                   f"worst layer {max(wide['layer_err']):.3e}, tokens {wide['tokens_err']:.3e}, predictions "
                   f"{wide['pred_err']:.3e} (tolerance {FULL_WIDTH_TOL}) ({card})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    out = tempfile.mkdtemp(prefix="quality-", dir=BUILD_ROOT)
+    try:
+        with phase("9q the quality-run scripts (teacher-student, plateau) at full width, in a process of its own"):
+            quality = run_child("--quality", out, "the quality-run phase", 600)
+            print(f"  teacher-student step ms {quality['quality_step_ms']} in {quality['quality_s']:.1f} s (peak "
+                  f"device memory {quality['quality_peak_gb']:.2f} GB); plateau tokens in "
+                  f"{quality['plateau_prepare_s']:.1f} s, fits {[round(x, 1) for x in quality['plateau_fit_s']]} s, "
+                  f"LoRA step ms {[round(x, 3) for x in quality['plateau_step_ms']]} ({card})")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     out = tempfile.mkdtemp(prefix="extract-", dir=BUILD_ROOT)

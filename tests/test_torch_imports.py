@@ -11,7 +11,11 @@ stages (extraction and the lazy-load builder, with their CLIs),
 those of the multi-process path (the process group, the mesh, FSDP2
 sharding), and the checkpoint policies, the grain-order loader (which
 imports no ``grain``), the profiling hooks, the dtype policies and the
-model registry; the hand kernels' forward ops are registered.
+model registry; the hand kernels' forward ops are registered. The two
+quality-run scripts (``scripts/quant_quality_run_torch.py``,
+``scripts/plateau_run_torch.py``) import with the same modules and
+``__graft_entry__`` blocked, and raise without a card unless asked for the
+CPU.
 """
 
 import os
@@ -86,6 +90,37 @@ def test_port_imports_without_jax_h5py_yaml_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     modules = len(list((ROOT / "phantom_vlb_tpu_torch").rglob("*.py"))) - 1
     assert int(proc.stdout.split()[-1]) == modules      # every module was imported
+
+
+QUALITY_SCRIPTS = ("quant_quality_run_torch", "plateau_run_torch")
+
+_SCRIPT_CHILD = f"""
+import importlib, sys
+for name in {BLOCKED + ("__graft_entry__",)!r}:
+    sys.modules[name] = None
+sys.path.insert(0, "scripts")
+importlib.import_module(sys.argv[1])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED + ("__graft_entry__",)!r}
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("script", QUALITY_SCRIPTS)
+def test_quality_scripts_import_without_jax_or_the_jax_package(script):
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT_CHILD, script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split() == ["ok"], proc.stderr
+
+
+@pytest.mark.parametrize("script", QUALITY_SCRIPTS)
+def test_quality_scripts_raise_without_a_card(script, monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    module = __import__(script)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        module.main(["--preset", "narrow", "--layers", "2"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
