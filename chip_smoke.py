@@ -23,12 +23,18 @@ vision towers.
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
         # timed by the same code in a process of its own
+    python3 chip_smoke.py --lora-calls ROOT [ROOT ...]
+        # only the LoRA forward and dA calls' device time and kernels a
+        # call, for the package under each root in turn, as --ring-issue
+    python3 chip_smoke.py --lora-step ROOT [ROOT ...]
+        # only phase 8's traced bf16 LoRA step (device time and kernels by
+        # group), for the tree under each root in turn, each in its own process
 
 Phases, each printed with its wall time; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the paths with ``nvcc``, and flash_bwd.cu,
-   flash_fwd.cu and lora_epilogue.cu with each of their cost probes, one
+   flash_fwd.cu, lora_epilogue.cu and lora_dropout.cu with each of their cost probes, one
    process each, all at once (registers and spills per kernel; the flash
    kernels and the ring's must not spill);
 3. each kernel against its plain PyTorch version at the paths' shapes:
@@ -39,8 +45,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
    three LoRA dropout kernels at M = 6144, K = 4096 and 14336,
    in bits mode and in hash mode, the hash also from a global first row
    ``row0`` (a rank's rows of a split batch; dx exactly 0 where the mask
-   drops; all three masks read back exactly through dx; keep rate, seed
-   determinism); the row quant (both entry points) at
+   drops; all three masks read back exactly through dx, and dA's hash and
+   bits masks through dA; keep rate, seed determinism), the forward and dA
+   on an M tail (M - 37 rows), and their plans (``_fwd_plan``,
+   ``_da_plan``) against the clusters the card holds at once; the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8, and at the vision tower's (20772, 1024) and
    (20772, 4096) (q and s bit for bit); the LoRA epilogue's
@@ -174,10 +182,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
    step, AdamW's per-tensor steps and the rate the schedule's; one LoRA
    step from frames (the launches the code implies) and one val batch
    served; the same step from the same tensors handed to a trainer
-   directly (``load_params``, ``load_state_dict``), twice: the first loss
-   bit-equal, the gradient norm within FROM_JAX_NORM_TOL, the updated
-   parameters within FROM_JAX_UPDATE_FLOOR_RATIO times the two direct
-   runs' gap; the conversion's seconds and bytes;
+   directly (``load_params``, ``load_state_dict``), FROM_JAX_DIRECT_RUNS
+   times: the first loss bit-equal, the gradient norm within
+   FROM_JAX_NORM_TOL, the updated parameters within
+   FROM_JAX_UPDATE_FLOOR_RATIO times the largest gap between two direct
+   runs from each; the conversion's seconds and bytes;
 9w. full-width weights in HF layout, in a process of its own
    (``--full-width DIR``): a random 4-layer Mistral-7B with the CLIP
    tower (24 layers and ``post_layernorm``) and the STC connector, under
@@ -290,7 +299,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
 11. timings: each kernel's device time (``torch.profiler``), its wrapper's
     (device and CUDA events), its plain version's and a library yardstick's,
     beside the bound, at the one-card shapes and (printed only) at one
-    ``tensor`` rank's (``time_tensor_shapes``); SDPA's ``is_causal`` forward beside the masked one;
+    ``tensor`` rank's (``time_tensor_shapes``); for the LoRA forward and dA
+    also the whole call's device time against the bound and the kernels a
+    call (one), and each against its cost probe without the mask; SDPA's
+    ``is_causal`` forward beside the masked one;
     the flash backward as the sum of its three kernels against SDPA's whole
     backward (the kernels it ran named), and SDPA with ``is_causal=True``,
     at (3, 2048) and (1, 4608); one pass of the fused ring (first send to
@@ -422,15 +434,21 @@ from phantom_vlb_tpu_torch.ops.lora_epilogue import (
     _padded_rank,
 )
 from phantom_vlb_tpu_torch.ops.lora_fused import (
+    CLUSTER_SIZES,
+    H100_CLUSTERS,
     LORA_DA,
     LORA_DX,
     LORA_FWD,
+    _cluster_capacity,
+    _da_plan,
+    _fwd_plan,
     dropout_threshold,
     fused_dropout_bwd,
     fused_dropout_bwd_plain,
     fused_dropout_matmul,
     fused_dropout_matmul_plain,
     hash_bytes,
+    plan_smem_bytes,
 )
 from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor, preprocess
 from phantom_vlb_tpu_torch.ops.quant import is_base_projection, quantize_int8, quantize_state_dict
@@ -478,6 +496,7 @@ N_BATCHES = 3
 HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
 LORA_ROW0 = 2 * 2048 + 77      # a global first row for the hash mask, off every tile edge
+LORA_TAIL = 37                 # phase 3's M tail: rows LORA_M - LORA_TAIL, off the 64-row tile
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
 # What one rank of mesh.tensor=2 gives the kernels: the row-parallel o and
 # down read columns [K, 2K) of the input (rank 1), K = 2048 and 7168; the
@@ -512,6 +531,11 @@ FWD_PROBES = {name: CudaKernel("flash_fwd.cu", "flash_fwd_launch", FLASH_FWD.arg
 # the fold left out; timed in phase 11 only.
 EPI_NO_FOLD = CudaKernel("lora_epilogue.cu", "epi_dzdb_launch", EPI_DZDB.argtypes,
                          defines=("EPI_DZDB_PROBE_NO_FOLD",))
+# The LoRA forward and dA built with the mask and scale left out (wrong on
+# purpose): what the mask costs, and what the TMA stream alone reaches;
+# timed in phase 11 only.
+LORA_NO_MASK = {name: CudaKernel("lora_dropout.cu", f"{name}_launch", LORA_FWD.argtypes,
+                                 defines=("LORA_DROPOUT_PROBE_NO_MASK",)) for name in ("lora_fwd", "lora_da")}
 REPLACES = {
     "flash_fwd": ("flash_fwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:93"),
     "flash_bwd_prep": ("flash_bwd.cu", "phantom_vlb_tpu/ops/flash_attention.py:509"),
@@ -621,10 +645,14 @@ TOKEN_GRAD_TOL, TOKEN_FLOOR_RATIO, TOKEN_LOSS_TOL = 1e-2, 1.25, 1e-3
 # 2.1e-5 (at 5.13) between two direct runs in four calls, so it is held to
 # FROM_JAX_NORM_TOL relative (~25x the widest); the parameters after the
 # update, where the moments enter (a moment mapped wrong moves every
-# update by its own size), are held as a whole by 2-norm within
-# FROM_JAX_UPDATE_FLOOR_RATIO times the gap of the two direct runs.
+# update by its own size), are held as a whole by 2-norm: the resumed
+# run's gap to each of FROM_JAX_DIRECT_RUNS direct runs within
+# FROM_JAX_UPDATE_FLOOR_RATIO times the floor, the largest gap between two
+# of them. (One pair's gap alone, as a floor, read 4.0e-4 and 5.4e-4 in
+# two calls: the resumed run then stood 1.51x and 2.07x from it.)
 FROM_JAX_NORM_TOL = 1e-4
 FROM_JAX_UPDATE_FLOOR_RATIO = 2.0
+FROM_JAX_DIRECT_RUNS = 4
 # Phase 9w: the bf16 hand-kernel forward of a full-width checkpoint against
 # the f32 plain forward of the same shards on the card (TF32 off), each
 # decoder layer's output, the final norm, the video tokens and the
@@ -740,8 +768,150 @@ def compare_ring_issue(roots: list[str]) -> int:
     return 0
 
 
+# The LoRA forward and dA calls as a user makes them (``fused_dropout_matmul``
+# and ``fused_dropout_bwd(need_dx=False)``, hash mode), timed in a process
+# of its own on the package under argv[1] (this tree's, or a parent's for a
+# comparison: the same code times both). Inputs as lora_inputs makes them
+# at (m, k) for each (k, col0); per call: the device time of everything it
+# launches and of the kernel alone (torch.profiler over ITERS calls, up to 3
+# sessions for a whole record), the kernels it launches and its CUDA-event
+# time (host gaps included). Prints one JSON line.
+LORA_CALLS_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import ProfilerActivity, profile
+from phantom_vlb_tpu_torch.ops.lora_fused import fused_dropout_bwd, fused_dropout_matmul
+m, r, p, seed, iters, shapes = json.loads(sys.argv[2])
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(seed)
+records = []
+for k, col0 in shapes:
+    x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
+    a = (k ** -0.5 * torch.randn(k, r, generator=gen, device=dev)).to(torch.bfloat16)
+    dmid = torch.randn(m, r, generator=gen, device=dev, dtype=torch.bfloat16)
+    calls = {"lora_fwd": lambda: fused_dropout_matmul(x, a, 7, p, col0=col0),
+             "lora_da": lambda: fused_dropout_bwd(x, a, dmid, 7, p, need_dx=False, col0=col0)}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        events = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+            if sum(c for key, _, c in events if name + "_kernel" in key) == iters:
+                break
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        records.append({"name": name, "k": k, "col0": col0,
+                        "whole_ms": sum(t for _, t, _ in events) / iters,
+                        "kernel_ms": sum(t for key, t, _ in events if name + "_kernel" in key) / iters,
+                        "kernels_a_call": sum(c for _, _, c in events) / iters,
+                        "event_ms": start.elapsed_time(end) / iters})
+print(json.dumps({"records": records}))
+"""
+LORA_CALLS_ITERS = 20
+# Phase 8's traced bf16 LoRA step (full width, batch 3, fused u8 dropout,
+# remat per layer, from cached tokens) in a process of its own on the tree
+# under argv[1], run by that tree's own chip_smoke.py functions (its launch
+# checks included): after its 3 steps and one more, one step traced for the
+# device alone. The same code here groups the trace for every tree. Prints
+# one JSON line: wall and device ms, kernels, and ms and kernels by group.
+LORA_STEP_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+cfg = cs.lora_train_config()
+sd = cs.init_params(cfg, dev, gen)
+run = cs.train_lora_steps(cfg, sd, cs.lora_batches(cfg, gen, dev), dev, fresh=True)
+run.one_more_step()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run.one_more_step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+groups, counts = {}, {}
+for e in prof.key_averages():
+    if e.device_type != torch.autograd.DeviceType.CUDA or e.key == cs.QUEUE_FULL:
+        continue
+    g = cs.kernel_group(e.key)
+    groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e3
+    counts[g] = counts.get(g, 0) + e.count
+print(json.dumps({"wall_ms": wall_ms, "device_ms": sum(groups.values()), "kernels": sum(counts.values()),
+                  "groups": groups, "counts": counts, "launches": run.launches}))
+"""
+
+
+def lora_bytes(name: str, m: int, k: int, r: int) -> int:
+    """The bytes a LoRA dropout kernel must move at (m, k), rank r: x read
+    once, A or dmid read once, the output written once."""
+    return {"lora_fwd": (m * k + k * r + m * r) * 2, "lora_dx": (m * r + k * r + m * k) * 2,
+            "lora_da": (m * k + m * r) * 2 + k * r * 4}[name]
+
+
+def compare_lora_calls(roots: list[str]) -> int:
+    """``--lora-calls ROOT ...``: the LoRA forward and dA calls' device
+    time for the package under each root, in the order given (e.g. parent,
+    change, change, parent), each in a process of its own, at the path's
+    widths (K 4096 and 14336) and one tensor rank's (K 2048 from column
+    2048, 7168 from 7168); printed, one JSON line a root and one line a
+    call with its share of the bound."""
+    print(card_name_and_power())
+    shapes = [[k, 0] for k in LORA_KS] + [list(t) for t in TENSOR_LORA]
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", LORA_CALLS_CHILD, root,
+                               json.dumps([LORA_M, LORA_R, LORA_P, SEED, LORA_CALLS_ITERS, shapes])],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"LoRA call timing under {root} failed:\n{proc.stderr[-4000:]}")
+        recs = json.loads(proc.stdout.strip().splitlines()[-1])["records"]
+        print(json.dumps({"root": root, "records": recs}), flush=True)
+        for rec in recs:
+            bound_ms = lora_bytes(rec["name"], LORA_M, rec["k"], LORA_R) / PEAK_BYTES_PER_S * 1e3
+            print(f"  {root} {rec['name']} M={LORA_M} K={rec['k']} col0={rec['col0']}: whole call "
+                  f"{rec['whole_ms']:.4f} ms ({bound_ms / rec['whole_ms']:.1%} of the {bound_ms:.4f} ms bound), "
+                  f"kernel {rec['kernel_ms']:.4f}, {rec['kernels_a_call']:g} kernels a call, "
+                  f"{rec['event_ms']:.4f} ms by CUDA events", flush=True)
+    return 0
+
+
+def compare_lora_step(roots: list[str]) -> int:
+    """``--lora-step ROOT ...``: phase 8's traced bf16 LoRA step for the
+    tree under each root, in the order given, each in a process of its own
+    (LORA_STEP_CHILD); printed, one JSON line and one summary line a root."""
+    print(card_name_and_power())
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", LORA_STEP_CHILD, root], capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the LoRA step under {root} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"root": root, **rec}), flush=True)
+        g, c = rec["groups"], rec["counts"]
+        print(f"  {root} traced LoRA step: wall {rec['wall_ms']:.3f} ms, device {rec['device_ms']:.3f} ms, "
+              f"{rec['kernels']} kernels; lora {g.get('lora', 0.0):.3f} ms ({c.get('lora', 0)} kernels), other "
+              f"{g.get('other', 0.0):.3f} ms ({c.get('other', 0)}), gemm {g.get('gemm', 0.0):.3f} ms "
+              f"({c.get('gemm', 0)}); LoRA launches counted {({k: v for k, v in rec['launches'].items() if 'lora' in k})}",
+              flush=True)
+    return 0
+
+
 def build_kernels() -> None:
-    kernels = [*KERNELS.values(), *BWD_PROBES.values(), *FWD_PROBES.values(), EPI_NO_FOLD]
+    kernels = [*KERNELS.values(), *BWD_PROBES.values(), *FWD_PROBES.values(), EPI_NO_FOLD, *LORA_NO_MASK.values()]
     builds = {}                                          # one kernel per build
     for kernel in kernels:
         builds.setdefault(kernel.target, kernel)
@@ -968,7 +1138,57 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
     if (mismatches or bits_mismatches or row0_mismatches or abs(rate - keep) > KEEP_RATE_TOL or not same
             or differ < 0.1):
         raise AssertionError(f"LoRA dropout mask is not exact, at its rate or deterministic (K={k})")
+    # An M tail (rows off the 64-row tile, from global row LORA_ROW0): the
+    # forward and dA (one launch each, their partials folded in the launch).
+    tail = LORA_M - LORA_TAIL
+    mid = fused_dropout_matmul(x[:tail], a, 1234, LORA_P, row0=LORA_ROW0)
+    _, da = fused_dropout_bwd(x[:tail], a, dmid[:tail], 1234, LORA_P, need_dx=False, row0=LORA_ROW0)
+    torch.cuda.synchronize()
+    tail_rels = (rel_err(mid, fused_dropout_matmul_plain(x[:tail], a, 1234, thr, row0=LORA_ROW0)),
+                 rel_err(da, fused_dropout_bwd_plain(x[:tail], a, dmid[:tail], 1234, thr, row0=LORA_ROW0)[1]))
+    # dA's mask read back exactly: x all ones and dmid[m, n] = 2^(m - 16 n)
+    # on rows [16 n, 16 n + 16) (zero elsewhere) make dA[c, n] = s times the
+    # kept rows' powers of two, an integer below 2^16 times s (8 bits): f32
+    # exact in any order, so round(dA / s) is the mask of rows 0..255.
+    ones = torch.ones_like(x)
+    powers = torch.zeros_like(dmid)
+    for n in range(LORA_R):
+        powers[16 * n:16 * n + 16, n] = 2.0 ** torch.arange(16, device=dev, dtype=torch.float32)
+    scale = float(torch.tensor(1.0 / keep, dtype=torch.bfloat16))
+    for mode, b in (("hash", None), ("bits", bits)):
+        _, da = fused_dropout_bwd(ones, a, powers, 1234, LORA_P, bits=b, need_dx=False, row0=LORA_ROW0)
+        words = torch.round(da / scale).to(torch.int64)            # (k, R): 16 rows' bits each
+        got = ((words.T[:, None, :] >> torch.arange(16, device=dev)[None, :, None]) & 1).reshape(16 * LORA_R, k)
+        want = ((hash_bytes(1234, 16 * LORA_R, k, dev, LORA_ROW0) if b is None else b[:16 * LORA_R]) >= thr)
+        da_mismatches = int((got.bool() != want).sum())
+        print(f"  lora K={k} {mode}: dA's mask read back on rows 0..{16 * LORA_R - 1}: {da_mismatches} mismatches")
+        if da_mismatches:
+            raise AssertionError(f"lora_da's {mode} mask is not exact (K={k})")
+    print(f"  lora K={k} M tail {tail} from row {LORA_ROW0}: max|err|/max|ref| fwd {tail_rels[0]:.3e} "
+          f"(tol {MID_REL_TOL}), dA {tail_rels[1]:.3e} (tol {DA_REL_TOL})")
+    if not (tail_rels[0] <= MID_REL_TOL and tail_rels[1] <= DA_REL_TOL):
+        raise AssertionError(f"LoRA forward or dA disagrees with plain on an M tail (K={k})")
     return errs
+
+
+def check_lora_plans(dev) -> None:
+    """The clusters of each size the card holds at once for the forward's
+    and dA's kernels (the plans' limits; ``H100_CLUSTERS`` is the CPU
+    tests' card), and the plans (``_fwd_plan``, ``_da_plan``) they give at
+    the path's widths, each held to one wave. Printed."""
+    caps = {da: _cluster_capacity(dev, LORA_R, da) for da in (False, True)}
+    print(f"  lora clusters the card holds at once (sizes {CLUSTER_SIZES}): forward {caps[False]}, dA "
+          f"{caps[True]}; the CPU tests' H100 {H100_CLUSTERS}")
+    for m, k in ((LORA_M, LORA_KS[0]), (LORA_M, LORA_KS[1]), (LORA_M // 2, LORA_KS[0]),
+                 *((LORA_M, kk) for kk, _ in TENSOR_LORA)):
+        line = []
+        for da, plan, n_red in ((False, _fwd_plan(m, k, LORA_R, caps=caps[False]), k // 64),
+                                (True, _da_plan(m, k, LORA_R, caps=caps[True]), -(-m // 64))):
+            if plan[1] > caps[da][CLUSTER_SIZES.index(plan[0])]:
+                raise AssertionError(f"the {'dA' if da else 'forward'} plan {plan} at ({m}, {k}) is over one wave")
+            line.append(f"{'dA' if da else 'forward'} {plan[1]} clusters of {plan[0]} "
+                        f"({'resident' if plan[2] else 'streamed'}, {plan_smem_bytes(plan, n_red, LORA_R, False)} B)")
+        print(f"  lora plans at ({m}, {k}): " + "; ".join(line))
 
 
 def check_lora_col0(k: int, col0: int, gen, dev) -> dict[str, float]:
@@ -1170,15 +1390,19 @@ def traced(fn, label: str, span: str | None = None) -> tuple[dict[str, float], d
     by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in kernels),
                        key=lambda x: -x[1])
     groups: dict[str, float] = {}
-    for name, ms, _ in by_kernel:
+    launched: dict[str, int] = {}
+    for name, ms, count in by_kernel:
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+        launched[kernel_group(name)] = launched.get(kernel_group(name), 0) + count
     busy_ms = sum(groups.values())
     print(f"  traced {label} wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
-          + (f"{1.0 - busy_ms / wall_ms:.4f}" if busy_ms else "not measured (no device events)"))
+          + (f"{1.0 - busy_ms / wall_ms:.4f}" if busy_ms else "not measured (no device events)")
+          + f", {sum(launched.values())} kernels")
     for name, ms, count in by_kernel[:14]:
         print(f"  {ms:10.3f} ms  x{count:<5d} ({ms / count:.4f} ms each) {name[:100]}")
     for group, ms in sorted(groups.items(), key=lambda x: -x[1]):
-        print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time)")
+        print(f"  group {group:9s} {ms:10.3f} ms ({ms / max(busy_ms, 1e-9):.1%} of device time), "
+              f"{launched[group]} kernels")
     if span:
         groups[span] = span_device_ms(prof, span)
         print(f"  group {span:9s} {groups[span]:10.3f} ms ({groups[span] / max(busy_ms, 1e-9):.1%} of device "
@@ -1778,6 +2002,35 @@ def report(name: str, shape: str, rec: dict, flops: float, nbytes: float,
           f"{nbytes / rec['ms'] / 1e6:.1f} GB/s achieved")
 
 
+def kernels_a_call(fn, iters: int = 10, tries: int = 5) -> float:
+    """The kernels one call of ``fn`` launches: ``iters`` warm calls traced,
+    their kernel records over the calls. The tracer drops whole sessions
+    now and then, so up to ``tries`` sessions, until one recorded any."""
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0)
+        del prof
+        if count:
+            return count / iters
+    raise RuntimeError(f"torch.profiler recorded no kernel of the call in {tries} sessions")
+
+
+def report_whole_call(name: str, shape: str, rec: dict, fn) -> None:
+    """The whole call's device time (every kernel the wrapper launches)
+    against the bound, and the kernels a call; printed, and kept in
+    ``rec`` (not in the JSON line)."""
+    rec["kernels_a_call"] = kernels_a_call(fn)
+    print(f"  {name} {shape}: whole call {rec['wrapper_ms']:.4f} ms of device time, "
+          f"{rec['bound_ms'] / rec['wrapper_ms']:.1%} of the bound; {rec['kernels_a_call']:g} kernel(s) a call "
+          f"(the kernel alone {rec['ms']:.4f} ms, {rec['bound_ms'] / rec['ms']:.1%})")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -1911,6 +2164,21 @@ def time_flash_bwd(b: int, s: int, gen, dev, keep_mask, iters: int,
     return {"flash_bwd_prep": prep, "flash_bwd": rec, "flash_bwd_post": post} if json_record else {}
 
 
+def lora_reduce_launcher(kernel, name: str, x, a, dmid, seed: int, thr: int):
+    """A closure that makes one launch of the forward's (``name``
+    lora_fwd) or dA's launcher ``kernel`` (as built or a cost probe) on x
+    and A or dmid in hash mode, with the wrapper's plan and scale, the
+    output made once."""
+    m, k = x.shape
+    r, da = a.shape[1], name == "lora_da"
+    cs, clusters, resident = (_da_plan if da else _fwd_plan)(m, k, r, caps=_cluster_capacity(x.device, r, da))
+    out = torch.empty((k, r) if da else (m, r), dtype=torch.float32 if da else x.dtype, device=x.device)
+    scale = float(torch.tensor(1.0 / (1.0 - thr / 256.0), dtype=x.dtype))
+    args = (x.data_ptr(), (dmid if da else a).data_ptr(), None, out.data_ptr(), m, k, r, cs, clusters,
+            int(resident), seed, 0, 0, thr, scale, torch.cuda.current_stream().cuda_stream)
+    return lambda: (kernel.launch(*args), out)
+
+
 def time_lora(gen, dev) -> dict[str, dict]:
     """The three kernels (hash mode) at M = 6144, K = 4096 and 14336; the
     library is the unfused torch sequence on a precomputed mask (timed
@@ -1937,8 +2205,24 @@ def time_lora(gen, dev) -> dict[str, dict]:
         for name, (kernel_fn, kernel, plain_fn, library_fn, nbytes) in cases.items():
             rec = timed(kernel_fn, kernel, plain_fn, library_fn, 20)
             report(name, f"M={m} K={k}", rec, 2 * m * k * r, nbytes)
+            if name != "lora_dx":
+                report_whole_call(name, f"M={m} K={k}", rec, kernel_fn)
             if k == LORA_KS[0]:
                 out[name] = rec
+        # The cost probe: each kernel as built and without the mask, device
+        # time over 20 launches on the same inputs (at K 4096 a launch takes
+        # less device time than the host takes to issue it, so CUDA events
+        # would time the host), in turns twice, the lower kept.
+        times: dict = {}
+        for _ in range(2):
+            for name, built in (("lora_fwd", LORA_FWD), ("lora_da", LORA_DA)):
+                for label, kernel in (("as built", built), ("no mask", LORA_NO_MASK[name])):
+                    times.setdefault((name, label), []).append(device_ms(
+                        lora_reduce_launcher(kernel, name, x, a, dmid, 7, thr), 20, f"{name}_kernel")[0])
+        for name in ("lora_fwd", "lora_da"):
+            base, bare = min(times[name, "as built"]), min(times[name, "no mask"])
+            print(f"  {name} M={m} K={k}, cost probe (device time): as built {base:.4f} ms, without the mask "
+                  f"{bare:.4f} ms ({bare - base:+.4f}; the stream alone at {m * k * 2 / bare / 1e9:.2f} TB/s of x)")
         del x, a, dmid, mask_scale
     return out
 
@@ -1990,8 +2274,10 @@ def time_tensor_shapes(gen, dev) -> None:
                         lambda: (x * mask_scale).T @ dmid, (m * kk + m * r) * 2 + kk * r * 4),
         }
         for name, (kernel_fn, kernel, plain_fn, library_fn, nbytes) in cases.items():
-            report(name, f"M={m} K={kk} col0={col0}", timed(kernel_fn, kernel, plain_fn, library_fn, 20),
-                   2 * m * kk * r, nbytes)
+            rec = timed(kernel_fn, kernel, plain_fn, library_fn, 20)
+            report(name, f"M={m} K={kk} col0={col0}", rec, 2 * m * kk * r, nbytes)
+            if name != "lora_dx":
+                report_whole_call(name, f"M={m} K={kk} col0={col0}", rec, kernel_fn)
         del x, a, dmid, mask_scale
     scaling = 32.0 / LORA_R
     for n in TENSOR_EPI_NS:
@@ -4404,39 +4690,48 @@ def from_jax_child(out: str) -> int:
               f"launches { {k: v for k, v in launches.items() if v} }, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; one val batch served ({serve_launches['flash_fwd']} "
               f"flash_fwd) ({card})")
-    with phase("9j (d) the same step from the same tensors handed over directly (twice: the floor)"):
+    with phase(f"9j (d) the same step from the same tensors handed over directly ({FROM_JAX_DIRECT_RUNS} times: "
+               f"the floor)"):
+        t_direct = time.perf_counter()
         direct = []
-        for _ in range(2):
+        for _ in range(FROM_JAX_DIRECT_RUNS):
             d = direct_trainer(trainer.model.train(), trainer, want, dev)
             out = d.train_one(train[0])
             direct.append((float(out["brain_loss"]), float(out["grad_norm"]),
                            {n: p.detach().clone() for n, p in d.trainable.items()}))
             del d
-        (loss_b, norm_b, upd_b), (loss_c, norm_c, upd_c) = direct
+        direct_s = time.perf_counter() - t_direct
+        losses, norms, upds = zip(*direct)
 
         def apart(x: dict, y: dict) -> float:
             return float(torch.stack([(x[n] - y[n]).float().square().sum() for n in x]).sum().sqrt())
 
-        gap, floor = abs(norm - norm_b), abs(norm_b - norm_c)
-        upd_gap, upd_floor = apart(updated, upd_b), apart(upd_b, upd_c)
-        upd_size = apart(upd_b, want["param"])
-        loss_equal = loss == loss_b == loss_c
-        print(f"  first loss bit-equal to the direct trainers': {loss_equal} ({loss!r}, {loss_b!r}, {loss_c!r}); "
-              f"grad norm {norm!r} against {norm_b!r} (bit-equal {gap == 0.0}; the two direct runs {floor:.3e} "
-              f"apart: dq's reduce-adds sum in a run-dependent order); the updated tensors {upd_gap:.3e} from the "
-              f"direct trainer's by 2-norm, the two direct runs {upd_floor:.3e} apart (the update itself "
-              f"{upd_size:.3e})")
+        gap, floor = abs(norm - norms[0]), abs(norms[0] - norms[1])
+        pair_gaps = [apart(upds[i], upds[j]) for i in range(len(upds)) for j in range(i + 1, len(upds))]
+        upd_gaps = [apart(updated, u) for u in upds]
+        upd_floor, upd_gap = max(pair_gaps), max(upd_gaps)
+        upd_size = apart(upds[0], want["param"])
+        loss_equal = all(x == loss for x in losses)
+        print(f"  first loss bit-equal to the {len(losses)} direct trainers': {loss_equal} ({loss!r}, "
+              f"{losses!r}); grad norm {norm!r} against {norms[0]!r} (bit-equal {gap == 0.0}; the first two direct "
+              f"runs {floor:.3e} apart: dq's reduce-adds sum in a run-dependent order); the updated tensors "
+              f"{', '.join(f'{g:.3e}' for g in upd_gaps)} from each direct trainer's by 2-norm, the direct runs' "
+              f"{len(pair_gaps)} pairs {min(pair_gaps):.3e} to {upd_floor:.3e} apart (the floor: their largest; the "
+              f"widest gap {upd_gap / max(upd_floor, 1e-30):.2f}x it, held within {FROM_JAX_UPDATE_FLOOR_RATIO}x; "
+              f"the update itself {upd_size:.3e}); the {FROM_JAX_DIRECT_RUNS} direct runs took {direct_s:.1f} s")
         if not loss_equal:
             raise AssertionError("the converted state's first loss differs from the directly loaded one's")
-        if gap > FROM_JAX_NORM_TOL * norm_b:
+        if gap > FROM_JAX_NORM_TOL * norms[0]:
             raise AssertionError(f"grad norm {gap:.3e} from the direct trainer's, over {FROM_JAX_NORM_TOL} relative")
         if upd_gap > FROM_JAX_UPDATE_FLOOR_RATIO * upd_floor:
-            raise AssertionError(f"the update {upd_gap:.3e} from the direct trainer's, over "
+            raise AssertionError(f"the update {upd_gap:.3e} from a direct trainer's, over "
                                  f"{FROM_JAX_UPDATE_FLOOR_RATIO} x the floor {upd_floor:.3e}")
+        del direct, upds
     record = {"convert_s": report.seconds, "convert_bytes": report.bytes, "step_ms": step_ms,
               "loss": loss, "grad_norm": norm, "grad_norm_gap": gap, "grad_norm_floor": floor,
-              "update_gap": upd_gap, "update_floor": upd_floor, "update_size": upd_size,
-              "peak_rss_gb": peak_rss_gb()}
+              "update_gap": upd_gap, "update_gaps": upd_gaps, "update_floor": upd_floor,
+              "update_pair_gaps": pair_gaps, "update_size": upd_size, "direct_runs": FROM_JAX_DIRECT_RUNS,
+              "direct_s": direct_s, "peak_rss_gb": peak_rss_gb()}
     print(json.dumps(record))
     if record["peak_rss_gb"] > HOST_RSS_LIMIT_GB:
         raise AssertionError(f"9j's peak host RSS {record['peak_rss_gb']:.2f} GB is over {HOST_RSS_LIMIT_GB}")
@@ -4927,6 +5222,10 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ring-issue"]:
         return compare_ring_issue(sys.argv[2:])
+    if sys.argv[1:2] == ["--lora-calls"]:
+        return compare_lora_calls(sys.argv[2:])
+    if sys.argv[1:2] == ["--lora-step"]:
+        return compare_lora_step(sys.argv[2:])
     if sys.argv[1:2] == ["--trainer"]:
         return trainer_child(sys.argv[2])
     if sys.argv[1:2] == ["--after-train"]:
@@ -4985,6 +5284,7 @@ def main() -> int:
         check_flash(2, 256, gen, dev, hq=16, hkv=4, valid=[0, 256])   # a row with every key masked
         max_abs_err["ring_fwd"] = check_ring(gen, dev)
         torch.cuda.empty_cache()
+        check_lora_plans(dev)
         for k in LORA_KS:
             for name, err in check_lora(k, gen, dev).items():
                 max_abs_err[name] = max(max_abs_err.get(name, 0.0), err)

@@ -84,7 +84,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int D = 128;                 // head dim
 constexpr int BQ = 64;                 // q rows per tile
@@ -114,179 +118,6 @@ struct Smem {
   static constexpr uint32_t BYTES = BAR + 8 * (2 * NST + 7) + 1024;   // + alignment slack
   static constexpr uint32_t STAGE_TX = 2 * Q_TILE + 2 * BQ * 4;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Returns once the phase of parity `parity` has completed. A wait longer
-// than 20 s traps ("unspecified launch failure") rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && (n & 1023) == 1023) {
-      if (t0 == 0) t0 = global_ns();
-      else if (global_ns() - t0 > 20000000000ull) __trap();
-    }
-  }
-}
-
-// A 3D box (columns, rows, batch) of a tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// Adds a 2D box of shared memory into the tensor map's f32 elements.
-__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1) : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma and bulk copies.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma accumulators
-// across the asynchronous issue and the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// wgmma shared-memory descriptor, 128B swizzle. K-major operands: 8-row
-// groups 1024 B apart (sbo), lbo unused; a k16 slice is +32 B inside a
-// 64-column half. MN-major operands: 8 k-rows 1024 B apart (sbo), 64-wide
-// MN halves `lbo` apart; a k16 slice is +2048 B.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
-         | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
-         | (1ull << 62);
-}
-
-// d[0..32) += A(smem) B(smem), m64n64k16, bf16 in, f32 sums.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// d[0..64) += A(registers) B(smem), m64n128k16, bf16 in, f32 sums.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %70, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The m64nN accumulator as register A fragments of k16 slices: slice k is
-// columns 16k..16k+15, elements 8k..8k+7.
-template <int N>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 2], const float (&c)[N]) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*128)
@@ -354,8 +185,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
       mbar_expect_tx(kv_bar, 2 * L::KV_TILE);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        tma_load(base + L::K + half * BK * 128, &tm_k, hkv * D + half * 64, kv0, b, kv_bar);
-        tma_load(base + L::V + half * BK * 128, &tm_v, hkv * D + half * 64, kv0, b, kv_bar);
+        tma_load_3d(base + L::K + half * BK * 128, &tm_k, hkv * D + half * 64, kv0, b, kv_bar);
+        tma_load_3d(base + L::V + half * BK * 128, &tm_v, hkv * D + half * 64, kv0, b, kv_bar);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int st = it % NST;
@@ -366,9 +197,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
         mbar_expect_tx(bar, L::STAGE_TX);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          tma_load(base + L::Q + st * L::Q_TILE + half * BQ * 128, &tm_q, h * D + half * 64,
+          tma_load_3d(base + L::Q + st * L::Q_TILE + half * BQ * 128, &tm_q, h * D + half * 64,
                    qt * BQ, b, bar);
-          tma_load(base + L::DO + st * L::Q_TILE + half * BQ * 128, &tm_do, h * D + half * 64,
+          tma_load_3d(base + L::DO + st * L::Q_TILE + half * BQ * 128, &tm_do, h * D + half * 64,
                    qt * BQ, b, bar);
         }
         const size_t stat = (static_cast<size_t>(b) * Hq + h) * s_pad + qt * BQ;
@@ -389,7 +220,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
         }
 #endif
         bulk_commit();
-        bulk_wait_read();
+        bulk_wait_read<0>();
         mbar_arrive(dq_empty);
       }
       bulk_wait_all();
@@ -444,7 +275,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
                              smem_desc(sdo + qoff, 16, 1024));
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(s_acc);
         fence_regs(dp_acc);
 
@@ -484,7 +315,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
         }
         uint32_t da[16];
         acc_to_a<32>(da, s_acc);
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(dv_acc);
 
         // dK += dS^T Q_s (dS bf16).
@@ -508,7 +339,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
         }
         fence_async_smem();
         mbar_arrive(ds_full + 8 * (it & 1));
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(dk_acc);
         mbar_arrive(empty_bar + 8 * st);           // Q_s and dO of this stage are free
       }
@@ -529,7 +360,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,     // q_s (B, S, Hq*
               smem_desc(base + L::K + half * BK * 128 + ks * 2048, BK * 128, 1024));
         }
         wgmma_commit();
-        wgmma_wait_all();
+        wgmma_wait<0>();
         fence_regs(q_acc);
         mbar_arrive(ds_empty + 8 * (pt & 1));
         if (pt >= 1) mbar_wait(dq_empty, (pt - 1) & 1);   // tile pt - 1 has left shared memory

@@ -104,19 +104,13 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int CH = 64;                 // tile edge (rows and columns)
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 
 // 8 bf16 at (row, col .. col + 7) of a row-major matrix with leading
 // dimension ld, zeros outside (rows, cols). `vec`: ld % 8 == 0 and an
@@ -188,126 +182,6 @@ struct FwdSmem {
   static constexpr uint32_t B = (BAR + 8 * (2 * NST + 2 * K::ZST + 1) + 1023) / 1024 * 1024;
   static constexpr uint32_t bytes(int ncols) { return B + ncols * K::B_SLOT + 1024; }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Returns once the phase of parity `parity` has completed. A wait longer
-// than 20 s traps ("unspecified launch failure") rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && (n & 1023) == 1023) {
-      if (t0 == 0) t0 = global_ns();
-      else if (global_ns() - t0 > 20000000000ull) __trap();
-    }
-  }
-}
-
-// A 2D box (columns, rows) of a tensor map into shared memory, with an L2
-// eviction policy (createpolicy).
-__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                                 uint32_t bar, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1, {%3, %4}], [%2], %5;\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
-      : "memory");
-}
-
-// A 2D box (columns, rows) of a tensor map into shared memory.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_shared16(uint32_t addr, const uint4& v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-// Byte offset of (row, col), col a multiple of 8, in a tile of 128-byte
-// rows (dy's 64 columns, B's 64 columns) as TMA's 128-byte swizzle lays it
-// out from a 1024-aligned base: 16-byte piece col / 8 of a row lands at
-// piece (col / 8) ^ (row % 8).
-__device__ __forceinline__ uint32_t sw128(int row, int col) {
-  return static_cast<uint32_t>(row * 128 + ((((col >> 3) ^ row) & 7) << 4));
-}
-
-// (row, col) of a z chunk, 64 rows x R ranks. R >= 64: 64-rank halves of
-// 64 x 128 bytes, each as sw128. R = 16, 32: rows of 2R bytes under TMA's
-// 32- or 64-byte swizzle (byte address bits 4.. XOR bits 7..).
-template <int R>
-__device__ __forceinline__ uint32_t zoff(int row, int col) {
-  if constexpr (R >= 64) {
-    return static_cast<uint32_t>((col >> 6) * (CH * 128)) + sw128(row, col & 63);
-  } else {
-    const uint32_t off = static_cast<uint32_t>(row * 2 * R + (col >> 3) * 16);
-    return off ^ (((off >> 7) & (R / 8 - 1)) << 4);
-  }
-}
-
-// A 2D box of shared memory into a tensor map's elements (columns, rows);
-// elements out of the tensor's bounds are not written.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1) : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Returns once at most N of this thread's bulk stores still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to bulk copies.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // The row chunks [rb0, rb0 + nrows) and column chunks [cb0, cb0 + ncols) of
 // 64 x 64 tiles that block (gj, gi) of an (nb, mb) grid owns.

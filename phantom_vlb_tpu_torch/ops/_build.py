@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 # Sources that call the CUDA driver API (``cuStreamWriteValue32``,
 # ``cuTensorMapEncodeTiled``) link it.
 LINK_FLAGS = {name: ("-lcuda",) for name in ("flash_fwd.cu", "ring_fwd.cu", "flash_bwd.cu",
-                                              "lora_epilogue.cu")}
+                                              "lora_epilogue.cu", "lora_dropout.cu")}
 # nvcc's report per build target (``-Xptxas -v``: registers, shared memory
 # and spills per kernel); empty when the library was already built.
 BUILD_LOGS: dict = {}

@@ -30,14 +30,18 @@ gives the kernels' bytes bit for bit.
 
 On CUDA tensors the three kernels of ``csrc/lora_dropout.cu`` run; on CPU
 tensors their plain versions. There is no fallback on the card. The
-forward is the dispatcher op ``vlb::lora_dropout_fwd``, so that a
-checkpoint policy can keep the mid it makes (``core/remat.py``).
+forward and dA are one launch each that writes the finished output: their
+split of the reduction over the blocks of a thread-block cluster, folded
+inside the launch in a fixed order, is chosen by :func:`_fwd_plan` and
+:func:`_da_plan`. The forward is the dispatcher op
+``vlb::lora_dropout_fwd``, so that a checkpoint policy can keep the mid it
+makes (``core/remat.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
 
 import torch
 
@@ -46,30 +50,106 @@ from phantom_vlb_tpu_torch.ops._build import CudaKernel
 __all__ = [
     "fused_dropout_matmul", "fused_dropout_matmul_plain", "fused_dropout_bwd_plain",
     "fused_dropout_bwd", "hash_bytes", "dropout_threshold", "LORA_FWD", "LORA_DX", "LORA_DA",
+    "LORA_CLUSTER_CAPACITY", "smem_bytes", "plan_smem_bytes",
 ]
 
 CHUNK = 64            # the kernels' tile edge: K must be a multiple of it
 RANKS = (16, 32, 64, 128)
-TARGET_BLOCKS = 528   # 4 blocks per SM of an H100 when splitting a reduction
 _GOLDEN, _M1, _M2 = 0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35
 _U32 = 0xFFFFFFFF
 
+# The forward and dA kernels' block (csrc/lora_dropout.cu, mirrored here):
+# ring stages of x tiles and consumer groups of four warps by rank, the
+# shared memory a block may use, and the cluster sizes (at most 8, the
+# portable size).
+STAGES = {16: 12, 32: 8, 64: 6, 128: 2}
+GROUPS = {16: 4, 32: 4, 64: 2, 128: 2}
+SMEM_PER_BLOCK = 232448
+CLUSTER_SIZES = (1, 2, 4, 8)
+# Clusters of each size (one block an SM) an H100 SXM holds at once, as
+# cudaOccupancyMaxActiveClusters reads them on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py phase 3 prints them): the plans' default card. On a card
+# the plans take its own numbers (_cluster_capacity).
+H100_CLUSTERS = (132, 66, 30, 15)
+# The plans' costs, in tiles a block streams, read on the card (NVIDIA
+# H100 80GB HBM3: grids timed against each other, and the no-mask cost
+# probe): an output tile's fold and turn (partials summed, the cluster's
+# barrier, the sums through distributed shared memory, the next tile's
+# start) costs about 4 tiles in the forward and 10 in dA, and the card
+# streams x as fast as about 96 blocks do (~2.4 TB/s against ~25 GB/s a
+# block), so more blocks than that gain nothing.
+FOLD_TILES = {False: 4, True: 10}          # the forward's, dA's
+STREAM_BLOCKS = 96
+
 _SRC = "lora_dropout.cu"
-LORA_FWD = CudaKernel(
-    _SRC, "lora_fwd_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 3
-    + [ctypes.c_float, ctypes.c_void_p],
-)
+_REDUCE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_uint32] + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_void_p])
+LORA_FWD = CudaKernel(_SRC, "lora_fwd_launch", _REDUCE_ARGS)
 LORA_DX = CudaKernel(
     _SRC, "lora_dx_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_uint32] + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.c_void_p],
 )
-LORA_DA = CudaKernel(
-    _SRC, "lora_da_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_int] * 3
-    + [ctypes.c_float, ctypes.c_void_p],
-)
+LORA_DA = CudaKernel(_SRC, "lora_da_launch", _REDUCE_ARGS)
+# How many clusters of a size the card holds at once (a query, no launch).
+LORA_CLUSTER_CAPACITY = CudaKernel(_SRC, "lora_cluster_capacity",
+                                   [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+
+
+def smem_bytes(r: int, p_slots: int, bits: bool) -> int:
+    """Shared memory of a forward or dA block at rank ``r`` holding
+    ``p_slots`` chunks of A or dmid (64 x r bf16 each), with the mask's u8
+    tiles in bits mode (``layout_of`` in the source): x tiles, the chunks,
+    the u8 tiles, each stage's 64 row keys, each group's f32 partial and
+    three slots of the block's, the mbarriers and 1 KB of alignment slack."""
+    nst = STAGES[r]
+    return (nst * CHUNK * CHUNK * 2 + p_slots * CHUNK * r * 2 + (nst * CHUNK * CHUNK if bits else 0)
+            + nst * CHUNK * 4 + (GROUPS[r] + 3) * CHUNK * (r + 4) * 4 + 8 * (2 * nst + 1) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n_out: int, n_red: int, r: int, bits: bool, caps: tuple, da: bool) -> tuple[int, int, bool]:
+    """(cs, clusters, resident) for ``n_out`` output tiles and ``n_red``
+    chunks of the reduced axis: a grid of ``clusters`` clusters of ``cs``
+    blocks, cluster c walking output tiles c, c + clusters, ... and its
+    block of rank q streaming chunks [n_red q / cs, n_red (q + 1) / cs) of
+    each (every chunk owned once), within one wave: at most ``caps[i]``
+    clusters of CLUSTER_SIZES[i]. Among those, least cost, the larger of
+    (output tiles a cluster) x (chunks a block + FOLD_TILES[da]) and all
+    tiles over STREAM_BLOCKS; then resident chunks, then the fewest blocks,
+    then the smallest cluster. ``resident``: the block's chunks of A or
+    dmid fit in shared memory beside the ring, so they are loaded once."""
+    floor = -(-n_out * n_red // STREAM_BLOCKS)
+    best = None
+    for cs, cap in zip(CLUSTER_SIZES, caps):
+        if cs > n_red:
+            break
+        resident = smem_bytes(r, -(-n_red // cs), bits) <= SMEM_PER_BLOCK
+        for g in range(1, min(n_out, cap) + 1):
+            cost = max(-(-n_out // g) * (-(-n_red // cs) + FOLD_TILES[da]), floor)
+            key = (cost, not resident, cs * g, cs)
+            if best is None or key < best[0]:
+                best = (key, cs, g, resident)
+    return best[1], best[2], best[3]
+
+
+def _fwd_plan(m: int, k: int, r: int, bits: bool = False, caps: tuple = H100_CLUSTERS) -> tuple[int, int, bool]:
+    """The forward's plan: output tiles are x's 64-row chunks, the reduced
+    axis K's 64-column chunks."""
+    return _plan(-(-m // CHUNK), k // CHUNK, r, bits, tuple(caps), False)
+
+
+def _da_plan(m: int, k: int, r: int, bits: bool = False, caps: tuple = H100_CLUSTERS) -> tuple[int, int, bool]:
+    """dA's plan: output tiles are K's 64-column chunks, the reduced axis
+    M's 64-row chunks."""
+    return _plan(k // CHUNK, -(-m // CHUNK), r, bits, tuple(caps), True)
+
+
+def plan_smem_bytes(plan: tuple[int, int, bool], n_red: int, r: int, bits: bool) -> int:
+    """Shared memory a block of ``plan`` takes (the chunks resident or one a
+    stage)."""
+    cs, _, resident = plan
+    return smem_bytes(r, -(-n_red // cs) if resident else STAGES[r], bits)
 
 
 def dropout_threshold(p: float) -> tuple[int, float]:
@@ -163,17 +243,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_CAPS: dict = {}
+
+
+def _cluster_capacity(dev, r: int, da: bool) -> tuple:
+    """The clusters of each of CLUSTER_SIZES that ``dev`` holds at once for
+    the forward's (or dA's) kernel at rank ``r``, one block an SM (the
+    whole shared memory asked for), read once a (device, kernel)."""
+    key = (dev.index, r, da)
+    if key not in _CAPS:
+        fn = LORA_CLUSTER_CAPACITY.load()
+        caps = []
+        with torch.cuda.device(dev):
+            for cs in CLUSTER_SIZES:
+                held = ctypes.c_int(0)
+                err = fn(int(da), r, cs, SMEM_PER_BLOCK, ctypes.byref(held))
+                if err or held.value < 1:
+                    raise RuntimeError(f"lora_cluster_capacity: CUDA error {err}, {held.value} clusters of {cs}")
+                caps.append(held.value)
+        _CAPS[key] = tuple(caps)
+    return _CAPS[key]
+
+
 def _fwd_cuda(x, a, seed, thr, bits, row0, col0):
     m, k = x.shape
     r = a.shape[1]
-    m_blocks, chunks = math.ceil(m / CHUNK), k // CHUNK
-    split = min(chunks, max(1, math.ceil(TARGET_BLOCKS / m_blocks)))
-    part = torch.empty((split, m, r), dtype=torch.float32, device=x.device)
+    cs, clusters, resident = _fwd_plan(m, k, r, bits is not None, _cluster_capacity(x.device, r, False))
+    mid = torch.empty((m, r), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        LORA_FWD.launch(x.data_ptr(), a.data_ptr(), _ptr(bits), part.data_ptr(),
-                        m, k, r, split, seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
+        LORA_FWD.launch(x.data_ptr(), a.data_ptr(), _ptr(bits), mid.data_ptr(), m, k, r, cs, clusters,
+                        int(resident), seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
                         torch.cuda.current_stream().cuda_stream)
-    return part.sum(0).to(x.dtype)
+    return mid
 
 
 def _dx_cuda(x, a, dmid, seed, thr, bits, row0, col0):
@@ -191,14 +292,13 @@ def _da_cuda(x, a, dmid, seed, thr, bits, row0, col0):
     m, k = x.shape
     r = a.shape[1]
     dmid = dmid.to(x.dtype).contiguous()
-    k_blocks, chunks = k // CHUNK, math.ceil(m / CHUNK)
-    split = min(chunks, max(1, math.ceil(TARGET_BLOCKS / k_blocks)))
-    part = torch.empty((split, k, r), dtype=torch.float32, device=x.device)
+    cs, clusters, resident = _da_plan(m, k, r, bits is not None, _cluster_capacity(x.device, r, True))
+    da = torch.empty((k, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        LORA_DA.launch(x.data_ptr(), dmid.data_ptr(), _ptr(bits), part.data_ptr(),
-                       m, k, r, split, seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
+        LORA_DA.launch(x.data_ptr(), dmid.data_ptr(), _ptr(bits), da.data_ptr(), m, k, r, cs, clusters,
+                       int(resident), seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
                        torch.cuda.current_stream().cuda_stream)
-    return part.sum(0)
+    return da
 
 
 def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=True, need_da=True,

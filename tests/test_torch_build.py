@@ -2,6 +2,8 @@
 the local headers it includes and the flags, so an edited header rebuilds
 every source that includes it. Nothing here runs ``nvcc``."""
 
+import pytest
+
 from phantom_vlb_tpu_torch.ops import _build
 
 
@@ -38,5 +40,12 @@ def test_header_includes_are_followed_transitively_and_once(tmp_path):
 def test_the_attention_sources_hash_their_core():
     for name in ("flash_fwd.cu", "ring_fwd.cu"):
         names = [p.name for p in _build._sources(_build.CSRC_DIR / name)]
-        assert names == [name, "attn_fwd.cuh"]
+        assert names == [name, "attn_fwd.cuh", "hopper.cuh"]
         assert "-lcuda" in _build._flags(_build.CSRC_DIR / name)
+
+
+@pytest.mark.parametrize("name", ["flash_bwd.cu", "lora_epilogue.cu", "lora_dropout.cu"])
+def test_the_tma_sources_hash_the_shared_primitives(name):
+    # An edit of hopper.cuh rebuilds every kernel that includes it.
+    assert [p.name for p in _build._sources(_build.CSRC_DIR / name)] == [name, "hopper.cuh"]
+    assert "-lcuda" in _build._flags(_build.CSRC_DIR / name)

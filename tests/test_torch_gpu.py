@@ -383,6 +383,103 @@ def test_backward_and_lora_raise_on_what_they_do_not_take(cuda):
         fused_dropout_matmul(x, a, 0, P, bits=bits[:, :128])                 # bits shape
 
 
+# The one-launch forward and dA (clusters of blocks that fold their partials
+# in the launch): M tails (a single row, a partial tile, one row past 48
+# tiles), every rank, bits and hash modes, a rank's first row and a first
+# column off the 64-column tile; dx rides along.
+@pytest.mark.parametrize("m", [1, 100, 6145])
+@pytest.mark.parametrize("r", [16, 32, 64, 128])
+@pytest.mark.parametrize("mode", ["bits", "hash"])
+def test_lora_fwd_and_da_tails_and_ranks_match_plain(cuda, m, r, mode):
+    k = 512
+    x, a, dmid, bits = _lora_inputs(cuda, m, k, r, seed=m + r)
+    bits = bits if mode == "bits" else None
+    row0, col0 = (40, 68) if mode == "hash" else (0, 0)
+    mid = fused_dropout_matmul(x, a, 7, P, bits=bits, row0=row0, col0=col0)
+    dx, da = fused_dropout_bwd(x, a, dmid, 7, P, bits=bits, row0=row0, col0=col0)
+    torch.cuda.synchronize()
+    assert mid.shape == (m, r) and mid.dtype == torch.bfloat16 and da.shape == (k, r) and da.dtype == torch.float32
+    assert _rel(mid, fused_dropout_matmul_plain(x, a, 7, THR, bits, row0, col0)) <= MID_REL_TOL
+    dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, 7, THR, bits, row0, col0)
+    assert _rel(dx, dx_ref) <= DX_REL_TOL and (dx == 0).equal(dx_ref == 0)
+    assert _rel(da, da_ref) <= DA_REL_TOL
+
+
+# The path's widths: K 4096 and 14336 at batch 3's rows, and a tensor rank's.
+@pytest.mark.parametrize("m,k,col0", [(6144, 4096, 0), (6144, 14336, 0), (3072, 4096, 0), (6144, 2048, 2048),
+                                      (6144, 7168, 7168)])
+def test_lora_fwd_and_da_at_the_path_widths_repeat_bit_for_bit(cuda, m, k, col0):
+    x, a, dmid, _ = _lora_inputs(cuda, m, k, 16)
+    first = (fused_dropout_matmul(x, a, 5, P, row0=77, col0=col0),
+             fused_dropout_bwd(x, a, dmid, 5, P, need_dx=False, row0=77, col0=col0)[1])
+    second = (fused_dropout_matmul(x, a, 5, P, row0=77, col0=col0),
+              fused_dropout_bwd(x, a, dmid, 5, P, need_dx=False, row0=77, col0=col0)[1])
+    torch.cuda.synchronize()
+    assert all(torch.equal(f, g) for f, g in zip(first, second))
+    assert _rel(first[0], fused_dropout_matmul_plain(x, a, 5, THR, row0=77, col0=col0)) <= MID_REL_TOL
+    assert _rel(first[1], fused_dropout_bwd_plain(x, a, dmid, 5, THR, row0=77, col0=col0)[1]) <= DA_REL_TOL
+
+
+def test_lora_fwd_and_da_calls_are_one_kernel(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, a, dmid, _ = _lora_inputs(cuda, 6144, 4096, 16)
+    for fn, name in ((lambda: fused_dropout_matmul(x, a, 3, P), "lora_fwd_kernel"),
+                     (lambda: fused_dropout_bwd(x, a, dmid, 3, P, need_dx=False), "lora_da_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
+
+def test_lora_fwd_and_da_with_unaligned_bases_match_plain(cuda):
+    """Bases off 16 bytes (no TMA): the producer warp's plain loads."""
+    m, k, r = 300, 1024, 16
+    x0, a0, d0, bits0 = _lora_inputs(cuda, m, k, r, seed=3)
+    x = torch.empty(m * k + 3, dtype=torch.bfloat16, device=cuda)[3:].view(m, k)
+    a = torch.empty(k * r + 1, dtype=torch.bfloat16, device=cuda)[1:].view(k, r)
+    dmid = torch.empty(m * r + 5, dtype=torch.bfloat16, device=cuda)[5:].view(m, r)
+    bits = torch.empty(m * k + 7, dtype=torch.uint8, device=cuda)[7:].view(m, k)
+    for dst, src in ((x, x0), (a, a0), (dmid, d0), (bits, bits0)):
+        dst.copy_(src)
+    for b in (bits, None):
+        mid = fused_dropout_matmul(x, a, 9, P, bits=b, row0=3)
+        _, da = fused_dropout_bwd(x, a, dmid, 9, P, bits=b, need_dx=False, row0=3)
+        torch.cuda.synchronize()
+        assert _rel(mid, fused_dropout_matmul_plain(x0, a0, 9, THR, None if b is None else bits0, 3)) <= MID_REL_TOL
+        assert _rel(da, fused_dropout_bwd_plain(x0, a0, d0, 9, THR, None if b is None else bits0, 3)[1]) <= DA_REL_TOL
+
+
+def test_lora_cluster_capacity_is_the_plans_default(cuda):
+    """The clusters of each size the card holds at once, for both kernels
+    at two ranks: the CPU tests' table where the card is the H100 SXM it
+    was read on, and enough for every plan at the path's widths."""
+    from phantom_vlb_tpu_torch.ops import lora_fused as lf
+
+    caps = {(r, da): lf._cluster_capacity(cuda, r, da) for r in (16, 128) for da in (False, True)}
+    if "H100" in torch.cuda.get_device_name(cuda) and torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert set(caps.values()) == {lf.H100_CLUSTERS}, caps
+    for m, k in ((6144, 4096), (6144, 14336), (3072, 4096), (6144, 2048), (6144, 7168)):
+        for da, plan in ((False, lf._fwd_plan(m, k, 16, caps=caps[16, False])),
+                         (True, lf._da_plan(m, k, 16, caps=caps[16, True]))):
+            assert plan[1] <= caps[16, da][lf.CLUSTER_SIZES.index(plan[0])]
+
+
+def test_lora_fwd_and_da_raise_on_what_they_do_not_take(cuda):
+    x, a, dmid, bits = _lora_inputs(cuda, 128, 256, 16)
+    with pytest.raises(ValueError):
+        fused_dropout_bwd(x, a, dmid[:64], 0, P, need_dx=False)                  # dmid rows
+    with pytest.raises(ValueError):
+        fused_dropout_bwd(x.t().contiguous().t(), a, dmid, 0, P, need_dx=False)  # strided x
+    with pytest.raises(ValueError):
+        fused_dropout_matmul(x, a.t().contiguous().t(), 0, P)                    # strided A
+    with pytest.raises(ValueError):
+        fused_dropout_bwd(x, a, dmid, 0, P, bits=bits.cpu(), need_dx=False)      # bits on the CPU
+
+
 @pytest.mark.parametrize("rows,n", [(64, 4096), (24, 14336), (13, 1000), (5, 7), (3, 30000)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_row_quant_kernels_match_plain_bit_for_bit(cuda, rows, n, dtype):

@@ -153,3 +153,76 @@ def test_autograd_runs_the_plain_backward(data):
     assert torch.equal(xt.grad, dx)
     assert at.grad.dtype == torch.float32 and torch.equal(at.grad, da.bfloat16().float())
     assert torch.equal(mid, fused_dropout_matmul_plain(xt.detach(), at.detach().bfloat16(), 5, THR))
+
+
+# ---- the forward's and dA's plans (clusters of blocks that split the
+# reduction and fold it in the launch): checked here, on the CPU, by
+# replaying the kernel's split of the work ----
+
+from phantom_vlb_tpu_torch.ops import lora_fused as lf  # noqa: E402
+
+PLAN_SHAPES = [(6144, 4096), (6144, 14336), (3072, 4096), (6144, 2048), (6144, 7168),
+               (1, 4096), (100, 4096), (6145, 4096)]
+
+
+def _chunks(m, k, which):
+    """(output tiles, reduced chunks) of the forward or dA at (m, k)."""
+    rows, cols = -(-m // 64), k // 64
+    return (rows, cols) if which == "fwd" else (cols, rows)
+
+
+@pytest.mark.parametrize("m,k", PLAN_SHAPES)
+@pytest.mark.parametrize("r", [16, 32, 64, 128])
+@pytest.mark.parametrize("which", ["fwd", "da"])
+@pytest.mark.parametrize("bits", [False, True])
+def test_plan_owns_every_chunk_once_and_fits_the_card(m, k, r, which, bits):
+    plan = (lf._fwd_plan if which == "fwd" else lf._da_plan)(m, k, r, bits)
+    cs, clusters, resident = plan
+    n_out, n_red = _chunks(m, k, which)
+    assert cs in lf.CLUSTER_SIZES and cs <= 8 and cs <= n_red and 1 <= clusters <= n_out
+    # The kernel's split: cluster c's output tiles, its rank q's reduced chunks.
+    owned = np.zeros((n_out, n_red), np.int64)
+    for c in range(clusters):
+        outs = list(range(c, n_out, clusters))
+        assert outs
+        for q in range(cs):
+            r0, r1 = n_red * q // cs, n_red * (q + 1) // cs
+            assert r1 > r0
+            owned[outs, r0:r1] += 1
+    assert (owned == 1).all()                                    # every x tile read by one block
+    assert lf.plan_smem_bytes(plan, n_red, r, bits) <= 227 * 1024
+    assert resident == (lf.smem_bytes(r, -(-n_red // cs), bits) <= lf.SMEM_PER_BLOCK)
+    # One wave of an H100: at most as many clusters of cs as it holds at
+    # once, one block an SM (132).
+    assert clusters <= lf.H100_CLUSTERS[lf.CLUSTER_SIZES.index(cs)] and cs * clusters <= 132
+
+
+def test_plans_at_the_path_shapes():
+    # The grids csrc/lora_dropout.cu's design note states, at r 16: (cs,
+    # clusters, resident) of the forward and of dA.
+    want = {(6144, 4096): ((1, 96, False), (2, 64, False)), (6144, 14336): ((8, 14, True), (1, 112, False)),
+            (3072, 4096): ((2, 48, True), (2, 64, True)), (6144, 2048): ((1, 96, True), (2, 32, False)),
+            (6144, 7168): ((1, 96, False), (1, 112, False))}
+    for (m, k), (fwd, da) in want.items():
+        assert (lf._fwd_plan(m, k, 16), lf._da_plan(m, k, 16)) == (fwd, da)
+
+
+@pytest.mark.parametrize("caps", [(114, 57, 26, 13), (132, 66, 32, 16), (8, 4, 2, 1)])
+def test_plans_follow_the_card(caps):
+    for m, k in PLAN_SHAPES:
+        for which in ("fwd", "da"):
+            cs, clusters, _ = (lf._fwd_plan if which == "fwd" else lf._da_plan)(m, k, 16, caps=caps)
+            assert clusters <= caps[lf.CLUSTER_SIZES.index(cs)]
+
+
+def test_the_kernel_mirrors_the_plans_constants():
+    src = lf.LORA_FWD.source.read_text()
+    assert "return R == 16 ? 12 : R == 32 ? 8 : R == 64 ? 6 : 2;" in src
+    assert lf.STAGES == {16: 12, 32: 8, 64: 6, 128: 2}
+    assert "groups(int R) { return R <= 32 ? 4 : 2; }" in src and lf.GROUPS == {16: 4, 32: 4, 64: 2, 128: 2}
+    assert "constexpr uint32_t SMEM_LIMIT = 232448;" in src and lf.SMEM_PER_BLOCK == 232448
+    # layout_of at R 16 with 16 resident chunks, hash mode: rings, chunks,
+    # the stages' row keys, four groups' padded partials and three of the
+    # block's, barriers, slack.
+    assert "constexpr int PART_SLOTS = 3;" in src
+    assert lf.smem_bytes(16, 16, False) == 12 * 8192 + 16 * 2048 + 12 * 256 + (4 + 3) * 64 * 20 * 4 + 8 * 25 + 1024
