@@ -115,7 +115,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
    projection's base product nor its epilogue), the first loss bit-equal across policies, the step-1
    adapter gradients against the first ``'nothing'`` run's within 1.25
    times the gap of the two ``'nothing'`` runs (dq's reduce-adds sum in a
-   run-dependent order), step 1's ms (``utils/profiling.StepTimer``) and
+   run-dependent order), step 1's ms (a synchronised host clock) and
    peak device memory (``device_memory_stats``); then one step each of the
    trainer's unfused 32-bit dropout under ``'nothing'`` and ``'mids'``:
    the first loss bit-equal, and the products (``aten.mm``) ``'mids'``
@@ -485,7 +485,7 @@ from phantom_vlb_tpu_torch.train.metrics import CSVMetricsLogger, NullMetricsLog
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate
 from phantom_vlb_tpu_torch.train.precompute import build_feature_cache, head_forward
 from phantom_vlb_tpu_torch.train.step import loss_fn
-from phantom_vlb_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+from phantom_vlb_tpu_torch.utils.profiling import device_memory_stats
 
 ROOT = Path(__file__).resolve().parent
 BUILD_ROOT = ROOT / "build"          # ignored by git: the kernels' libraries and scratch output
@@ -3594,7 +3594,7 @@ def remat_run(model, start: dict, batches: list, dev, policy: str, steps: int = 
     """``steps`` steps of ``train_batches`` under ``policy`` from ``start``'s
     adapters and a fresh AdamW, dropout seeds from seed 0: launches, losses,
     step-1 adapter gradients, the peak device memory, step 1's ms
-    (``StepTimer``) and, of two steps, step 2's wall and device busy ms
+    (a synchronised host clock) and, of two steps, step 2's wall and device busy ms
     (traced); of one step, the ``aten.mm`` calls it dispatched."""
     set_remat_policy(model, policy)
     params = dict(model.named_parameters())
@@ -3603,7 +3603,6 @@ def remat_run(model, start: dict, batches: list, dev, policy: str, steps: int = 
             params[name].copy_(t)
     optimizer = AdamWCosine(trainable_parameters(model))
     seeds = torch.Generator().manual_seed(SEED)
-    timer = StepTimer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -3612,11 +3611,13 @@ def remat_run(model, start: dict, batches: list, dev, policy: str, steps: int = 
     def step(i):
         return train_batches(model, [batches[i]], device=dev, generator=seeds, optimizer=optimizer)
 
-    with timer.stage("step 1"), (products if steps == 1 else contextlib.nullcontext()):
+    t0 = time.perf_counter()
+    with products if steps == 1 else contextlib.nullcontext():
         loss = [float(step(0)["brain_loss"][0])]
         torch.cuda.synchronize()
+    step_ms = {"step 1": round((time.perf_counter() - t0) * 1e3, 3)}
     grads = {n: p.grad.detach().clone() for n, p in params.items() if "lora_" in n}
-    run = {"step_ms": timer.summary(), "mm": products.mm, "grads": grads}
+    run = {"step_ms": step_ms, "mm": products.mm, "grads": grads}
     if steps > 1:
         out = {}
         run["wall_ms"], run["busy_ms"], run["groups"] = device_busy(lambda: out.update(step(1)))

@@ -42,6 +42,7 @@ from phantom_vlb_tpu_torch.models.lora import LoRAConfig, is_lora_path, site_see
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, MistralModel
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig, STCConnector
 from phantom_vlb_tpu_torch.ops.weight_mask import build_weight_mask
+from phantom_vlb_tpu_torch.utils.profiling import span
 
 __all__ = ["VLBConfig", "VideoLLaMA2VLB", "splice_multimodal", "trainable_predicate",
            "trainable_parameters", "stored_dtype", "is_norm", "VISION_PREFIXES"]
@@ -210,7 +211,7 @@ class VideoLLaMA2VLB(nn.Module):
                              "pass cached video tokens (B, num_vis_tokens, hidden)")
         cfg = self.cfg
         b, t = video.shape[:2]
-        with torch.profiler.record_function("vision"):
+        with span("vision"):
             feats = self.vision_tower(video.reshape(b * t, *video.shape[2:]))      # (B*T, P, C)
             g = cfg.clip.grid
             return self.mm_projector(feats.reshape(b, t, g, g, cfg.clip.hidden_size))

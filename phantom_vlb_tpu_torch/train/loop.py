@@ -59,6 +59,7 @@ from phantom_vlb_tpu_torch.train.metrics import (
 )
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine, OptimConfig, learning_rate, local_part
 from phantom_vlb_tpu_torch.train.step import Forward, eval_step, train_step, vlb_forward
+from phantom_vlb_tpu_torch.utils.profiling import span
 
 __all__ = ["TrainLoopConfig", "VLBTrainer", "train_batches", "is_adapter"]
 
@@ -244,8 +245,11 @@ class VLBTrainer:
     def train_one(self, batch) -> dict[str, object]:
         """One step on ``batch`` with the next dropout seed; counts the
         streak of non-finite losses."""
-        seed = int(torch.randint(0, 2**32, (), generator=self._seeds))
-        out = train_step(self.model, self.optimizer, self._put(batch), seed, self.forward, self.mesh)
+        with span("train_one"):
+            seed = int(torch.randint(0, 2**32, (), generator=self._seeds))
+            with span("put"):
+                batch = self._put(batch)
+            out = train_step(self.model, self.optimizer, batch, seed, self.forward, self.mesh)
         self._nan_streak = 0 if out["finite"] else self._nan_streak + 1
         return out
 

@@ -8,6 +8,9 @@ step runs the forward in train mode, the backward, the clip and the AdamW
 update on the schedule; a non-finite loss leaves parameters, optimizer state
 and step count untouched (:129-141). ``forward(model, batch, seed)`` gives
 (predictions, l2 penalty); :func:`vlb_forward` is the VLB's, the default.
+A train step's stages run in spans (``utils/profiling.py``): ``forward``,
+``backward``, ``clip``, ``finite_sync`` (the host's wait for the loss)
+and ``update``.
 
 Under a sharded ``mesh`` (``core/mesh.py``) each rank holds its rows of the
 global batch: its loss is its rows' squared errors over the global count
@@ -31,6 +34,7 @@ from phantom_vlb_tpu_torch.core.mesh import MeshEnv
 from phantom_vlb_tpu_torch.models.videollama2 import VideoLLaMA2VLB
 from phantom_vlb_tpu_torch.train.metrics import PearsonState, pearson_update
 from phantom_vlb_tpu_torch.train.optim import AdamWCosine
+from phantom_vlb_tpu_torch.utils.profiling import span
 
 __all__ = ["masked_mse", "vlb_forward", "loss_fn", "train_step", "eval_step"]
 
@@ -92,17 +96,22 @@ def train_step(
     until the next step.
     """
     optimizer.zero_grad()
-    loss, mse, l2_reg = loss_fn(model, batch, seed, forward, mesh)
-    loss.backward()
-    grad_norm = optimizer.clip_()
+    with span("forward"):
+        loss, mse, l2_reg = loss_fn(model, batch, seed, forward, mesh)
+    with span("backward"):
+        loss.backward()
+    with span("clip"):
+        grad_norm = optimizer.clip_()
     loss, mse, l2_reg = loss.detach(), mse.detach(), l2_reg.detach()
     if _sharded(mesh):
         mse = mesh.all_sum(mse)
         loss = mse + l2_reg
-    out = {"brain_loss": loss, "mse": mse, "l2_reg": l2_reg,
-           "grad_norm": grad_norm, "finite": bool(torch.isfinite(loss))}
-    if out["finite"]:
-        out["lr"] = optimizer.apply()
+    with span("finite_sync"):
+        finite = bool(torch.isfinite(loss))
+    out = {"brain_loss": loss, "mse": mse, "l2_reg": l2_reg, "grad_norm": grad_norm, "finite": finite}
+    if finite:
+        with span("update"):
+            out["lr"] = optimizer.apply()
     return out
 
 

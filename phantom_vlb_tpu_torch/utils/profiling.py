@@ -1,27 +1,34 @@
-"""Tracing and timing hooks on torch.
+"""Tracing hooks on torch.
 
 Counterpart of ``phantom_vlb_tpu/utils/profiling.py``:
 
 - :func:`trace`: a context manager around ``torch.profiler`` (CPU, and CUDA
   where a card is) that writes a Chrome trace file into a directory (the
   JAX package writes an xplane trace with ``jax.profiler``);
-- :class:`StepTimer`: per-stage wall-clock times with an exponential moving
-  average, the same arithmetic; ``summary()`` in ms;
+- :func:`span`: a named range of the program's host work, recorded into
+  :data:`SPANS` while a ``torch.profiler`` session is active and shown in
+  its trace as a ``record_function`` range of the same name;
 - :func:`device_memory_stats`: the caching allocator's bytes in use and
   their peak, and the card's memory, per CUDA device.
+
+The JAX package's ``StepTimer`` has no counterpart: a span's record gives a
+stage's time, and the device's records beside it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import torch
 
-__all__ = ["trace", "StepTimer", "device_memory_stats"]
+__all__ = ["trace", "span", "SpanRecord", "SpanRecorder", "SPANS", "device_memory_stats"]
 
 
 @contextlib.contextmanager
@@ -38,27 +45,80 @@ def trace(log_dir: str):
     prof.export_chrome_trace(str(path / f"trace.{os.getpid()}.{time.time_ns()}.json"))
 
 
-class StepTimer:
-    """Named-stage wall timer with exponential moving averages."""
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One closed span. ``start_ns`` and ``end_ns`` are Unix-epoch ns, the
+    clock of the profiler's events (host and device); ``parent`` is the
+    ``index`` of the innermost span open on the same thread when this one
+    opened (-1: a root), ``step`` the ``index`` of its root."""
 
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg: dict[str, float] = defaultdict(float)
-        self.count: dict[str, int] = defaultdict(int)
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    step: int
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            n = self.count[name]
-            self.avg[name] = dt if n == 0 else self.ema * self.avg[name] + (1 - self.ema) * dt
-            self.count[name] = n + 1
+    @property
+    def dur_ns(self) -> int:
+        return self.end_ns - self.start_ns
 
-    def summary(self) -> dict[str, float]:
-        return {k: round(v * 1e3, 3) for k, v in self.avg.items()}  # ms
+
+class _OpenSpans(threading.local):
+    """The spans open on the calling thread, innermost last."""
+
+    def __init__(self):
+        self.stack: list[_Span] = []
+
+
+class SpanRecorder:
+    """The last 65536 closed spans, in the order they closed (a child
+    before its parent); each thread nests its own spans."""
+
+    def __init__(self):
+        self.records: collections.deque[SpanRecord] = collections.deque(maxlen=1 << 16)
+        self._index = itertools.count()
+        self._open = _OpenSpans()
+
+
+class _Span:
+    __slots__ = ("recorder", "name", "range", "index", "start_ns", "parent", "step")
+
+    def __init__(self, recorder: SpanRecorder, name: str):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        stack = self.recorder._open.stack
+        self.index = next(self.recorder._index)
+        self.parent, self.step = (stack[-1].index, stack[-1].step) if stack else (-1, self.index)
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        self.recorder._open.stack.pop()
+        self.recorder.records.append(
+            SpanRecord(self.index, self.name, self.start_ns, end_ns, self.parent, self.step))
+        self.range.__exit__(*exc)
+        return False
+
+
+SPANS = SpanRecorder()
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over the program's work named ``name``: while a
+    ``torch.profiler`` session is active (any activities, the device's
+    alone too), a ``record_function`` range of that name and a
+    :class:`SpanRecord` in :data:`SPANS`; otherwise nothing, at the cost of
+    one test of the profiler's state."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(SPANS, name)
 
 
 def device_memory_stats() -> list[dict]:

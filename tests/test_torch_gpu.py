@@ -1088,3 +1088,36 @@ def test_extraction_with_the_card_preprocessor(cuda):
     np.testing.assert_array_equal(eps[0].transcript_features, eps[1].transcript_features)
     assert eps[0].video_features.shape == (6, geom.num_frames, 3, geom.image_size, geom.image_size)
     np.testing.assert_allclose(eps[0].video_features, eps[1].video_features, atol=1e-4, rtol=0)
+
+
+# The span recorder's clock against the device records' (PERF.md §6): a
+# span's start or end may fall this far on the wrong side of the kernel it
+# brackets (the measured offset, with room), and the kernel starts and the
+# synchronize returns within the slack of the span's edges.
+SPAN_CLOCK_NS, SPAN_SLACK_NS = 50_000, 2_000_000
+
+
+def test_span_brackets_the_device_record_under_a_cuda_only_profile(cuda):
+    """A span around a ~1 ms spin kernel and the synchronize after it,
+    under the device-only profile the benchmark's traced pass uses: the
+    recorder is on, and its start and end bracket the kernel's record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from phantom_vlb_tpu_torch.utils.profiling import SPANS, span
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    SPANS.records.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            with span("spin"):
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+    records = sorted((r for r in SPANS.records if r.name == "spin"), key=lambda r: r.start_ns)
+    SPANS.records.clear()
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA" and "spin" in e.name().lower())
+    assert len(records) == len(kernels) == 10
+    for r, (k0, k1) in zip(records, kernels):
+        assert -SPAN_CLOCK_NS <= k0 - r.start_ns <= SPAN_SLACK_NS, (r, k0, k1)
+        assert -SPAN_CLOCK_NS <= r.end_ns - k1 <= SPAN_SLACK_NS, (r, k0, k1)

@@ -1,43 +1,138 @@
 """Port parity: ``utils/profiling.py``, ``core/dtypes.py`` and ``core/registry.py``.
 
-``StepTimer`` on a fake clock gives the JAX one's EMA and ``summary()`` to
-the bit; ``trace`` writes a Chrome trace of the block and hands back the
-profiler; without a card ``device_memory_stats`` lists no device (as the
-JAX one lists none for CPU devices, which keep no memory stats). The dtype
-policies and the model registry hold the JAX package's names, dtypes and
-factories (the registered names build the JAX ``VLBConfig.full``'s
-decoder and head).
+``span`` records nothing without a profiler; under a CPU profile its
+records form the tree of the spans as they nested (parents, one step id
+per root), each also a ``record_function`` range of the same name within
+1 ms of it, and a tiny ``VLBTrainer.train_one`` from frames records
+``train_one > put, forward > vision, backward, clip, finite_sync, update``
+once a step (no ``update`` after a non-finite loss). ``trace`` writes a
+Chrome trace of the block and hands back the profiler; without a card
+``device_memory_stats`` lists no device (as the JAX one lists none for CPU
+devices, which keep no memory stats). The dtype policies and the model
+registry hold the JAX package's names, dtypes and factories (the
+registered names build the JAX ``VLBConfig.full``'s decoder and head).
 """
 
 import json
-import time
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from phantom_vlb_tpu.core import dtypes as jdtypes
 from phantom_vlb_tpu.core import registry as jregistry
 from phantom_vlb_tpu.utils import profiling as jprofiling
+from phantom_vlb_tpu_torch.cli.predict import synthetic_batches
 from phantom_vlb_tpu_torch.core import dtypes, registry
+from phantom_vlb_tpu_torch.models import videollama2 as tv
+from phantom_vlb_tpu_torch.models.convert import init_params
+from phantom_vlb_tpu_torch.train.loop import TrainLoopConfig, VLBTrainer
+from phantom_vlb_tpu_torch.train.optim import OptimConfig
 from phantom_vlb_tpu_torch.utils import profiling
 
 JNP_TO_TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+STEP = {"train_one": "", "put": "train_one", "forward": "train_one", "vision": "forward",
+        "backward": "train_one", "clip": "train_one", "finite_sync": "train_one", "update": "train_one"}
 
 
-def test_step_timer_on_a_fake_clock_matches_jax(monkeypatch):
-    ticks = iter([0.0, 0.25, 1.0, 1.125, 2.0, 2.5, 3.0, 3.0078125, 4.0, 4.001, 5.0, 5.75])
-    clock = [next(ticks) for _ in range(12)]
-    timers = {"port": profiling.StepTimer(ema=0.8), "jax": jprofiling.StepTimer(ema=0.8)}
-    for name, timer in timers.items():
-        stamps = iter(clock)
-        monkeypatch.setattr(time, "perf_counter", lambda: next(stamps))
-        for stage in ("data", "step", "data", "step", "data", "step"):
-            with timer.stage(stage):
-                pass
-    port, ref = timers["port"], timers["jax"]
-    assert port.summary() == ref.summary() and dict(port.avg) == dict(ref.avg)
-    assert dict(port.count) == dict(ref.count) == {"data": 3, "step": 3}
+@pytest.fixture
+def spans():
+    profiling.SPANS.records.clear()
+    yield profiling.SPANS
+    profiling.SPANS.records.clear()
+
+
+def _nested():
+    with profiling.span("root"):
+        with profiling.span("a"):
+            torch.ones(32, 32) @ torch.ones(32, 32)
+        with profiling.span("b"):
+            with profiling.span("c"):
+                torch.ones(8).sum()
+
+
+def _tree(records) -> list[dict[str, str]]:
+    """Each step's spans as {name: parent's name}, in the order the steps began."""
+    by_index = {r.index: r for r in records}
+    steps: dict[int, dict[str, str]] = {}
+    for r in sorted(records, key=lambda r: r.index):
+        steps.setdefault(r.step, {})[r.name] = by_index[r.parent].name if r.parent >= 0 else ""
+    return [steps[k] for k in sorted(steps)]
+
+
+def test_span_records_nothing_without_a_profiler(spans):
+    assert not torch.autograd._profiler_enabled()
+    _nested()
+    assert list(spans.records) == []
+
+
+def test_span_tree_under_a_cpu_profile(spans):
+    with profile(activities=[ProfilerActivity.CPU]):
+        _nested()
+        _nested()
+    records = list(spans.records)
+    assert [r.name for r in records] == ["a", "c", "b", "root"] * 2           # as they closed
+    assert _tree(records) == [{"root": "", "a": "root", "b": "root", "c": "b"}] * 2
+    roots = [r for r in records if r.parent == -1]
+    assert len(roots) == 2 and all(r.step == r.index for r in roots)
+    for r in records:
+        root = next(x for x in roots if x.index == r.step)
+        assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+    assert len({r.index for r in records}) == len(records)
+
+
+def _ranges(spans) -> tuple[list, dict]:
+    """The profiled ranges named as ``_nested``'s spans, and the records."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _nested()
+    ranges = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events() if e.name() in ("root", "a", "b", "c")]
+    return ranges, {r.name: r for r in spans.records}
+
+
+def test_each_span_is_a_record_function_range(spans):
+    ranges, records = _ranges(spans)
+    assert sorted(name for name, _, _ in ranges) == sorted(records) == ["a", "b", "c", "root"]
+
+
+def test_span_and_range_agree_within_a_millisecond(spans):
+    ranges, records = _ranges(spans)
+    for name, start, end in ranges:
+        r = records[name]
+        assert abs(r.start_ns - start) < 1_000_000 and abs(r.end_ns - end) < 1_000_000, r
+
+
+def _tiny_trainer(tmp_path, n_batches: int):
+    cfg = tv.VLBConfig.tiny(use_lora=True)
+    model = tv.VideoLLaMA2VLB.from_state_dict(cfg, init_params(cfg, "cpu", torch.Generator().manual_seed(0)))
+    trainer = VLBTrainer(model, OptimConfig(lr=1e-3), TrainLoopConfig(output_dir=str(tmp_path), checkpoint=False),
+                         device="cpu")
+    model.train()
+    batches = synthetic_batches(cfg, n_batches, 2, np.random.default_rng(0), torch.Generator().manual_seed(0),
+                                "cpu", frames=True)
+    return trainer, batches
+
+
+def test_train_one_records_its_stages_once_a_step(tmp_path, spans):
+    trainer, batches = _tiny_trainer(tmp_path, 2)
+    with profile(activities=[ProfilerActivity.CPU]):
+        outs = [trainer.train_one(b) for b in batches]
+    assert all(o["finite"] for o in outs) and trainer.optimizer.step == 2
+    records = list(spans.records)
+    assert _tree(records) == [STEP, STEP] and len(records) == 2 * len(STEP)
+    trainer.train_one(batches[0])                     # no profiler: no records
+    assert len(spans.records) == 2 * len(STEP)
+
+
+def test_a_non_finite_step_records_no_update(tmp_path, spans):
+    trainer, batches = _tiny_trainer(tmp_path, 1)
+    batch = {**batches[0], "timeseries": np.full_like(batches[0]["timeseries"], np.nan)}
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = trainer.train_one(batch)
+    assert not out["finite"] and trainer.optimizer.step == 0
+    assert _tree(list(spans.records)) == [{k: v for k, v in STEP.items() if k != "update"}]
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
