@@ -19,6 +19,9 @@ vision towers.
         # phase 9d (e) alone: mesh.tensor=2 on 2 processes of the one card (gloo)
     python -m torch.distributed.run --standalone --nproc_per_node=N chip_smoke.py --caches DIR
         # phase 9d (f) alone: the two caches at world 1 (NCCL) or on 2 processes of the one card (gloo)
+    python3 chip_smoke.py --keep-table PATH
+        # only the table tests/test_torch_keep_bytes.py holds the 32-bit
+        # keep draw to, read from torch.rand on this card, written to PATH
     python3 chip_smoke.py --ring-issue ROOT [ROOT ...]
         # only the host's issue time of a fused ring pass, for the package
         # under each root in turn (e.g. a parent tree and this one), each
@@ -48,7 +51,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
    drops; all three masks read back exactly through dx, and dA's hash and
    bits masks through dA; keep rate, seed determinism), the forward and dA
    on an M tail (M - 37 rows), and their plans (``_fwd_plan``,
-   ``_da_plan``) against the clusters the card holds at once; the row quant (both entry points) at
+   ``_da_plan``) against the clusters the card holds at once; the 32-bit
+   rule's keep kernel at (6144, 4096) and (6144, 14336) against
+   ``keep_bytes_plain`` on the card's grid and ``torch.rand(...) < 0.9``,
+   bit for bit, and the three LoRA kernels in bits mode on its bytes at the
+   rule's f32 scale against their plain versions; the row quant (both entry points) at
    (6144, 4096) and (6144, 14336) bf16 with a zero row, and at a row count
    that is not a multiple of 8, and at the vision tower's (20772, 1024) and
    (20772, 4096) (q and s bit for bit); the LoRA epilogue's
@@ -117,9 +124,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
    times the gap of the two ``'nothing'`` runs (dq's reduce-adds sum in a
    run-dependent order), step 1's ms (a synchronised host clock) and
    peak device memory (``device_memory_stats``); then one step each of the
-   trainer's unfused 32-bit dropout under ``'nothing'`` and ``'mids'``:
-   the first loss bit-equal, and the products (``aten.mm``) ``'mids'``
-   keeps, 7 a layer;
+   trainer's unfused 32-bit dropout under ``'nothing'`` and ``'mids'``
+   (the keep kernel's route): the first loss bit-equal, each kernel's
+   launches, and the mids (``lora_fwd`` launches) ``'mids'`` keeps, 7 a
+   layer;
 8b. the w8a8g8 LoRA step of record: phase 7's weights quantized to int8 on
    the card in place, projection by projection (the tower's too), then 3
    steps at batch 3
@@ -138,7 +146,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
    validations): metrics.csv (train rows at steps 2/4/6/8, 4 val rows of
    1000 ROI columns, ``lr-AdamW`` = ``learning_rate(cfg, step)``), the best
    checkpoint at the least val loss, ``last``, the adapters (head and
-   ``lora_*`` only), the flash launches the code implies (none of another
+   ``lora_*`` only), the launches the code implies (flash; the keep kernel
+   and the LoRA kernels of the 32-bit unfused route: keep and forward 14
+   a layer a step, dx 7 less layer 0's q, k, v, dA 7; none of another
    kernel), step, validation and save ms, save bytes and peak device
    memory; a fresh trainer with ``max_epochs=3`` resumed from ``last``
    (tensors and AdamW state bit-equal) that ends at step 12;
@@ -230,7 +240,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
    lazy-load stores (every sample's rows bit-equal to its source rows);
    (c) the features store released, ``vlb_friends_lora`` at batch 3 with
    ``trainer.max_epochs=1``: ``build_trainer`` over ``BatchLoader``s of
-   those stores, 2 steps and 2 validations with the flash launches the
+   those stores, 2 steps and 2 validations with the launches the
    code implies, the first step's loss bit-equal to the same batch
    collated from the source arrays and fed to ``train_batches`` from the
    same adapters and seed. The native libav decoder is not built there
@@ -242,12 +252,12 @@ Phases, each printed with its wall time; any failure exits non-zero:
    validation, FSDP2 over the world (59 units), against the unsharded
    trainer on the same weights, frames and seeds: the first loss bit-equal,
    the step-1 adapter gradients bit-equal or at the floor of two unsharded
-   runs (printed beside it), the flash launches of the fit, the units'
+   runs (printed beside it), the launches of the fit, the units'
    parameters plain, contiguous and 16-byte aligned while they run; (b)
    each trainer's ``last`` restored by the other, bit-equal; (c) one
    sharded step with ``model.lora_fused_dropout=true`` (its LoRA kernels'
-   launches); the 32-bit masks' cost a step as a rank's draw of the
-   global batch; step ms, peak device memory and each rank's peak host
+   launches); the 32-bit masks' cost a step (the keep kernel) as a rank's
+   draw of the global batch; step ms, peak device memory and each rank's peak host
    RSS. (d) with 2 cards, ``--sharded-pair`` on 2 processes at
    ``datamodule.batch_size=4`` against one card at 4; otherwise it prints
    that (d) was skipped. (e) ``mesh.fsdp=1 mesh.tensor=2`` on 2 processes
@@ -301,7 +311,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
     beside the bound, at the one-card shapes and (printed only) at one
     ``tensor`` rank's (``time_tensor_shapes``); for the LoRA forward and dA
     also the whole call's device time against the bound and the kernels a
-    call (one), and each against its cost probe without the mask; SDPA's
+    call (one), and each against its cost probe without the mask; the keep
+    kernel against its plain draw and ``torch.rand`` with the compare, and
+    the three LoRA kernels in bits mode at the 32-bit rule's scale against
+    the eager route's ops (printed only); SDPA's
     ``is_causal`` forward beside the masked one;
     the flash backward as the sum of its three kernels against SDPA's whole
     backward (the kernels it ran named), and SDPA with ``is_causal=True``,
@@ -386,7 +399,7 @@ from phantom_vlb_tpu_torch.data.text import SentencePieceTestTokenizer, read_tsv
 from phantom_vlb_tpu_torch.data.token_cache import TokenCachedDataset, dataset_fingerprint, encode_tokens
 from phantom_vlb_tpu_torch.models.clip_vit import CLIPVisionConfig
 from phantom_vlb_tpu_torch.models.convert import hf_key, init_params, write_safetensors
-from phantom_vlb_tpu_torch.models.lora import LoRAConfig, adapter_dropout
+from phantom_vlb_tpu_torch.models.lora import LoRAConfig, keep_rows
 from phantom_vlb_tpu_torch.models import mistral as mistral_module
 from phantom_vlb_tpu_torch.models.mistral import MistralConfig, set_attention_impl, set_remat_policy
 from phantom_vlb_tpu_torch.models.stc_connector import STCConfig
@@ -439,15 +452,20 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     LORA_DA,
     LORA_DX,
     LORA_FWD,
+    LORA_KEEP,
+    _card_threads,
     _cluster_capacity,
     _da_plan,
     _fwd_plan,
+    dropout_rule,
     dropout_threshold,
     fused_dropout_bwd,
     fused_dropout_bwd_plain,
     fused_dropout_matmul,
     fused_dropout_matmul_plain,
     hash_bytes,
+    keep_bytes,
+    keep_bytes_plain,
     plan_smem_bytes,
 )
 from phantom_vlb_tpu_torch.ops.preprocess import DevicePreprocessor, preprocess
@@ -497,6 +515,7 @@ HQ, HKV, D = 32, 8, 128
 LORA_M, LORA_KS, LORA_R, LORA_P = LORA_BATCH * 2048, (4096, 14336), 16, 0.1
 LORA_ROW0 = 2 * 2048 + 77      # a global first row for the hash mask, off every tile edge
 LORA_TAIL = 37                 # phase 3's M tail: rows LORA_M - LORA_TAIL, off the 64-row tile
+LORA_KEEP_SEEDS = (5, 2 ** 31 + 11)   # phase 3's 32-bit keep bytes: a small seed and one past 32 bits
 EPI_NS = (1024, 4096, 14336)   # k/v, q/o/down, gate/up output widths
 # What one rank of mesh.tensor=2 gives the kernels: the row-parallel o and
 # down read columns [K, 2K) of the input (rank 1), K = 2048 and 7168; the
@@ -512,7 +531,7 @@ TOWER_ROWS = LORA_BATCH * REFERENCE_GEOMETRY.num_frames * (REFERENCE_GEOMETRY.pa
 TOWER_WIDTHS = (1024, 4096)
 KERNELS = {"flash_fwd": FLASH_FWD, "flash_bwd_prep": FLASH_BWD_PREP, "flash_bwd": FLASH_BWD,
            "flash_bwd_post": FLASH_BWD_POST,
-           "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA,
+           "lora_fwd": LORA_FWD, "lora_dx": LORA_DX, "lora_da": LORA_DA, "lora_keep": LORA_KEEP,
            "row_quant": ROW_QUANT, "row_quant_scaled": ROW_QUANT_SCALED,
            "row_absmax": ROW_ABSMAX, "row_quant_given": ROW_QUANT_GIVEN,
            "epi_fwd": EPI_FWD, "epi_dz": EPI_DZ, "epi_db": EPI_DB, "epi_dzdb": EPI_DZDB,
@@ -544,6 +563,7 @@ REPLACES = {
     "lora_fwd": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:62"),
     "lora_dx": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:92"),
     "lora_da": ("lora_dropout.cu", "phantom_vlb_tpu/ops/lora_fused.py:111"),
+    "lora_keep": ("lora_dropout.cu", "phantom_vlb_tpu/models/lora.py:83"),
     "row_quant": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35"),
     "row_quant_scaled": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:45"),
     "row_absmax": ("rowquant.cu", "phantom_vlb_tpu/ops/rowquant.py:35,45"),
@@ -1082,8 +1102,11 @@ def lora_inputs(k: int, gen, dev):
 def check_lora(k: int, gen, dev) -> dict[str, float]:
     """The three kernels vs plain at (6144, k), r 16, p 0.1, in bits mode and
     in hash mode, from row 0 and from global row LORA_ROW0 (a rank's rows of
-    a batch split over ranks); returns each kernel's max abs error (bits
-    mode)."""
+    a batch split over ranks); the 32-bit rule's keep bytes against the
+    plain draw on the card's grid and against ``torch.rand`` (bit for bit),
+    and the three kernels in bits mode on them at the rule's f32 scale;
+    returns each kernel's max abs error (bits mode; the keep kernel's
+    mismatched bytes)."""
     thr, keep = dropout_threshold(LORA_P)
     x, a, dmid = lora_inputs(k, gen, dev)
     bits = torch.randint(0, 256, x.shape, generator=gen, device=dev, dtype=torch.uint8)
@@ -1109,6 +1132,7 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
             errs = {"lora_fwd": abs_err(mid, mid_ref), "lora_dx": abs_err(dx, dx_ref),
                     "lora_da": abs_err(da, da_ref)}
         del mid_ref, dx_ref, da_ref
+    errs.update(check_lora_keep32(x, a, dmid, dev, errs))
     # The hash and bits masks read back exactly: dmid = e0 rows and A = e0
     # columns make dmid @ A^T all ones, so dx = mask / keep.
     e_a = torch.zeros_like(a)
@@ -1169,6 +1193,46 @@ def check_lora(k: int, gen, dev) -> dict[str, float]:
     if not (tail_rels[0] <= MID_REL_TOL and tail_rels[1] <= DA_REL_TOL):
         raise AssertionError(f"LoRA forward or dA disagrees with plain on an M tail (K={k})")
     return errs
+
+
+def check_lora_keep32(x, a, dmid, dev, errs: dict[str, float]) -> dict[str, float]:
+    """The 32-bit rule (the trainer of record's unfused dropout) at x's
+    (6144, k): ``keep_bytes`` against ``keep_bytes_plain`` on the card's
+    grid and against ``torch.rand(...) < keep`` from the seed's CUDA
+    generator, bit for bit, for each of LORA_KEEP_SEEDS; then the forward,
+    dx and dA kernels in bits mode on the last seed's bytes against their
+    plain versions at the rule's f32 scale (dx exactly 0 where a byte is
+    0). Returns ``errs``' LoRA errors raised to these, and the keep
+    kernel's mismatched bytes."""
+    m, k = x.shape
+    keep = 1.0 - LORA_P
+    thr, scale, _ = dropout_rule(LORA_P, 32, x.dtype)
+    mismatches = {}
+    for seed in LORA_KEEP_SEEDS:
+        got = keep_bytes((m, k), seed, keep, dev)
+        plain = keep_bytes_plain((m, k), seed, keep, *_card_threads(dev.index or 0), device=dev)
+        rand = torch.rand((m, k), generator=torch.Generator(device=dev).manual_seed(seed), device=dev) < keep
+        mismatches[seed] = (int((got != plain).sum()), int((got.bool() != rand).sum()))
+        del plain, rand
+    mid = fused_dropout_matmul(x, a, 0, LORA_P, bits=got, dropout_bits=32)
+    dx, da = fused_dropout_bwd(x, a, dmid, 0, LORA_P, bits=got, dropout_bits=32)
+    torch.cuda.synchronize()
+    mid_ref = fused_dropout_matmul_plain(x, a, 0, thr, got, scale=scale)
+    dx_ref, da_ref = fused_dropout_bwd_plain(x, a, dmid, 0, thr, got, scale=scale)
+    rels = (rel_err(mid, mid_ref), rel_err(dx, dx_ref), rel_err(da, da_ref))
+    zero_drops = bool((dx[got == 0] == 0).all())
+    print(f"  lora K={k} 32-bit keep bytes, mismatches (against keep_bytes_plain, against torch.rand) by seed "
+          f"{mismatches}, kept {got.float().mean().item():.6f}; bits mode at the f32 scale {scale!r}: "
+          f"max|err|/max|ref| fwd {rels[0]:.3e} (tol {MID_REL_TOL}), dx {rels[1]:.3e} (tol {DX_REL_TOL}), "
+          f"dA {rels[2]:.3e} (tol {DA_REL_TOL}); dx exactly 0 at the dropped elements: {zero_drops}")
+    if any(any(v) for v in mismatches.values()):
+        raise AssertionError(f"the keep kernel's bytes are not torch.rand's (K={k}): {mismatches}")
+    if not (rels[0] <= MID_REL_TOL and rels[1] <= DX_REL_TOL and rels[2] <= DA_REL_TOL and zero_drops):
+        raise AssertionError(f"LoRA kernels disagree with their plain versions under the 32-bit rule (K={k})")
+    return {"lora_fwd": max(errs["lora_fwd"], abs_err(mid, mid_ref)),
+            "lora_dx": max(errs["lora_dx"], abs_err(dx, dx_ref)),
+            "lora_da": max(errs["lora_da"], abs_err(da, da_ref)),
+            "lora_keep": float(sum(sum(v) for v in mismatches.values()))}
 
 
 def check_lora_plans(dev) -> None:
@@ -1515,7 +1579,7 @@ def lora_train_config(mistral: MistralConfig | None = None, fused_epilogue: str 
 
 def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
                             int8: bool = False, ring: str | None = None,
-                            remat_policy: str = "nothing") -> dict[str, int]:
+                            remat_policy: str = "nothing", keep: bool = False) -> dict[str, int]:
     """What one LoRA step launches with remat per layer: every layer's forward
     runs twice (the pass and its replay in the backward), so 2 flash forwards
     and 2 x 7 LoRA forwards (and, with the int8 base, row quants, and with
@@ -1535,7 +1599,11 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
     ranks a layer's attention pass is n ring kernels ('ring_fused') or
     n(n+1)/2 offset flash forwards ('ring_flash': the steps from later ranks
     are skipped), and its backward one prep per rank and a main kernel and a
-    post (accumulate form) per step, n(n+1)/2 of each."""
+    post (accumulate form) per step, n(n+1)/2 of each. ``keep``: the 32-bit
+    unfused dropout's route (the LoRA config of record), whose masks the
+    keep kernel draws in the forward and again in every replay, whatever
+    the policy keeps: 14 a layer; otherwise the fused u8 route's hash
+    (none)."""
     pairs = RING_RANKS * (RING_RANKS + 1) // 2
     ring_bwd = {"flash_bwd_prep": RING_RANKS * layers, "flash_bwd": pairs * layers,
                 "flash_bwd_post": pairs * layers}
@@ -1548,7 +1616,7 @@ def expected_train_launches(layers: int, steps: int, epilogue: bool = False,
         attn["flash_fwd"] = layers
     per_step = {**attn,
                 "lora_fwd": (7 if "lora_mid" in kept else 14) * layers, "lora_dx": 7 * layers - 3,
-                "lora_da": 7 * layers,
+                "lora_da": 7 * layers, "lora_keep": 14 * layers if keep else 0,
                 "row_quant": 13 * layers if int8 else 0,
                 "row_quant_scaled": 7 * layers - 3 if int8 else 0, "row_absmax": 0, "row_quant_given": 0,
                 "epi_fwd": 13 * layers if epilogue else 0, "epi_dz": 0, "epi_db": 0,
@@ -1932,8 +2000,9 @@ def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int
     sessions recorded times the most launches a call made in any of them
     (at least 1), which is printed; when none recorded those kernels, this
     raises. With none named, the session with the most device time is
-    returned (dropped records only lower it), or, when no session recorded
-    any, the call's time by CUDA events (host gaps included), printed."""
+    returned (dropped records only lower it). When no session recorded any
+    device time, named or not, the call's time by CUDA events (host gaps
+    included) is returned under the kernel's name, printed."""
     for _ in range(warmup):
         fn()
     sessions = []
@@ -1954,10 +2023,11 @@ def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int
             sessions.append(events)
             if len(sessions) == tries:
                 break
+    if not sessions:
+        print(f"  (no trace of {kernel or 'the call'} recorded in {2 * tries} sessions: its time by CUDA events)")
+        return {f"{kernel}: the call, by CUDA events" if kernel else "the call, by CUDA events":
+                cuda_ms(fn, iters, warmup=0)}
     if not kernel:
-        if not sessions:
-            print("  (no trace of the call recorded: its time by CUDA events)")
-            return {"the call, by CUDA events": cuda_ms(fn, iters, warmup=0)}
         return max(({key: t / iters for key, t, _ in ev} for ev in sessions), key=lambda t: sum(t.values()))
     totals: dict[str, list[float]] = {}                  # key: [time, records, most records]
     for events in sessions:
@@ -1966,7 +2036,8 @@ def traced_kernels(fn, iters: int, kernel: str = "", warmup: int = 2, tries: int
             acc[0], acc[1], acc[2] = acc[0] + t, acc[1] + n, max(acc[2], n)
     times = {key: t / n * max(1, round(most / iters)) for key, (t, n, most) in totals.items()}
     if kernel_ms(times, kernel) <= 0:
-        raise RuntimeError(f"torch.profiler recorded no device time for {kernel} in {tries} sessions")
+        raise RuntimeError(f"torch.profiler recorded no device time for {kernel} in {tries} sessions, only "
+                           f"{sorted(times)[:4]}")
     print(f"  (no whole trace of {kernel} in {tries} sessions: per-launch means of what was recorded)")
     return times
 
@@ -2002,7 +2073,7 @@ def report(name: str, shape: str, rec: dict, flops: float, nbytes: float,
           f"{nbytes / rec['ms'] / 1e6:.1f} GB/s achieved")
 
 
-def kernels_a_call(fn, iters: int = 10, tries: int = 5) -> float:
+def kernels_a_call(fn, iters: int = 10, tries: int = 10) -> float:
     """The kernels one call of ``fn`` launches: ``iters`` warm calls traced,
     their kernel records over the calls. The tracer drops whole sessions
     now and then, so up to ``tries`` sessions, until one recorded any."""
@@ -2182,9 +2253,17 @@ def lora_reduce_launcher(kernel, name: str, x, a, dmid, seed: int, thr: int):
 def time_lora(gen, dev) -> dict[str, dict]:
     """The three kernels (hash mode) at M = 6144, K = 4096 and 14336; the
     library is the unfused torch sequence on a precomputed mask (timed
+    only). The 32-bit rule's keep kernel against its plain draw and
+    ``torch.rand`` with the compare (its library), 1 byte written an
+    element; and the three kernels in bits mode on its bytes at the rule's
+    f32 scale against the eager route's ops on the same bytes (printed
     only). The JSON carries K = 4096, the input width of 6 of a layer's 7
     sites."""
     thr, _ = dropout_threshold(LORA_P)
+    keep32 = 1.0 - LORA_P
+    thr32, scale32, _ = dropout_rule(LORA_P, 32, torch.bfloat16)
+    bf16_keep = float(torch.tensor(keep32, dtype=torch.bfloat16))
+    threads = _card_threads(dev.index or 0)
     out = {}
     m, r = LORA_M, LORA_R
     for k in LORA_KS:
@@ -2223,6 +2302,33 @@ def time_lora(gen, dev) -> dict[str, dict]:
             base, bare = min(times[name, "as built"]), min(times[name, "no mask"])
             print(f"  {name} M={m} K={k}, cost probe (device time): as built {base:.4f} ms, without the mask "
                   f"{bare:.4f} ms ({bare - base:+.4f}; the stream alone at {m * k * 2 / bare / 1e9:.2f} TB/s of x)")
+        # The 32-bit rule: the three kernels in bits mode on the keep
+        # kernel's bytes (printed only), then the keep kernel itself.
+        keep = keep_bytes((m, k), 7, keep32, dev)
+        kept = keep.bool()
+        bits32 = {
+            "lora_fwd": (lambda: fused_dropout_matmul(x, a, 7, LORA_P, bits=keep, dropout_bits=32),
+                         lambda: fused_dropout_matmul_plain(x, a, 7, thr32, keep, scale=scale32),
+                         lambda: torch.where(kept, x / bf16_keep, 0.0) @ a),
+            "lora_dx": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, bits=keep, need_da=False, dropout_bits=32),
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr32, keep, scale=scale32),
+                        lambda: torch.where(kept, dmid @ a.T, 0.0) / bf16_keep),
+            "lora_da": (lambda: fused_dropout_bwd(x, a, dmid, 7, LORA_P, bits=keep, need_dx=False, dropout_bits=32),
+                        lambda: fused_dropout_bwd_plain(x, a, dmid, 7, thr32, keep, scale=scale32),
+                        lambda: torch.where(kept, x / bf16_keep, 0.0).T @ dmid),
+        }
+        for name, (kernel_fn, plain_fn, library_fn) in bits32.items():
+            report(f"{name} 32-bit bits mode", f"M={m} K={k}", timed(kernel_fn, f"{name}_kernel", plain_fn,
+                                                                     library_fn, 20),
+                   2 * m * k * r, lora_bytes(name, m, k, r) + m * k)
+        del keep, kept
+        rec = timed(lambda: keep_bytes((m, k), 7, keep32, dev), "lora_keep_kernel",
+                    lambda: keep_bytes_plain((m, k), 7, keep32, *threads, device=dev),
+                    lambda: torch.rand((m, k), generator=torch.Generator(device=dev).manual_seed(7),
+                                       device=dev) < keep32, 20)
+        report("lora_keep", f"M={m} K={k}", rec, 0, m * k)
+        if k == LORA_KS[0]:
+            out["lora_keep"] = rec
         del x, a, dmid, mask_scale
     return out
 
@@ -2637,13 +2743,18 @@ def timed_calls(obj, name: str) -> list:
 
 
 def expected_fit_launches(layers: int, steps: int, val_batches: int, lora: bool) -> dict[str, int]:
-    """A fit's flash launches: a LoRA step runs every layer's forward twice
-    (the pass and its replay under remat) and one backward of three kernels;
-    a baseline step and a validation batch one forward; nothing else."""
-    want = dict.fromkeys(KERNELS, 0)
-    want["flash_fwd"] = layers * ((2 if lora else 1) * steps + val_batches)
-    for name in ("flash_bwd_prep", "flash_bwd", "flash_bwd_post"):
-        want[name] = layers * steps if lora else 0
+    """A fit's launches: a LoRA step of the config of record (r 16, the
+    32-bit unfused dropout, bf16, remat 'nothing') what
+    ``expected_train_launches`` gives with ``keep`` (the flash forward and
+    the keep and LoRA forward kernels twice a layer, the forward and its
+    replay; one flash backward; dx and dA); a baseline step one forward;
+    a validation batch one forward (no dropout, so no LoRA kernel)."""
+    if lora:
+        want = expected_train_launches(layers, steps, keep=True)
+    else:
+        want = dict.fromkeys(KERNELS, 0)
+        want["flash_fwd"] = layers * steps
+    want["flash_fwd"] += layers * val_batches
     return want
 
 
@@ -3720,17 +3831,17 @@ def remat_policies(sd: dict, start: dict, batches: list, dev, card: str) -> dict
         VLBConfig.full(use_lora=True, mistral=MistralConfig.full(lora=lora, remat=True)), sd)
     unfused = {policy: remat_run(umodel, start, batches, dev, policy, steps=1) for policy in ("nothing", "mids")}
     for policy, run in unfused.items():
-        want = {k: (v if k.startswith("flash") else 0)
-                for k, v in expected_train_launches(layers, 1, remat_policy=policy).items()}
+        want = expected_train_launches(layers, 1, remat_policy=policy, keep=True)
         print(f"  the trainer's unfused 32-bit dropout under {policy!r}: loss {run['loss'][0]!r}, {run['mm']} "
               f"products (aten.mm), step ms {run['step_ms']}, peak {run['peak_gb']:.3f} GB, launches "
               f"{ {k: v for k, v in run['launches'].items() if v} }")
         if run["launches"] != want:
             raise AssertionError(f"the unfused step under {policy!r} launched {run['launches']}, want {want}")
-    kept = unfused["nothing"]["mm"] - unfused["mids"]["mm"]
-    print(f"  'mids' keeps {kept} products a step (want {7 * layers}: x A, 7 a layer)")
+    kept = unfused["nothing"]["launches"]["lora_fwd"] - unfused["mids"]["launches"]["lora_fwd"]
+    print(f"  'mids' keeps {kept} mids a step (want {7 * layers}: the keep route's dropped x A, 7 a layer; "
+          f"its masks drawn again in the replay)")
     if kept != 7 * layers or unfused["mids"]["loss"][0] != unfused["nothing"]["loss"][0]:
-        raise AssertionError("the unfused step under 'mids' did not keep x A's 7 products a layer, or "
+        raise AssertionError("the unfused step under 'mids' did not keep x A's 7 mids a layer, or "
                              "its loss differs from 'nothing''s")
     record["unfused"] = {p: {"step_ms": r["step_ms"], "peak_gb": r["peak_gb"], "mm": r["mm"]}
                          for p, r in unfused.items()}
@@ -3896,16 +4007,17 @@ def unsharded_buffers_check(model) -> dict:
 
 def dropout_draw_ms(cfg: VLBConfig, dev) -> dict:
     """One layer's 7 adapter-input masks of the 32-bit path at batch 3 (6
-    reading K = 4096, the down projection 14336), drawn for this rank's
-    rows alone and for rank 0 of a batch split over 2 ranks (the global
-    batch of 6 drawn, its rows kept), by CUDA events; a step draws each
-    twice a layer (remat), so x 64."""
-    lora, s = cfg.mistral.lora, cfg.geometry.feature_len
+    reading K = 4096, the down projection 14336), the keep kernel's bytes
+    as the route draws them (``keep_rows``), for this rank's rows alone
+    and for rank 0 of a batch split over 2 ranks (the global batch of 6
+    drawn, its rows kept), by CUDA events; a step draws each twice a layer
+    (remat), so x 64."""
+    keep, s = 1.0 - cfg.mistral.lora.dropout, cfg.geometry.feature_len
     xs = [torch.randn(LORA_BATCH, s, k, device=dev, dtype=torch.bfloat16) for k in (4096, 14336)]
 
     def layer(rows):
         for i in range(7):
-            adapter_dropout(xs[i == 6], lora, 1000 + i, rows)
+            keep_rows(xs[i == 6], rows, lambda shape: keep_bytes(shape, 1000 + i, keep, dev))
 
     return {"local_ms": cuda_ms(lambda: layer(None), 5), "global2_ms": cuda_ms(lambda: layer((0, 2 * LORA_BATCH)), 5)}
 
@@ -5203,6 +5315,48 @@ def run_sharded(out: str, nproc: int, flag: str, label: str, timeout: int) -> di
     return record
 
 
+# ``--keep-table PATH``: the table ``tests/test_torch_keep_bytes.py`` holds
+# the plain 32-bit keep draw to, read from ``torch.rand`` on an H100 SXM (132
+# SMs of 2048 threads): under one grid, between one and four grids (words
+# 0-2), several iterations, several iterations with a tail off 4.
+KEEP_TABLE_SEEDS = (0, 1, 12345, 2 ** 31 + 7, 2 ** 40 + 3)
+KEEP_TABLE_SHAPES = ((1000,), (2, 300001), (3, 1100, 1001), (7, 331, 1201))
+
+
+def keep_table_indices(numel: int, seed: int) -> list[int]:
+    """The indices whose bytes the table holds: the H100 grid's edges, the
+    middle, the tail, and 16 drawn from the seed and the size."""
+    t = 132 * 2048
+    edges = [0, 1, t - 1, t, t + 1, 2 * t, 3 * t, 4 * t - 1, 4 * t, 4 * t + 1, 8 * t, numel // 2,
+             numel - 4, numel - 3, numel - 2, numel - 1]
+    rng = np.random.default_rng(seed % 1000 + numel)
+    return sorted({i for i in edges if 0 <= i < numel} | set(rng.integers(0, numel, 16).tolist()))
+
+
+def write_keep_table(path: str) -> int:
+    """Per (seed, shape) of ``torch.rand(shape, generator=torch.Generator(
+    "cuda").manual_seed(seed)) < 0.9`` on this card: the kept count, the
+    sha256 of the 0/1 bytes and the bytes at ``keep_table_indices``;
+    written to PATH as JSON."""
+    import hashlib
+
+    dev, keep = torch.device("cuda", 0), 0.9
+    cases = []
+    for shape in KEEP_TABLE_SHAPES:
+        for seed in KEEP_TABLE_SEEDS:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            kept = (torch.rand(shape, generator=gen, device=dev) < keep).to(torch.uint8).reshape(-1).cpu()
+            at = keep_table_indices(kept.numel(), seed)
+            cases.append({"seed": seed, "shape": list(shape), "kept": int(kept.sum()),
+                          "sha256": hashlib.sha256(kept.numpy().tobytes()).hexdigest(),
+                          "at": at, "bytes": [int(kept[i]) for i in at]})
+    table = {"keep": keep, "card": torch.cuda.get_device_name(dev), "torch": torch.__version__, "cases": cases}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(table, indent=1) + "\n", encoding="utf-8")
+    print(f"{len(cases)} cases written to {path} ({card_name_and_power()})")
+    return 0
+
+
 def run_child(flag: str, out: str, label: str, timeout: int) -> dict:
     """``chip_smoke.py flag out`` in a process of its own; its output is
     passed on. Returns its JSON record."""
@@ -5247,6 +5401,8 @@ def main() -> int:
         return tensor_child(sys.argv[2])
     if sys.argv[1:2] == ["--caches"]:
         return caches_child(sys.argv[2])
+    if sys.argv[1:2] == ["--keep-table"]:
+        return write_keep_table(sys.argv[2])
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5472,9 +5628,11 @@ def main() -> int:
             raise AssertionError("peak host RSS over its limit")
 
     # The row quant's passes alone run where a row's columns are split: the
-    # launches of (e)'s w8a8g8 step on rank 0.
+    # launches of (e)'s w8a8g8 step on rank 0. The keep kernel runs where
+    # the dropout is 32-bit and unfused: the launches of 9t's LoRA fit.
     for name in ("row_absmax", "row_quant_given"):
         launches[name] = tensor["w8a8g8"]["launches"][name]
+    launches["lora_keep"] = trained["lora_launches"]["lora_keep"]
     records = [
         {"name": name, "route": "cuda", "source": f"phantom_vlb_tpu_torch/csrc/{REPLACES[name][0]}",
          "replaces": REPLACES[name][1], "launches": launches[name],

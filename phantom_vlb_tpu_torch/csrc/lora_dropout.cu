@@ -111,6 +111,40 @@
 // memory, with the product's columns permuted so that each thread ends with
 // 16 neighbouring output columns per row: the mask is applied in registers
 // and dx leaves in 16-byte stores.
+//
+// The scale s. The u8 rule's is 1/keep rounded to bf16, so the bf16 product
+// x * s (one rounding of the exact product). The 32-bit rule's
+// (ops/lora_fused.py:dropout_rule) is the f32 reciprocal of keep rounded to
+// bf16, which is what PyTorch's x / bf16(keep) multiplies by on the card:
+// x * s in f32, rounded to f32 and then to bf16, as that division does. The
+// consumers take the f32 form only where s is not a bf16 value (the two
+// agree wherever it is), a test that is the same for the whole launch.
+//
+// Keep bytes of the 32-bit rule (lora_keep_kernel): u8 keep[i] = 1 iff
+// element i of torch.rand(numel, generator=torch.Generator("cuda")
+// .manual_seed(seed)) < keep (f32), the generator fresh (offset 0), for the
+// fwd / dx / dA kernels' bits mode at thr 1. PyTorch's draw
+// (ATen/native/cuda/DistributionTemplates.h, distribution_elementwise_grid_
+// stride_kernel on calc_execution_policy's grid): blocks of 256 threads,
+// min(ceil(numel / 256), SMs x maxThreadsPerSM / 256) of them, T threads in
+// all; thread t's curand Philox4x32-10 state has subsequence t (the counter's
+// words z, w) and offset 0, and its i-th curand_uniform4 fills elements
+// t + 4 T i + T j, j = 0..3, from word j of Philox4x32-10(counter (i, 0, t),
+// key (seed lo, seed hi)) (curand_philox4x32_x.h). A word u becomes u * 2^-32
+// + 2^-33 in f32 (curand_uniform.h), 1.0 becomes 0 (uniform_kernel's fold),
+// and the compare is f32. Each thread here walks the same elements: every
+// Philox output is used, a warp's 32 stores of one j are 32 neighbouring
+// bytes, and the grid comes from the card's properties
+// (ops/lora_fused.py:_rand_blocks), so it is PyTorch's on any card. The
+// uniform and the compare become two integer compares: u(w) is monotone in
+// the word w, so u < keep iff w < lo, and u == 1 (folded to 0, kept) iff
+// w >= hi, with lo and hi found once on the host (ops/lora_fused.py:
+// _keep_words; 25% faster than the float steps on the card). Indices are
+// 32-bit: PyTorch draws at most 2^29 - 1 values in one launch.
+// Bound: 1 byte written an element, 7.5 us at (6144, 4096) at 3.35 TB/s;
+// the integer work, ten rounds of 2 IMAD.WIDE and 2 LOP3 a Philox call per
+// 4 elements, takes longer (ops/lora_fused.py:keep_bytes_plain is the same
+// draw in int64 torch ops).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -216,6 +250,15 @@ __device__ __forceinline__ uint32_t keep_pair(uint32_t b, uint32_t kthr) {
 __device__ __forceinline__ uint32_t drop_pair(uint32_t x2, uint32_t keep, __nv_bfloat162 s2) {
   const uint32_t kept = x2 & keep;
   __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&kept), s2);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The same with an f32 s: each kept half times s in f32, rounded to f32
+// and then to bf16.
+__device__ __forceinline__ uint32_t drop_pair_f32(uint32_t x2, uint32_t keep, float s) {
+  const uint32_t kept = x2 & keep;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(__uint_as_float(kept << 16), s),
+                                                 __fmul_rn(__uint_as_float(kept & 0xFFFF0000u), s));
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -490,7 +533,8 @@ __device__ __forceinline__ void reduce(const CUtensorMap* tm_x, const CUtensorMa
   // columns (dA) 16 wr .. + 15, all four k-steps ----
   const int grp = warp >> 2, wr = warp & 3;
   const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3, mr = lane & 7;
-  const __nv_bfloat162 s2 = __float2bfloat162_rn(a.scale);   // a bf16 value: exact
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(a.scale);   // exact where s is a bf16 value
+  const bool s_bf16 = __low2float(s2) == a.scale;           // else the f32 form (see the head)
   const uint32_t kthr = static_cast<uint32_t>(0x8000 - a.thr) * 0x10001u;
   const bool hash = a.bits == nullptr;
   const bool odd = t4 & 1;
@@ -539,7 +583,10 @@ __device__ __forceinline__ void reduce(const CUtensorMap* tm_x, const CUtensorMa
             }
           }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) xa[i] = drop_pair(xa[i], keep_pair(prmt(w[i], 0u, fwd_sel), kthr), s2);
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t kp = keep_pair(prmt(w[i], 0u, fwd_sel), kthr);
+            xa[i] = s_bf16 ? drop_pair(xa[i], kp, s2) : drop_pair_f32(xa[i], kp, a.scale);
+          }
 #endif
         } else {
           // acc (16 columns of K x R) += masked x^T (16 x 16) dmid rows (16
@@ -564,7 +611,8 @@ __device__ __forceinline__ void reduce(const CUtensorMap* tm_x, const CUtensorMa
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int q = 4 * (i >> 1) + (i & 1);     // rows 2 t4 (+ 8), word i & 1; the next row at q + 2
-            xa[i] = drop_pair(xa[i], keep_pair(prmt(w[q], w[q + 2], da_sel) & 0x00FF00FFu, kthr), s2);
+            const uint32_t kp = keep_pair(prmt(w[q], w[q + 2], da_sel) & 0x00FF00FFu, kthr);
+            xa[i] = s_bf16 ? drop_pair(xa[i], kp, s2) : drop_pair_f32(xa[i], kp, a.scale);
           }
 #endif
         }
@@ -856,6 +904,43 @@ struct DxLaunch {
   }
 };
 
+// Philox4x32-10 (curand_philox4x32_x.h): ten rounds, the key bumped
+// between them.
+constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
+constexpr int KEEP_BLOCK = 256;                 // PyTorch's block for its draws
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t lo0 = PHILOX_M0 * c.x, hi0 = __umulhi(PHILOX_M0, c.x);
+    const uint32_t lo1 = PHILOX_M1 * c.z, hi1 = __umulhi(PHILOX_M1, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += PHILOX_W0;
+    k1 += PHILOX_W1;
+  }
+  return c;
+}
+
+// curand's uniform of a word below keep, or 1 (folded to 0): see the head.
+__device__ __forceinline__ uint8_t keep_byte(uint32_t word, uint32_t lo, uint32_t hi) {
+  return (word < lo) | (word >= hi);
+}
+
+__global__ void __launch_bounds__(KEEP_BLOCK)
+lora_keep_kernel(uint8_t* __restrict__ out, int numel, uint32_t k0, uint32_t k1, uint32_t lo, uint32_t hi) {
+  const int t = blockIdx.x * KEEP_BLOCK + threadIdx.x;
+  const int T = gridDim.x * KEEP_BLOCK;
+  uint4 ctr = make_uint4(0u, 0u, static_cast<uint32_t>(t), 0u);
+  for (int e = t; e < numel; e += 4 * T, ++ctr.x) {
+    const uint4 w = philox4x32_10(ctr, k0, k1);
+    out[e] = keep_byte(w.x, lo, hi);
+    if (e + T < numel) out[e + T] = keep_byte(w.y, lo, hi);
+    if (e + 2 * T < numel) out[e + 2 * T] = keep_byte(w.z, lo, hi);
+    if (e + 3 * T < numel) out[e + 3 * T] = keep_byte(w.w, lo, hi);
+  }
+}
+
 }  // namespace
 
 // Plain-C launchers (bound with ctypes): the caller's current device and
@@ -919,4 +1004,16 @@ extern "C" int lora_cluster_capacity(int da, int R, int cs, int smem, int* clust
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
+// The 32-bit rule's keep bytes (see the head): `numel` (< 2^29) bytes into
+// `out` on `blocks` blocks of 256 (PyTorch's grid for numel on the current
+// device), the Philox key from the 64-bit seed, keep iff a word is below
+// `lo` or at least `hi`.
+extern "C" int lora_keep_launch(void* out, int numel, uint64_t seed, uint32_t lo, uint32_t hi, int blocks,
+                                void* stream) {
+  if (numel <= 0 || numel >= (1 << 29) || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lora_keep_kernel<<<blocks, KEEP_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), numel, static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32), lo, hi);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,19 @@ and B before it makes the base product (``lora_epilogue`` takes y as a
 function), so its replay runs neither that product nor the kernel forward
 for the last projection either.
 
+The 32-bit unfused route on the card (:func:`takes_keep_bytes`: live
+dropout, ``dropout_bits`` 32, not fused, not shared, CUDA bf16 x with K a
+multiple of 64, r in ``RANKS``, and a drawn shape that PyTorch draws in one
+launch) draws the site's mask as the 0/1 bytes
+of :func:`~phantom_vlb_tpu_torch.ops.lora_fused.keep_bytes`, one launch
+that gives ``torch.rand(...) < keep`` bit for bit, and runs the fused
+kernels in their bits mode on them (``dropout_bits=32``): the dropped x is
+the eager route's bit for bit, and the products' f32 sums are the kernels'.
+The mask is drawn again in a checkpoint's replay, never kept across it.
+Every other input keeps :func:`adapter_dropout`. Each site call counts
+``lora_dropout32.kernel``, and each 32-bit eager draw
+``lora_dropout32.eager``, in ``utils/profiling.py``'s counters.
+
 Dropout masks come only from an explicit per-site seed (an int the caller
 derives from the step, the layer and the site), never from a global RNG
 state: a per-layer ``torch.utils.checkpoint`` replays the layer in the
@@ -68,12 +81,20 @@ from torch import nn
 
 from phantom_vlb_tpu_torch.core.remat import named
 from phantom_vlb_tpu_torch.ops.lora_epilogue import lora_epilogue
-from phantom_vlb_tpu_torch.ops.lora_fused import dropout_threshold, fused_dropout_matmul
+from phantom_vlb_tpu_torch.ops.lora_fused import (
+    CHUNK,
+    RANKS,
+    dropout_threshold,
+    fused_dropout_matmul,
+    keep_bytes,
+    keep_draw_fits,
+)
 from phantom_vlb_tpu_torch.ops.quant import BASE_QUANT_MODES, quant_matmul
 from phantom_vlb_tpu_torch.parallel.tensor import COLUMN, ROW, copy_to_tensor, mm_f32, reduce_from_tensor
+from phantom_vlb_tpu_torch.utils.profiling import count
 
-__all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "keep_rows", "is_lora_path",
-           "lora_merge", "site_seed", "row_parallel_linear", "CODES_DTYPE"]
+__all__ = ["LoRAConfig", "LoRALinear", "FrozenQuantDense", "adapter_dropout", "keep_rows", "drawn_shape",
+           "takes_keep_bytes", "is_lora_path", "lora_merge", "site_seed", "row_parallel_linear", "CODES_DTYPE"]
 
 _U32 = 0xFFFFFFFF
 # The dtype whose bytes carry a sharded int8 base's codes (``parallel/sharding.py``).
@@ -127,17 +148,26 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+def drawn_shape(x: torch.Tensor, rows: tuple[int, int] | None = None,
+                cols: tuple[int, int] | None = None) -> tuple[int, ...]:
+    """The shape :func:`keep_rows` draws for x: the global batch's rows and
+    the whole width."""
+    n = x.shape[0] if rows is None else rows[1]
+    width = x.shape[-1] if cols is None else cols[1]
+    return (n, *x.shape[1:-1], width)
+
+
 def keep_rows(x: torch.Tensor, rows: tuple[int, int] | None, draw,
               cols: tuple[int, int] | None = None) -> torch.Tensor:
     """``draw(shape)`` over x's shape, or, when x holds rows [r0, r0 + B) of
     a global batch of ``rows`` = (r0, n) rows, over the global shape with
     x's rows kept: the draw of the one-card step, row for row; likewise
     for the columns [c0, c0 + K) of a whole width ``cols`` = (c0, width)."""
-    r0, n = (0, x.shape[0]) if rows is None else rows
-    if cols is None:
-        return draw(x.shape) if rows is None else draw((n, *x.shape[1:]))[r0:r0 + x.shape[0]]
-    c0, width = cols
-    return draw((n, *x.shape[1:-1], width))[r0:r0 + x.shape[0], ..., c0:c0 + x.shape[-1]]
+    if rows is None and cols is None:
+        return draw(x.shape)
+    r0 = 0 if rows is None else rows[0]
+    c0 = 0 if cols is None else cols[0]
+    return draw(drawn_shape(x, rows, cols))[r0:r0 + x.shape[0], ..., c0:c0 + x.shape[-1]]
 
 
 def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int,
@@ -152,6 +182,7 @@ def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int,
     """
     gen = _generator(seed, x.device)
     if cfg.dropout_bits >= 32:
+        count("lora_dropout32.eager")
         keep = keep_rows(x, rows, lambda shape: torch.rand(
             shape, generator=gen, device=x.device) < cfg.dropout_keep_prob, cols)
     elif cfg.dropout_bits == 8:
@@ -161,6 +192,16 @@ def adapter_dropout(x: torch.Tensor, cfg: LoRAConfig, seed: int,
     else:
         raise ValueError(f"dropout_bits must be 8 or 32, not {cfg.dropout_bits}")
     return torch.where(keep, x / _in_dtype(cfg.dropout_keep_prob, x.dtype), 0.0)
+
+
+def takes_keep_bytes(x: torch.Tensor, a: torch.Tensor, rows: tuple[int, int] | None = None,
+                     cols: tuple[int, int] | None = None) -> bool:
+    """Whether the 32-bit route's kernels take x and adapter A: CUDA bf16,
+    K a multiple of 64, r in ``RANKS``, and a drawn shape (:func:`drawn_shape`)
+    that PyTorch draws in one launch (:func:`keep_draw_fits`; a larger draw
+    it splits, and :func:`adapter_dropout` makes)."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and x.shape[-1] % CHUNK == 0 and a.shape[1] in RANKS
+            and keep_draw_fits(math.prod(drawn_shape(x, rows, cols))))
 
 
 def _check_base_quant(base_quant: str | None) -> None:
@@ -286,6 +327,14 @@ class LoRALinear(_QuantBase):
             with named("lora_mid"):
                 z = fused_dropout_matmul(x2d, a, seed, lora.dropout, row0=row0,
                                          col0=0 if cols is None else cols[0])
+            z = z.reshape(*x.shape[:-1], lora.rank)
+        elif adapter_x is None and live and lora.dropout_bits == 32 and takes_keep_bytes(x, a, rows, cols):
+            count("lora_dropout32.kernel")
+            keep = keep_rows(x, rows, lambda shape: keep_bytes(shape, seed, lora.dropout_keep_prob, x.device), cols)
+            x2d = x.reshape(-1, x.shape[-1]).contiguous()
+            with named("lora_mid"):
+                z = fused_dropout_matmul(x2d, a, seed, lora.dropout, bits=keep.contiguous().view(x2d.shape),
+                                         dropout_bits=32)
             z = z.reshape(*x.shape[:-1], lora.rank)
         else:
             z = x if adapter_x is None else adapter_x

@@ -28,6 +28,18 @@ not depend on tile shapes, forward, dx and dA see the same mask by
 construction, and :func:`hash_bytes` (torch int64, masked to 32 bits)
 gives the kernels' bytes bit for bit.
 
+The 32-bit rule (``dropout_bits=32``, the unfused route's Bernoulli mask,
+``models/lora.py``) runs the same kernels in bits mode at ``thr = 1`` over
+the 0/1 bytes of :func:`keep_bytes`, which are bit for bit ``torch.rand(shape,
+generator=torch.Generator("cuda").manual_seed(seed)) < keep`` on the card:
+one launch of the source's own Philox kernel, drawn again in a checkpoint's
+replay rather than kept. Its scale is :func:`dropout_rule`'s: the f32
+reciprocal of keep rounded to x's dtype, the number PyTorch's ``x /
+bf16(keep)`` multiplies by on the card, applied in f32 and rounded to x's
+dtype, so the dropped x is the eager route's bit for bit; dx scales its f32
+sum by it and rounds once. :func:`keep_bytes_plain` is the draw in int64
+torch ops.
+
 On CUDA tensors the three kernels of ``csrc/lora_dropout.cu`` run; on CPU
 tensors their plain versions. There is no fallback on the card. The
 forward and dA are one launch each that writes the finished output: their
@@ -42,14 +54,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 from phantom_vlb_tpu_torch.ops._build import CudaKernel
 
 __all__ = [
     "fused_dropout_matmul", "fused_dropout_matmul_plain", "fused_dropout_bwd_plain",
-    "fused_dropout_bwd", "hash_bytes", "dropout_threshold", "LORA_FWD", "LORA_DX", "LORA_DA",
+    "fused_dropout_bwd", "hash_bytes", "dropout_threshold", "dropout_rule", "keep_bytes", "keep_bytes_plain",
+    "keep_draw_fits", "KEEP_MAX_NUMEL", "philox4x32_10", "LORA_FWD", "LORA_DX", "LORA_DA", "LORA_KEEP",
     "LORA_CLUSTER_CAPACITY", "smem_bytes", "plan_smem_bytes",
 ]
 
@@ -57,6 +72,19 @@ CHUNK = 64            # the kernels' tile edge: K must be a multiple of it
 RANKS = (16, 32, 64, 128)
 _GOLDEN, _M1, _M2 = 0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35
 _U32 = 0xFFFFFFFF
+_U64 = (1 << 64) - 1
+# Philox4x32-10's round constants (curand_philox4x32_x.h, Random123).
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+# PyTorch's draws on the card: blocks of 256 threads, at most maxThreadsPerSM
+# / 256 blocks an SM (calc_execution_policy); an H100 SXM's 132 SMs of 2048
+# threads are the plain version's default card.
+KEEP_BLOCK = 256
+H100_SMS, H100_THREADS_PER_SM = 132, 2048
+# A draw whose f32 output passes 2^31 - 1 bytes PyTorch splits into several
+# launches, each with its own offset: the kernel draws one, so it takes
+# draws of at most this many elements (:func:`keep_draw_fits`).
+KEEP_MAX_NUMEL = (2 ** 31 - 1) // 4
 
 # The forward and dA kernels' block (csrc/lora_dropout.cu, mirrored here):
 # ring stages of x tiles and consumer groups of four warps by rank, the
@@ -91,6 +119,8 @@ LORA_DX = CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p],
 )
 LORA_DA = CudaKernel(_SRC, "lora_da_launch", _REDUCE_ARGS)
+LORA_KEEP = CudaKernel(_SRC, "lora_keep_launch", [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32,
+                                                  ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
 # How many clusters of a size the card holds at once (a query, no launch).
 LORA_CLUSTER_CAPACITY = CudaKernel(_SRC, "lora_cluster_capacity",
                                    [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
@@ -189,6 +219,138 @@ def hash_bytes(seed: int, m: int, k: int, device=None, row0: int = 0, col0: int 
     return ((h[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(m, k)
 
 
+@functools.lru_cache(maxsize=None)
+def dropout_rule(p: float, dropout_bits: int, dtype: torch.dtype) -> tuple[int, float, float]:
+    """(thr, scale, inv) of a rule on mask bytes: keep iff byte >= thr (0:
+    no dropout); the forward and dA take x * scale in f32 rounded to x's
+    dtype, dx its f32 sum * inv. 8: the u8 rule of :func:`dropout_threshold`,
+    scale 1/keep rounded to ``dtype``, inv the f32 1/keep. 32: the 0/1 bytes
+    of :func:`keep_bytes` at thr 1, and scale = inv = 1 / keep' in f32, keep'
+    = 1 - p rounded to ``dtype``: the reciprocal by which PyTorch's CUDA
+    division ``x / keep'`` multiplies (BinaryDivTrueKernel.cu, a CPU scalar
+    divisor), so ``x * scale`` is that division bit for bit."""
+    if dropout_bits == 8:
+        thr, _ = dropout_threshold(p)
+        return thr, _scale_in_dtype(thr, dtype), _inv_keep(thr)
+    if dropout_bits == 32:
+        keep = float(torch.tensor(1.0 - p, dtype=dtype))
+        inv = float(np.float32(1.0) / np.float32(keep))
+        return int(p > 0), inv, inv
+    raise ValueError(f"dropout_bits must be 8 or 32, not {dropout_bits}")
+
+
+def _mulhi32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """floor(x * c / 2^32) for int64 x in [0, 2^32), without int64 overflow."""
+    return ((x * (c >> 16)) + ((x * (c & 0xFFFF)) >> 16)) >> 16
+
+
+def philox4x32_10(ctr: tuple, key: tuple[int, int]) -> tuple:
+    """Philox4x32-10 (Random123; curand's ``curand_Philox4x32_10``) of four
+    int64 tensors (or ints) of 32-bit counter words and a 32-bit key pair:
+    the four output words, int64 in [0, 2^32)."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = key[0] & _U32, key[1] & _U32
+    for _ in range(10):
+        lo0, hi0 = _mul32(c0, _PHILOX_M[0]), _mulhi32(c0, _PHILOX_M[0])
+        lo1, hi1 = _mul32(c2, _PHILOX_M[1]), _mulhi32(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def _rand_blocks(numel: int, sms: int, threads_per_sm: int) -> int:
+    """The blocks of PyTorch's draw of ``numel`` values (calc_execution_policy)."""
+    return min(-(-numel // KEEP_BLOCK), sms * (threads_per_sm // KEEP_BLOCK))
+
+
+def keep_draw_fits(numel: int) -> bool:
+    """Whether PyTorch draws ``numel`` values in one launch, as
+    :func:`keep_bytes` does (at most ``KEEP_MAX_NUMEL``)."""
+    return numel <= KEEP_MAX_NUMEL
+
+
+def _check_keep_numel(numel: int) -> None:
+    if not keep_draw_fits(numel):
+        raise ValueError(f"{numel} elements: PyTorch draws more than {KEEP_MAX_NUMEL} in several launches")
+
+
+def _uniform(word: int) -> np.float32:
+    """curand's uniform of a 32-bit word: word * 2^-32 + 2^-33 in f32."""
+    return np.float32(np.float32(word) * np.float32(2.0 ** -32)) + np.float32(2.0 ** -33)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_words(keep: float) -> tuple[int, int]:
+    """(lo, hi): the element of a Philox word w is kept iff w < lo or w >=
+    hi. PyTorch keeps it iff u(w) < keep in f32, u the curand uniform
+    (:func:`_uniform`) with 1 folded to 0. u is monotone in w, so u(w) <
+    f32(keep) below the first w where it is not, and u(w) == 1 (kept) from
+    the first w where it is; both found by bisection."""
+
+    def first(pred) -> int:
+        lo, hi = 0, 1 << 32
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if pred(mid) else (mid + 1, hi)
+        return lo
+
+    k = np.float32(keep)
+    return first(lambda w: _uniform(w) >= k), first(lambda w: _uniform(w) == np.float32(1.0))
+
+
+def keep_bytes_plain(shape, seed: int, keep: float, sms: int = H100_SMS,
+                     threads_per_sm: int = H100_THREADS_PER_SM, device=None) -> torch.Tensor:
+    """The 32-bit rule's keep bytes in int64 torch ops (on the CPU, or on
+    ``device``): (shape) uint8, 1 iff ``torch.rand(shape,
+    generator=torch.Generator("cuda").manual_seed(seed)) < keep`` on a card
+    of ``sms`` SMs of ``threads_per_sm`` threads (the draw's grid follows
+    the card). Element t + 4 T i + T j comes from word j of Philox4x32-10 at
+    counter (i, 0, t) (t: the thread, T the grid's threads) under the seed's
+    two words, kept as :func:`_keep_words` says (``csrc/lora_dropout.cu``,
+    lora_keep_kernel)."""
+    numel = math.prod(shape)
+    _check_keep_numel(numel)
+    if numel == 0:
+        return torch.zeros(shape, dtype=torch.uint8, device=device)
+    t = _rand_blocks(numel, sms, threads_per_sm) * KEEP_BLOCK
+    iters = -(-numel // (4 * t))
+    thread = torch.arange(t, dtype=torch.int64, device=device)
+    words = philox4x32_10((torch.arange(iters, dtype=torch.int64, device=device)[:, None], 0, thread & _U32,
+                           thread >> 32),
+                          (seed & _U32, (seed & _U64) >> 32))
+    # (i, j, t) in order is element t + 4 T i + T j: the flat index.
+    w = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1)[:numel]
+    lo, hi = _keep_words(keep)
+    return ((w < lo) | (w >= hi)).to(torch.uint8).reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_threads(index: int) -> tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.max_threads_per_multi_processor
+
+
+def keep_bytes(shape, seed: int, keep: float, device) -> torch.Tensor:
+    """(shape) uint8 keep bytes of the 32-bit rule: 1 iff ``torch.rand(shape,
+    generator=torch.Generator("cuda").manual_seed(seed)) < keep`` on the
+    card, bit for bit. On a CUDA device one launch of lora_keep_kernel on
+    PyTorch's grid for the card, the compare on the words
+    (:func:`_keep_words`); on the CPU :func:`keep_bytes_plain` (an H100
+    SXM's grid)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return keep_bytes_plain(shape, seed, keep)
+    numel = math.prod(shape)
+    _check_keep_numel(numel)
+    out = torch.empty(shape, dtype=torch.uint8, device=device)
+    if numel:
+        index = out.device.index
+        with torch.cuda.device(index):
+            LORA_KEEP.launch(out.data_ptr(), numel, seed & _U64, *_keep_words(keep),
+                             _rand_blocks(numel, *_card_threads(index)), _stream(index))
+    return out
+
+
 def _keep_mask(x, seed, thr, bits, row0, col0):
     b = hash_bytes(seed, x.shape[0], x.shape[1], x.device, row0, col0) if bits is None else bits
     return b >= thr
@@ -198,30 +360,39 @@ def _inv_keep(thr: int) -> float:
     return 1.0 / (1.0 - thr / 256.0)
 
 
+@functools.lru_cache(maxsize=None)
 def _scale_in_dtype(thr: int, dtype: torch.dtype) -> float:
     """1/keep rounded to ``dtype``: ``x * it`` rounds the exact product once."""
     return float(torch.tensor(_inv_keep(thr), dtype=dtype))
 
 
-def _dropped(x, keep, thr):
-    """mask * x / keep with the scale and the product in x's dtype (reference :71-72)."""
-    return torch.where(keep, x * _scale_in_dtype(thr, x.dtype), 0.0)
+def _dropped(x, keep, scale):
+    """mask * x * scale, the product in f32 rounded to x's dtype: the u8
+    rule's scale is a value of x's dtype, so this is its product in x's
+    dtype (reference :71-72); the 32-bit rule's is :func:`dropout_rule`'s."""
+    return torch.where(keep, (x.float() * scale).to(x.dtype), 0.0)
 
 
 def fused_dropout_matmul_plain(x, a, seed: int, thr: int, bits=None, row0: int = 0,
-                               col0: int = 0) -> torch.Tensor:
-    """Plain forward: (M, r) in x's dtype, f32 sums."""
-    z = _dropped(x, _keep_mask(x, seed, thr, bits, row0, col0), thr)
+                               col0: int = 0, scale: float | None = None) -> torch.Tensor:
+    """Plain forward: (M, r) in x's dtype, f32 sums. ``scale`` None: the
+    u8 rule's for ``thr``."""
+    scale = _scale_in_dtype(thr, x.dtype) if scale is None else scale
+    z = _dropped(x, _keep_mask(x, seed, thr, bits, row0, col0), scale)
     return (z.float() @ a.to(x.dtype).float()).to(x.dtype)
 
 
-def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: int = 0, col0: int = 0):
-    """Plain backward: (dx in x's dtype, dA f32)."""
+def fused_dropout_bwd_plain(x, a, dmid, seed: int, thr: int, bits=None, row0: int = 0, col0: int = 0,
+                            scale: float | None = None):
+    """Plain backward: (dx in x's dtype, dA f32). ``scale`` None: the u8
+    rule's for ``thr``; else the 32-bit rule's, dx's scale too."""
     keep = _keep_mask(x, seed, thr, bits, row0, col0)
+    inv = _inv_keep(thr) if scale is None else scale
+    scale = _scale_in_dtype(thr, x.dtype) if scale is None else scale
     dmid = dmid.to(x.dtype).float()
     g = dmid @ a.to(x.dtype).float().T
-    dx = torch.where(keep, g * _inv_keep(thr), 0.0).to(x.dtype)
-    da = _dropped(x, keep, thr).float().T @ dmid
+    dx = torch.where(keep, g * inv, 0.0).to(x.dtype)
+    da = _dropped(x, keep, scale).float().T @ dmid
     return dx, da
 
 
@@ -237,6 +408,12 @@ def _check_cuda(x, a, bits, col0=0):
     if bits is not None and (bits.shape != x.shape or bits.dtype != torch.uint8
                              or bits.device != x.device or not bits.is_contiguous()):
         raise ValueError(f"bits must be a contiguous ({m}, {k}) uint8 tensor on {x.device}")
+
+
+def _stream(index: int) -> int:
+    """The raw handle of CUDA device ``index``'s current stream (no Stream
+    object made)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _ptr(t):
@@ -265,30 +442,31 @@ def _cluster_capacity(dev, r: int, da: bool) -> tuple:
     return _CAPS[key]
 
 
-def _fwd_cuda(x, a, seed, thr, bits, row0, col0):
+def _fwd_cuda(x, a, seed, thr, bits, row0, col0, scale=None):
     m, k = x.shape
     r = a.shape[1]
     cs, clusters, resident = _fwd_plan(m, k, r, bits is not None, _cluster_capacity(x.device, r, False))
     mid = torch.empty((m, r), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         LORA_FWD.launch(x.data_ptr(), a.data_ptr(), _ptr(bits), mid.data_ptr(), m, k, r, cs, clusters,
-                        int(resident), seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
-                        torch.cuda.current_stream().cuda_stream)
+                        int(resident), seed & _U32, row0, col0, thr,
+                        _scale_in_dtype(thr, x.dtype) if scale is None else scale,
+                        _stream(x.device.index))
     return mid
 
 
-def _dx_cuda(x, a, dmid, seed, thr, bits, row0, col0):
+def _dx_cuda(x, a, dmid, seed, thr, inv, bits, row0, col0):
     m, k = x.shape
     dmid = dmid.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         LORA_DX.launch(dmid.data_ptr(), a.data_ptr(), _ptr(bits), dx.data_ptr(),
-                       m, k, a.shape[1], seed & _U32, row0, col0, thr, _inv_keep(thr),
-                       torch.cuda.current_stream().cuda_stream)
+                       m, k, a.shape[1], seed & _U32, row0, col0, thr, inv,
+                       _stream(x.device.index))
     return dx
 
 
-def _da_cuda(x, a, dmid, seed, thr, bits, row0, col0):
+def _da_cuda(x, a, dmid, seed, thr, scale, bits, row0, col0):
     m, k = x.shape
     r = a.shape[1]
     dmid = dmid.to(x.dtype).contiguous()
@@ -296,73 +474,80 @@ def _da_cuda(x, a, dmid, seed, thr, bits, row0, col0):
     da = torch.empty((k, r), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         LORA_DA.launch(x.data_ptr(), dmid.data_ptr(), _ptr(bits), da.data_ptr(), m, k, r, cs, clusters,
-                       int(resident), seed & _U32, row0, col0, thr, _scale_in_dtype(thr, x.dtype),
-                       torch.cuda.current_stream().cuda_stream)
+                       int(resident), seed & _U32, row0, col0, thr, scale,
+                       _stream(x.device.index))
     return da
 
 
 def fused_dropout_bwd(x, a, dmid, seed: int, p: float, *, bits=None, need_dx=True, need_da=True,
-                      row0: int = 0, col0: int = 0):
+                      row0: int = 0, col0: int = 0, dropout_bits: int = 8):
     """(dx, dA f32) of :func:`fused_dropout_matmul` at ``p > 0``: the dx and
     dA kernels on CUDA tensors, :func:`fused_dropout_bwd_plain` on CPU
     tensors. A gradient not asked for comes back as None, unlaunched."""
-    thr, _ = dropout_threshold(p)
+    thr, scale, inv = dropout_rule(p, dropout_bits, x.dtype)
     if x.device.type == "cpu":
-        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits, row0, col0)
+        dx, da = fused_dropout_bwd_plain(x, a, dmid, seed, thr, bits, row0, col0,
+                                         None if dropout_bits == 8 else scale)
         return (dx if need_dx else None), (da if need_da else None)
     _check_cuda(x, a, bits, col0)
     if dmid.shape != (x.shape[0], a.shape[1]):
         raise ValueError(f"dmid {tuple(dmid.shape)} != ({x.shape[0]}, {a.shape[1]})")
-    return (_dx_cuda(x, a, dmid, seed, thr, bits, row0, col0) if need_dx else None,
-            _da_cuda(x, a, dmid, seed, thr, bits, row0, col0) if need_da else None)
+    return (_dx_cuda(x, a, dmid, seed, thr, inv, bits, row0, col0) if need_dx else None,
+            _da_cuda(x, a, dmid, seed, thr, scale, bits, row0, col0) if need_da else None)
 
 
 # The forward as a dispatcher op, so that a checkpoint policy can keep the
 # mid and the backward's replay does not launch the kernel again
 # (``core/remat.py``): the kernel on CUDA tensors, the plain version on CPU
-# tensors.
+# tensors. ``scale`` None: the u8 rule's for ``thr``.
 _LIB = torch.library.Library("vlb", "FRAGMENT")
-_LIB.define("lora_dropout_fwd(Tensor x, Tensor a, int seed, int thr, Tensor? bits, int row0, int col0) "
-            "-> Tensor")
+_LIB.define("lora_dropout_fwd(Tensor x, Tensor a, int seed, int thr, Tensor? bits, int row0, int col0, "
+            "float? scale=None) -> Tensor")
 _LIB.impl("lora_dropout_fwd", fused_dropout_matmul_plain, "CPU")
 _LIB.impl("lora_dropout_fwd", _fwd_cuda, "CUDA")
 
 
 class _FusedDropoutMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, a, seed, p, bits, row0, col0):
-        thr, _ = dropout_threshold(p)
+    def forward(ctx, x, a, seed, p, bits, row0, col0, dropout_bits):
+        thr, scale, _ = dropout_rule(p, dropout_bits, x.dtype)
         ctx.save_for_backward(x, a, bits)
-        ctx.seed, ctx.p, ctx.row0, ctx.col0 = seed, p, row0, col0
-        return torch.ops.vlb.lora_dropout_fwd(x, a, seed, thr, bits, row0, col0)
+        ctx.seed, ctx.p, ctx.row0, ctx.col0, ctx.dropout_bits = seed, p, row0, col0, dropout_bits
+        return torch.ops.vlb.lora_dropout_fwd(x, a, seed, thr, bits, row0, col0,
+                                              None if dropout_bits == 8 else scale)
 
     @staticmethod
     def backward(ctx, dmid):
         x, a, bits = ctx.saved_tensors
         dx, da = fused_dropout_bwd(x, a, dmid, ctx.seed, ctx.p, bits=bits,
-                                   need_dx=ctx.needs_input_grad[0],
-                                   need_da=ctx.needs_input_grad[1], row0=ctx.row0, col0=ctx.col0)
-        return dx, (None if da is None else da.to(a.dtype)), None, None, None, None, None
+                                   need_dx=ctx.needs_input_grad[0], need_da=ctx.needs_input_grad[1],
+                                   row0=ctx.row0, col0=ctx.col0, dropout_bits=ctx.dropout_bits)
+        return dx, (None if da is None else da.to(a.dtype)), None, None, None, None, None, None
 
 
 def fused_dropout_matmul(x: torch.Tensor, a: torch.Tensor, seed: int, p: float, *,
-                         bits: torch.Tensor | None = None, row0: int = 0, col0: int = 0) -> torch.Tensor:
+                         bits: torch.Tensor | None = None, row0: int = 0, col0: int = 0,
+                         dropout_bits: int = 8) -> torch.Tensor:
     """``dropout(x; p) @ a`` with the mask fused into the contraction.
 
     x (M, K), a (K, r); ``seed`` an integer (its low 32 bits are used),
     ignored when ``bits`` (M, K) uint8 is given; ``row0`` and ``col0`` the
     global indices of x's first row and column in the hash mask (col0 a
-    multiple of 4). Returns (M, r) in x's
+    multiple of 4). ``dropout_bits`` 8: the u8 rule on ``bits`` or the
+    hash; 32: the 32-bit rule on ``bits``, :func:`keep_bytes`'s 0/1 bytes
+    (:func:`dropout_rule`). Returns (M, r) in x's
     dtype, differentiable in x and a. On CUDA tensors: bf16, K a multiple of
     64, r in (16, 32, 64, 128), contiguous; anything else raises.
     """
-    thr, _ = dropout_threshold(p)
+    thr, _, _ = dropout_rule(p, dropout_bits, x.dtype)
     if thr == 0:
         return x @ a.to(x.dtype)
+    if dropout_bits == 32 and bits is None:
+        raise ValueError("the 32-bit rule reads its keep bytes (keep_bytes) from bits")
     if x.dim() != 2 or a.dim() != 2:
         raise ValueError(f"want x (M, K), a (K, r); got {tuple(x.shape)}, {tuple(a.shape)}")
     if x.device.type == "cuda":
         _check_cuda(x, a, bits, col0)
     elif x.device.type != "cpu":
         raise ValueError(f"no fused dropout kernel for device {x.device}")
-    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits, int(row0), int(col0))
+    return _FusedDropoutMatmul.apply(x, a, int(seed), p, bits, int(row0), int(col0), dropout_bits)

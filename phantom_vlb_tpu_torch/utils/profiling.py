@@ -8,6 +8,9 @@ Counterpart of ``phantom_vlb_tpu/utils/profiling.py``:
 - :func:`span`: a named range of the program's host work, recorded into
   :data:`SPANS` while a ``torch.profiler`` session is active and shown in
   its trace as a ``record_function`` range of the same name;
+- :func:`count`: a named counter of the program's events, summed into
+  :data:`COUNTS` while a ``torch.profiler`` session is active (the test
+  :func:`span` makes);
 - :func:`device_memory_stats`: the caching allocator's bytes in use and
   their peak, and the card's memory, per CUDA device.
 
@@ -28,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["trace", "span", "SpanRecord", "SpanRecorder", "SPANS", "device_memory_stats"]
+__all__ = ["trace", "span", "SpanRecord", "SpanRecorder", "SPANS", "count", "COUNTS", "device_memory_stats"]
 
 
 @contextlib.contextmanager
@@ -119,6 +122,17 @@ def span(name: str):
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _Span(SPANS, name)
+
+
+COUNTS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[name]`` while a ``torch.profiler`` session is
+    active (as :func:`span` records); otherwise nothing, at the cost of one
+    test of the profiler's state."""
+    if torch.autograd._profiler_enabled():
+        COUNTS[name] += n
 
 
 def device_memory_stats() -> list[dict]:

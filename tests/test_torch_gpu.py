@@ -56,11 +56,14 @@ from phantom_vlb_tpu_torch.ops.lora_fused import (
     LORA_DA,
     LORA_DX,
     LORA_FWD,
+    LORA_KEEP,
     fused_dropout_bwd,
     fused_dropout_bwd_plain,
     fused_dropout_matmul,
     fused_dropout_matmul_plain,
     hash_bytes,
+    keep_bytes,
+    keep_bytes_plain,
 )
 
 from phantom_vlb_tpu_torch.ops.ring_fused import (
@@ -381,6 +384,206 @@ def test_backward_and_lora_raise_on_what_they_do_not_take(cuda):
         fused_dropout_matmul(x, a[:, :8].contiguous(), 0, P)                 # rank 8
     with pytest.raises(ValueError):
         fused_dropout_matmul(x, a, 0, P, bits=bits[:, :128])                 # bits shape
+
+
+# ---- the 32-bit rule: keep bytes bit for bit torch.rand's, the kernels'
+# bits mode on them ----
+
+KEEP_SEEDS = [0, 1, 2, 7, 99, 12345, 65537, 2**20 + 5, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1,
+              3_000_000_019, 2**40 + 3, 2**63 - 1, 0xDEADBEEFCAFE]
+KEEP_SHAPES = [(6144, 4096), (6144, 14336), (1,), (3,), (5, 7), (1000,), (3, 2048, 13), (2, 300001),
+               (3, 1100, 1001)]
+BF16_KEEP = float(torch.tensor(0.9, dtype=torch.bfloat16))
+# A bf16 model's gradients, kernel route against eager route, as max|err| /
+# max|ref|: the mids' one-rounding differences (MID_REL_TOL) carried through
+# two layers' backward, beside flash bwd's run-to-run dq.
+ROUTE_REL_TOL = 5e-2
+
+
+def _torch_keep(shape, seed, keep, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(shape, generator=gen, device=dev) < keep).to(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", KEEP_SHAPES)
+def test_keep_bytes_are_torch_rand_on_the_card(cuda, shape):
+    before = LORA_KEEP.launches
+    for seed in KEEP_SEEDS:
+        got = keep_bytes(shape, seed, 0.9, cuda)
+        assert got.dtype == torch.uint8 and got.shape == shape
+        assert torch.equal(got, _torch_keep(shape, seed, 0.9, cuda)), seed
+    assert LORA_KEEP.launches - before == len(KEEP_SEEDS)
+
+
+@pytest.mark.parametrize("keep", [0.5, 0.7, 0.95, 0.999])
+def test_keep_bytes_at_other_rates(cuda, keep):
+    for seed in KEEP_SEEDS[:4]:
+        assert torch.equal(keep_bytes((3, 2048, 512), seed, keep, cuda), _torch_keep((3, 2048, 512), seed, keep, cuda))
+
+
+def test_keep_bytes_plain_is_the_kernel_on_this_card(cuda):
+    props = torch.cuda.get_device_properties(cuda)
+    for shape, seed in (((3, 1100, 1001), 5), ((777,), 2**33 + 1), ((2, 300001), 41)):
+        want = keep_bytes(shape, seed, 0.9, cuda).cpu()
+        got = keep_bytes_plain(shape, seed, 0.9, props.multi_processor_count, props.max_threads_per_multi_processor)
+        assert torch.equal(got, want), (shape, seed)
+
+
+def test_keep_table_is_torch_rand_on_the_card(cuda):
+    """The CPU test's table (``tests/keep_table.json``) read again from
+    ``torch.rand`` here, where the card is the H100 SXM it was read on."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    props = torch.cuda.get_device_properties(cuda)
+    if (props.multi_processor_count, props.max_threads_per_multi_processor) != (132, 2048):
+        pytest.skip("the table holds an H100 SXM's draws")
+    table = json.loads((Path(__file__).parent / "keep_table.json").read_text(encoding="utf-8"))
+    for case in table["cases"]:
+        keep = _torch_keep(tuple(case["shape"]), case["seed"], table["keep"], cuda).reshape(-1).cpu()
+        assert int(keep.sum()) == case["kept"]
+        assert hashlib.sha256(keep.numpy().tobytes()).hexdigest() == case["sha256"]
+        assert [int(keep[i]) for i in case["at"]] == case["bytes"]
+
+
+def _wide_bf16(m, k, dev, seed):
+    """bf16 values over a wide range of exponents."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev)
+    return (x * torch.exp2(torch.randint(-30, 30, (m, k), generator=g, device=dev).float())).bfloat16()
+
+
+def test_32bit_rule_drops_x_as_the_eager_division(cuda):
+    """The forward and dA on one-hot operands read the dropped x back
+    exactly: it equals ``torch.where(keep, x / bf16(0.9), 0)`` bit for bit."""
+    m, k, r = 6144, 4096, 16
+    x = _wide_bf16(m, k, cuda, 3)
+    keep = keep_bytes((m, k), 11, 0.9, cuda)
+    want = torch.where(keep.bool(), x / BF16_KEEP, 0.0)
+    j = torch.arange(r, device=cuda)
+    for c0 in (0, 2048, k - r):
+        a = torch.zeros(k, r, device=cuda, dtype=torch.bfloat16)
+        a[c0 + j, j] = 1
+        mid = fused_dropout_matmul(x, a, 11, 0.1, bits=keep, dropout_bits=32)
+        assert torch.equal(mid, want[:, c0:c0 + r]), c0
+    for r0 in (0, 3000, m - r):
+        dmid = torch.zeros(m, r, device=cuda, dtype=torch.bfloat16)
+        dmid[r0 + j, j] = 1
+        _, da = fused_dropout_bwd(x, a, dmid, 11, 0.1, bits=keep, need_dx=False, dropout_bits=32)
+        assert torch.equal(da, want[r0:r0 + r].float().T), r0
+
+
+@pytest.mark.parametrize("m,k", [(6144, 4096), (6144, 14336), (300, 1024), (1, 64)])
+def test_32bit_rule_matches_the_eager_route(cuda, m, k):
+    """mid, dx and dA against the eager route on the same keep bytes:
+    bf16 roundings after f32 sums in another order."""
+    x, a, dmid, _ = _lora_inputs(cuda, m, k, 16, seed=m)
+    keep = keep_bytes((m, k), 5, 0.9, cuda)
+    xe, ae = x.clone().requires_grad_(), a.clone().requires_grad_()
+    ze = torch.where(keep.bool(), xe / BF16_KEEP, 0.0) @ ae
+    ze.backward(dmid)
+    xk, ak = x.clone().requires_grad_(), a.clone().requires_grad_()
+    zk = fused_dropout_matmul(xk, ak, 5, 0.1, bits=keep, dropout_bits=32)
+    zk.backward(dmid)
+    torch.cuda.synchronize()
+    assert _rel(zk, ze) <= MID_REL_TOL and _rel(xk.grad, xe.grad) <= DX_REL_TOL
+    assert _rel(ak.grad, ae.grad) <= MID_REL_TOL
+    assert not xk.grad[keep == 0].any()
+
+
+def _route_pair(monkeypatch, run):
+    """``run()`` through the kernel route, then through the eager route
+    (the same masks: torch.rand's), with the keep kernel's launches."""
+    from phantom_vlb_tpu_torch.models import lora as lora_mod
+
+    before = LORA_KEEP.launches
+    kernel = run()
+    launches = LORA_KEEP.launches - before
+    with monkeypatch.context() as mp:
+        mp.setattr(lora_mod, "takes_keep_bytes", lambda *args: False)
+        eager = run()
+    assert LORA_KEEP.launches - before == launches
+    return kernel, eager, launches
+
+
+@pytest.mark.parametrize("policy", ["nothing", "attn", "mids", "flash", "dots"])
+def test_lora_kernel_route_matches_eager_under_each_policy(cuda, monkeypatch, policy):
+    from phantom_vlb_tpu_torch.models.mistral import MistralModel
+
+    layers = 2
+    cfg = MistralConfig.tiny(hidden_size=256, intermediate_size=512, num_attention_heads=2, num_key_value_heads=1,
+                             head_dim=D, dtype=torch.bfloat16, num_hidden_layers=layers, remat=True,
+                             remat_policy=policy, lora=LoRAConfig())
+    torch.manual_seed(0)
+    model = MistralModel(cfg).to(cuda).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.randn_like(p, dtype=torch.float32) * (0.05 if "lora" in name else 0.02)
+                    + (1.0 if "norm" in name else 0.0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    emb = torch.randn(2, 256, 256, generator=g, device=cuda, dtype=torch.bfloat16)
+    mask = torch.ones(2, 256, dtype=torch.int32, device=cuda)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = model(emb, mask, seed=9).float().square().mean()
+        loss.backward()
+        return loss.detach(), {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+
+    (lk, gk), (le, ge), launches = _route_pair(monkeypatch, run)
+    assert launches == 2 * 7 * layers                    # the forward's and the replay's
+    assert abs(lk.item() - le.item()) <= 1e-2 * abs(le.item())
+    assert gk.keys() == ge.keys() and sum("lora_" in n for n in gk) == 2 * 7 * layers
+    worst = max((_rel(grad, ge[n]), n) for n, grad in gk.items())
+    assert worst[0] <= ROUTE_REL_TOL, worst
+
+
+def test_lora_kernel_route_on_a_ranks_rows_and_columns(cuda, monkeypatch):
+    """x holding rows [2, 5) of a batch of 8 and columns [256, 512) of a
+    width 1024 (a tensor rank's row-parallel input): the route draws the
+    whole batch's and width's bytes and keeps its part, as the eager route."""
+    from phantom_vlb_tpu_torch.models import lora as lora_mod
+    from phantom_vlb_tpu_torch.models.lora import LoRALinear, keep_rows
+
+    lin = LoRALinear(256, 128, LoRAConfig()).to(cuda).train()
+    with torch.no_grad():
+        lin.weight.normal_(std=0.05)
+        lin.lora_b.normal_(std=0.05)
+    x0 = torch.randn(3, 64, 256, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda,
+                     dtype=torch.bfloat16)
+    monkeypatch.setattr(lora_mod, "input_columns", lambda split, x: (256, 1024))
+
+    def run():
+        lin.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        y = lin(x, seed=77, rows=(2, 8))
+        y.float().square().sum().backward()
+        return y.detach(), x.grad, lin.lora_a.grad
+
+    (yk, dxk, dak), (ye, dxe, dae), launches = _route_pair(monkeypatch, run)
+    assert launches == 1
+    assert _rel(yk, ye) <= MID_REL_TOL and _rel(dxk, dxe) <= DX_REL_TOL and _rel(dak, dae) <= MID_REL_TOL
+    want = keep_rows(x0, (2, 8), lambda shape: _torch_keep(shape, 77, 0.9, cuda), (256, 1024))
+    assert torch.equal(keep_rows(x0, (2, 8), lambda shape: keep_bytes(shape, 77, 0.9, cuda), (256, 1024)), want)
+
+
+def test_lora_draw_over_one_launch_takes_the_eager_route(cuda, monkeypatch):
+    """A rank's rows of a global batch whose draw PyTorch splits into
+    several launches (19 rows of 2048 x 14336 > 2^29 - 1 values) take
+    adapter_dropout: no keep launch, the eager route's output."""
+    from phantom_vlb_tpu_torch.models.lora import LoRALinear
+
+    lin = LoRALinear(14336, 128, LoRAConfig()).to(cuda).train()
+    with torch.no_grad():
+        lin.weight.normal_(std=0.01)
+        lin.lora_b.normal_(std=0.05)
+    x = torch.randn(1, 2048, 14336, generator=torch.Generator(device=cuda).manual_seed(4), device=cuda,
+                    dtype=torch.bfloat16)
+    got, want, launches = _route_pair(monkeypatch, lambda: lin(x, seed=31, rows=(18, 19)))
+    assert launches == 0 and torch.equal(got, want)
+    _, _, launches = _route_pair(monkeypatch, lambda: lin(x, seed=31, rows=(17, 18)))
+    assert launches == 1
 
 
 # The one-launch forward and dA (clusters of blocks that fold their partials

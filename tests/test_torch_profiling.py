@@ -68,6 +68,49 @@ def test_span_records_nothing_without_a_profiler(spans):
     assert list(spans.records) == []
 
 
+def test_count_records_only_under_a_profiler():
+    profiling.COUNTS.clear()
+    assert not torch.autograd._profiler_enabled()
+    profiling.count("x", 3)
+    assert not profiling.COUNTS
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("x")
+        profiling.count("x", 2)
+        profiling.count("y")
+    profiling.count("y")
+    assert profiling.COUNTS == {"x": 3, "y": 1}
+    profiling.COUNTS.clear()
+
+
+def _metric(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "cardbench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"metric_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("counts,want", [({}, None), ({"other": 4}, None),
+                                         ({"lora_dropout32.kernel": 448}, 100.0),
+                                         ({"lora_dropout32.kernel": 3, "lora_dropout32.eager": 1}, 75.0),
+                                         ({"lora_dropout32.eager": 448}, 0.0)])
+def test_dropout_kernel_share_reads_the_counts(monkeypatch, counts, want):
+    """The benchmark's reader of the route's counters on a fake run:
+    nothing where nothing was counted."""
+    import collections
+
+    monkeypatch.setattr(profiling, "COUNTS", collections.Counter(counts))
+    assert _metric("dropout_kernel_share").read(object()) == want
+
+
+def test_dropout_kernel_share_without_the_counters(monkeypatch):
+    monkeypatch.delattr(profiling, "COUNTS")
+    assert _metric("dropout_kernel_share").read(object()) is None
+
+
 def test_span_tree_under_a_cpu_profile(spans):
     with profile(activities=[ProfilerActivity.CPU]):
         _nested()

@@ -189,6 +189,46 @@ def test_policies_are_bit_equal_and_rerun_what_jax_reruns(base_quant, fused):
         assert calls["aten.mm"] == JAX_DOTS[base_quant][policy] - products
 
 
+def test_keep_byte_route_policies_are_bit_equal(monkeypatch):
+    """bf16, 32-bit adapter dropout 0.1 through the keep-byte route (taken
+    on the CPU by patching its test: the kernels' plain versions): every
+    policy gives the loss and gradients of ``'nothing'`` bit for bit; the
+    keep bytes are drawn in the forward and again in every replay (never
+    kept), and the kernel op and the products run as the fused route's."""
+    from phantom_vlb_tpu_torch.models import lora as lora_mod
+
+    draws = collections.Counter()
+    real = lora_mod.keep_bytes
+
+    def counted(*args, **kwargs):
+        draws["keep"] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(lora_mod, "takes_keep_bytes", lambda *args: True)
+    monkeypatch.setattr(lora_mod, "keep_bytes", counted)
+    rng, x, mask = _inputs(2)
+    model = _port(None, "nothing", torch.bfloat16, TLoRA(rank=4, alpha=8.0, dropout=0.1, dropout_bits=32)).train()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape) * (0.2 if "lora_b" in name else 0.1)
+                                     + (1.0 if "norm" in name else 0.0)))
+    xt, mt = torch.from_numpy(x).bfloat16(), torch.from_numpy(mask)
+    ref = None
+    for policy in POLICIES:
+        tm.set_remat_policy(model, policy)
+        draws.clear()
+        loss, grads, calls = _step(model, xt, mt, seed=5)
+        if ref is None:
+            ref = (loss, grads)
+        assert torch.equal(loss, ref[0]) and grads.keys() == ref[1].keys()
+        assert all(torch.equal(g, ref[1][n]) for n, g in grads.items()), policy
+        kept = REMAT_POLICIES[policy] or set()
+        assert draws["keep"] == 2 * 7 * L
+        assert calls["vlb.lora_dropout_fwd"] == 7 * L * (1 if "lora_mid" in kept else 2)
+        products = 7 * L * (1 if "lora_mid" in kept or policy == "dots" else 2)
+        assert calls["aten.mm"] == JAX_DOTS[None][policy] - products
+
+
 # ---------------------------------------------------------------------------
 # The rings under each policy: the port on a CPU SequenceRing of N_RING
 # ranks, JAX on a sequence axis of N_RING of the 8-device virtual mesh.
